@@ -1,8 +1,12 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``diffphycon_tpu_torch`` (never JAX) at the full width of the Burgers
-UNet2D (dim 64, mults (1, 2, 4, 8), batch 50, input (50, 16, 128, 2)):
+Drives ``diffphycon_tpu_torch`` (never JAX) at full width on two paths: the
+Burgers UNet2D (dim 64, mults (1, 2, 4, 8), batch 50, input (50, 16, 128, 2))
+and smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch 8, input
+(8, 32, 64, 64, 6); 128^2 fluid solver).
+
+Burgers:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``diffphycon_tpu_torch/csrc``;
@@ -17,10 +21,26 @@ UNet2D (dim 64, mults (1, 2, 4, 8), batch 50, input (50, 16, 128, 2)):
    seeded models, guidance wu=1000, u0/uT conditioning, 50 synthetic
    targets solved on the card, DDIM 50 steps at eta 0, then
    ``evaluate_samples``; then 20 timed steps of the 1000-step guided DDPM
-   loop (guided denoise steps/s at batch 50) and 3 DDIM steps from one x_T
-   through the kernel-backed and the plain forwards;
-6. prints the ``kernels`` JSON line (per-forward sums of the phase-3 times);
-7. prints ``{"ok": true, "device": {...}}`` as the last line.
+   loop (guided denoise steps/s at batch 50, with a profiler breakdown) and
+   3 DDIM steps from one x_T through the kernel-backed and the plain
+   forwards.
+
+Smoke:
+6. K4: the CG pressure kernel against its plain version at batch 8 on the
+   smoke domain (accuracy 1e-6, 500 iterations at most), on divergences of a
+   real generator rollout step: max |err| <= KERNEL_RTOL * max(1, |plain|),
+   iteration counts within 2%, the divergence left after projection; CUDA
+   event times per solve and the bound for the iterations actually run;
+7. main path: the port's ``apps/generate_smoke.py`` ``main()`` (8 test sims,
+   one batch of 8, every scene accepted) and ``apps/infer_smoke.py``
+   ``main()`` (two seeded UNet3Ds at full width, DDIM SMOKE_DDIM_STEPS steps
+   at eta 1, calibration rows on); K4 must launch exactly 256 + 3 * 255
+   times; then the UNet3D forward and one guided DDIM step at batch 8, timed,
+   and a profiled evaluation rollout (K4's share of it).
+
+Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
+phase-3 times; K4: per solve at batch 8), and
+``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. Run from the
 repository root: ``python3 chip_smoke.py``.
@@ -42,10 +62,16 @@ UNET_RTOL = 1e-4     # the same, compounded over ~40 blocks (GN renormalises)
 # reaches x_start ~1e4-fold before sqrt(alphas_cumprod[979]) ~ 0.02 scales
 # it back down: 1e-6 * 1e4 * 0.02 = 2e-4, times a 10x margin
 DDIM_RTOL = 2e-3
+CG_ITER_RTOL = 0.02  # iteration counts, kernel vs plain (summation order)
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
 DIM, MULTS = 64, (1, 2, 4, 8)
+SMOKE_B = 8
+SMOKE_DDIM_STEPS = 5
+# flops per cell per CG iteration in K4: x and r updates (4), <r,Ap> (2),
+# |r| max (2), p update (2), stencil (5), <p,Ap> and <p,r> (4)
+CG_FLOPS_PER_CELL = 19
 REPLACES = {
     "conv2d_nhwc": "diffphycon_tpu/research/pallas_unet2d.py:288 (_conv_kernel); "
                    ":279 (_upsample_kernel); :304 (_concat_kernel); "
@@ -53,12 +79,15 @@ REPLACES = {
     "downsample_nhwc": "diffphycon_tpu/research/pallas_unet2d.py:259 (_downsample_kernel)",
     "group_norm_act": "diffphycon_tpu/research/pallas_unet2d.py:160 "
                       "(_resblock_kernel GroupNorm/FiLM/SiLU/residual)",
+    "cg_pressure": "diffphycon_tpu/physics/fluids/pallas_cg.py:30 (_cg_kernel; "
+                   "pallas_solve_pressure :81, pallas_call :121)",
 }
 SOURCES = {
     "conv2d_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/conv2d_nhwc.cu"),
     "downsample_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/downsample_nhwc.cu"),
     "group_norm_act": ("triton", "diffphycon_tpu_torch/kernels/group_norm_triton.py"),
 }
+SMOKE_SOURCES = {"cg_pressure": ("cuda", "diffphycon_tpu_torch/csrc/cg_pressure.cu")}
 
 
 def emit(obj) -> None:
@@ -225,6 +254,192 @@ def kernel_case(torch, F, kb, gen, kind, args):
     return (lambda: kb.group_norm_act(x, gamma, beta, 1, ss=ss, res=res),
             lambda: kb.group_norm_act_plain(x, gamma, beta, 1, ss=ss, res=res),
             library, flops, nbytes)
+
+
+def profile_window(torch, fn):
+    """Device time by kernel over one call of fn: (wall ms, device ms, rows
+    of (name, device ms))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not rows:
+        fail("torch.profiler recorded no device time")
+    return wall * 1e3, sum(v for _, v in rows), sorted(rows, key=lambda r: -r[1])
+
+
+def smoke_kernel_phase(torch, smi_line):
+    """Phase 6: K4 against its plain version on real rollout divergences."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.apps.generate_smoke import sample_waypoints, segment_schedule
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.physics.fluids import grids
+    from diffphycon_tpu_torch.physics.fluids import smoke_env
+
+    t0 = time.time()
+    sim = smoke_env.SmokeSim.create(accuracy=1e-6, max_iterations=500, device="cuda")
+    rng = np.random.default_rng(0)
+    dens0 = np.zeros((SMOKE_B, 128, 128), np.float32)
+    seg_v = np.zeros((SMOKE_B, 4, 2), np.float32)
+    seg_starts = np.zeros((SMOKE_B, 4), np.int32)
+    for j in range(SMOKE_B):
+        xs, ys = sample_waypoints(rng)
+        dens0[j, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
+        seg_v[j], seg_starts[j] = segment_schedule(rng, xs, ys)
+    steps = 12
+    with torch.no_grad():
+        out = smoke_env.generator_rollout(
+            sim, torch.from_numpy(dens0).cuda(), torch.from_numpy(seg_v),
+            torch.from_numpy(seg_starts), num_steps=steps,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        k = steps - 1  # a carry-over step: previous velocity + noise on the ring
+        ctrl = out["controls"][:, k]
+        stag = smoke_env.controlled_velocity(out["velocitys"][:, k], ctrl[..., 0],
+                                             ctrl[..., 1]) * sim.velocity_mask[None]
+        div = grids.staggered_divergence(stag)[..., 0].contiguous()
+        coeffs, acc, maxit = sim.coeffs, 1e-6, 500
+        p, iters = kcg.cg_pressure(div, coeffs, acc, maxit)
+        p_plain, iters_plain = kcg.cg_pressure_plain(div, coeffs, acc, maxit)
+        torch.cuda.synchronize()
+        err = (p - p_plain).abs().max().item()
+        tol = KERNEL_RTOL * max(1.0, p_plain.abs().max().item())
+        iter_gap = (iters - iters_plain).abs().float() / iters_plain.float().clamp(min=1)
+        projected = stag - grids.staggered_gradient(p[..., None]) * sim.velocity_mask[None]
+        active = torch.as_tensor(smoke_env.smoke_domain_128().active, device="cuda")
+        div_after = (grids.staggered_divergence(projected)[..., 0] * active)[:, 1:-1, 1:-1]
+        ms = timed(torch, lambda: kcg.cg_pressure(div, coeffs, acc, maxit), n=10, warm=2)
+        plain_ms = timed(torch, lambda: kcg.cg_pressure_plain(div, coeffs, acc, maxit),
+                         n=3, warm=1)
+    n_cells = div.shape[1] * div.shape[2]
+    total_iters = int(iters.sum().item())
+    flops = CG_FLOPS_PER_CELL * n_cells * (total_iters + SMOKE_B)
+    nbytes = 4 * (2 * div.numel() + 5 * n_cells + SMOKE_B)  # div, coeffs in; p, iters out
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    emit({"phase": "cg_kernel", "batch": SMOKE_B, "grid": list(div.shape[1:]),
+          "accuracy": acc, "iterations": iters.tolist(),
+          "plain_iterations": iters_plain.tolist(), "max_iter_gap": iter_gap.max().item(),
+          "tol": tol, "max_div_after_projection": div_after.abs().max().item(),
+          "max_div_before": div.abs().max().item(), "gflop": flops / 1e9,
+          "mbytes": nbytes / 1e6, "us_per_iteration": 1e3 * ms / iters.max().item(),
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3), **row})
+    if not err <= tol:
+        fail(f"K4 differs from its plain version: {err} > {tol}")
+    if not iter_gap.max().item() <= CG_ITER_RTOL:
+        fail(f"K4 iteration counts {iters.tolist()} vs plain {iters_plain.tolist()}")
+    if not div_after.abs().max().item() < 1e-4:
+        fail("the projected velocity keeps divergence in the interior")
+    return row
+
+
+def unet3d_flops(torch, sbench, cfg):
+    """Convolution and matmul FLOPs of one UNet3D forward at batch SMOKE_B,
+    counted by torch's FlopCounterMode on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        net = sbench.UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=6,
+                            out_dim=6)
+        x = torch.empty(SMOKE_B, cfg.frames, cfg.image_size, cfg.image_size, 6)
+        t = torch.empty(SMOKE_B)
+    with FlopCounterMode(display=False) as counter:
+        net(x, t)
+    return counter.get_total_flops()
+
+
+def smoke_main_path(torch, smi_line):
+    """Phase 7: generate_smoke + infer_smoke main(), K4 launches, timings."""
+    from diffphycon_tpu_torch.apps import generate_smoke, infer_smoke
+    from diffphycon_tpu_torch.benchmarks import smoke as sbench
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
+    from diffphycon_tpu_torch.training.data import load_smoke_dataset
+
+    t0 = time.time()
+    work = os.path.join("build", "chip_smoke")
+    data_dir = os.path.join(work, "smoke_data")
+    gen_args = generate_smoke.build_parser().parse_args([
+        "--out", data_dir, "--n_test", str(SMOKE_B), "--n_train", "0",
+        "--batch", str(SMOKE_B), "--filter_rate", "-1", "--min_sum_rate", "-1",
+        "--max_sum_rate", "1e9"])
+    inf_args = infer_smoke.build_parser().parse_args([
+        "--dataset_path", data_dir, "--init_seed", "0", "--batch_size", str(SMOKE_B),
+        "--n_test_samples", str(SMOKE_B), "--ddim_sampling_steps", str(SMOKE_DDIM_STEPS),
+        "--ddim_eta", "1.0", "--calibrate", "True",
+        "--inference_result_path", os.path.join(work, "smoke_results")])
+    kb.reset_launch_counts()
+    kcg.cg_pressure.launches = 0
+    tic = time.perf_counter()
+    generate_smoke.main(gen_args)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - tic
+    agg = infer_smoke.main(inf_args)
+    torch.cuda.synchronize()
+    launches = kcg.cg_pressure.launches
+    other = kb.launch_counts()
+    want = 256 + 3 * 255  # generator rollout + evaluation and two calibration rows
+    finite = all(math.isfinite(v) for v in agg.values())
+    emit({"phase": "smoke_main_path",
+          "apps": ["diffphycon_tpu_torch/apps/generate_smoke.py",
+                   "diffphycon_tpu_torch/apps/infer_smoke.py"],
+          "sampler": f"ddim {SMOKE_DDIM_STEPS} steps, eta 1, two UNet3Ds dim 64 "
+                     f"(1, 2, 4), batch {SMOKE_B}, w_prob_exp 0.97, guidance 1e5",
+          "result": agg, "finite": finite, "generate_seconds": gen_s,
+          "cg_launches": launches, "cg_launches_expected": want,
+          "unet2d_kernel_launches": other, "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail(f"non-finite smoke metrics: {agg}")
+    if launches != want:
+        fail(f"K4 launched {launches} times on the smoke path, expected {want}")
+
+    # the UNet3D forward, one guided DDIM step and one evaluation rollout at
+    # batch 8, timed apart from the app
+    t0 = time.time()
+    cfg = sbench.SmokeConfig(ddim_sampling_steps=SMOKE_DDIM_STEPS)
+    net = sbench.init_params(cfg, seed=0, device="cuda")
+    net_w = sbench.init_params(sbench.SmokeConfig(is_w_model=True), seed=1, device="cuda")
+    data = torch.from_numpy(load_smoke_dataset(data_dir, "test")[:SMOKE_B]).cuda()
+    x = torch.randn(SMOKE_B, 32, 64, 64, 6, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    tt = torch.full((SMOKE_B,), 500.0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = timed(torch, lambda: net(x, tt), n=5, warm=1)
+        fwd_flops = unet3d_flops(torch, sbench, cfg)
+        gd = sbench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
+        guidance = sbench.build_guidance(cfg, device="cuda")
+        cond = {"init": data[:, 0, :, :, 0] / float(sbench.RESCALER[0])}
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        step_ms = timed(torch, lambda: gd.ddim_step(x, 999, 799, cond, guidance, gen),
+                        n=3, warm=1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        sim = SmokeSim.create(accuracy=1e-6, device="cuda")
+        pred = (data[:, :32] / torch.as_tensor(sbench.RESCALER, device="cuda")).contiguous()
+        kcg.cg_pressure.launches = 0
+        wall_ms, dev_ms, rows = profile_window(
+            torch, lambda: sbench.evaluate_samples(sim, pred, data))
+        cg_ms = sum(v for k, v in rows if "cg_pressure" in k)
+    emit({"phase": "smoke_timings", "batch": SMOKE_B, "unet3d_forward_ms": fwd_ms,
+          "unet3d_forward_tflop": fwd_flops / 1e12,
+          "unet3d_tflop_per_s": fwd_flops / fwd_ms / 1e9,
+          "guided_ddim_step_s": step_ms / 1e3, "peak_memory_gb": peak_gb,
+          "rollout": {"solves": kcg.cg_pressure.launches, "wall_ms": wall_ms,
+                      "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
+                      "cg_kernel_ms": cg_ms, "cg_share_of_wall": cg_ms / wall_ms,
+                      "top": [[k[:60], v] for k, v in rows[:8]]},
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not cg_ms > 0:
+        fail("the profiled rollout shows no K4 time")
+    return launches
 
 
 def main() -> int:
@@ -394,25 +609,14 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - tic
     steps_per_sec = n_steps / dt
-    busy = None
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            tic = time.perf_counter()
-            x = gd.sample_chunk(x, ts[22:25], cond_vals, guidance, xg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - tic
-        rows = [(e.key, e.device_time_total) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        dev_us = sum(v for _, v in rows)
-        top = sorted(rows, key=lambda r: -r[1])[:8]
-        busy = {"steps": 3, "wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
-                "busy_share": dev_us / 1e6 / wall,
-                "top": [[k[:60], v / 1e3] for k, v in top]}
-    except Exception as e:  # noqa: BLE001 -- the breakdown is informational
-        busy = {"not_measured": f"{type(e).__name__}: {e}"[:200]}
+    def three_steps():
+        nonlocal x
+        x = gd.sample_chunk(x, ts[22:25], cond_vals, guidance, xg)
+
+    wall_ms, dev_ms, rows = profile_window(torch, three_steps)
+    busy = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:8]]}
     emit({"phase": "guided_ddpm", "batch": B, "steps_timed": n_steps,
           "seconds_timed": dt, "guided_denoise_steps_per_sec": steps_per_sec,
           "ms_per_step": 1e3 * dt / n_steps, "profile": busy,
@@ -436,7 +640,14 @@ def main() -> int:
     if not err <= tol:
         fail(f"3 DDIM steps differ between kernel and plain forwards: {err} > {tol}")
 
-    # -- 6. kernels line ----------------------------------------------------
+    del gd, gd_k, gd_p, net, net_w, x, xk, xp
+    torch.cuda.empty_cache()
+
+    # -- 6-7. smoke: K4, then the main path ---------------------------------
+    cg_row = smoke_kernel_phase(torch, smi_line)
+    cg_launches = smoke_main_path(torch, smi_line)
+
+    # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
         a = agg[k]
@@ -446,9 +657,15 @@ def main() -> int:
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
             "library_ms": a["library_ms"]})
+    for k, (route, src) in SMOKE_SOURCES.items():
+        kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
+                        "launches": cg_launches, **cg_row})
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
-          "note": "kernel ms/plain_ms/bound_ms/library_ms are sums over one "
-                  "UNet2D forward at batch 50; launches are the main-path run's"})
+          "note": "K1-K3 ms/plain_ms/bound_ms/library_ms are sums over one UNet2D "
+                  "forward at batch 50, launches those of the Burgers main path; "
+                  "cg_pressure's are per solve at batch 8 (no single PyTorch call "
+                  "solves the system, so library_ms is null), launches those of "
+                  "the smoke main path"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,12 +7,10 @@ Port of ``diffphycon_tpu/benchmarks/burgers.py``. Builders take a ``device``
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from diffphycon_tpu_torch.control.guidance import burgers_guidance_from_x, make_nabla_j
 from diffphycon_tpu_torch.control.metrics import burgers_metric, mse_deviation
@@ -25,6 +23,7 @@ from diffphycon_tpu_torch.diffusion import (
     make_guidance_schedule,
 )
 from diffphycon_tpu_torch.nets import UNet2D
+from diffphycon_tpu_torch.nets.init import seeded_init_
 from diffphycon_tpu_torch.physics.burgers import burgers_solve
 
 RESCALER = 10.0
@@ -86,30 +85,10 @@ def build_unet(cfg: BurgersConfig, device=None) -> UNet2D:
     return _new_unet(cfg).to(resolve_device(device)).eval()
 
 
-@torch.no_grad()
-def init_unet2d_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init: convs and linears U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    (weights and biases, torch's default bounds), norms at ones/zeros."""
-    for m in net.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            bound = 1.0 / math.sqrt(fan_in)
-            m.weight.uniform_(-bound, bound, generator=generator)
-            if m.bias is not None:
-                m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.GroupNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-    for name, p in net.named_parameters():
-        if name.endswith(".g"):
-            p.fill_(1.0)
-    return net
-
-
 def init_params(cfg: BurgersConfig, seed: int = 0, device=None) -> UNet2D:
     """A UNet2D with seeded random weights (the same on every device)."""
     dev = resolve_device(device)
-    net = init_unet2d_(_new_unet(cfg), torch.Generator().manual_seed(seed))
+    net = seeded_init_(_new_unet(cfg), torch.Generator().manual_seed(seed))
     return net.to(dev).eval()
 
 

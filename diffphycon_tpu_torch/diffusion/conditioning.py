@@ -1,10 +1,11 @@
-"""Burgers conditioning spec, sampling side (port of the Burgers half of
+"""Burgers and smoke conditioning specs, sampling side (port of
 ``diffphycon_tpu/diffusion/conditioning.py``; the training-side target and
 loss masks come with the training slice).
 
-x is (B, 16, 128, 2) channels-last: channel 0 = u (11 valid rows + padding),
-channel 1 = f (10 valid rows). Masks are built as in the JAX package, so the
-arithmetic (``x * (1 - m) + v * m``) is the same.
+Burgers x is (B, 16, 128, 2) channels-last: channel 0 = u (11 valid rows +
+padding), channel 1 = f (10 valid rows). Smoke x is (B, 32, 64, 64, 6):
+density, vx, vy, c1, c2, smoke portion. Masks are built as in the JAX
+package, so the arithmetic (``x * (1 - m) + v * m``) is the same.
 """
 
 from __future__ import annotations
@@ -63,6 +64,40 @@ def burgers_cond_spec(*, is_condition_u0: bool = False, is_condition_uT: bool = 
 
     return CondSpec(pin=pin, w_zero_input=w_zero_input, w_zero_output=w_zero_output,
                     sampling_mask=sampling_mask)
+
+
+def _frame_chan_mask5(x, f_idx: int, chan: int):
+    """(1, F, 1, 1, C) mask of a video tensor: 1 at (frame f_idx, chan)."""
+    m_f = (torch.arange(x.shape[1], device=x.device) == f_idx).to(x.dtype)
+    m_c = (torch.arange(x.shape[-1], device=x.device) == chan).to(x.dtype)
+    return m_f[None, :, None, None, None] * m_c[None, None, None, None, :]
+
+
+def smoke_cond_spec() -> CondSpec:
+    """Sampling-side conditioning of the smoke video DDPMs: the frame-0
+    density is pinned every step; the prior (w) model sees channels 3:5
+    (c1, c2) of the joint tensor and its output is zero-embedded back."""
+
+    def pin(x, cond):
+        if "init" in cond:
+            m = _frame_chan_mask5(x, 0, 0)
+            x = x * (1 - m) + cond["init"][:, None, :, :, None] * m
+        return x
+
+    def w_slice_input(x, cond):
+        return x[..., 3:5]
+
+    def w_embed_output(out_w, cond):
+        z3 = out_w.new_zeros(out_w.shape[:-1] + (3,))
+        z1 = out_w.new_zeros(out_w.shape[:-1] + (1,))
+        return torch.cat([z3, out_w, z1], dim=-1)
+
+    return CondSpec(pin=pin, w_zero_input=w_slice_input, w_zero_output=w_embed_output)
+
+
+def smoke_derive_cond(x_start):
+    """{init}: the frame-0 density of a clean batch (B, 32, 64, 64, C)."""
+    return {"init": x_start[:, 0, :, :, 0]}
 
 
 def get_proj_ep_orthogonal(norm: str = "F"):

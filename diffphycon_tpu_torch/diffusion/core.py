@@ -10,10 +10,14 @@ Randomness comes from an explicit ``torch.Generator``; it cannot reproduce
 JAX's ``fold_in`` streams, so the DDPM step also takes an explicit ``noise``
 tensor and DDIM with eta = 0 draws none.
 
-Not in this slice: ``p_losses``/``loss`` and ``fuse_two_models`` (training),
+With ``combine_w_with_guidance`` (the smoke ordering) the prior
+reweighting is deferred: guidance is taken at the x_start of the
+unreweighted joint eps, and ``scale * g + (gamma - 1) * eps_w`` is added
+after it.
+
+Not ported yet: ``p_losses``/``loss`` and ``fuse_two_models`` (training),
 the pred_x0/pred_v objectives and post-hoc guidance (``guidance_u0=False``),
-the smoke ordering ``combine_w_with_guidance`` and ``CondSpec.transform``
-(jellyfish), and the training-side ``CondSpec`` masks.
+``CondSpec.transform`` (jellyfish), and the training-side ``CondSpec`` masks.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.diffusion.schedules import BETA_SCHEDULES
 
 
@@ -52,6 +57,8 @@ class DiffusionConstants:
     @classmethod
     def create(cls, timesteps: int, beta_schedule: str = "cosine",
                device=None) -> "DiffusionConstants":
+        """The buffers on ``device`` (default CUDA, see resolve_device)."""
+        device = resolve_device(device)
         betas = np.asarray(BETA_SCHEDULES[beta_schedule](timesteps), np.float64)
         alphas = 1.0 - betas
         alphas_prev = np.concatenate([[1.0], alphas[:-1]])
@@ -115,7 +122,8 @@ class GaussianDiffusion:
     model: fn(x, t) -> predicted noise, t a (B,) float32 tensor (the joint
     or only model). model_w: the prior p(w) model for two-model sampling with
     prior reweighting. Other arguments as in the JAX ``GaussianDiffusion``
-    (objective pred_noise, guidance applied on x_start).
+    (objective pred_noise, guidance applied on x_start). ``device`` defaults
+    to CUDA (see resolve_device).
     """
 
     def __init__(self, model: Callable, *, sample_shape: tuple,
@@ -123,12 +131,13 @@ class GaussianDiffusion:
                  beta_schedule: str = "cosine", ddim_sampling_eta: float = 0.0,
                  cond: CondSpec = CondSpec(), model_w: Optional[Callable] = None,
                  is_model_w: bool = False, prior_beta: float = 1.0,
-                 normalize_beta: bool = False, clip_denoised: bool = True,
-                 recurrence: bool = False, recurrence_k: int = 1, device=None):
+                 normalize_beta: bool = False, combine_w_with_guidance: bool = False,
+                 clip_denoised: bool = True, recurrence: bool = False,
+                 recurrence_k: int = 1, device=None):
         self.model = model
         self.model_w = model_w
         self.sample_shape = tuple(sample_shape)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.consts = DiffusionConstants.create(timesteps, beta_schedule,
                                                 device=self.device)
         self.num_timesteps = timesteps
@@ -141,6 +150,7 @@ class GaussianDiffusion:
         self.is_model_w = is_model_w
         self.prior_beta = prior_beta
         self.normalize_beta = normalize_beta
+        self.combine_w_with_guidance = combine_w_with_guidance
         self.clip_denoised = clip_denoised
         self.recurrence = recurrence
         self.recurrence_k = recurrence_k
@@ -189,35 +199,44 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def _raw_eps(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec):
-        """Model output, with two-model prior reweighting
-        ``out - (1 - gamma) * eta_w(t) * out_w`` (or the normalize_beta form)."""
+        """(eps, eps_w): the model output, with two-model prior reweighting
+        ``out - (1 - gamma) * eta_w(t) * out_w`` (or the normalize_beta
+        form), and eps_w None; with combine_w_with_guidance the joint output
+        unreweighted and eps_w the embedded prior output."""
         tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         if self.model_w is not None:
             out = self.model(x, tb)
             out_w = self.model_w(self.cond.w_zero_input(x, cond_vals), tb)
             out_w = self.cond.w_zero_output(out_w, cond_vals)
+            if self.combine_w_with_guidance:
+                return out, out_w
             if self.normalize_beta:
-                return (out - (1.0 - self.prior_beta) * out_w) / self.prior_beta
+                return (out - (1.0 - self.prior_beta) * out_w) / self.prior_beta, None
             eta = 1.0 if guidance.w_schedule is None else guidance.w_schedule[t]
-            return out - (1.0 - self.prior_beta) * eta * out_w
+            return out - (1.0 - self.prior_beta) * eta * out_w, None
         if self.is_model_w:
             out = self.prior_beta * self.model(self.cond.w_zero_input(x, cond_vals), tb)
-            return self.cond.w_zero_output(out, cond_vals)
-        return self.model(x, tb)
+            return self.cond.w_zero_output(out, cond_vals), None
+        return self.model(x, tb), None
 
     def model_predictions(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec,
                           clip_x_start: bool = False,
                           rederive_pred_noise: bool = False):
         """(pred_noise, x_start), the guidance gradient at x_start folded into
         the predicted noise."""
-        pred_noise = self._raw_eps(x, t, cond_vals, guidance)
+        pred_noise, eps_w = self._raw_eps(x, t, cond_vals, guidance)
 
         def maybe_clip(v):
             return v.clamp(-1.0, 1.0) if clip_x_start else v
 
         x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
-        if guidance.nabla_j is not None:
-            scale = 1.0 if guidance.j_schedule is None else guidance.j_schedule[t]
+        scale = 1.0 if guidance.j_schedule is None else guidance.j_schedule[t]
+        if eps_w is not None:
+            # smoke ordering: grad_final = scale * g + (gamma - 1) * eps_w
+            g = 0.0 if guidance.nabla_j is None else guidance.nabla_j(x_start) * scale
+            pred_noise = pred_noise + (g + (self.prior_beta - 1.0) * eps_w)
+            x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
+        elif guidance.nabla_j is not None:
             pred_noise = guidance.proj(pred_noise, guidance.nabla_j(x_start) * scale)
             x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
         if clip_x_start and rederive_pred_noise:
@@ -266,8 +285,9 @@ class GaussianDiffusion:
         return x
 
     def ddim_step(self, x, t: int, tn: int, cond_vals: dict, guidance: GuidanceSpec,
-                  generator=None):
-        """One DDIM step t -> tn (tn < 0 returns x_start)."""
+                  generator=None, noise=None):
+        """One DDIM step t -> tn (tn < 0 returns x_start). With eta > 0 the
+        noise is ``noise`` when given, else drawn from ``generator``."""
         c = self.consts
         x = self._pin_all(x, cond_vals)
         pred_noise, x_start = self.model_predictions(
@@ -283,7 +303,9 @@ class GaussianDiffusion:
         sigma = eta * torch.sqrt(torch.clamp(
             (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
         coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
-        return x_new + coef * pred_noise + sigma * self._randn(x, generator)
+        if noise is None:
+            noise = self._randn(x, generator)
+        return x_new + coef * pred_noise + sigma * noise
 
     def sample_ts(self):
         """Step schedule: DDPM a list of t; DDIM a list of (t, t_next)."""

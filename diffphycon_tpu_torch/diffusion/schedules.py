@@ -12,6 +12,8 @@ import math
 import numpy as np
 import torch
 
+from diffphycon_tpu_torch.device import resolve_device
+
 
 def linear_beta_schedule(timesteps: int) -> np.ndarray:
     scale = 1000.0 / timesteps
@@ -65,7 +67,9 @@ GUIDANCE_SCHEDULES = {
 
 
 def make_guidance_schedule(name, timesteps: int, device=None) -> torch.Tensor:
-    """eta[t] for t in [0, timesteps) as float32; None/'none' = ones."""
+    """eta[t] for t in [0, timesteps) as float32 on ``device`` (default
+    CUDA, see resolve_device); None/'none' = ones."""
+    device = resolve_device(device)
     if name is None or name == "none":
         return torch.ones(timesteps, dtype=torch.float32, device=device)
     if name not in GUIDANCE_SCHEDULES:

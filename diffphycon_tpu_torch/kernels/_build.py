@@ -29,10 +29,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
     "conv2d_nhwc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "downsample_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 

@@ -1,0 +1,315 @@
+"""UNet3D video denoiser for the smoke benchmark, (B, F, H, W, C) at the
+boundary.
+
+Port of ``diffphycon_tpu/nets/unet3d.py``: init 7^3 conv + temporal
+attention; per level two FiLM ResnetBlock3Ds, per-frame spatial linear
+attention and temporal attention over frames (rotary embedding + T5
+relative position bias); spatial-only (1,4,4)/(1,2,2) down- and upsampling;
+a bottleneck with per-frame full spatial attention; one skip per level; a
+final ResnetBlock3D over the concatenated init features.
+
+Module and parameter names follow the reference ``Unet3D_with_Conv3D``
+state_dict (the keys read by ``diffphycon_tpu/utils/torch_convert.py:
+convert_unet3d``), so a port state_dict converts to the JAX package's tree.
+Inside, activations are torch's (B, C, F, H, W). The convolutions and
+einsums were XLA ops in the JAX package (no Pallas kernel), so here they
+are cuDNN convolutions and torch matmuls, in full float32 (TF32 off).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffphycon_tpu_torch.nets.blocks import time_mlp
+
+GN_EPS = 1e-5
+
+
+def t5_relative_position_buckets(n: int, num_buckets: int = 32,
+                                 max_distance: int = 32) -> np.ndarray:
+    """T5-style relative position buckets, (n, n) int."""
+    q = np.arange(n)[:, None]
+    k = np.arange(n)[None, :]
+    n_neg = -(k - q)
+    nb = num_buckets // 2
+    ret = (n_neg < 0).astype(np.int64) * nb
+    n_abs = np.abs(n_neg)
+    max_exact = nb // 2
+    is_small = n_abs < max_exact
+    with np.errstate(divide="ignore"):
+        val_large = max_exact + (
+            np.log(np.maximum(n_abs, 1) / max_exact)
+            / math.log(max_distance / max_exact) * (nb - max_exact)
+        ).astype(np.int64)
+    val_large = np.minimum(val_large, nb - 1)
+    return ret + np.where(is_small, n_abs, val_large)
+
+
+def rotary_angles(n: int, dim: int) -> np.ndarray:
+    """Rotary frequencies x positions, duplicated-interleaved to ``dim``."""
+    freqs = 1.0 / (10000 ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    ang = np.arange(n)[:, None] * freqs[None, :]
+    return np.repeat(ang, 2, axis=-1)
+
+
+def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (..., n, d); angles: (n, d); rotates interleaved pairs."""
+    x2 = x.reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
+    rot = torch.stack([-x2[..., 1], x2[..., 0]], dim=-1).reshape(x.shape)
+    return x * torch.cos(angles) + rot * torch.sin(angles)
+
+
+class LayerNorm(nn.Module):
+    """Channel LayerNorm (dim 1 of (B, C, F, H, W)), gain ``gamma`` stored
+    (1, C, 1, 1, 1), biased variance, eps 1e-5."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(1, dim, 1, 1, 1))
+
+    def forward(self, x):
+        mean = x.mean(dim=1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.gamma
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.norm = LayerNorm(dim)
+
+    def forward(self, x, **kw):
+        return self.fn(self.norm(x), **kw)
+
+
+class Residual(nn.Module):
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x, **kw):
+        return x + self.fn(x, **kw)
+
+
+class Attention(nn.Module):
+    """Softmax attention over the token axis of (N, n, C) tokens, with
+    optional rotary embedding and an additive (heads, n, n) bias."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, rotary: bool = False):
+        super().__init__()
+        self.heads, self.dim_head, self.rotary = heads, dim_head, rotary
+        hidden = heads * dim_head
+        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
+        self.to_out = nn.Linear(hidden, dim, bias=False)
+
+    def forward(self, tok, pos_bias=None):
+        n_seq, n, _ = tok.shape
+        h, d = self.heads, self.dim_head
+        q, k, v = self.to_qkv(tok).reshape(n_seq, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        q = q * d ** -0.5
+        if self.rotary:
+            rot = min(32, d)
+            ang = torch.as_tensor(rotary_angles(n, rot), dtype=tok.dtype, device=tok.device)
+            q = torch.cat([apply_rotary(q[..., :rot], ang), q[..., rot:]], dim=-1)
+            k = torch.cat([apply_rotary(k[..., :rot], ang), k[..., rot:]], dim=-1)
+        sim = q @ k.transpose(-1, -2)
+        if pos_bias is not None:
+            sim = sim + pos_bias
+        out = torch.softmax(sim, dim=-1) @ v  # (N, h, n, d)
+        return self.to_out(out.transpose(1, 2).reshape(n_seq, n, h * d))
+
+
+class TemporalTokens(nn.Module):
+    """(B, C, F, H, W) -> (B*H*W, F, C) tokens through ``fn`` and back (the
+    reference's EinopsToAndFrom around its temporal Attention)."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x, pos_bias=None):
+        b, c, f, hs, ws = x.shape
+        tok = x.permute(0, 3, 4, 2, 1).reshape(b * hs * ws, f, c)
+        out = self.fn(tok, pos_bias=pos_bias)
+        return out.reshape(b, hs, ws, f, c).permute(0, 4, 3, 1, 2)
+
+
+class SpatialTokens(nn.Module):
+    """(B, C, F, H, W) -> (B*F, H*W, C) tokens through ``fn`` and back."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        b, c, f, hs, ws = x.shape
+        tok = x.permute(0, 2, 3, 4, 1).reshape(b * f, hs * ws, c)
+        return self.fn(tok).reshape(b, f, hs, ws, c).permute(0, 4, 1, 2, 3)
+
+
+class SpatialLinearAttention(nn.Module):
+    """Per-frame linear attention: q softmaxed over the head dim, k over
+    tokens; 1x1 Conv2d projections."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, x):
+        b, c, f, hs, ws = x.shape
+        h, d = self.heads, self.dim_head
+        frames = x.transpose(1, 2).reshape(b * f, c, hs, ws)
+        q, k, v = self.to_qkv(frames).reshape(b * f, 3, h, d, hs * ws).unbind(1)
+        q = torch.softmax(q, dim=-2) * d ** -0.5
+        k = torch.softmax(k, dim=-1)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(b * f, h * d, hs, ws)
+        return self.to_out(out).reshape(b, f, c, hs, ws).transpose(1, 2)
+
+
+class Block(nn.Module):
+    """Conv3x3x3 -> GroupNorm -> FiLM -> SiLU."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int = 8):
+        super().__init__()
+        self.proj = nn.Conv3d(dim, dim_out, 3, padding=1)
+        self.norm = nn.GroupNorm(groups, dim_out, eps=GN_EPS)
+
+    def forward(self, x, scale_shift=None):
+        x = self.norm(self.proj(x))
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1.0) + shift
+        return F.silu(x)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None,
+                 groups: int = 8):
+        super().__init__()
+        self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+                    if time_emb_dim is not None else None)
+        self.block1 = Block(dim, dim_out, groups)
+        self.block2 = Block(dim_out, dim_out, groups)
+        self.res_conv = nn.Conv3d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
+
+    def forward(self, x, time_emb=None):
+        scale_shift = None
+        if self.mlp is not None and time_emb is not None:
+            ss = self.mlp(time_emb)[:, :, None, None, None]
+            scale_shift = ss.chunk(2, dim=1)
+        h = self.block2(self.block1(x, scale_shift))
+        return h + self.res_conv(x)
+
+
+class RelativePositionBias(nn.Module):
+    def __init__(self, heads: int = 4, num_buckets: int = 32, max_distance: int = 32):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+
+    def forward(self, n: int, device):
+        buckets = torch.as_tensor(
+            t5_relative_position_buckets(n, self.num_buckets, self.max_distance),
+            device=device)
+        return self.relative_attention_bias(buckets).permute(2, 0, 1)  # (heads, n, n)
+
+
+def _temporal_attn(dim, heads, dim_head):
+    return Residual(PreNorm(dim, TemporalTokens(Attention(dim, heads, dim_head, rotary=True))))
+
+
+class UNet3D(nn.Module):
+    """Video U-Net; forward(x (B, F, H, W, C), time (B,)) -> (B, F, H, W, out)."""
+
+    def __init__(self, dim: int = 64, out_dim: Optional[int] = None,
+                 dim_mults: Sequence[int] = (1, 2, 4), channels: int = 6,
+                 attn_heads: int = 4, attn_dim_head: int = 32,
+                 init_kernel_size: int = 7, use_sparse_linear_attn: bool = True,
+                 resnet_groups: int = 8):
+        super().__init__()
+        self.channels = channels
+        heads, dh, groups = attn_heads, attn_dim_head, resnet_groups
+        time_dim = dim * 4
+        dims = [dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+
+        self.time_rel_pos_bias = RelativePositionBias(heads, 32, 32)
+        self.init_conv = nn.Conv3d(channels, dim, init_kernel_size,
+                                   padding=init_kernel_size // 2)
+        self.init_temporal_attn = _temporal_attn(dim, heads, dh)
+        self.time_mlp = time_mlp(dim, time_dim)
+
+        def spatial_linear(d):
+            return (Residual(PreNorm(d, SpatialLinearAttention(d, heads, dh)))
+                    if use_sparse_linear_attn else nn.Identity())
+
+        self.downs = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(in_out):
+            last = i == len(in_out) - 1
+            self.downs.append(nn.ModuleList([
+                ResnetBlock(d_in, d_out, time_dim, groups),
+                ResnetBlock(d_out, d_out, time_dim, groups),
+                spatial_linear(d_out),
+                _temporal_attn(d_out, heads, dh),
+                nn.Identity() if last else nn.Conv3d(d_out, d_out, (1, 4, 4), (1, 2, 2),
+                                                     (0, 1, 1)),
+            ]))
+        mid = dims[-1]
+        self.mid_block1 = ResnetBlock(mid, mid, time_dim, groups)
+        self.mid_spatial_attn = Residual(PreNorm(mid, SpatialTokens(Attention(mid, heads, dh))))
+        self.mid_temporal_attn = _temporal_attn(mid, heads, dh)
+        self.mid_block2 = ResnetBlock(mid, mid, time_dim, groups)
+        self.ups = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(reversed(in_out)):
+            last = i == len(in_out) - 1
+            self.ups.append(nn.ModuleList([
+                ResnetBlock(d_out * 2, d_in, time_dim, groups),
+                ResnetBlock(d_in, d_in, time_dim, groups),
+                spatial_linear(d_in),
+                _temporal_attn(d_in, heads, dh),
+                nn.Identity() if last else nn.ConvTranspose3d(d_in, d_in, (1, 4, 4),
+                                                              (1, 2, 2), (0, 1, 1)),
+            ]))
+        self.final_conv = nn.Sequential(ResnetBlock(dim * 2, dim, None, groups),
+                                        nn.Conv3d(dim, out_dim or channels, 1))
+
+    def forward(self, x, time):
+        if x.dim() != 5:
+            raise ValueError(f"UNet3D expects (B, F, H, W, C), got {tuple(x.shape)}")
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out = self._forward(x.permute(0, 4, 1, 2, 3), time)
+        return out.permute(0, 2, 3, 4, 1)
+
+    def _forward(self, x, time):
+        pos_bias = self.time_rel_pos_bias(x.shape[2], x.device)
+        x = self.init_conv(x)
+        x = self.init_temporal_attn(x, pos_bias=pos_bias)
+        r = x
+        t = self.time_mlp(time)
+        skips = []
+        for block1, block2, sattn, tattn, down in self.downs:
+            x = block2(block1(x, t), t)
+            x = tattn(sattn(x), pos_bias=pos_bias)
+            skips.append(x)
+            x = down(x)
+        x = self.mid_block1(x, t)
+        x = self.mid_spatial_attn(x)
+        x = self.mid_temporal_attn(x, pos_bias=pos_bias)
+        x = self.mid_block2(x, t)
+        for block1, block2, sattn, tattn, up in self.ups:
+            x = block1(torch.cat([x, skips.pop()], dim=1), t)
+            x = block2(x, t)
+            x = up(tattn(sattn(x), pos_bias=pos_bias))
+        x = self.final_conv[0](torch.cat([x, r], dim=1))
+        return self.final_conv[1](x)

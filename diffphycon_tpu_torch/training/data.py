@@ -1,5 +1,6 @@
-"""Burgers data for the port (synthetic generator and the reference h5
-layout); port of the Burgers part of ``diffphycon_tpu/training/data.py``."""
+"""Burgers and smoke data for the port (the Burgers synthetic generator and
+h5 layout, the smoke sim directories); port of those parts of
+``diffphycon_tpu/training/data.py``."""
 
 from __future__ import annotations
 
@@ -49,3 +50,56 @@ def synthetic_burgers(n: int, seed: int = 0, partial_control=None, dt: float = 1
         os.makedirs(path.parent, exist_ok=True)
         np.savez_compressed(path, u=u, f=f)
     return u, f
+
+
+# ---------------------------------------------------------------------------
+# smoke (the reference on-disk layout: <root>/train/sim_%06d/ and
+# <root>/test/control/sim_%06d/, four .npy arrays each)
+# ---------------------------------------------------------------------------
+
+SMOKE_ARRAYS = ("Density", "Velocity", "Control", "Smoke")
+
+
+def load_smoke_sim(sim_dir) -> np.ndarray:
+    """One sim directory -> (T, H, W, 6) unscaled float32: density, vx, vy,
+    c1, c2 and the target bucket's share of the smoke, broadcast over
+    space. The arrays are (H, W, C, T), Smoke.npy (T, 8)."""
+    d, v, c, s = (np.load(os.path.join(sim_dir, f + ".npy")) for f in SMOKE_ARRAYS)
+    t, h = d.shape[-1], d.shape[0]
+    rate = s[:, 1] / s.sum(-1)
+    sp = np.broadcast_to(rate[:, None, None], (t, h, h))
+    return np.concatenate([np.transpose(d, (3, 0, 1, 2)), np.transpose(v, (3, 0, 1, 2)),
+                           np.transpose(c, (3, 0, 1, 2)), sp[..., None]],
+                          axis=-1).astype(np.float32)
+
+
+def _complete_sim(sim_dir) -> bool:
+    """All four arrays present and as long as their headers say (a writer
+    cut short leaves a directory without them, or with a truncated one)."""
+    for f in SMOKE_ARRAYS:
+        try:
+            np.load(os.path.join(sim_dir, f + ".npy"), mmap_mode="r")
+        except (OSError, ValueError):
+            return False
+    return True
+
+
+def load_smoke_dataset(root, split: str = "train", n=None, frames: int = 32,
+                       rescale: bool = True) -> np.ndarray:
+    """(N, T, H, W, 6) from <root>/train (the first ``frames`` frames,
+    divided by RESCALER when ``rescale``) or <root>/test/control (all frames,
+    unscaled). Incomplete sim directories are skipped."""
+    base = os.path.join(root, split) if split == "train" else os.path.join(
+        root, "test", "control")
+    sims = sorted(d for d in os.listdir(base)
+                  if d.startswith("sim_") and _complete_sim(os.path.join(base, d)))
+    if n is not None:
+        sims = sims[:n]
+    states = np.stack([load_smoke_sim(os.path.join(base, s)) for s in sims])
+    if split == "train":
+        states = states[:, :frames]
+        if rescale:
+            from diffphycon_tpu_torch.benchmarks.smoke import RESCALER
+
+            states = states / RESCALER
+    return states

@@ -1,6 +1,7 @@
-"""Carry UNet2D weights from the JAX package's parameter tree to the port.
+"""Carry UNet2D and UNet3D weights from the JAX package's parameter trees
+to the port.
 
-The inverse of ``diffphycon_tpu/utils/torch_convert.py:21-124``:
+The inverse of ``diffphycon_tpu/utils/torch_convert.py:21-253``:
 
 - flax conv kernel (kh, kw, in, out) -> torch weight (out, in, kh, kw);
 - Dense kernel (in, out) -> Linear weight (out, in);
@@ -94,6 +95,94 @@ def load_flax_unet2d(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.
     sd = flax_unet2d_to_state_dict(flax_params)
     tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32))
                for k, v in sd.items()}
+    module.load_state_dict(tensors, strict=True)
+    return module
+
+
+# ---------------------------------------------------------------------------
+# UNet3D: the inverse of torch_convert.py:132-253 (convert_unet3d)
+# ---------------------------------------------------------------------------
+
+
+def _conv3d(tree, name, sd):
+    """flax (kd, kh, kw, in, out) -> torch Conv3d (out, in, kd, kh, kw)."""
+    sd[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"]), (4, 3, 0, 1, 2))
+    if "bias" in tree:
+        sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+
+def _conv2d_from_3d(tree, name, sd):
+    """flax 1x1x1 kernel (1, 1, 1, in, out) -> torch Conv2d (out, in, 1, 1)."""
+    sd[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"])[0], (3, 2, 0, 1))
+    if "bias" in tree:
+        sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+
+def _gamma(tree, name, sd):
+    sd[f"{name}.gamma"] = np.asarray(tree["gamma"]).reshape(1, -1, 1, 1, 1)
+
+
+def _resnet_block3d(tree, prefix, sd):
+    if "mlp" in tree:
+        _linear(tree["mlp"], f"{prefix}.mlp.1", sd)
+    for blk in ("block1", "block2"):
+        _conv3d(tree[blk]["proj"], f"{prefix}.{blk}.proj", sd)
+        _groupnorm(tree[blk]["norm"], f"{prefix}.{blk}.norm", sd)
+    if "res_conv" in tree:
+        _conv3d(tree["res_conv"], f"{prefix}.res_conv", sd)
+
+
+def _token_attention(norm, attn, prefix, sd):
+    """Residual(PreNorm(tokens(Attention))): gamma + bias-free linears."""
+    _gamma(norm, f"{prefix}.fn.norm", sd)
+    for lin in ("to_qkv", "to_out"):
+        sd[f"{prefix}.fn.fn.fn.{lin}.weight"] = np.transpose(np.asarray(attn[lin]["kernel"]))
+
+
+def flax_unet3d_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``UNet3D`` param tree -> port/reference ``Unet3D_with_Conv3D``
+    state_dict."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {
+        "time_rel_pos_bias.relative_attention_bias.weight": np.asarray(p["time_rel_pos_bias"]),
+    }
+    _conv3d(p["init_conv"], "init_conv", sd)
+    _token_attention(p["init_attn_norm"], p["init_temporal_attn"], "init_temporal_attn", sd)
+    _linear(p["time_mlp"]["fc1"], "time_mlp.1", sd)
+    _linear(p["time_mlp"]["fc2"], "time_mlp.3", sd)
+    n = 0
+    while f"down_{n}_block1" in p:
+        n += 1
+    for i in range(n):
+        for side, key in (("down", "downs"), ("up", "ups")):
+            _resnet_block3d(p[f"{side}_{i}_block1"], f"{key}.{i}.0", sd)
+            _resnet_block3d(p[f"{side}_{i}_block2"], f"{key}.{i}.1", sd)
+            if f"{side}_{i}_sattn" in p:
+                _gamma(p[f"{side}_{i}_sattn_norm"], f"{key}.{i}.2.fn.norm", sd)
+                _conv2d_from_3d(p[f"{side}_{i}_sattn"]["to_qkv"], f"{key}.{i}.2.fn.fn.to_qkv", sd)
+                _conv2d_from_3d(p[f"{side}_{i}_sattn"]["to_out"], f"{key}.{i}.2.fn.fn.to_out", sd)
+            _token_attention(p[f"{side}_{i}_tattn_norm"], p[f"{side}_{i}_tattn"],
+                             f"{key}.{i}.3", sd)
+        if f"down_{i}_downsample" in p:
+            _conv3d(p[f"down_{i}_downsample"]["conv"], f"downs.{i}.4", sd)
+        if f"up_{i}_upsample" in p:
+            # flax (kd, kh, kw, out, in) -> ConvTranspose3d (in, out, kd, kh, kw)
+            up = p[f"up_{i}_upsample"]
+            sd[f"ups.{i}.4.weight"] = np.transpose(np.asarray(up["kernel"]), (4, 3, 0, 1, 2))
+            sd[f"ups.{i}.4.bias"] = np.asarray(up["bias"])
+    _resnet_block3d(p["mid_block1"], "mid_block1", sd)
+    _token_attention(p["mid_sattn_norm"], p["mid_sattn"], "mid_spatial_attn", sd)
+    _token_attention(p["mid_tattn_norm"], p["mid_tattn"], "mid_temporal_attn", sd)
+    _resnet_block3d(p["mid_block2"], "mid_block2", sd)
+    _resnet_block3d(p["final_block"], "final_conv.0", sd)
+    _conv3d(p["final_conv"], "final_conv.1", sd)
+    return sd
+
+
+def load_flax_unet3d(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``UNet3D`` tree into the port's ``UNet3D`` (strict)."""
+    sd = flax_unet3d_to_state_dict(flax_params)
+    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
     module.load_state_dict(tensors, strict=True)
     return module
 

@@ -47,3 +47,32 @@ def test_port_kernels_match_plain_on_gpu(cuda_device):
         kb.conv2d_nhwc(r(1, 4, 4, 6), r(54, 8), r(8))
     with pytest.raises(TypeError, match="float32"):
         kb.conv2d_nhwc(xa.double(), w.double(), b.double())
+
+
+@pytest.mark.cuda
+def test_port_cg_kernel_matches_plain_on_gpu(cuda_device):
+    """K4 at the smoke path's batch and domain, and the autograd backward
+    (the same solve on the incoming gradient). Iteration counts within 2%:
+    sums in another order can move the step where max|r| drops below the
+    accuracy."""
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.physics.fluids import pressure, smoke_env
+
+    coeffs = smoke_env.smoke_domain_128().laplacian_coeffs(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    div = torch.randn(8, 127, 127, generator=g, device=cuda_device)
+    p, iters = kcg.cg_pressure(div, coeffs, 1e-6, 500)
+    p_plain, iters_plain = kcg.cg_pressure_plain(div, coeffs, 1e-6, 500)
+    assert_close(p, p_plain, RTOL)
+    assert ((iters - iters_plain).abs() <= (0.02 * iters_plain).ceil()).all(), (iters, iters_plain)
+    assert (iters > 0).all() and (iters < 500).all()
+
+    w = torch.randn(8, 127, 127, generator=g, device=cuda_device)
+    d = div.clone().requires_grad_(True)
+    (pressure.solve_pressure_cg(d, coeffs, 1e-6, 500) * w).sum().backward()
+    assert_close(d.grad, kcg.cg_pressure_plain(w, coeffs, 1e-6, 500)[0], RTOL)
+
+    with pytest.raises(TypeError, match="float32"):
+        kcg.cg_pressure(div.double(), coeffs)
+    with pytest.raises(ValueError, match="coefficients on cpu"):
+        kcg.cg_pressure(div, smoke_env.smoke_domain_128().laplacian_coeffs("cpu"))

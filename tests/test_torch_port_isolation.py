@@ -12,6 +12,13 @@ import torch
 import diffphycon_tpu_torch
 from diffphycon_tpu_torch import resolve_device
 from diffphycon_tpu_torch.benchmarks import burgers as bench
+from diffphycon_tpu_torch.benchmarks import smoke as smoke_bench
+from diffphycon_tpu_torch.diffusion import (
+    DiffusionConstants,
+    GaussianDiffusion,
+    make_guidance_schedule,
+)
+from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -21,6 +28,9 @@ def test_port_imports_no_jax_or_reference_package():
         diffphycon_tpu_torch.__path__, "diffphycon_tpu_torch."))
     assert "diffphycon_tpu_torch.kernels.unet2d_blocks" in names
     assert "diffphycon_tpu_torch.apps.infer_burgers" in names
+    for new in ("kernels.cg_pressure", "physics.fluids.pressure", "physics.fluids.smoke_env",
+                "nets.unet3d", "benchmarks.smoke", "apps.generate_smoke", "apps.infer_smoke"):
+        assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {['diffphycon_tpu_torch'] + names!r}:\n"
@@ -41,4 +51,13 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch):
             resolve_device(dev)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.init_params(bench.BurgersConfig(dim=8, dim_mults=(1,)))
+    # the diffusion entry points and the smoke builders default to CUDA too
+    for make in (lambda: DiffusionConstants.create(10, "linear"),
+                 lambda: make_guidance_schedule(None, 10),
+                 lambda: make_guidance_schedule("cosine", 10),
+                 lambda: GaussianDiffusion(lambda x, t: x, sample_shape=(4,), timesteps=10),
+                 lambda: SmokeSim.create(),
+                 lambda: smoke_bench.build_guidance(smoke_bench.SmokeConfig())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -44,7 +44,7 @@ def _t(a):
 @pytest.mark.parametrize("schedule", ["cosine", "linear", "sigmoid"])
 def test_port_diffusion_constants_exact(schedule):
     ref = JaxConsts.create(100, schedule)
-    out = DiffusionConstants.create(100, schedule)
+    out = DiffusionConstants.create(100, schedule, device="cpu")
     for name in ("betas", "alphas_cumprod", "alphas_cumprod_prev",
                  "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
                  "posterior_log_variance_clipped", "posterior_mean_coef1",
@@ -52,7 +52,7 @@ def test_port_diffusion_constants_exact(schedule):
         np.testing.assert_array_equal(getattr(out, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
     for name in (None, "cosine", "plain_cosine", "sigmoid", "sigmoid_flip"):
-        np.testing.assert_array_equal(make_guidance_schedule(name, 100).numpy(),
+        np.testing.assert_array_equal(make_guidance_schedule(name, 100, "cpu").numpy(),
                                       np.asarray(jax_sched(name, 100)))
 
 
@@ -141,7 +141,9 @@ def test_port_two_model_raw_eps(two_models, w_scheduler, normalize_beta):
                                              normalize_beta=normalize_beta)
     x = rand(2, 16, 128, 2, seed=3)
     ref, _ = jgd._raw_eps(params, jnp.asarray(x), 400, jc, jg)
-    assert_close(tgd._raw_eps(_t(x), 400, tc, tg), ref, 1e-4)
+    out, eps_w = tgd._raw_eps(_t(x), 400, tc, tg)
+    assert eps_w is None
+    assert_close(out, ref, 1e-4)
 
 
 def test_port_prior_model_alone(two_models):
@@ -151,7 +153,7 @@ def test_port_prior_model_alone(two_models):
                                  device="cpu")
     x = rand(2, 16, 128, 2, seed=8)
     ref, _ = jgd._raw_eps(params[1], jnp.asarray(x), 300, {}, jbench.GuidanceSpec())
-    out = tgd._raw_eps(_t(x), 300, {}, tbench.GuidanceSpec())
+    out, _ = tgd._raw_eps(_t(x), 300, {}, tbench.GuidanceSpec())
     assert_close(out, ref, 1e-4)
     assert float(out[..., 0].abs().max()) == 0.0  # p(w) never outputs u
 
