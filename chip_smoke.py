@@ -1,22 +1,28 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``diffphycon_tpu_torch`` (never JAX) at full width on two paths: the
-Burgers UNet2D (dim 64, mults (1, 2, 4, 8), batch 50, input (50, 16, 128, 2))
-and smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch 8, input
-(8, 32, 64, 64, 6); 128^2 fluid solver).
+Drives ``diffphycon_tpu_torch`` (never JAX) at full width on three paths:
+Burgers sampling (UNet2D dim 64, mults (1, 2, 4, 8), batch 50, input (50,
+16, 128, 2)), smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch
+8, input (8, 32, 64, 64, 6); 128^2 fluid solver) and Burgers training (the
+same UNet2D at batch 16).
 
 Burgers:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``diffphycon_tpu_torch/csrc``;
 3. kernels: every hand-written kernel at every shape one UNet2D forward
-   gives it, against its plain PyTorch version (max |err| <= KERNEL_RTOL *
-   max(1, max |plain|)), with CUDA-event timings of the kernel, the plain
-   version and the library call (cuDNN ``F.conv2d`` / ``F.group_norm``,
-   TF32 off), and the bound max(flops / fp32 peak, bytes / HBM rate);
+   gives it (K1-K3 convs and norms, K5 at its 8 linear-attention sites, K6
+   at the bottleneck), against its plain PyTorch version (max |err| <=
+   KERNEL_RTOL * max(1, max |plain|)), with CUDA-event timings of the
+   kernel, the plain version and the library call (cuDNN ``F.conv2d`` /
+   ``F.group_norm``, TF32 off; none for K5 and K6, beside which
+   ``F.scaled_dot_product_attention`` on K6's q, k, v is timed as a
+   yardstick of its core), and the bound max(flops / fp32 peak, bytes / HBM
+   rate);
 4. UNet2D: kernel-backed forward against the plain forward, and the launch
-   counts of one forward against those the architecture implies;
+   counts of one forward (K1, K2, K3, K5, K6) against those the
+   architecture implies;
 5. main path: the port's ``apps/infer_burgers.py`` ``main()`` with two
    seeded models, guidance wu=1000, u0/uT conditioning, 50 synthetic
    targets solved on the card, DDIM 50 steps at eta 0, then
@@ -51,11 +57,20 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 KERNEL_RTOL = 1e-4   # fp32 sums over up to 6912 terms in another order
+# gradients through the kernel-backed forward vs the plain forward: the
+# backward is the same plain code on both sides, so the gap is the forwards'
+# ~1e-6 relative difference carried through it (~1e-5 at most); 1e-3 leaves
+# two orders of margin and still fails on any wrong term. This checks the
+# kernels' forwards and that gradients reach every parameter through the
+# packed weights; the backward's arithmetic itself is held against jax.grad
+# on the CPU (tests/test_torch_port_attention.py)
+GRAD_RTOL = 1e-3
 UNET_RTOL = 1e-4     # the same, compounded over ~40 blocks (GN renormalises)
 # 3 guided DDIM steps from x_T: at t=999 x_start = x/sqrt(a) - sqrt(1/a - 1) eps
 # with a = alphas_cumprod[999] ~ 1e-8, so the forwards' ~1e-6 gap in eps
@@ -66,7 +81,9 @@ CG_ITER_RTOL = 0.02  # iteration counts, kernel vs plain (summation order)
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
+TRAIN_B = 16  # the train app's default batch
 DIM, MULTS = 64, (1, 2, 4, 8)
+HEADS, DIM_HEAD = 4, 32
 SMOKE_B = 8
 SMOKE_DDIM_STEPS = 5
 # flops per cell per CG iteration in K4: x and r updates (4), <r,Ap> (2),
@@ -75,17 +92,23 @@ CG_FLOPS_PER_CELL = 19
 REPLACES = {
     "conv2d_nhwc": "diffphycon_tpu/research/pallas_unet2d.py:288 (_conv_kernel); "
                    ":279 (_upsample_kernel); :304 (_concat_kernel); "
-                   ":160 (_resblock_kernel convs)",
+                   ":294 (_matmul_bias_kernel, k=1); :160 (_resblock_kernel convs)",
     "downsample_nhwc": "diffphycon_tpu/research/pallas_unet2d.py:259 (_downsample_kernel)",
     "group_norm_act": "diffphycon_tpu/research/pallas_unet2d.py:160 "
                       "(_resblock_kernel GroupNorm/FiLM/SiLU/residual)",
     "cg_pressure": "diffphycon_tpu/physics/fluids/pallas_cg.py:30 (_cg_kernel; "
                    "pallas_solve_pressure :81, pallas_call :121)",
+    "linear_attention_block": "diffphycon_tpu/research/pallas_unet2d.py:194 "
+                              "(_linear_attention_kernel; wrapper :447)",
+    "attention_block": "diffphycon_tpu/research/pallas_unet2d.py:229 "
+                       "(_attention_kernel; wrapper :459)",
 }
 SOURCES = {
     "conv2d_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/conv2d_nhwc.cu"),
     "downsample_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/downsample_nhwc.cu"),
     "group_norm_act": ("triton", "diffphycon_tpu_torch/kernels/group_norm_triton.py"),
+    "linear_attention_block": ("cuda", "diffphycon_tpu_torch/csrc/linear_attention.cu"),
+    "attention_block": ("cuda", "diffphycon_tpu_torch/csrc/attention.cu"),
 }
 SMOKE_SOURCES = {"cg_pressure": ("cuda", "diffphycon_tpu_torch/csrc/cg_pressure.cu")}
 
@@ -106,7 +129,7 @@ def main_path_calls(dim, mults, batch, H=16, W=128):
 
     conv2d_nhwc: (B, h, w, Ca, Cb, Co, k, upsample) with (h, w) the source
     size; downsample_nhwc: (B, h, w, C, Co); group_norm_act: (B, h, w, C,
-    film)."""
+    film); linear_attention_block, attention_block: (B, h, w, C)."""
     dims = [dim] + [dim * m for m in mults]
     in_out = list(zip(dims[:-1], dims[1:]))
     n = len(in_out)
@@ -129,6 +152,7 @@ def main_path_calls(dim, mults, batch, H=16, W=128):
         res(h, w, c, 0, di)
         skips.append(di)
         res(h, w, di, 0, di)
+        calls.append(("linear_attention_block", (batch, h, w, di), "_linear_attention_kernel"))
         skips.append(di)
         if i < n - 1:
             calls.append(("downsample_nhwc", (batch, h, w, di, do), "_downsample_kernel"))
@@ -137,10 +161,12 @@ def main_path_calls(dim, mults, batch, H=16, W=128):
             conv(h, w, di, 0, do, 3, row="_conv_kernel")
         c = do
     res(h, w, c, 0, c)
+    calls.append(("attention_block", (batch, h, w, c), "_attention_kernel"))
     res(h, w, c, 0, c)
     for i, (di, do) in enumerate(reversed(in_out)):
         res(h, w, c, skips.pop(), do)
         res(h, w, do, skips.pop(), do)
+        calls.append(("linear_attention_block", (batch, h, w, do), "_linear_attention_kernel"))
         if i < n - 1:
             conv(h, w, do, 0, di, 3, up=True, row="_upsample_kernel")
             h, w = 2 * h, 2 * w
@@ -159,6 +185,8 @@ def expected_counts(calls):
         "conv2d_nhwc.upsample": sum(a[7] for a in conv),
         "downsample_nhwc": sum(k == "downsample_nhwc" for k, _, _ in calls),
         "group_norm_act": sum(k == "group_norm_act" for k, _, _ in calls),
+        "linear_attention_block": sum(k == "linear_attention_block" for k, _, _ in calls),
+        "attention_block": sum(k == "attention_block" for k, _, _ in calls),
     }
 
 
@@ -185,12 +213,48 @@ def bound(flops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_flops(kind, b_, n, c):
+    """FLOPs of one attention block: the qkv projection, the out-projection,
+    the per-head products (linear: k v^T and context^T q, 32x32 per token;
+    full: q k^T and P v, n per token) and ~10 per element of the norms and
+    softmaxes."""
+    hidden = HEADS * DIM_HEAD
+    proj = 2 * n * c * 3 * hidden + 2 * n * hidden * c
+    core = 2 * 2 * n * HEADS * DIM_HEAD * (DIM_HEAD if kind == "linear_attention_block" else n)
+    return b_ * (proj + core + 10 * n * (2 * c + hidden))
+
+
 def kernel_case(torch, F, kb, gen, kind, args):
-    """(kernel fn, plain fn, library fn, flops, bytes) at one signature."""
+    """(kernel fn, plain fn, library fn or None, flops, bytes, extra timings)
+    at one signature."""
     dev = "cuda"
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    if kind in ("linear_attention_block", "attention_block"):
+        from diffphycon_tpu_torch.kernels import attention as ka
+
+        b_, h, w, c = args
+        hidden = HEADS * DIM_HEAD
+        x = rnd(b_, h, w, c, scale=2.0, shift=0.3)
+        p = {"norm_g": rnd(c, scale=0.1, shift=1.0),
+             "wqkv": rnd(c, 3 * hidden, scale=c ** -0.5),
+             "wo": rnd(hidden, c, scale=hidden ** -0.5), "bo": rnd(c, scale=0.1)}
+        linear = kind == "linear_attention_block"
+        if linear:
+            p["out_g"] = rnd(c, scale=0.1, shift=1.0)
+        kern = ka.linear_attention_block if linear else ka.attention_block
+        plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
+        n = h * w
+        nbytes = 4 * (2 * x.numel() + c * 3 * hidden + hidden * c + 3 * c)
+        extra = {}
+        if not linear:  # yardstick of the core: SDPA on this block's q, k, v
+            qkv = ka._qkv(x, p["norm_g"], p["wqkv"], HEADS, DIM_HEAD)
+            q, k, v = (t.permute(0, 2, 1, 3).contiguous() for t in qkv.unbind(2))
+            extra["sdpa_core"] = lambda: F.scaled_dot_product_attention(q, k, v)
+        return (lambda: kern(x, p), lambda: plain(x, p), None,
+                attention_flops(kind, b_, n, c), nbytes, extra)
 
     if kind == "conv2d_nhwc":
         b_, h, w, ca, cb, co, k, up = args
@@ -217,7 +281,7 @@ def kernel_case(torch, F, kb, gen, kind, args):
                       + b_ * ho * wo * co)
         return (lambda: kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
                 lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up),
-                library, flops, nbytes)
+                library, flops, nbytes, {})
     if kind == "downsample_nhwc":
         b_, h, w, c, co = args
         x = rnd(b_, h, w, c)
@@ -230,7 +294,7 @@ def kernel_case(torch, F, kb, gen, kind, args):
         return (lambda: kb.downsample_nhwc(x, wt, bias),
                 lambda: kb.downsample_nhwc_plain(x, wt, bias),
                 lambda: F.conv2d(x_l, w_lib, bias, stride=2),
-                flops, nbytes)
+                flops, nbytes, {})
     b_, h, w, c, film = args
     x = rnd(b_, h, w, c, scale=2.0, shift=0.5)
     gamma = rnd(c, scale=0.5, shift=1.0)
@@ -253,7 +317,7 @@ def kernel_case(torch, F, kb, gen, kind, args):
     nbytes = 4 * (2 * x.numel() + 2 * c + (ss.numel() if film else res.numel()))
     return (lambda: kb.group_norm_act(x, gamma, beta, 1, ss=ss, res=res),
             lambda: kb.group_norm_act_plain(x, gamma, beta, 1, ss=ss, res=res),
-            library, flops, nbytes)
+            library, flops, nbytes, {})
 
 
 def profile_window(torch, fn):
@@ -442,6 +506,181 @@ def smoke_main_path(torch, smi_line):
     return launches
 
 
+def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM, mults=MULTS):
+    """Phase 8: gradient parity at full width, the train app (fresh,
+    resumed, prior), training steps/s, then the infer app from the two
+    checkpoints. per_forward: the kernel launches of one UNet2D forward."""
+    from diffphycon_tpu_torch.apps import infer_burgers, train_burgers
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.training import data
+    from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    work = os.path.join("build", "chip_smoke")
+    data_root = os.path.join(work, "data")
+    models = os.path.join(work, "trained_models")
+    shutil.rmtree(models, ignore_errors=True)
+
+    # 8a. gradient parity, kernels (plain VJPs) vs the plain forward
+    t0 = time.time()
+    cfg = bench.BurgersConfig(dim=dim, dim_mults=mults, is_condition_u0=True,
+                              is_condition_uT=True)
+    net = bench.init_params(cfg, seed=0, device=device).train()
+    u, f = data.synthetic_burgers(64, seed=0, cache_dir=os.path.join(data_root, "synthetic"),
+                                  device=device)
+    stacked = data.stack_burgers_uf(u, f, rescaler=bench.RESCALER)
+    x = torch.from_numpy(stacked[:TRAIN_B]).to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    gd_k = bench.build_diffusion(cfg, net, device=device)
+    gd_p = bench.build_diffusion(cfg, net.forward_plain, device=device)
+    t, noise = gd_k.draw_t_noise(x, gen)
+    losses, grads = [], []
+    for gd in (gd_k, gd_p):
+        net.zero_grad(set_to_none=True)
+        kb.reset_launch_counts()
+        loss = gd.p_losses(x, t, bench.derive_cond(x), noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        grads.append({n: p.grad.detach().clone() for n, p in net.named_parameters()})
+        if gd is gd_k:
+            parity_counts = kb.launch_counts()
+    rel = {n: ((grads[0][n] - g).norm() / g.norm()).item() for n, g in grads[1].items()}
+    zero = [n for n in rel if not (grads[0][n].abs().max() > 0 and grads[1][n].abs().max() > 0)]
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "train_grad_parity", "batch": TRAIN_B, "tensors": len(rel),
+          "checks": "kernel forwards and gradient flow (both sides share the plain "
+                    "backward; its arithmetic is checked against jax.grad on the CPU)",
+          "params": sum(p.numel() for p in net.parameters()), "loss_kernels": losses[0],
+          "loss_plain": losses[1], "max_rel_grad_err": worst[0][1], "worst": worst,
+          "tol": GRAD_RTOL, "zero_grads": zero, "launches": parity_counts,
+          "seconds": round(time.time() - t0, 3)})
+    if zero:
+        fail(f"parameters with a zero gradient: {zero[:5]}")
+    if not worst[0][1] <= GRAD_RTOL or not math.isfinite(losses[0]):
+        fail(f"kernel-backed gradients differ from the plain ones: {worst}")
+    if parity_counts != per_forward:
+        fail(f"launches of one training forward {parity_counts} != {per_forward}")
+    del grads
+
+    # 8b. the train app: 30 steps, resumed to 40, then the prior model
+    t0 = time.time()
+    width = ["--dim", str(dim), "--dim_mults", *map(str, mults), "--device", device]
+    common = width + ["--synthetic_data", "64", "--batch_size", str(TRAIN_B),
+                      "--checkpoint_interval", "10", "--is_condition_u0", "True",
+                      "--is_condition_uT", "True", "--data_root", data_root, "--exp_id",
+                      "smoke", "--seed", "0"]
+    runs = [("joint", ["--train_num_steps", "30"], "burgers", 30, 30),
+            ("joint resumed", ["--train_num_steps", "40", "--resume", "True"], "burgers", 10, 40),
+            ("prior", ["--train_num_steps", "10", "--is_model_w", "True"], "burgers_w", 10, 10)]
+    app = []
+    for name, extra, sub, steps, final in runs:
+        folder = os.path.join(models, sub, "smoke")
+        args = train_burgers.build_parser().parse_args(
+            common + extra + ["--results_folder", folder])
+        kb.reset_launch_counts()
+        tic = time.perf_counter()
+        trainer = train_burgers.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        counts = kb.launch_counts()
+        log = [json.loads(line) for line in open(os.path.join(folder, "train_log.jsonl"))]
+        ckpts = sorted(int(d) for d in os.listdir(os.path.join(folder, "ckpt")) if d.isdigit())
+        want = {k: steps * v for k, v in per_forward.items()}
+        app.append({"run": name, "final_step": trainer.step, "launches": counts,
+                    "expected": want, "log": log, "checkpoints": ckpts, "seconds": wall})
+        if trainer.step != final or counts != want:
+            fail(f"train app ({name}): step {trainer.step} (want {final}), launches "
+                 f"{counts} (want {want})")
+        if not log or not all(math.isfinite(r["loss"]) for r in log):
+            fail(f"train app ({name}): non-finite or missing losses {log}")
+        if final not in ckpts:
+            fail(f"train app ({name}): no checkpoint at step {final} ({ckpts})")
+    emit({"phase": "train_app", "app": "diffphycon_tpu_torch/apps/train_burgers.py",
+          "runs": app, "seconds": round(time.time() - t0, 3)})
+
+    # 8c. optimizer steps/s at batch 16 over several windows (the step is
+    # host-bound, so its time varies between windows), the forward /
+    # backward / update split
+    t0 = time.time()
+    trainer = Trainer(gd_k, net, data.ArrayDataset(stacked).batches(TRAIN_B, seed=1),
+                      bench.derive_cond,
+                      TrainerConfig(results_folder=os.path.join(work, "train_timing")),
+                      device=device)
+    for _ in range(3):
+        trainer.train_step(next(trainer.batch_iter))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_windows, n_steps = 4, 10
+    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    window_ms = []
+    for _ in range(n_windows):
+        tic = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.train_step(next(trainer.batch_iter))
+        torch.cuda.synchronize()
+        window_ms.append(1e3 * (time.perf_counter() - tic) / n_steps)
+    step_ms = sorted(window_ms)[n_windows // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for _ in range(n_steps):  # the same steps cut by synchronisations
+        xb = torch.as_tensor(next(trainer.batch_iter), device=device)
+        tt, nn_ = gd_k.draw_t_noise(xb, trainer.generator)
+        for p in trainer.params:
+            p.grad = None
+        tics = [time.perf_counter()]
+        loss = gd_k.p_losses(xb, tt, bench.derive_cond(xb), nn_)
+        torch.cuda.synchronize()
+        tics.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        tics.append(time.perf_counter())
+        trainer.apply_gradients()
+        torch.cuda.synchronize()
+        tics.append(time.perf_counter())
+        for key, a, b_ in zip(split, tics[:-1], tics[1:]):
+            split[key] += 1e3 * (b_ - a) / n_steps
+
+    def two_steps():
+        for _ in range(2):
+            trainer.train_step(next(trainer.batch_iter))
+
+    wall_ms, dev_ms, rows = profile_window(torch, two_steps)
+    total = sum(split.values())
+    emit({"phase": "train_timing", "batch": TRAIN_B, "steps_timed": n_windows * n_steps,
+          "window_ms_per_step": window_ms, "ms_per_step": step_ms,
+          "optimizer_steps_per_sec": 1e3 / step_ms,
+          "window_spread": (max(window_ms) - min(window_ms)) / step_ms,
+          "split_ms": split, "backward_share": split["backward"] / total,
+          "peak_memory_gb": peak_gb,
+          "profile": {"steps": 2, "wall_ms": wall_ms, "device_ms": dev_ms,
+                      "busy_share": dev_ms / wall_ms,
+                      "top": [[k[:60], v] for k, v in rows[:10]]},
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    del trainer, gd_k, gd_p, net
+    torch.cuda.empty_cache()
+
+    # 8d. the infer app from the two checkpoints
+    t0 = time.time()
+    args = infer_burgers.build_parser().parse_args(width + [
+        "--model_root", models, "--exp_id", "smoke", "--checkpoint", "40",
+        "--checkpoint__model_w", "10", "--synthetic_data", str(B), "--n_test_samples", str(B),
+        "--batch_size", str(B), "--eval_two_models", "True", "--wus", "1000",
+        "--is_condition_u0", "True", "--is_condition_uT", "True", "--using_ddim", "True",
+        "--ddim_sampling_steps", "10", "--data_root", data_root,
+        "--save_file", os.path.join(work, "result_trained.json")])
+    kb.reset_launch_counts()
+    entry = infer_burgers.main(args)["wu=1000.0,wf=0.0"]
+    torch.cuda.synchronize()
+    finite = all(math.isfinite(v) for v in entry.values())
+    emit({"phase": "infer_from_checkpoints", "app": "diffphycon_tpu_torch/apps/infer_burgers.py",
+          "checkpoints": {"burgers/smoke": 40, "burgers_w/smoke": 10},
+          "sampler": "ddim 10 steps, eta 0, two models, wu=1000, batch 50",
+          "result": entry, "finite": finite, "launches": kb.launch_counts(),
+          "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail(f"non-finite metrics from the trained checkpoints: {entry}")
+
+
 def main() -> int:
     import torch
 
@@ -495,18 +734,21 @@ def main() -> int:
     bad = []
     with torch.no_grad():
         for (kname, args), count in per_fwd.items():
-            kern, plain, library, flops, nbytes = kernel_case(torch, F, kb, gen, kname, args)
+            kern, plain, library, flops, nbytes, extra = kernel_case(torch, F, kb, gen,
+                                                                     kname, args)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
-            ms, plain_ms, lib_ms = timed(torch, kern), timed(torch, plain), timed(torch, library)
+            ms, plain_ms = timed(torch, kern), timed(torch, plain)
+            lib_ms = None if library is None else timed(torch, library)
             b_ms, b_by = bound(flops, nbytes)
             emit({"phase": "kernel", "kernel": kname, "args": list(args),
                   "per_forward": count, "max_abs_err": err, "tol": tol,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-                  "mbytes": nbytes / 1e6})
+                  "mbytes": nbytes / 1e6,
+                  **{f"{k}_ms": timed(torch, fn) for k, fn in extra.items()}})
             if not err <= tol:
                 bad.append((kname, args, err, tol))
             sig_times[(kname, args)] = {"ms": ms, "plain_ms": plain_ms,
@@ -514,22 +756,29 @@ def main() -> int:
             a = agg[kname]
             a["ms"] += count * ms
             a["plain_ms"] += count * plain_ms
-            a["library_ms"] += count * lib_ms
+            a["library_ms"] = None if lib_ms is None else a["library_ms"] + count * lib_ms
             a["bound_ms"] += count * b_ms
             a["ops_ms"] += count * 1e3 * flops / FP32_PEAK
             a["bytes_ms"] += count * 1e3 * nbytes / HBM_RATE
             a["max_abs_err"] = max(a["max_abs_err"], err)
             del out, ref
     # per Pallas kernel replaced: launches and summed times in one forward;
-    # _concat_kernel is the two-source K1 reads, already inside _resblock_kernel
+    # _concat_kernel is the two-source K1 reads and _matmul_bias_kernel the
+    # 1x1 K1 convs, both already inside _resblock_kernel
     rows = {}
     for kname, args, row in calls:
-        for name in (row, "_concat_kernel") if kname == "conv2d_nhwc" and args[4] else (row,):
+        names = [row]
+        if kname == "conv2d_nhwc" and args[4]:
+            names.append("_concat_kernel")
+        if kname == "conv2d_nhwc" and args[6] == 1:
+            names.append("_matmul_bias_kernel")
+        for name in names:
             r = rows.setdefault(name, {"launches": {}, "ms": 0.0, "plain_ms": 0.0,
                                        "library_ms": 0.0, "bound_ms": 0.0})
             r["launches"][kname] = r["launches"].get(kname, 0) + 1
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                r[key] += sig_times[(kname, args)][key]
+                v = sig_times[(kname, args)][key]
+                r[key] = None if v is None or r[key] is None else r[key] + v
     emit({"phase": "kernels_checked", "signatures": len(per_fwd),
           "per_pallas_kernel_per_forward": rows, "seconds": round(time.time() - t0, 3)})
     if bad:
@@ -552,16 +801,16 @@ def main() -> int:
         tol = UNET_RTOL * max(1.0, ref.abs().max().item())
         fwd_ms = timed(torch, lambda: net(x, t), n=10)
         plain_fwd_ms = timed(torch, lambda: net.forward_plain(x, t), n=10)
-    want = expected_counts(calls)
+    fwd_counts = expected_counts(calls)
     emit({"phase": "unet2d", "params": sum(p.numel() for p in net.parameters()),
           "max_abs_err": err, "tol": tol, "launches_per_forward": counts,
-          "expected": want, "forward_ms": fwd_ms, "plain_forward_ms": plain_fwd_ms,
+          "expected": fwd_counts, "forward_ms": fwd_ms, "plain_forward_ms": plain_fwd_ms,
           "finite": bool(torch.isfinite(out).all()),
           "seconds": round(time.time() - t0, 3)})
     if not err <= tol or not torch.isfinite(out).all():
         fail(f"UNet2D kernel forward differs from the plain forward: {err} > {tol}")
-    if counts != want:
-        fail(f"launch counts per forward {counts} != expected {want}")
+    if counts != fwd_counts:
+        fail(f"launch counts per forward {counts} != expected {fwd_counts}")
     del out, ref
 
     # -- 5. main path through the app ---------------------------------------
@@ -647,6 +896,9 @@ def main() -> int:
     cg_row = smoke_kernel_phase(torch, smi_line)
     cg_launches = smoke_main_path(torch, smi_line)
 
+    # -- 8. Burgers training ------------------------------------------------
+    burgers_training_phase(torch, smi_line, fwd_counts)
+
     # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
@@ -661,8 +913,11 @@ def main() -> int:
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
                         "launches": cg_launches, **cg_row})
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
-          "note": "K1-K3 ms/plain_ms/bound_ms/library_ms are sums over one UNet2D "
-                  "forward at batch 50, launches those of the Burgers main path; "
+          "note": "K1-K3, K5 (linear_attention_block, one K5a + one K5b per launch) "
+                  "and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
+                  "sums over one UNet2D forward at batch 50 (library_ms null where "
+                  "no single PyTorch call computes the block), launches those of the "
+                  "Burgers main path; "
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
                   "solves the system, so library_ms is null), launches those of "
                   "the smoke main path"})

@@ -8,9 +8,14 @@ reports J_actual and control energy. Each denoise step runs the UNet2D
 forwards through the port's hand-written kernels.
 
 Weights come from ``--params_npz`` (a flat flax-path npz of the JAX
-package's UNet2D tree, see ``utils/convert.py``) or from ``--init_seed N``
-(seeded random weights). Orbax checkpoints and ``--checkpoint_sweep`` are
-not ported yet (ROADMAP.md).
+package's UNet2D tree, see ``utils/convert.py``), from ``--init_seed N``
+(seeded random weights), or else from the port's own checkpoints (written by
+``apps/train_burgers.py``): ``--checkpoint`` under
+``<model_root>/burgers/<exp_id>`` and ``--checkpoint__model_w`` under
+``<model_root>/burgers_w/<exp_id__model_w>`` (default: ``exp_id``), the EMA
+weights unless ``--use_ema False``. A checkpoint directory written by the
+JAX trainer (orbax) raises; ``--checkpoint_sweep`` is not ported yet
+(ROADMAP.md).
 
 Example:
   python -m diffphycon_tpu_torch.apps.infer_burgers --init_seed 0 \\
@@ -111,16 +116,17 @@ def get_target(args, device):
     return u[: args.n_test_samples]
 
 
-def _load_net(bench, cfg, npz, seed, device):
+def _load_net(bench, cfg, npz, seed, device, ckpt_folder, milestone, use_ema):
+    from diffphycon_tpu_torch.training.trainer import Trainer
     from diffphycon_tpu_torch.utils.convert import load_flax_npz, load_flax_unet2d
 
     if npz is not None:
         return load_flax_unet2d(bench.build_unet(cfg, device), load_flax_npz(npz))
     if seed is not None:
         return bench.init_params(cfg, seed=seed, device=device)
-    raise NotImplementedError(
-        "orbax checkpoints are not ported yet (ROADMAP.md): pass --params_npz "
-        "(a flax-path npz of the weights) or --init_seed")
+    net = bench.build_unet(cfg, device)
+    net.load_state_dict(Trainer.load_params(ckpt_folder, milestone, use_ema=use_ema))
+    return net
 
 
 def main(args):
@@ -151,14 +157,19 @@ def main(args):
         recurrence_k=args.recurrence_k,
         bf16=args.bf16,
     )
-    net = _load_net(bench, cfg, args.params_npz, args.init_seed, device)
+    net = _load_net(bench, cfg, args.params_npz, args.init_seed, device,
+                    os.path.join(args.model_root, "burgers", args.exp_id), args.checkpoint,
+                    args.use_ema)
     net_w = None
     if args.eval_two_models:
         cfg_w = dataclasses.replace(
             cfg, dim=args.dim__model_w or args.dim,
             dim_mults=tuple(args.dim_mults__model_w or args.dim_mults))
         seed_w = None if args.init_seed is None else args.init_seed + 1
-        net_w = _load_net(bench, cfg_w, args.params_npz__model_w, seed_w, device)
+        net_w = _load_net(bench, cfg_w, args.params_npz__model_w, seed_w, device,
+                          os.path.join(args.model_root, "burgers_w",
+                                       args.exp_id__model_w or args.exp_id),
+                          args.checkpoint__model_w, args.use_ema)
     gd = bench.build_diffusion(cfg, net, model_w=net_w, device=device)
 
     u_target_all = get_target(args, device)

@@ -19,6 +19,7 @@ from diffphycon_tpu_torch.diffusion import (
     GaussianDiffusion,
     GuidanceSpec,
     burgers_cond_spec,
+    burgers_derive_cond,
     get_proj_ep_orthogonal,
     make_guidance_schedule,
 )
@@ -44,11 +45,15 @@ class BurgersConfig:
     ddim_sampling_steps: int = 1000
     ddim_eta: float = 0.0
     beta_schedule: str = "cosine"
-    # conditioning (the training-side masks come with the training slice)
+    # conditioning
     is_condition_u0: bool = False
     is_condition_uT: bool = False
+    is_condition_u0_zero_pred_noise: bool = True
+    is_condition_uT_zero_pred_noise: bool = True
     condition_idx: int = 10
+    train_on_partially_observed: Optional[str] = None
     set_unobserved_to_zero_during_sampling: bool = False
+    train_on_padded_locations: bool = True
     partially_observed: Optional[str] = None
     partial_control: Optional[str] = "full"
     # two-model
@@ -98,8 +103,13 @@ def build_diffusion(cfg: BurgersConfig, model, model_w=None,
     cond = burgers_cond_spec(
         is_condition_u0=cfg.is_condition_u0,
         is_condition_uT=cfg.is_condition_uT,
+        is_condition_u0_zero_pred_noise=cfg.is_condition_u0_zero_pred_noise,
+        is_condition_uT_zero_pred_noise=cfg.is_condition_uT_zero_pred_noise,
         condition_idx=cfg.condition_idx,
+        is_model_w=cfg.is_model_w and model_w is None,
+        train_on_partially_observed=cfg.train_on_partially_observed,
         set_unobserved_to_zero_during_sampling=cfg.set_unobserved_to_zero_during_sampling,
+        train_on_padded_locations=cfg.train_on_padded_locations,
     )
     return GaussianDiffusion(
         model, model_w=model_w,
@@ -117,6 +127,9 @@ def build_diffusion(cfg: BurgersConfig, model, model_w=None,
         recurrence_k=cfg.recurrence_k,
         device=resolve_device(device),
     )
+
+
+derive_cond = burgers_derive_cond
 
 
 @dataclasses.dataclass

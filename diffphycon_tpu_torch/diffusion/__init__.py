@@ -1,5 +1,6 @@
 from diffphycon_tpu_torch.diffusion.conditioning import (
     burgers_cond_spec,
+    burgers_derive_cond,
     get_proj_ep_orthogonal,
     smoke_cond_spec,
     smoke_derive_cond,
@@ -14,6 +15,6 @@ from diffphycon_tpu_torch.diffusion.schedules import make_guidance_schedule
 
 __all__ = [
     "CondSpec", "DiffusionConstants", "GaussianDiffusion", "GuidanceSpec",
-    "burgers_cond_spec", "get_proj_ep_orthogonal",
+    "burgers_cond_spec", "burgers_derive_cond", "get_proj_ep_orthogonal",
     "make_guidance_schedule", "smoke_cond_spec", "smoke_derive_cond",
 ]

@@ -1,6 +1,6 @@
-"""Burgers and smoke conditioning specs, sampling side (port of
-``diffphycon_tpu/diffusion/conditioning.py``; the training-side target and
-loss masks come with the training slice).
+"""Burgers and smoke conditioning specs (port of
+``diffphycon_tpu/diffusion/conditioning.py``): the Burgers spec carries the
+sampling side and the training masks; the smoke spec the sampling side.
 
 Burgers x is (B, 16, 128, 2) channels-last: channel 0 = u (11 valid rows +
 padding), channel 1 = f (10 valid rows). Smoke x is (B, 32, 64, 64, 6):
@@ -29,10 +29,27 @@ def _timerange_chan_mask(x, t0: int, t1: int, chan: int):
     return m_t[None, :, None, None] * m_c[None, None, None, :]
 
 
+def _quarter_mask_x(x):
+    """(X,) mask of the unobserved middle half nx/4 <= x < 3nx/4."""
+    nx = x.shape[2]
+    xx = torch.arange(nx, device=x.device)
+    return ((xx >= nx // 4) & (xx < (3 * nx) // 4)).to(x.dtype)
+
+
+def _chan_mask(x, chan: int):
+    return (torch.arange(x.shape[-1], device=x.device) == chan).to(x.dtype)
+
+
 def burgers_cond_spec(*, is_condition_u0: bool = False, is_condition_uT: bool = False,
-                      condition_idx: int = 10,
-                      set_unobserved_to_zero_during_sampling: bool = False) -> CondSpec:
-    """Sampling-side conditioning of the Burgers joint/prior DDPMs."""
+                      is_condition_u0_zero_pred_noise: bool = True,
+                      is_condition_uT_zero_pred_noise: bool = True,
+                      condition_idx: int = 10, is_model_w: bool = False,
+                      train_on_partially_observed=None,
+                      set_unobserved_to_zero_during_sampling: bool = False,
+                      train_on_padded_locations: bool = True) -> CondSpec:
+    """Conditioning of the Burgers joint/prior DDPMs, sampling and training.
+    ``train_on_padded_locations=True`` keeps the reference's "faulty"
+    default of also training on the zero-padded rows."""
     ci = condition_idx
 
     def pin(x, cond):
@@ -55,15 +72,48 @@ def burgers_cond_spec(*, is_condition_u0: bool = False, is_condition_uT: bool = 
 
     def sampling_mask(x, cond):
         if set_unobserved_to_zero_during_sampling:
-            nx = x.shape[2]
-            xx = torch.arange(nx, device=x.device)
-            m_x = ((xx >= nx // 4) & (xx < (3 * nx) // 4)).to(x.dtype)
-            m_c = (torch.arange(x.shape[-1], device=x.device) == 0).to(x.dtype)
-            x = x * (1 - m_x[None, None, :, None] * m_c[None, None, None, :])
+            m = _quarter_mask_x(x)[None, None, :, None] * _chan_mask(x, 0)[None, None, None, :]
+            x = x * (1 - m)
         return x
 
-    return CondSpec(pin=pin, w_zero_input=w_zero_input, w_zero_output=w_zero_output,
-                    sampling_mask=sampling_mask)
+    def zero_target(target, cond):
+        if is_condition_u0 and is_condition_u0_zero_pred_noise:
+            target = target * (1 - _time_chan_mask(target, 0, 0))
+        if is_condition_uT and is_condition_uT_zero_pred_noise:
+            target = target * (1 - _time_chan_mask(target, ci, 0))
+        return target
+
+    def loss_mask_pre(model_out, target, cond):
+        if train_on_partially_observed is None:
+            return model_out
+        m_x = _quarter_mask_x(model_out)[None, None, :, None]
+        if train_on_partially_observed == "front_rear_quarter":
+            m = m_x * _chan_mask(model_out, 0)[None, None, None, :]
+        elif train_on_partially_observed == "front_rear_quarter_u_and_f":
+            m = m_x  # the reference's faulty variant masks both channels
+        else:
+            raise NotImplementedError(train_on_partially_observed)
+        return model_out * (1 - m) + target * m
+
+    def loss_mask_post(model_out, target, cond):
+        if is_model_w:  # no loss on the u channel
+            m = _chan_mask(model_out, 0)[None, None, None, :]
+            model_out = model_out * (1 - m) + target * m
+        if not train_on_padded_locations:  # no loss on the padded rows
+            t_len = model_out.shape[1]
+            m = torch.clamp(_timerange_chan_mask(model_out, ci + 1, t_len, 0)
+                            + _timerange_chan_mask(model_out, ci, t_len, 1), 0, 1)
+            model_out = model_out * (1 - m) + target * m
+        return model_out
+
+    return CondSpec(pin=pin, zero_target=zero_target, w_zero_input=w_zero_input,
+                    w_zero_output=w_zero_output, sampling_mask=sampling_mask,
+                    loss_mask_pre=loss_mask_pre, loss_mask_post=loss_mask_post)
+
+
+def burgers_derive_cond(x_start):
+    """{u0, uT}: rows 0 and 10 of u in a clean batch (B, 16, 128, 2)."""
+    return {"u0": x_start[:, 0, :, 0], "uT": x_start[:, 10, :, 0]}
 
 
 def _frame_chan_mask5(x, f_idx: int, chan: int):

@@ -1,6 +1,8 @@
 """Gaussian diffusion core (DDPM + DDIM) for physical-system control.
 
-Port of ``diffphycon_tpu/diffusion/core.py``, sampling half. The samplers are
+Port of ``diffphycon_tpu/diffusion/core.py``: the training loss
+(:meth:`GaussianDiffusion.p_losses`, :meth:`GaussianDiffusion.loss`) and the
+samplers. The samplers are
 Python loops over denoise steps; each step runs the denoiser(s) (two UNet2D
 forwards for two-model sampling), the guidance gradient (autograd through the
 control objective, not through the nets), prior reweighting, the posterior
@@ -8,16 +10,18 @@ update and condition re-pinning.
 
 Randomness comes from an explicit ``torch.Generator``; it cannot reproduce
 JAX's ``fold_in`` streams, so the DDPM step also takes an explicit ``noise``
-tensor and DDIM with eta = 0 draws none.
+tensor, DDIM with eta = 0 draws none, and ``p_losses`` takes t and the noise
+as arguments (``loss`` draws them).
 
 With ``combine_w_with_guidance`` (the smoke ordering) the prior
 reweighting is deferred: guidance is taken at the x_start of the
 unreweighted joint eps, and ``scale * g + (gamma - 1) * eps_w`` is added
 after it.
 
-Not ported yet: ``p_losses``/``loss`` and ``fuse_two_models`` (training),
-the pred_x0/pred_v objectives and post-hoc guidance (``guidance_u0=False``),
-``CondSpec.transform`` (jellyfish), and the training-side ``CondSpec`` masks.
+Only the pred_noise objective is ported (``loss_weight`` is all ones).
+Not ported yet: ``fuse_two_models``, the pred_x0/pred_v objectives,
+post-hoc guidance (``guidance_u0=False``) and ``CondSpec.transform``
+(jellyfish).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ class DiffusionConstants:
     posterior_log_variance_clipped: torch.Tensor
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
+    loss_weight: torch.Tensor
 
     @property
     def num_timesteps(self) -> int:
@@ -57,7 +62,8 @@ class DiffusionConstants:
     @classmethod
     def create(cls, timesteps: int, beta_schedule: str = "cosine",
                device=None) -> "DiffusionConstants":
-        """The buffers on ``device`` (default CUDA, see resolve_device)."""
+        """The buffers on ``device`` (default CUDA, see resolve_device);
+        ``loss_weight`` is pred_noise's, all ones."""
         device = resolve_device(device)
         betas = np.asarray(BETA_SCHEDULES[beta_schedule](timesteps), np.float64)
         alphas = 1.0 - betas
@@ -85,6 +91,7 @@ class DiffusionConstants:
                 np.log(np.clip(posterior_variance, 1e-20, None))),
             posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
             posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
+            loss_weight=f32(np.ones_like(betas)),
         )
 
 
@@ -92,17 +99,27 @@ def _identity2(x, cond):
     return x
 
 
+def _keep_model_out(model_out, target, cond):
+    return model_out
+
+
 @dataclasses.dataclass(frozen=True)
 class CondSpec:
-    """Sampling-side conditioning as pure functions of (tensor, cond dict):
-    pin overwrites the conditioned slices, w_zero_input / w_zero_output
-    blank the state for the prior p(w) model, sampling_mask is an extra
-    per-step projection (see the JAX ``CondSpec``)."""
+    """Conditioning as pure functions of (tensor, cond dict), as the JAX
+    ``CondSpec``: pin overwrites the conditioned slices, w_zero_input /
+    w_zero_output blank the state for the prior p(w) model, sampling_mask is
+    an extra per-step projection. Training: zero_target zeroes the noise
+    target at conditioned slices; loss_mask_pre / loss_mask_post (fn(model_out,
+    target, cond)) replace model outputs by the target where no loss should
+    flow, before and after the target is zeroed."""
 
     pin: Callable = _identity2
+    zero_target: Callable = _identity2
     w_zero_input: Callable = _identity2
     w_zero_output: Callable = _identity2
     sampling_mask: Callable = _identity2
+    loss_mask_pre: Callable = _keep_model_out
+    loss_mask_post: Callable = _keep_model_out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +136,8 @@ class GuidanceSpec:
 class GaussianDiffusion:
     """Diffusion over trajectory tensors x of shape (B, *spatial, C).
 
-    model: fn(x, t) -> predicted noise, t a (B,) float32 tensor (the joint
-    or only model). model_w: the prior p(w) model for two-model sampling with
+    model: fn(x, t) -> model output, t a (B,) float32 tensor (the joint or
+    only model). model_w: the prior p(w) model for two-model sampling with
     prior reweighting. Other arguments as in the JAX ``GaussianDiffusion``
     (objective pred_noise, guidance applied on x_start). ``device`` defaults
     to CUDA (see resolve_device).
@@ -242,6 +259,39 @@ class GaussianDiffusion:
         if clip_x_start and rederive_pred_noise:
             pred_noise = self.predict_noise_from_start(x, t, x_start)
         return pred_noise, x_start
+
+    # -- training loss ------------------------------------------------------
+
+    def p_losses(self, x_start, t, cond_vals: dict, noise):
+        """Denoising loss of one batch, term for term the JAX ``p_losses``.
+
+        x_start: clean batch (B, *spatial, C); t: (B,) int64 timesteps;
+        noise: like x_start; cond_vals: the conditioning arrays derived from
+        x_start. Differentiable through ``self.model``."""
+        x = self.q_sample(x_start, t, noise)
+        x = self.cond.pin(x, cond_vals)
+        if self.is_model_w:
+            x = self.cond.w_zero_input(x, cond_vals)
+        model_out = self.model(x, t.to(torch.float32))
+        target = noise
+        # the reference's masking order: the pre mask, then the target zeroed
+        # at conditioned slices, then the post mask
+        model_out = self.cond.loss_mask_pre(model_out, target, cond_vals)
+        target = self.cond.zero_target(target, cond_vals)
+        model_out = self.cond.loss_mask_post(model_out, target, cond_vals)
+        loss = ((model_out - target) ** 2).reshape(x_start.shape[0], -1).mean(dim=1)
+        return (loss * self.consts.loss_weight[t]).mean()
+
+    def draw_t_noise(self, x_start, generator: torch.Generator):
+        """(t (B,) uniform in [0, T), noise like x_start) from ``generator``."""
+        t = torch.randint(0, self.num_timesteps, (x_start.shape[0],), generator=generator,
+                          device=x_start.device)
+        return t, self._randn(x_start, generator)
+
+    def loss(self, x_start, cond_vals: dict, generator: torch.Generator):
+        """p_losses at t and noise drawn from ``generator``."""
+        t, noise = self.draw_t_noise(x_start, generator)
+        return self.p_losses(x_start, t, cond_vals, noise)
 
     # -- sampling -----------------------------------------------------------
 

@@ -35,6 +35,8 @@ SIGNATURES = {
     "conv2d_nhwc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "downsample_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "linear_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """Kernel-backed UNet2D blocks and their plain PyTorch versions.
 
-The port of ``diffphycon_tpu/research/pallas_unet2d.py``. Five Pallas kernels
-of the Burgers path map onto three hand-written Hopper kernels:
+The port of ``diffphycon_tpu/research/pallas_unet2d.py``. Six Pallas kernels
+map onto three hand-written Hopper kernels (the attention blocks, K5 and K6,
+are in ``kernels/attention.py``):
 
 ===============================  ==========================================
 Pallas kernel (pallas_unet2d.py)  Port
@@ -10,6 +11,7 @@ Pallas kernel (pallas_unet2d.py)  Port
 ``_downsample_kernel`` :259       K2 :func:`downsample_nhwc`
 ``_upsample_kernel`` :279         K1 :func:`conv2d_nhwc` ``upsample=True``
 ``_conv_kernel`` :288 (3x3)       K1 :func:`conv2d_nhwc`
+``_matmul_bias_kernel`` :294      K1 :func:`conv2d_nhwc` ``k=1`` (x @ w + b)
 ``_concat_kernel`` :304           K1 reading two sources (``x_b``)
 ===============================  ==========================================
 
@@ -20,8 +22,16 @@ Every public wrapper dispatches on the device of its input: a CPU tensor goes
 to the ``*_plain`` version, a CUDA tensor to the kernel (or the wrapper
 raises). There is no fallback from one to the other. Each wrapper counts its
 kernel launches in the int attribute ``launches`` (plus per-mode counts on
-``conv2d_nhwc``); :func:`reset_launch_counts` and :func:`launch_counts` read
-and clear them all.
+``conv2d_nhwc``), registered with the package's counter registry:
+:func:`reset_launch_counts` and :func:`launch_counts` (from
+``diffphycon_tpu_torch.kernels``) clear and read every registered counter.
+
+Gradients: on a CUDA tensor each wrapper is a ``torch.autograd.Function``
+(:func:`with_plain_vjp`) whose forward launches the kernel and whose backward
+is the VJP of the plain version, recomputed from the saved inputs: the
+backward is plain PyTorch until backward kernels are written. ``resblock``
+is differentiable through the Functions of the K1 and K3 launches it makes.
+On a CPU tensor the plain version runs under ordinary autograd.
 
 Layouts: activations NHWC fp32, contiguous. Conv weights are packed once
 (see ``nets/unet2d.py``): a KxK conv as ``(K*K*Ci, Co)`` with row index
@@ -31,10 +41,18 @@ Layouts: activations NHWC fp32, contiguous. Conv weights are packed once
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from diffphycon_tpu_torch.kernels import _build, group_norm_triton
+from diffphycon_tpu_torch.kernels import (  # noqa: F401 (counters re-exported)
+    _build,
+    group_norm_triton,
+    launch_counts,
+    register_launch_counters,
+    reset_launch_counts,
+)
 
 GN_EPS = 1e-5
 _INT32_MAX = 2**31 - 1
@@ -85,6 +103,36 @@ def _dispatch(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no kernel or plain path for device {x.device}")
 
 
+class _PlainVJP(torch.autograd.Function):
+    """Forward: ``launch(*inputs)`` (a kernel). Backward: the VJP of
+    ``plain(*inputs)``, recomputed under autograd from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*inputs)
+            wrt = [t for t, need in zip(inputs, needs) if need]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (None, None, *(next(grads) if need else None for need in needs))
+
+
+def with_plain_vjp(launch, plain, *inputs):
+    """``launch(*inputs)``, differentiable through the plain version when
+    grad is enabled and an input requires it (else the bare launch)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return _PlainVJP.apply(launch, plain, *inputs)
+    return launch(*inputs)
+
+
 # ---------------------------------------------------------------------------
 # K1: KxK conv, optional second source (skip concat) and nearest-2x upsample
 # ---------------------------------------------------------------------------
@@ -119,6 +167,12 @@ def conv2d_nhwc(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     b: (Co,). With ``upsample`` the output is (B, 2H, 2W, Co)."""
     if not _dispatch("conv2d_nhwc", x_a):
         return conv2d_nhwc_plain(x_a, w, b, x_b=x_b, k=k, upsample=upsample)
+    return with_plain_vjp(functools.partial(_conv2d_launch, k=k, upsample=upsample),
+                          functools.partial(conv2d_nhwc_plain, k=k, upsample=upsample),
+                          x_a, w, b, x_b)
+
+
+def _conv2d_launch(x_a, w, b, x_b, k, upsample):
     _check_cuda("conv2d_nhwc", x_a=x_a, x_b=x_b, w=w, b=b)
     if k not in (1, 3):
         raise ValueError(f"conv2d_nhwc: k={k}; the kernel takes 1 or 3")
@@ -152,9 +206,7 @@ def conv2d_nhwc(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     return out
 
 
-conv2d_nhwc.launches = 0
-conv2d_nhwc.dual_launches = 0
-conv2d_nhwc.upsample_launches = 0
+register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +227,10 @@ def downsample_nhwc(x, w, b):
     """K2. x: (B, H, W, C) with even H, W; w: (4*C, Co); b: (Co,)."""
     if not _dispatch("downsample_nhwc", x):
         return downsample_nhwc_plain(x, w, b)
+    return with_plain_vjp(_downsample_launch, downsample_nhwc_plain, x, w, b)
+
+
+def _downsample_launch(x, w, b):
     _check_cuda("downsample_nhwc", x=x, w=w, b=b)
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"downsample_nhwc: x must be NHWC with even H, W, "
@@ -194,7 +250,7 @@ def downsample_nhwc(x, w, b):
     return out
 
 
-downsample_nhwc.launches = 0
+register_launch_counters(downsample_nhwc, "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +282,15 @@ def group_norm_act(x, gamma, beta, groups: int = 1, ss=None, res=None,
     strided (a column slice of the batched FiLM projection)."""
     if not _dispatch("group_norm_act", x):
         return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
+
+    def plain(x, gamma, beta, ss, res):
+        return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
+
+    return with_plain_vjp(functools.partial(_group_norm_launch, groups=groups, eps=eps),
+                          plain, x, gamma, beta, ss, res)
+
+
+def _group_norm_launch(x, gamma, beta, ss, res, groups, eps):
     _check_cuda("group_norm_act", x=x, gamma=gamma, beta=beta, res=res)
     if x.dim() != 4:
         raise ValueError(f"group_norm_act: x must be NHWC, got {tuple(x.shape)}")
@@ -247,7 +312,7 @@ def group_norm_act(x, gamma, beta, groups: int = 1, ss=None, res=None,
     return out
 
 
-group_norm_act.launches = 0
+register_launch_counters(group_norm_act, "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -284,29 +349,3 @@ def resblock_plain(x_a, ss, p, x_b=None, groups: int = 1):
     return _resblock(conv2d_nhwc_plain, group_norm_act_plain, x_a, x_b, ss, p,
                      groups)
 
-
-# ---------------------------------------------------------------------------
-# launch counters
-# ---------------------------------------------------------------------------
-
-_COUNTERS = (
-    (conv2d_nhwc, ("launches", "dual_launches", "upsample_launches")),
-    (downsample_nhwc, ("launches",)),
-    (group_norm_act, ("launches",)),
-)
-
-
-def launch_counts() -> dict:
-    """{'conv2d_nhwc': n, 'conv2d_nhwc.dual': n, ...} since the last reset."""
-    out = {}
-    for fn, attrs in _COUNTERS:
-        for a in attrs:
-            key = fn.__name__ if a == "launches" else f"{fn.__name__}.{a[:-9]}"
-            out[key] = getattr(fn, a)
-    return out
-
-
-def reset_launch_counts() -> None:
-    for fn, attrs in _COUNTERS:
-        for a in attrs:
-            setattr(fn, a, 0)

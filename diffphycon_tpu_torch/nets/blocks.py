@@ -5,8 +5,8 @@ the reference torch ``Unet2D`` state_dict (the keys read by
 ``diffphycon_tpu/utils/torch_convert.py``), so a port state_dict converts to
 the JAX package's tree with no new mapping code. Parameters keep torch
 layouts (conv ``(out, in, kh, kw)``, linear ``(out, in)``, LayerNorm gain
-``(1, C, 1, 1)``); the kernel path repacks conv weights once
-(:func:`conv_pack`).
+``(1, C, 1, 1)``); each block's ``pack()`` gives its weights in the
+kernels' layout.
 
 Numerical traps carried over: the sinusoidal frequency divides by
 ``half - 1``; GELU is the exact erf form; ChanLayerNorm eps is 1e-5 in fp32
@@ -69,12 +69,6 @@ class LayerNorm(nn.Module):
         return chan_layer_norm(x, self.g)
 
 
-def _pointwise(x, conv: nn.Conv2d):
-    """1x1 conv on NHWC as a matmul against the (out, in, 1, 1) weight."""
-    out = x @ conv.weight[:, :, 0, 0].t()
-    return out if conv.bias is None else out + conv.bias
-
-
 def conv_pack(conv: nn.Conv2d):
     """Conv2d -> kernel layout (kh*kw*Ci, Co) with row (dy*kw + dx)*Ci + c."""
     co, ci, kh, kw = conv.weight.shape
@@ -122,6 +116,9 @@ class ResnetBlock(nn.Module):
 
 
 class LinearAttention(nn.Module):
+    """Parameters of the linear attention (reference names); it runs inside
+    :class:`LinearAttentionBlock`."""
+
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
@@ -129,35 +126,16 @@ class LinearAttention(nn.Module):
         self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(nn.Conv2d(hidden, dim, 1), LayerNorm(dim))
 
-    def forward(self, x):
-        b, hs, ws, _ = x.shape
-        n, h, d = hs * ws, self.heads, self.dim_head
-        q, k, v = _pointwise(x, self.to_qkv).reshape(b, n, 3, h, d).unbind(2)
-        q = torch.softmax(q, dim=-1) * d ** -0.5  # over the head dim
-        # over tokens, with the token axis made the last one: a softmax over
-        # a strided inner axis takes a slow CUDA path
-        k = torch.softmax(k.permute(0, 2, 3, 1).contiguous(), dim=-1)
-        context = torch.einsum("bhdn,bnhe->bhde", k, v)
-        out = torch.einsum("bhde,bnhd->bnhe", context, q).reshape(b, hs, ws, h * d)
-        return self.to_out[1](_pointwise(out, self.to_out[0]))
-
 
 class Attention(nn.Module):
+    """Parameters of the full attention; it runs inside :class:`AttentionBlock`."""
+
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
         self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Conv2d(hidden, dim, 1)
-
-    def forward(self, x):
-        b, hs, ws, _ = x.shape
-        n, h, d = hs * ws, self.heads, self.dim_head
-        q, k, v = _pointwise(x, self.to_qkv).reshape(b, n, 3, h, d).unbind(2)
-        sim = torch.einsum("bihd,bjhd->bhij", q * d ** -0.5, k)
-        attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
-        out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b, hs, ws, h * d)
-        return _pointwise(out, self.to_out)
 
 
 class PreNorm(nn.Module):
@@ -166,27 +144,48 @@ class PreNorm(nn.Module):
         self.fn = fn
         self.norm = LayerNorm(dim)
 
-    def forward(self, x):
-        return self.fn(self.norm(x))
+
+def _w1x1(conv: nn.Conv2d):
+    """(out, in, 1, 1) conv weight -> (in, out) matmul weight."""
+    return conv.weight[:, :, 0, 0].t().contiguous()
 
 
 class Residual(nn.Module):
+    """x + fn(x) for fn = PreNorm(attention); the attention blocks below."""
+
     def __init__(self, fn: nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
-        return x + self.fn(x)
+    def pack(self) -> dict:
+        """The Pallas ``_attn_p`` layout: norm_g, wqkv (C, 3*hidden) with
+        columns [q | k | v], wo (hidden, C), bo [, out_g]."""
+        attn = self.fn.fn
+        linear = isinstance(attn.to_out, nn.Sequential)
+        out = attn.to_out[0] if linear else attn.to_out
+        p = {"norm_g": self.fn.norm.g.reshape(-1), "wqkv": _w1x1(attn.to_qkv),
+             "wo": _w1x1(out), "bo": out.bias}
+        if linear:
+            p["out_g"] = attn.to_out[1].g.reshape(-1)
+        return p
 
 
-def linear_attention_block(dim: int, heads: int = 4, dim_head: int = 32):
-    """x + LinearAttention(LayerNorm(x)); keys <prefix>.fn.norm.g,
-    <prefix>.fn.fn.to_qkv, <prefix>.fn.fn.to_out.{0,1}."""
-    return Residual(PreNorm(dim, LinearAttention(dim, heads, dim_head)))
+class LinearAttentionBlock(Residual):
+    """x + LinearAttention(LayerNorm(x)); keys fn.norm.g, fn.fn.to_qkv,
+    fn.fn.to_out.{0,1}. Holds parameters only: ``UNet2D`` runs it as K5
+    (:func:`kernels.attention.linear_attention_block`) on its ``pack()``."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__(PreNorm(dim, LinearAttention(dim, heads, dim_head)))
 
 
-def attention_block(dim: int, heads: int = 4, dim_head: int = 32):
-    return Residual(PreNorm(dim, Attention(dim, heads, dim_head)))
+class AttentionBlock(Residual):
+    """x + Attention(LayerNorm(x)); keys fn.norm.g, fn.fn.to_qkv,
+    fn.fn.to_out. Holds parameters only: ``UNet2D`` runs it as K6
+    (:func:`kernels.attention.attention_block`) on its ``pack()``."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__(PreNorm(dim, Attention(dim, heads, dim_head)))
 
 
 def space_to_depth(x):

@@ -10,13 +10,16 @@ kernel-backed forward ``unet2d_pallas_apply``
 - each ResBlock through :func:`kernels.unet2d_blocks.resblock` (K1/K3),
   skip concats read in place by K1's second source;
 - downsample through K2, upsample and the last-level 3x3 convs through K1;
-- attention and linear attention in plain torch.
+- the 8 linear-attention blocks through K5, the bottleneck attention
+  through K6 (``kernels/attention.py``).
 
 :meth:`UNet2D.forward` is that kernel-backed path (on a CPU tensor each
 wrapper takes its plain version). :meth:`UNet2D.forward_plain` runs the same
 sequence from the plain versions only; the tests and ``chip_smoke.py`` hold
-one against the other. Both are inference forwards: the kernels have no
-backward yet.
+one against the other. Both forwards are differentiable: the kernel wrappers
+are autograd Functions whose backward is the VJP of their plain versions.
+For inference the kernel-layout weights are cached; when a gradient can reach
+a parameter they are rebuilt under autograd at every forward.
 """
 
 from __future__ import annotations
@@ -27,19 +30,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 from diffphycon_tpu_torch.nets.blocks import (
+    AttentionBlock,
     Downsample,
+    LinearAttentionBlock,
     ResnetBlock,
     Upsample,
-    attention_block,
     conv_pack,
-    linear_attention_block,
     time_mlp,
 )
 
-_KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc)
-_PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain)
+_KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
+               ka.attention_block)
+_PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
+              ka.linear_attention_block_plain, ka.attention_block_plain)
 
 
 def _conv_nchw(x, conv: nn.Conv2d):
@@ -75,12 +81,12 @@ class UNet2D(nn.Module):
             self.downs.append(nn.ModuleList([
                 ResnetBlock(d_in, d_in, time_dim, groups),
                 ResnetBlock(d_in, d_in, time_dim, groups),
-                linear_attention_block(d_in, heads, dh),
+                LinearAttentionBlock(d_in, heads, dh),
                 nn.Conv2d(d_in, d_out, 3, padding=1) if last else Downsample(d_in, d_out),
             ]))
         mid = dims[-1]
         self.mid_block1 = ResnetBlock(mid, mid, time_dim, groups)
-        self.mid_attn = attention_block(mid, heads, dh)
+        self.mid_attn = AttentionBlock(mid, heads, dh)
         self.mid_block2 = ResnetBlock(mid, mid, time_dim, groups)
         self.ups = nn.ModuleList()
         for i, (d_in, d_out) in enumerate(reversed(in_out)):
@@ -88,11 +94,12 @@ class UNet2D(nn.Module):
             self.ups.append(nn.ModuleList([
                 ResnetBlock(d_out + d_in, d_out, time_dim, groups),
                 ResnetBlock(d_out + d_in, d_out, time_dim, groups),
-                linear_attention_block(d_out, heads, dh),
+                LinearAttentionBlock(d_out, heads, dh),
                 nn.Conv2d(d_out, d_in, 3, padding=1) if last else Upsample(d_out, d_in),
             ]))
         self.final_res_block = ResnetBlock(dim * 2, dim, time_dim, groups)
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
+        self.attn_heads, self.attn_dim_head = heads, dh
         self._pack_cache = None
 
     # -- weights in kernel layout --------------------------------------------
@@ -115,11 +122,19 @@ class UNet2D(nn.Module):
                          else conv_pack(lvl[3]) for lvl in self.downs]
         packs["up"] = [lvl[3].pack() if isinstance(lvl[3], Upsample)
                        else conv_pack(lvl[3]) for lvl in self.ups]
+        packs["down_attn"] = [lvl[2].pack() for lvl in self.downs]
+        packs["up_attn"] = [lvl[2].pack() for lvl in self.ups]
+        packs["mid_attn"] = self.mid_attn.pack()
         return packs
 
     def _kernel_pack(self) -> dict:
-        """pack(), cached until any parameter is replaced or edited in place
+        """pack(). When grad is enabled and a parameter requires it, built
+        afresh under autograd, so the loss reaches the parameters. Otherwise
+        cached until any parameter is replaced or edited in place
         (load_state_dict, optimizer steps and .to() all bump the key)."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            self._pack_cache = None  # parameters are about to change: free the copy
+            return self.pack()
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._pack_cache is None or self._pack_cache[0] != key:
             with torch.no_grad():
@@ -137,10 +152,10 @@ class UNet2D(nn.Module):
         return self._forward(x, time, self.pack(), _PLAIN_OPS)
 
     def _forward(self, x, time, packs, ops):
-        resblock, downsample, conv = ops
+        resblock, downsample, conv, linear_attn, attn = ops
         if x.dim() != 4:
             raise ValueError(f"UNet2D expects (B, T, X, C), got {tuple(x.shape)}")
-        g = self.groups
+        g, heads, dh = self.groups, self.attn_heads, self.attn_dim_head
         temb = self.time_mlp(time)
         ss_all = F.silu(temb) @ packs["film_w"] + packs["film_b"]
         film = iter(torch.split(ss_all, packs["film_widths"], dim=1))
@@ -156,7 +171,7 @@ class UNet2D(nn.Module):
             x = block(x)
             h.append(x)
             x = block(x)
-            x = lvl[2](x)
+            x = linear_attn(x, packs["down_attn"][i], heads, dh)
             h.append(x)
             p = packs["down"][i]
             if isinstance(lvl[3], Downsample):
@@ -165,13 +180,13 @@ class UNet2D(nn.Module):
                 x = conv(x, p["w"], p["b"], k=3)
 
         x = block(x)
-        x = self.mid_attn(x)
+        x = attn(x, packs["mid_attn"], heads, dh)
         x = block(x)
 
         for i, lvl in enumerate(self.ups):
             x = block(x, h.pop())
             x = block(x, h.pop())
-            x = lvl[2](x)
+            x = linear_attn(x, packs["up_attn"][i], heads, dh)
             p = packs["up"][i]
             x = conv(x, p["w"], p["b"], k=3, upsample=isinstance(lvl[3], Upsample))
 

@@ -1,17 +1,60 @@
-"""Burgers and smoke data for the port (the Burgers synthetic generator and
-h5 layout, the smoke sim directories); port of those parts of
-``diffphycon_tpu/training/data.py``."""
+"""Burgers and smoke data for the port (the Burgers synthetic generator, h5
+layout, training stack and batch iterator; the smoke sim directories); port
+of those parts of ``diffphycon_tpu/training/data.py``."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from pathlib import Path
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.physics.burgers import burgers_solve, make_burgers_data
+
+
+def stack_burgers_uf(u: np.ndarray, f: np.ndarray, rescaler: float = 10.0,
+                     partially_observed_fill_zero: Optional[str] = None) -> np.ndarray:
+    """(N, 11, 128) u and (N, 10, 128) f -> (N, 16, 128, 2) float32: u in
+    channel 0, f in channel 1, zero-padded to 16 rows, divided by
+    ``rescaler``; with "front_rear_quarter" the unobserved middle half of u
+    is zeroed first."""
+    n, nt_u, nx = u.shape
+    out = np.zeros((n, 16, nx, 2), np.float32)
+    if partially_observed_fill_zero == "front_rear_quarter":
+        u = u.copy()
+        u[:, :, nx // 4 : (3 * nx) // 4] = 0.0
+    elif partially_observed_fill_zero is not None:
+        raise ValueError(partially_observed_fill_zero)
+    out[:, :nt_u, :, 0] = u
+    out[:, : f.shape[1], :, 1] = f
+    return out / rescaler
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    """In-memory dataset with an endless shuffled batch iterator (numpy's
+    generator, so the batches equal the JAX package's)."""
+
+    data: np.ndarray  # (N, ...)
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def batches(self, batch_size: int, seed: int = 0,
+                drop_last: bool = True) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(seed)
+        n = len(self)
+        if batch_size > n:
+            raise ValueError(f"batch {batch_size} larger than the dataset ({n})")
+        while True:
+            perm = rng.permutation(n)
+            end = n - (n % batch_size) if drop_last else n
+            for i in range(0, end, batch_size):
+                yield self.data[perm[i : i + batch_size]]
 
 
 def load_burgers_h5(path, split: str = "train", nt: int = 11, nx: int = 128):

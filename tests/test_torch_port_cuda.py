@@ -76,3 +76,91 @@ def test_port_cg_kernel_matches_plain_on_gpu(cuda_device):
         kcg.cg_pressure(div.double(), coeffs)
     with pytest.raises(ValueError, match="coefficients on cpu"):
         kcg.cg_pressure(div, smoke_env.smoke_domain_128().laplacian_coeffs("cpu"))
+
+
+def _attn_params(c, g, device, linear):
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=device) * scale
+
+    p = {"norm_g": 1 + r(c, scale=0.1), "wqkv": r(c, 384, scale=c ** -0.5),
+         "wo": r(128, c, scale=128 ** -0.5), "bo": r(c, scale=0.1)}
+    if linear:
+        p["out_g"] = 1 + r(c, scale=0.1)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 128, 64), (2, 2, 16, 512)])
+def test_port_linear_attention_kernel_matches_plain_on_gpu(cuda_device, shape):
+    """K5 at the first and the last level of the Burgers net (2048 and 32
+    tokens), and the plain VJP of its autograd Function."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    p = _attn_params(shape[-1], g, cuda_device, linear=True)
+    assert_close(ka.linear_attention_block(x, p), ka.linear_attention_block_plain(x, p), RTOL)
+
+    xg = x.clone().requires_grad_(True)
+    wg = p["wqkv"].clone().requires_grad_(True)
+    w = torch.randn(shape, generator=g, device=cuda_device)
+    (ka.linear_attention_block(xg, {**p, "wqkv": wg}) * w).sum().backward()
+    xr = x.clone().requires_grad_(True)
+    wr = p["wqkv"].clone().requires_grad_(True)
+    (ka.linear_attention_block_plain(xr, {**p, "wqkv": wr}) * w).sum().backward()
+    assert_close(xg.grad, xr.grad, RTOL)
+    assert_close(wg.grad, wr.grad, RTOL)
+
+    with pytest.raises(TypeError, match="float32"):
+        ka.linear_attention_block(x.double(), {k: v.double() for k, v in p.items()})
+    wide = torch.randn(1, 2, 2, 520, device=cuda_device)
+    with pytest.raises(ValueError, match="channels"):
+        ka.linear_attention_block(wide, _attn_params(520, g, cuda_device, linear=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(50, 2, 16, 512), (3, 4, 7, 64)])
+def test_port_attention_kernel_matches_plain_on_gpu(cuda_device, shape):
+    """K6 at the Burgers bottleneck (32 tokens, 512 channels) and at a ragged
+    28-token tile."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    p = _attn_params(shape[-1], g, cuda_device, linear=False)
+    assert_close(ka.attention_block(x, p), ka.attention_block_plain(x, p), RTOL)
+    with pytest.raises(TypeError, match="float32"):
+        ka.attention_block(x.double(), {k: v.double() for k, v in p.items()})
+    with pytest.raises(ValueError, match="channels"):
+        ka.attention_block(torch.randn(1, 2, 2, 1024, device=cuda_device),
+                           _attn_params(1024, g, cuda_device, linear=False))
+    with pytest.raises(ValueError, match="tokens"):
+        ka.attention_block(torch.randn(1, 4, 16, shape[-1], device=cuda_device), p)
+
+
+@pytest.mark.cuda
+def test_port_unet2d_kernel_gradients_match_plain_on_gpu(cuda_device):
+    """Every parameter gradient of a loss through the kernel-backed forward
+    (K1-K3, K5, K6 with plain VJPs) against the plain forward; relative
+    per-tensor error 1e-4 (the forwards differ by summation order only)."""
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D
+
+    net = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2, 4, 8)),
+                       torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(2, 16, 128, 2, generator=g, device=cuda_device)
+    t = torch.tensor([3.0, 600.0], device=cuda_device)
+    grads, launches = [], []
+    for fwd in (net.forward, net.forward_plain):
+        net.zero_grad()
+        kb.reset_launch_counts()
+        fwd(x, t).square().mean().backward()
+        grads.append({n: q.grad.clone() for n, q in net.named_parameters()})
+        launches.append(kb.launch_counts())
+    assert launches[0]["linear_attention_block"] == 8 and launches[0]["attention_block"] == 1
+    assert all(v == 0 for v in launches[1].values())
+    for name, gk in grads[0].items():
+        gp = grads[1][name]
+        assert gp.abs().max() > 0, name
+        assert (gk - gp).norm() <= 1e-4 * gp.norm(), name

@@ -19,6 +19,7 @@ from diffphycon_tpu_torch.diffusion import (
     make_guidance_schedule,
 )
 from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
+from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -29,7 +30,9 @@ def test_port_imports_no_jax_or_reference_package():
     assert "diffphycon_tpu_torch.kernels.unet2d_blocks" in names
     assert "diffphycon_tpu_torch.apps.infer_burgers" in names
     for new in ("kernels.cg_pressure", "physics.fluids.pressure", "physics.fluids.smoke_env",
-                "nets.unet3d", "benchmarks.smoke", "apps.generate_smoke", "apps.infer_smoke"):
+                "nets.unet3d", "benchmarks.smoke", "apps.generate_smoke", "apps.infer_smoke",
+                "kernels.attention", "training.train_state", "training.trainer",
+                "apps.train_burgers"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -44,7 +47,7 @@ def test_port_imports_no_jax_or_reference_package():
     assert out.stdout.strip() == "", f"port imported: {out.stdout.strip()}"
 
 
-def test_port_cuda_request_without_cuda_raises(monkeypatch):
+def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -57,7 +60,9 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch):
                  lambda: make_guidance_schedule("cosine", 10),
                  lambda: GaussianDiffusion(lambda x, t: x, sample_shape=(4,), timesteps=10),
                  lambda: SmokeSim.create(),
-                 lambda: smoke_bench.build_guidance(smoke_bench.SmokeConfig())):
+                 lambda: smoke_bench.build_guidance(smoke_bench.SmokeConfig()),
+                 lambda: Trainer(None, torch.nn.Linear(2, 2), iter(()), None,
+                                 TrainerConfig(results_folder=str(tmp_path / "run")))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -15,6 +15,7 @@ import torch
 from diffphycon_tpu.nets import blocks as jb
 from diffphycon_tpu.nets.unet2d import UNet2D as JaxUNet2D
 from diffphycon_tpu.utils.torch_convert import convert_unet2d
+from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.nets import blocks as tb
 from diffphycon_tpu_torch.nets.unet2d import UNet2D
 from diffphycon_tpu_torch.utils import convert
@@ -80,11 +81,13 @@ def test_port_attention_blocks(linear):
     x = rand(2, 4, 8, 32)
     mod = (jb.LinearAttentionBlock if linear else jb.AttentionBlock)(32)
     params = flax_tree(mod, jnp.asarray(x))["params"]
-    port = (tb.linear_attention_block if linear else tb.attention_block)(32)
+    port = (tb.LinearAttentionBlock if linear else tb.AttentionBlock)(32)
     port = _load(port, lambda tr, n, sd: convert._attention(tr, f"{n}.fn", sd, linear),
                  params)
+    block = ka.linear_attention_block if linear else ka.attention_block
     with torch.no_grad():
-        _close(port(torch.from_numpy(x)), mod.apply({"params": params}, jnp.asarray(x)))
+        _close(block(torch.from_numpy(x), port.pack()),
+               mod.apply({"params": params}, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("kind", ["down", "up"])
