@@ -44,9 +44,32 @@ Smoke:
    times; then the UNet3D forward and one guided DDIM step at batch 8, timed,
    and a profiled evaluation rollout (K4's share of it).
 
+Training:
+8. the same UNet2D at batch 16: gradient parity, the train app (fresh,
+   resumed, prior) with exact launch counts, steps/s, the infer app from
+   the checkpoints.
+
+The persistent kernel (``csrc/unet2d_persistent.cu``):
+9. K7 ``resblock_pair``, the counterpart of ``scripts/bench_midgrain_pallas.py``:
+   the pair at batch 50 on the four down-path pair shapes of the flagship
+   UNet2D and the script's own (4, 32, 256), each launched once with the
+   counters reset (5 K7 launches, nothing else); then against the plain
+   pair and two K1/K3 ``resblock`` calls, timed beside them and beside the
+   pair from cuDNN convs and ``F.group_norm`` (TF32 off);
+10. K8 ``UNet2D.forward_mega`` at full width (batch 50): against the plain
+   and the K1-K6 forwards, exactly 1 K8 launch and nothing else per
+   forward, two forwards bit-equal, the 3-level dim-16 net at batch 4 (a
+   128-token bottleneck); the kernel against its plain version on the same
+   inputs; ``forward_mega``, ``forward`` and ``forward_plain`` timed in one
+   call, two ``forward_mega`` calls profiled and the host time of its parts;
+   20 guided DDPM steps at batch 50 with both models through
+   ``forward_mega`` (exactly 40 K8 launches) in turns with 20 through K1-K6,
+   and a profile of 3 of its steps.
+
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
-phase-3 times; K4: per solve at batch 8), and
-``{"ok": true, "device": {...}}`` as the last line.
+phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
+K8: per forward at batch 50), and ``{"ok": true, "device": {...}}`` as the
+last line.
 
 Any failed check exits non-zero before the last line. Run from the
 repository root: ``python3 chip_smoke.py``.
@@ -111,6 +134,16 @@ SOURCES = {
     "attention_block": ("cuda", "diffphycon_tpu_torch/csrc/attention.cu"),
 }
 SMOKE_SOURCES = {"cg_pressure": ("cuda", "diffphycon_tpu_torch/csrc/cg_pressure.cu")}
+PERSISTENT_SRC = ("cuda", "diffphycon_tpu_torch/csrc/unet2d_persistent.cu")
+REPLACES.update({
+    "resblock_pair": "diffphycon_tpu/research/pallas_unet2d.py:170 (_resblock_pair_kernel; "
+                     "wrapper resblock_pair :414, pallas_call through _run :360)",
+    "unet2d_mega": "diffphycon_tpu/research/pallas_unet2d_mega.py:283 (unet2d_mega_apply; "
+                   "pallas_call :392)",
+})
+# the down-path pair shapes of the flagship UNet2D, then the JAX bench
+# script's level2 (4, 32, 256)
+PAIR_SHAPES = ((16, 128, 64), (8, 64, 64), (4, 32, 128), (2, 16, 256), (4, 32, 256))
 
 
 def emit(obj) -> None:
@@ -187,6 +220,8 @@ def expected_counts(calls):
         "group_norm_act": sum(k == "group_norm_act" for k, _, _ in calls),
         "linear_attention_block": sum(k == "linear_attention_block" for k, _, _ in calls),
         "attention_block": sum(k == "attention_block" for k, _, _ in calls),
+        "resblock_pair": 0,  # the per-block forward launches no persistent kernel
+        "unet2d_mega": 0,
     }
 
 
@@ -681,6 +716,273 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
         fail(f"non-finite metrics from the trained checkpoints: {entry}")
 
 
+def _res_pack(torch, gen, c):
+    """Seeded ResBlock weights of one equal-channel block (kernel layout)."""
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    return {"w1": r(9 * c, c, scale=(9 * c) ** -0.5), "b1": r(c, scale=0.1),
+            "gs1": r(c, scale=0.1, shift=1.0), "gb1": r(c, scale=0.1),
+            "w2": r(9 * c, c, scale=(9 * c) ** -0.5), "b2": r(c, scale=0.1),
+            "gs2": r(c, scale=0.1, shift=1.0), "gb2": r(c, scale=0.1)}
+
+
+def _pair_library(torch, F, kb, x, ss_a, ss_b, p_a, p_b):
+    """The pair from cuDNN convs (TF32 off) and F.group_norm on NCHW: the
+    library yardstick (weights and the input transposed outside the timing)."""
+    c = x.shape[-1]
+
+    def nchw_w(w):
+        return w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+
+    blocks = [(ss, p, nchw_w(p["w1"]), nchw_w(p["w2"])) for ss, p in ((ss_a, p_a), (ss_b, p_b))]
+    x_l = x.permute(0, 3, 1, 2).contiguous()
+
+    def run():
+        h_in = x_l
+        for ss, p, w1, w2 in blocks:
+            h = F.group_norm(F.conv2d(h_in, w1, p["b1"], padding=1), 1, p["gs1"], p["gb1"],
+                             eps=kb.GN_EPS)
+            h = F.silu(h * (ss[:, :c, None, None] + 1.0) + ss[:, c:, None, None])
+            h = F.group_norm(F.conv2d(h, w2, p["b2"], padding=1), 1, p["gs2"], p["gb2"],
+                             eps=kb.GN_EPS)
+            h_in = F.silu(h) + h_in
+        return h_in
+
+    return run
+
+
+def resblock_pair_phase(torch, F, smi_line):
+    """Phase 9: K7 at the pair shapes, against the plain pair and two
+    K1/K3 ResBlocks."""
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = []
+    for h, w, c in PAIR_SHAPES:
+        x = torch.randn(B, h, w, c, generator=gen, device="cuda")
+        ss_a = 0.5 * torch.randn(B, 2 * c, generator=gen, device="cuda")
+        ss_b = 0.5 * torch.randn(B, 2 * c, generator=gen, device="cuda")
+        cases.append((x, ss_a, ss_b, _res_pack(torch, gen, c), _res_pack(torch, gen, c)))
+    with torch.no_grad():
+        kb.reset_launch_counts()  # the path: the bench script's pair at each shape, once
+        outs = [kb.resblock_pair(*case) for case in cases]
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        want = {k: 0 for k in counts}
+        want["resblock_pair"] = len(PAIR_SHAPES)
+        rows, bad = [], []
+        for (h, w, c), case, out in zip(PAIR_SHAPES, cases, outs):
+            x, ss_a, ss_b, p_a, p_b = case
+            plain = kb.resblock_pair_plain(*case)
+            two = kb.resblock(kb.resblock(x, ss_a, p_a), ss_b, p_b)
+            library = _pair_library(torch, F, kb, *case)
+            tol = KERNEL_RTOL * max(1.0, plain.abs().max().item())
+            err = (out - plain).abs().max().item()
+            err_two = (out - two).abs().max().item()
+            repeat_equal = torch.equal(out, kb.resblock_pair(*case))
+            ms = timed(torch, lambda: kb.resblock_pair(*case), n=10)
+            two_ms = timed(torch, lambda: kb.resblock(kb.resblock(x, ss_a, p_a), ss_b, p_b),
+                           n=10)
+            plain_ms = timed(torch, lambda: kb.resblock_pair_plain(*case), n=5)
+            lib_ms = timed(torch, library, n=10)
+            m = B * h * w
+            # 4 convs; per element GN (two passes) + affine + FiLM / residual + SiLU ~16
+            flops = 4 * 2 * m * c * 9 * c + 4 * 16 * m * c
+            nbytes = 4 * (2 * m * c + 2 * (2 * 9 * c * c + 6 * c) + 2 * 2 * B * c)
+            b_ms, b_by = bound(flops, nbytes)
+            row = {"shape": [B, h, w, c], "max_abs_err": err, "max_abs_err_vs_two_resblocks":
+                   err_two, "tol": tol, "repeat_bit_equal": repeat_equal, "ms": ms,
+                   "two_resblock_ms": two_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
+            rows.append(row)
+            emit({"phase": "resblock_pair", **row})
+            if not (err <= tol and err_two <= tol and repeat_equal):
+                bad.append(row)
+            del plain, two
+    emit({"phase": "resblock_pair_checked", "launches": counts, "expected": want,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if bad:
+        fail(f"K7 differs from the plain pair or from two ResBlocks: {bad}")
+    if counts != want:
+        fail(f"K7 path launches {counts} != {want}")
+    agg = {"launches": counts["resblock_pair"],
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        agg[key] = sum(r[key] for r in rows)
+    agg["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) \
+        else "bytes"
+    return agg
+
+
+def unet2d_mega_phase(torch, smi_line, bench, cfg):
+    """Phase 10: K8 through UNet2D.forward_mega at full width, its checks,
+    timings and 20 guided DDPM steps through it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.kernels import unet2d_mega as kmega
+    from diffphycon_tpu_torch.nets import unet2d as tunet
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    net = bench.init_params(cfg, seed=0, device="cuda")
+    net_w = bench.init_params(cfg, seed=1, device="cuda")
+    x = torch.randn(B, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
+    t = torch.linspace(0, 999, B, device="cuda")
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = net.forward_mega(x, t)
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        want = {k: 0 for k in counts}
+        want["unet2d_mega"] = 1
+        bit_equal = torch.equal(out, net.forward_mega(x, t))
+        ref_plain = net.forward_plain(x, t)
+        ref_k = net(x, t)
+        tol = KERNEL_RTOL * max(1.0, ref_plain.abs().max().item())
+        err_plain = (out - ref_plain).abs().max().item()
+        err_k = (out - ref_k).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        del ref_plain, ref_k
+
+        # the kernel alone, on the inputs forward_mega gives it
+        packs = net._kernel_pack()
+        film = net._film(t, packs)
+        x0 = tunet._conv_nchw(x, net.init_conv)
+        plan = kmega.mega_plan(packs, x0.shape, net.groups, HEADS, DIM_HEAD, x0.device)
+        k_out = kmega.unet2d_mega(x0, film, packs, plan)
+        k_ref = kmega.unet2d_mega_plain(x0, film, packs, plan)
+        k_err = (k_out - k_ref).abs().max().item()
+        k_tol = KERNEL_RTOL * max(1.0, k_ref.abs().max().item())
+        with FlopCounterMode(display=False) as counter:
+            kmega.unet2d_mega_plain(x0, film, packs, plan)
+        weights = {id(s.ptrs[k]): s.ptrs[k] for s in plan.stages for k in s.ptrs
+                   if isinstance(s.ptrs[k], torch.Tensor)}
+        nbytes = 4 * (sum(w.numel() for w in weights.values()) + x0.numel() + film.numel()
+                      + k_out.numel())
+        flops = counter.get_total_flops()
+        b_ms, b_by = bound(flops, nbytes)
+        del k_out, k_ref
+        k_ms = timed(torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
+        k_plain_ms = timed(torch, lambda: kmega.unet2d_mega_plain(x0, film, packs, plan), n=5)
+        mega_fwd_ms = timed(torch, lambda: net.forward_mega(x, t), n=10)
+        fwd_ms = timed(torch, lambda: net(x, t), n=10)
+        plain_fwd_ms = timed(torch, lambda: net.forward_plain(x, t), n=5)
+        mega_fwd_ms_2 = timed(torch, lambda: net.forward_mega(x, t), n=10)
+        prof_wall, prof_dev, prof_rows = profile_window(
+            torch, lambda: [net.forward_mega(x, t) for _ in range(2)])
+        # host time to enqueue one forward_mega, and its parts (no sync inside)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        net.forward_mega(x, t)
+        enqueue_ms = 1e3 * (time.perf_counter() - tic)
+        torch.cuda.synchronize()
+        host = {}
+        for name, fn in (("pack", net._kernel_pack), ("film", lambda: net._film(t, packs)),
+                         ("init_conv", lambda: tunet._conv_nchw(x, net.init_conv)),
+                         ("k8_wrapper", lambda: kmega.unet2d_mega(x0, film, packs, plan)),
+                         ("final_conv", lambda: tunet._conv_nchw(x0, net.final_conv))):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn()
+            host[name] = 1e3 * (time.perf_counter() - tic)
+        torch.cuda.synchronize()
+
+        # the 3-level net: a 4 x 32 = 128-token bottleneck, K8's largest
+        small = seeded_init_(tunet.UNet2D(dim=16, dim_mults=(1, 2, 4)),
+                             torch.Generator().manual_seed(0)).cuda()
+        xs = torch.randn(4, 16, 128, 2, generator=gen, device="cuda")
+        ts = torch.tensor([3.0, 500.0, 999.0, 0.0], device="cuda")
+        s_out, s_ref = small.forward_mega(xs, ts), small.forward_plain(xs, ts)
+        s_err = (s_out - s_ref).abs().max().item()
+        s_tol = KERNEL_RTOL * max(1.0, s_ref.abs().max().item())
+    emit({"phase": "unet2d_mega", "batch": B, "stages": plan.counts(),
+          "barriers": plan.barriers(), "grid_blocks": kmega.unet2d_mega.grid,
+          "workspace_mb": plan.workspace_bytes / 1e6, "launches_per_forward": counts,
+          "expected": want, "max_abs_err_vs_plain_forward": err_plain,
+          "max_abs_err_vs_kernel_forward": err_k, "tol": tol, "bit_equal_repeat": bit_equal,
+          "finite": finite, "kernel_max_abs_err": k_err, "kernel_tol": k_tol,
+          "kernel_ms": k_ms, "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+          "forward_mega_ms": [mega_fwd_ms, mega_fwd_ms_2], "forward_k1_k6_ms": fwd_ms,
+          "forward_plain_ms": plain_fwd_ms,
+          "forward_mega_enqueue_ms": enqueue_ms, "forward_mega_host_ms": host,
+          "profile_two_forward_mega": {"wall_ms": prof_wall, "device_ms": prof_dev,
+                                       "top": [[k[:60], v] for k, v in prof_rows[:6]]},
+          "small_3_level": {"batch": 4, "bottleneck_tokens": 128, "max_abs_err": s_err,
+                            "tol": s_tol},
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not (err_plain <= tol and err_k <= tol and finite):
+        fail(f"forward_mega differs: {err_plain} (plain), {err_k} (K1-K6) > {tol}")
+    if not k_err <= k_tol:
+        fail(f"K8 differs from its plain version: {k_err} > {k_tol}")
+    if counts != want:
+        fail(f"launches per forward_mega {counts} != {want}")
+    if not bit_equal:
+        fail("two K8 forwards are not bit-equal")
+    if not s_err <= s_tol:
+        fail(f"K8 on the 128-token bottleneck differs: {s_err} > {s_tol}")
+    del small, xs, s_out, s_ref
+
+    # 20 guided DDPM steps at batch 50, both models through forward_mega, in
+    # turns with 20 through K1-K6 (K1-K6, K8, K8, K1-K6)
+    t0 = time.time()
+    u_target = torch.randn(B, 11, 128, generator=gen, device="cuda")
+    cond_vals = {"u0": u_target[:, 0, :] / bench.RESCALER,
+                 "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfg, u_target, wu=1000.0)
+    gds = {"k1_k6": bench.build_diffusion(cfg, net, model_w=net_w, device="cuda"),
+           "mega": bench.build_diffusion(cfg, net.forward_mega, model_w=net_w.forward_mega,
+                                         device="cuda")}
+    ts = gds["mega"].sample_ts()
+    n_steps = 20
+    rates, mega_counts = {"k1_k6": [], "mega": []}, None
+    xs_ = {}
+    for name in ("k1_k6", "mega", "mega", "k1_k6"):
+        gd = gds[name]
+        xg = torch.Generator(device="cuda").manual_seed(1)
+        xt = gd.sample_chunk(gd.sample_init(B, xg), ts[:2], cond_vals, guidance, xg)  # warm-up
+        torch.cuda.synchronize()
+        if name == "mega" and mega_counts is None:
+            kb.reset_launch_counts()
+        tic = time.perf_counter()
+        xt = gd.sample_chunk(xt, ts[2:2 + n_steps], cond_vals, guidance, xg)
+        torch.cuda.synchronize()
+        rates[name].append(n_steps / (time.perf_counter() - tic))
+        if name == "mega" and mega_counts is None:
+            mega_counts = kb.launch_counts()
+        xs_.setdefault(name, xt)
+    want_steps = {k: 0 for k in mega_counts}
+    want_steps["unet2d_mega"] = 2 * n_steps
+    gd = gds["mega"]
+
+    def three_steps():
+        nonlocal xt
+        xt = gd.sample_chunk(xt, ts[22:25], cond_vals, guidance, xg)
+
+    wall_ms, dev_ms, rows = profile_window(torch, three_steps)
+    busy = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:6]]}
+    step_gap = ((xs_["mega"] - xs_["k1_k6"]).abs().max()
+                / xs_["k1_k6"].abs().max().clamp(min=1.0)).item()
+    finite = bool(torch.isfinite(xs_["mega"]).all())
+    emit({"phase": "guided_ddpm_mega", "batch": B, "steps_timed": n_steps,
+          "order": "k1_k6, mega, mega, k1_k6",
+          "guided_denoise_steps_per_sec": rates, "profile_mega": busy, "launches": mega_counts,
+          "expected": want_steps, "finite": finite,
+          "rel_gap_vs_k1_k6_after_22_steps": step_gap,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail("non-finite samples in the guided DDPM loop through forward_mega")
+    if mega_counts != want_steps:
+        fail(f"launches of 20 guided steps through forward_mega {mega_counts} != {want_steps}")
+    return {"launches": mega_counts["unet2d_mega"], "max_abs_err": k_err, "ms": k_ms,
+            "plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -898,6 +1200,12 @@ def main() -> int:
 
     # -- 8. Burgers training ------------------------------------------------
     burgers_training_phase(torch, smi_line, fwd_counts)
+    torch.cuda.empty_cache()
+
+    # -- 9-10. the persistent kernel: K7, then K8 ---------------------------
+    persistent = {"resblock_pair": resblock_pair_phase(torch, F, smi_line)}
+    torch.cuda.empty_cache()
+    persistent["unet2d_mega"] = unet2d_mega_phase(torch, smi_line, bench, cfg)
 
     # -- kernels line ---------------------------------------------------------
     kernels = []
@@ -912,6 +1220,9 @@ def main() -> int:
     for k, (route, src) in SMOKE_SOURCES.items():
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
                         "launches": cg_launches, **cg_row})
+    for k, row in persistent.items():
+        kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
+                        "replaces": REPLACES[k], **row})
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
           "note": "K1-K3, K5 (linear_attention_block, one K5a + one K5b per launch) "
                   "and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
@@ -920,7 +1231,13 @@ def main() -> int:
                   "Burgers main path; "
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
                   "solves the system, so library_ms is null), launches those of "
-                  "the smoke main path"})
+                  "the smoke main path; resblock_pair (K7): sums over its five "
+                  "shapes at batch 50, launches those of the phase-9 path (one "
+                  "per shape), library_ms the pair from cuDNN convs and "
+                  "F.group_norm (TF32 off); unet2d_mega (K8): per forward at "
+                  "batch 50, launches those of 20 guided DDPM steps through "
+                  "forward_mega (2 per step), library_ms null (no PyTorch call "
+                  "computes the net; phase 10 times the K1-K6 forward beside it)"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

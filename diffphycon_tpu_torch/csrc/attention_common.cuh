@@ -2,6 +2,10 @@
 // UNet2D attention geometry, warp reductions, the ChanLayerNorm statistics
 // of a tile of tokens, and the normalised input chunk both projections read.
 //
+// Activations are read through load_act<kCoherent>: plain loads for K5 and
+// K6, __ldcg (L2 only, never the non-coherent path) in the persistent kernel,
+// whose activations are written by other blocks earlier in the same launch.
+//
 // Layouts: x is NHWC fp32 viewed as (B, n, C) tokens; wqkv is (C, 384) with
 // columns [q | k | v], each (head, d); wo is (128, C). Weights are read from
 // device memory with __ldg (a column per thread, so a warp reads 128
@@ -38,9 +42,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <bool kCoherent>
+__device__ __forceinline__ float load_act(const float* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
 // ChanLayerNorm statistics of tokens tok0 .. tok0 + kTok - 1 of one sample
 // (xb: (n, C)): one warp per token, the mean, then the biased variance of
 // the deviations, as the plain version computes them. Tokens past n get 0.
+template <bool kCoherent = false>
 __device__ __forceinline__ void token_stats(const float* xb, int n, int C, int tok0,
                                             float* mean, float* rstd) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
@@ -50,11 +64,11 @@ __device__ __forceinline__ void token_stats(const float* xb, int n, int C, int t
     if (tok < n) {  // uniform across the warp
       const float* row = xb + static_cast<size_t>(tok) * C;
       float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += row[c];
+      for (int c = lane; c < C; c += 32) s += load_act<kCoherent>(row + c);
       m = warp_sum(s) / C;
       float v = 0.f;
       for (int c = lane; c < C; c += 32) {
-        const float d = row[c] - m;
+        const float d = load_act<kCoherent>(row + c) - m;
         v += d * d;
       }
       r = rsqrtf(warp_sum(v) / C + kLnEps);
@@ -66,17 +80,19 @@ __device__ __forceinline__ void token_stats(const float* xb, int n, int C, int t
   }
 }
 
-// hT[c * kTP + t] = ChanLN(x)[tok0 + t][c0 + c] * g[c0 + c] for one chunk of
-// kCC channels; 0 past n or C.
+// hT[c * kStride + t] = ChanLN(x)[tok0 + t][c0 + c] * g[c0 + c] for kT
+// tokens and one chunk of kCC channels; 0 past n or C.
+template <bool kCoherent = false, int kT = kTok, int kStride = kTP>
 __device__ __forceinline__ void load_norm_chunk(const float* xb, const float* g, int n, int C,
                                                 int tok0, int c0, const float* mean,
                                                 const float* rstd, float* hT) {
-  for (int i = threadIdx.x; i < kTok * kCC; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kT * kCC; i += blockDim.x) {
     const int t = i / kCC, c = i - t * kCC;
     const int tok = tok0 + t, ch = c0 + c;
     float v = 0.f;
-    if (tok < n && ch < C) v = (xb[static_cast<size_t>(tok) * C + ch] - mean[t]) * rstd[t] * g[ch];
-    hT[c * kTP + t] = v;
+    if (tok < n && ch < C)
+      v = (load_act<kCoherent>(xb + static_cast<size_t>(tok) * C + ch) - mean[t]) * rstd[t] * g[ch];
+    hT[c * kStride + t] = v;
   }
 }
 

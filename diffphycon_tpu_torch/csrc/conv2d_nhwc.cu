@@ -19,52 +19,7 @@
 // Weight layout (chosen once when weights are packed): w[k, co] with
 // k = (dy*K + dx) * (Ca + Cb) + c, i.e. the flax kernel (kh, kw, Ci, Co)
 // flattened to (kh*kw*Ci, Co).
-#include "igemm_nhwc.cuh"
-
-namespace {
-
-struct ConvGather {
-  const float* xa;
-  const float* xb;
-  int Ca, Cb, Ci;
-  int H, W;    // output (= conv input, in upsampled coordinates) size
-  int Hs, Ws;  // source tensor size: (H/2, W/2) when upsampling, else (H, W)
-  int ks, pad, up;
-
-  // 32-bit indices: the wrapper caps every tensor at 2^31 - 1 elements
-  struct Row {
-    int oh, ow, base;  // base: source pixel index of (b, 0, 0); oh < 0 past the end
-  };
-  struct Tap {
-    int dy, dx, c;
-  };
-
-  __device__ Row row(int m) const {
-    if (m < 0) return {-H - 8, 0, 0};  // every tap falls outside the image
-    const int ow = m % W;
-    const int t = m / W;
-    return {t % H, ow, (t / H) * Hs * Ws};
-  }
-  __device__ Tap tap(int k) const {
-    const int t = k / Ci;
-    return {t / ks - pad, t % ks - pad, k - t * Ci};
-  }
-  // channels c .. c+3 (c % 4 == 0, Ca % 4 == 0: never split across sources)
-  __device__ float4 load4(const Row& r, const Tap& tp) const {
-    int ih = r.oh + tp.dy;
-    int iw = r.ow + tp.dx;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
-    if (up) {
-      ih >>= 1;
-      iw >>= 1;
-    }
-    const int pix = r.base + ih * Ws + iw;
-    const float* p = tp.c < Ca ? xa + pix * Ca + tp.c : xb + pix * Cb + (tp.c - Ca);
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-};
-
-}  // namespace
+#include "conv_gathers.cuh"
 
 // B: batch; H, W: output size; Ca, Cb: channels of xa and xb (Cb = 0 and
 // xb = NULL for one source); Co: output channels; ks: 1 or 3; upsample: 0/1
@@ -74,20 +29,8 @@ extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
                                const float* bias, float* out, int B, int H, int W,
                                int Ca, int Cb, int Co, int ks, int upsample,
                                void* stream) {
-  ConvGather g;
-  g.xa = xa;
-  g.xb = xb;
-  g.Ca = Ca;
-  g.Cb = Cb;
-  g.Ci = Ca + Cb;
-  g.H = H;
-  g.W = W;
-  g.Hs = upsample ? H / 2 : H;
-  g.Ws = upsample ? W / 2 : W;
-  g.ks = ks;
-  g.pad = (ks - 1) / 2;
-  g.up = upsample;
+  const auto g = igemm::make_conv_gather<false>(xa, xb, H, W, Ca, Cb, ks, upsample);
   const int M = B * H * W;
-  const int K = ks * ks * g.Ci;
+  const int K = ks * ks * (Ca + Cb);
   return (int)igemm::launch(g, w, bias, out, M, Co, K, (cudaStream_t)stream);
 }

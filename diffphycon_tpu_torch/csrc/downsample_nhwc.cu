@@ -13,41 +13,7 @@
 // Weight layout: w[k, co] with k = (p1*2 + p2) * C + c, the (p1 p2 c) row
 // order of the packed Pallas weight (_down_p); the reference checkpoint's
 // (c p1 p2) order is permuted when weights are packed.
-#include "igemm_nhwc.cuh"
-
-namespace {
-
-struct DownGather {
-  const float* x;
-  int C, H, W;  // input size
-  int Ho, Wo;   // output size (H/2, W/2)
-
-  // 32-bit indices: the wrapper caps every tensor at 2^31 - 1 elements
-  struct Row {
-    int base;  // input pixel index of the 2x2 window's top-left; -1 past the end
-  };
-  struct Tap {
-    int off, c;  // pixel offset of (p1, p2) in the window, channel
-  };
-
-  __device__ Row row(int m) const {
-    if (m < 0) return {-1};
-    const int ow = m % Wo;
-    const int t = m / Wo;
-    return {((t / Ho) * H + 2 * (t % Ho)) * W + 2 * ow};
-  }
-  __device__ Tap tap(int k) const {
-    const int p = k / C;
-    return {(p >> 1) * W + (p & 1), k - p * C};
-  }
-  // channels c .. c+3 of one window pixel (C % 4 == 0)
-  __device__ float4 load4(const Row& r, const Tap& tp) const {
-    if (r.base < 0) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return __ldg(reinterpret_cast<const float4*>(x + (r.base + tp.off) * C + tp.c));
-  }
-};
-
-}  // namespace
+#include "conv_gathers.cuh"
 
 // x: (B, H, W, C) with even H, W; out: (B, H/2, W/2, Co); C and Co
 // multiples of 4, pointers 16-byte aligned (the wrapper checks).
@@ -55,13 +21,7 @@ struct DownGather {
 extern "C" int downsample_nhwc_f32(const float* x, const float* w, const float* bias,
                                    float* out, int B, int H, int W, int C, int Co,
                                    void* stream) {
-  DownGather g;
-  g.x = x;
-  g.C = C;
-  g.H = H;
-  g.W = W;
-  g.Ho = H / 2;
-  g.Wo = W / 2;
+  const auto g = igemm::make_down_gather<false>(x, H, W, C);
   const int M = B * g.Ho * g.Wo;
   return (int)igemm::launch(g, w, bias, out, M, Co, 4 * C, (cudaStream_t)stream);
 }

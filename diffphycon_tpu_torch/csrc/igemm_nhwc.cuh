@@ -27,7 +27,7 @@ namespace igemm {
 
 constexpr int BN = 64;
 constexpr int BK = 16;
-constexpr int TM = 8;  // outputs per thread along m
+constexpr int TM = 8;  // outputs per thread along m (igemm_tile's default)
 constexpr int TN = 4;  // outputs per thread along n
 constexpr int SM_COUNT_H100 = 132;
 
@@ -38,23 +38,30 @@ constexpr int SM_COUNT_H100 = 132;
 //   Row row(int m) const;               m < 0 marks a row past the end
 //   Tap tap(int k4) const;
 //   float4 load4(const Row&, const Tap&) const;   0 outside the image
-template <class G, int BM>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
-             float* __restrict__ out, int M, int N, int K) {
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  constexpr int A_PER_THREAD = BM * BK / 4 / THREADS;  // float4s: 2 for both heights
+//
+// One BM x BN output tile at (m0, n0). As and Bs are the tile's shared
+// buffers, [2][BK][BM + 4] and [2][BK][BN + 4] floats. Called by every
+// thread of a (BM / TMT) * (BN / TN)-thread block, each thread owning
+// TMT x TN outputs (TMT 8; the persistent kernel also runs 64-row tiles on
+// 256 threads with TMT 4). It ends with all threads past their last
+// shared-memory read, so the caller may start the next tile (the persistent
+// kernel walks tiles in a loop) without another barrier.
+template <class G, int BM, int TMT = TM>
+__device__ __forceinline__ void igemm_tile(const G& g, const float* __restrict__ w,
+                                           const float* __restrict__ bias,
+                                           float* __restrict__ out, int M, int N, int K,
+                                           int m0, int n0, float* As_, float* Bs_) {
+  constexpr int THREADS = (BM / TMT) * (BN / TN);
+  constexpr int A_PER_THREAD = BM * BK / 4 / THREADS;  // float4s per thread
   constexpr int A_ROW_STEP = THREADS / (BK / 4);
   constexpr int B_PER_THREAD = BK * BN / 4 / THREADS;
   constexpr int B_K_STEP = THREADS / (BN / 4);
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Bs[2][BK][BN + 4];
+  auto As = reinterpret_cast<float (*)[BK][BM + 4]>(As_);
+  auto Bs = reinterpret_cast<float (*)[BK][BN + 4]>(Bs_);
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);  // n = tx*4 .. tx*4+3
-  const int ty = tid / (BN / TN);  // m = ty*8 .. ty*8+7
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int ty = tid / (BN / TN);  // m = ty*TMT .. ty*TMT+TMT-1
 
   // A staging: k-lanes 4*a_k4 .. +3 of rows a_m + A_ROW_STEP*j.
   const int a_k4 = tid % (BK / 4);
@@ -105,9 +112,9 @@ igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
       *reinterpret_cast<float4*>(&Bs[buf][b_k + B_K_STEP * j][4 * b_n4]) = rb[j];
   };
 
-  float acc[TM][TN];
+  float acc[TMT][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < TMT; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
@@ -120,13 +127,19 @@ igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
     if (more) load_regs(k0 + BK);  // global loads in flight during the FMAs
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * TM + 4]);
+      float av[TMT];
+#pragma unroll
+      for (int i = 0; i < TMT; i += 4) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * TMT + i]);
+        av[i] = a4.x;
+        av[i + 1] = a4.y;
+        av[i + 2] = a4.z;
+        av[i + 3] = a4.w;
+      }
       const float4 b = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[TN] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TMT; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
@@ -136,15 +149,26 @@ igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
   }
 
   const int n = n0 + tx * TN;
-  if (n >= N) return;  // N is a multiple of 4: the vector is wholly in or out
-  const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + n));
+  if (n < N) {  // N is a multiple of 4: the vector is wholly in or out
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + n));
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M)
-      *reinterpret_cast<float4*>(out + (size_t)m * N + n) =
-          make_float4(acc[i][0] + bb.x, acc[i][1] + bb.y, acc[i][2] + bb.z, acc[i][3] + bb.w);
+    for (int i = 0; i < TMT; ++i) {
+      const int m = m0 + ty * TMT + i;
+      if (m < M)
+        *reinterpret_cast<float4*>(out + (size_t)m * N + n) =
+            make_float4(acc[i][0] + bb.x, acc[i][1] + bb.y, acc[i][2] + bb.z, acc[i][3] + bb.w);
+    }
   }
+}
+
+template <class G, int BM>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
+             float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][BK][BM + 4];
+  __shared__ __align__(16) float Bs[2][BK][BN + 4];
+  igemm_tile<G, BM>(g, w, bias, out, M, N, K, blockIdx.x * BM, blockIdx.y * BN, &As[0][0][0],
+                    &Bs[0][0][0]);
 }
 
 template <class G, int BM>

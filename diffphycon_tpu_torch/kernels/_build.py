@@ -37,6 +37,7 @@ SIGNATURES = {
     "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "linear_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "unet2d_persistent_f32": [_P, _I, _P, _P, _P],
 }
 
 

@@ -1,8 +1,8 @@
 """Kernel-backed UNet2D blocks and their plain PyTorch versions.
 
-The port of ``diffphycon_tpu/research/pallas_unet2d.py``. Six Pallas kernels
-map onto three hand-written Hopper kernels (the attention blocks, K5 and K6,
-are in ``kernels/attention.py``):
+The port of ``diffphycon_tpu/research/pallas_unet2d.py``. Seven Pallas
+kernels map onto four hand-written Hopper kernels (the attention blocks, K5
+and K6, are in ``kernels/attention.py``):
 
 ===============================  ==========================================
 Pallas kernel (pallas_unet2d.py)  Port
@@ -13,10 +13,12 @@ Pallas kernel (pallas_unet2d.py)  Port
 ``_conv_kernel`` :288 (3x3)       K1 :func:`conv2d_nhwc`
 ``_matmul_bias_kernel`` :294      K1 :func:`conv2d_nhwc` ``k=1`` (x @ w + b)
 ``_concat_kernel`` :304           K1 reading two sources (``x_b``)
+``_resblock_pair_kernel`` :170    K7 :func:`resblock_pair` (one launch)
 ===============================  ==========================================
 
 K1 = csrc/conv2d_nhwc.cu, K2 = csrc/downsample_nhwc.cu (CUDA C++, sm_90a),
-K3 = group_norm_triton.py (Triton).
+K3 = group_norm_triton.py (Triton), K7 = csrc/unet2d_persistent.cu (its stage
+tables in ``kernels/unet2d_mega.py``).
 
 Every public wrapper dispatches on the device of its input: a CPU tensor goes
 to the ``*_plain`` version, a CUDA tensor to the kernel (or the wrapper
@@ -26,7 +28,7 @@ kernel launches in the int attribute ``launches`` (plus per-mode counts on
 :func:`reset_launch_counts` and :func:`launch_counts` (from
 ``diffphycon_tpu_torch.kernels``) clear and read every registered counter.
 
-Gradients: on a CUDA tensor each wrapper is a ``torch.autograd.Function``
+Gradients: on a CUDA tensor each wrapper but the forward-only K7 is a ``torch.autograd.Function``
 (:func:`with_plain_vjp`) whose forward launches the kernel and whose backward
 is the VJP of the plain version, recomputed from the saved inputs: the
 backward is plain PyTorch until backward kernels are written. ``resblock``
@@ -348,4 +350,41 @@ def resblock_plain(x_a, ss, p, x_b=None, groups: int = 1):
     """The same block from the plain versions only."""
     return _resblock(conv2d_nhwc_plain, group_norm_act_plain, x_a, x_b, ss, p,
                      groups)
+
+
+# ---------------------------------------------------------------------------
+# K7: two ResBlocks in one launch (port of _resblock_pair_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _check_pair(x, p_a, p_b) -> None:
+    chans = (x.shape[-1], p_a["w1"].shape[-1], p_b["w1"].shape[-1])
+    if len(set(chans)) != 1:
+        raise ValueError(f"resblock_pair: the pair takes equal channels (input, block a, "
+                         f"block b), got {chans}")
+
+
+def resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups: int = 1):
+    """:func:`resblock_plain` twice; equal channels only, as the Pallas pair
+    (pallas_unet2d.py:424)."""
+    _check_pair(x, p_a, p_b)
+    return resblock_plain(resblock_plain(x, ss_a, p_a, groups=groups), ss_b, p_b,
+                          groups=groups)
+
+
+def resblock_pair(x, ss_a, ss_b, p_a, p_b, groups: int = 1):
+    """K7: two ResnetBlocks of equal channels (B, H, W, C) in one launch of
+    the persistent kernel (``kernels/unet2d_mega.py``); ss_a, ss_b: (B, 2C)
+    FiLM. Forward-only."""
+    _check_pair(x, p_a, p_b)
+    if not _dispatch("resblock_pair", x):
+        return resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups)
+    from diffphycon_tpu_torch.kernels import unet2d_mega  # it imports this module
+
+    out = unet2d_mega.resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups)
+    resblock_pair.launches += 1
+    return out
+
+
+register_launch_counters(resblock_pair, "launches")
 

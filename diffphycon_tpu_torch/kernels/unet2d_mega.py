@@ -1,0 +1,487 @@
+"""K7 and K8: the persistent UNet2D kernel (``csrc/unet2d_persistent.cu``)
+behind :func:`unet2d_mega` and :func:`kernels.unet2d_blocks.resblock_pair`.
+
+The port of ``diffphycon_tpu/research/pallas_unet2d_mega.py`` (the whole
+UNet2D forward in one ``pallas_call``, :392) and of ``_resblock_pair_kernel``
+(``research/pallas_unet2d.py:170``, two ResnetBlocks in one call). One CUDA
+kernel carries both: a cooperative launch that walks a table of stages
+(convs, GroupNorm statistics and apply, linear and full attention) with a
+grid-wide barrier wherever a stage reads what an earlier one of the same
+phase wrote.
+
+The stage table is recorded on the host by running the block sequence with
+recording ops (:class:`_Recorder`) in place of the kernel wrappers:
+
+- :func:`unet2d_sequence` is THE block sequence between the init conv and
+  the final conv; ``UNet2D.forward`` and ``forward_plain`` run it with the
+  K1-K6 wrappers or the plain versions, :func:`unet2d_mega_plain` with the
+  plain versions, and :func:`mega_plan` records K8's stages from it (the
+  counterpart of ``_block_plan``, pallas_unet2d_mega.py:245-266);
+- ResnetBlocks are recorded through ``unet2d_blocks._resblock``, the same
+  function the per-block forward runs.
+
+A plan holds the stage table, the workspace size (every intermediate lives
+in one workspace tensor; a buffer is reused once every stage that reads it
+has passed a barrier) and the weights' addresses. :func:`mega_plan` builds it
+once per weight pack and input shape and caches it in the pack, which
+``UNet2D`` caches until a parameter changes. Pointers in the table are
+relative to a few bases (the workspace, the call's inputs and its output),
+so a cached plan serves every call.
+
+The kernel takes float32 weights, channel counts (and channels per
+GroupNorm group) that are multiples of 4, 4 heads of 32, at most 512
+channels in the attention blocks and at most 128 tokens at the bottleneck;
+the plan raises otherwise. It is forward-only, as
+the Pallas call (no VJP).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from diffphycon_tpu_torch.kernels import _build, group_norm_triton, register_launch_counters
+from diffphycon_tpu_torch.kernels import attention as ka
+from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+
+KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
+              ka.attention_block)
+PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
+             ka.linear_attention_block_plain, ka.attention_block_plain)
+
+MAX_FULL_TOKENS = 128  # the kAttHeads stage holds one sample's q, k, v in shared memory
+
+
+def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int):
+    """The UNet2D blocks from the init conv's output ``x`` to the input of
+    the final 1x1 conv (pallas_unet2d_mega.py:340-381), through ``ops``
+    (resblock, downsample, conv, linear attention, full attention). film:
+    iterator of the ResBlocks' FiLM (B, 2C) slices in forward order; packs:
+    ``UNet2D.pack()``. The last level's resample is a 3x3 conv."""
+    resblock, downsample, conv, linear_attn, attn = ops
+    res_p = iter(packs["res"])
+
+    def block(x_a, x_b=None):
+        return resblock(x_a, next(film), next(res_p), x_b=x_b, groups=groups)
+
+    n = len(packs["down"])
+    r = x
+    h = []
+    for i in range(n):
+        x = block(x)
+        h.append(x)
+        x = block(x)
+        x = linear_attn(x, packs["down_attn"][i], heads, dim_head)
+        h.append(x)
+        p = packs["down"][i]
+        x = downsample(x, p["w"], p["b"]) if i < n - 1 else conv(x, p["w"], p["b"], k=3)
+
+    x = block(x)
+    x = attn(x, packs["mid_attn"], heads, dim_head)
+    x = block(x)
+
+    for i in range(n):
+        x = block(x, h.pop())
+        x = block(x, h.pop())
+        x = linear_attn(x, packs["up_attn"][i], heads, dim_head)
+        p = packs["up"][i]
+        x = conv(x, p["w"], p["b"], k=3, upsample=i < n - 1)
+    return block(x, r)
+
+
+# ---------------------------------------------------------------------------
+# the stage table (layout: csrc/unet2d_persistent.cu, struct Stage)
+# ---------------------------------------------------------------------------
+
+CONV, DOWN, GN_STATS, GN_APPLY, LA_CONTEXT, LA_OUTPUT, ATT_HEADS, ATT_OUTPUT = range(8)
+OP_NAMES = ("conv", "down", "gn_stats", "gn_apply", "la_context", "la_output", "att_heads",
+            "att_output")
+_INTS = ("op", "sync", "B", "H", "W", "ca", "cb", "co", "ks", "up", "groups", "chunk", "S",
+         "ss_stride")
+_SLOTS = {"x": 0, "x2": 1, "w": 2, "bias": 3, "out": 4, "scr": 5, "aux": 6, "res": 7}
+_ROW = 32         # int64 per stage: 16 ints, 8 offsets, 8 base ids
+_N_BASES = 8      # 0: null (absolute addresses), 1: workspace, 2..: inputs, then the output
+_ALIGN = 256
+
+
+class _Val:
+    """A tensor of the recorded forward: a workspace buffer (base 1, placed
+    by :meth:`_Recorder.finish`) or a bound input / the output."""
+
+    def __init__(self, shape, base: int = 1):
+        self.shape = tuple(int(s) for s in shape)
+        self.base = base
+        self.off = 0
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * int(np.prod(self.shape))
+
+
+@dataclass
+class _Film:
+    """A FiLM (B, 2C) operand: columns col.. of a bound (B, F) input with
+    row stride ``stride`` (floats)."""
+    val: _Val
+    col: int
+    stride: int
+
+
+@dataclass
+class _Stage:
+    op: int
+    ints: dict
+    ptrs: dict    # slot name -> _Val | _Film | torch.Tensor (weights) | None
+    writes: tuple
+    sync: bool = False
+
+    def reads(self):
+        return {id(p.val if isinstance(p, _Film) else p) for p in self.ptrs.values()
+                if isinstance(p, (_Val, _Film))} - {id(v) for v in self.writes}
+
+
+@dataclass
+class Plan:
+    """A recorded stage table. ``table``: (n_stages, 32) int64; ``stages``:
+    the records (op codes in ``OP_NAMES`` order); ``workspace_bytes``;
+    ``out_shape``; groups/heads/dim_head of the recorded net."""
+    table: np.ndarray
+    stages: list
+    workspace_bytes: int
+    in_shapes: tuple
+    out_shape: tuple
+    device: torch.device
+    groups: int = 1
+    heads: int = ka.KERNEL_HEADS
+    dim_head: int = ka.KERNEL_DIM_HEAD
+    device_table: Optional[torch.Tensor] = None
+
+    def counts(self) -> dict:
+        """Stages per op name."""
+        out = dict.fromkeys(OP_NAMES, 0)
+        for s in self.stages:
+            out[OP_NAMES[s.op]] += 1
+        return out
+
+    def barriers(self) -> int:
+        return sum(s.sync for s in self.stages)
+
+
+class _Recorder:
+    """The kernel wrappers' signatures, recording stages instead of
+    computing. With ``check`` (a plan for the CUDA kernel) every weight and
+    shape is held to what the kernel takes."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.check = self.device.type == "cuda"
+        self.stages = []
+        self.inputs = []
+
+    def input(self, shape) -> _Val:
+        self.inputs.append(_Val(shape, base=2 + len(self.inputs)))
+        return self.inputs[-1]
+
+    def _new(self, shape) -> _Val:
+        v = _Val(shape)
+        if self.check and int(np.prod(v.shape)) > kb._INT32_MAX:
+            raise ValueError(f"unet2d_mega: intermediate {v.shape} exceeds 2^31-1 elements")
+        return v
+
+    def _weights(self, name, *tensors):
+        if not self.check:
+            return
+        for t in tensors:
+            kb._check_cuda(name, weight=t)
+            if t.device != self.device:
+                raise ValueError(f"{name}: a weight is on {t.device}, the input on {self.device}")
+        kb._check_vec4(name, (), tensors)
+
+    def _stage(self, op, ptrs, writes, **ints):
+        self.stages.append(_Stage(op, ints, ptrs, tuple(writes)))
+
+    # -- the ops of unet2d_sequence / unet2d_blocks._resblock ---------------
+
+    def conv(self, x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
+        B, hs, ws, ca = x_a.shape
+        cb = 0 if x_b is None else x_b.shape[3]
+        co = w.shape[-1]
+        if self.check:
+            self._weights("unet2d_mega conv", w, b)
+            if k not in (1, 3) or w.shape != (k * k * (ca + cb), co):
+                raise ValueError(f"unet2d_mega: conv weight {tuple(w.shape)} does not fit "
+                                 f"k={k}, Ci={ca + cb}")
+            kb._check_vec4("unet2d_mega conv", (ca, cb, co), ())
+        H, W = (2 * hs, 2 * ws) if upsample else (hs, ws)
+        out = self._new((B, H, W, co))
+        self._stage(CONV, {"x": x_a, "x2": x_b, "w": w, "bias": b, "out": out}, [out],
+                    B=B, H=H, W=W, ca=ca, cb=cb, co=co, ks=k, up=int(upsample))
+        return out
+
+    def downsample(self, x, w, b):
+        B, H, W, C = x.shape
+        co = w.shape[-1]
+        if self.check:
+            self._weights("unet2d_mega downsample", w, b)
+            if H % 2 or W % 2 or w.shape != (4 * C, co):
+                raise ValueError(f"unet2d_mega: downsample of {x.shape} with weight "
+                                 f"{tuple(w.shape)}")
+            kb._check_vec4("unet2d_mega downsample", (C, co), ())
+        out = self._new((B, H // 2, W // 2, co))
+        self._stage(DOWN, {"x": x, "w": w, "bias": b, "out": out}, [out],
+                    B=B, H=H, W=W, ca=C, co=co)
+        return out
+
+    def group_norm_act(self, x, gamma, beta, groups: int = 1, ss=None, res=None):
+        B, H, W, C = x.shape
+        if C % groups or (self.check and (C // groups) % 4):
+            raise ValueError(f"unet2d_mega: C={C} in {groups} groups; the kernel takes "
+                             "groups of a multiple of 4 channels")
+        self._weights("unet2d_mega group norm", gamma, beta)
+        chunk, S = group_norm_triton.chunking(B * groups, H * W * (C // groups))
+        part = self._new((B * groups * S, 2))
+        geo = dict(B=B, H=H, W=W, co=C, groups=groups, chunk=chunk, S=S)
+        self._stage(GN_STATS, {"x": x, "scr": part}, [part], **geo)
+        out = self._new(x.shape)
+        self._stage(GN_APPLY, {"x": x, "scr": part, "w": gamma, "bias": beta, "aux": ss,
+                               "res": res, "out": out}, [out],
+                    ss_stride=0 if ss is None else ss.stride, **geo)
+        return out
+
+    def resblock(self, x_a, ss, p, x_b=None, groups: int = 1):
+        return kb._resblock(self.conv, self.group_norm_act, x_a, x_b, ss, p, groups)
+
+    def _attn_geometry(self, name, x, p, heads, dim_head, max_tokens=None):
+        B, H, W, C = x.shape
+        if self.check:
+            ka._check_heads(name, heads, dim_head)
+            self._weights(name, *p.values())
+            if not 1 <= C <= ka.MAX_CHANNELS:
+                raise ValueError(f"{name}: C={C}; the kernel takes 1 to {ka.MAX_CHANNELS}")
+            if max_tokens is not None and H * W > max_tokens:
+                raise ValueError(f"{name}: {H * W} tokens; the kernel takes at most "
+                                 f"{max_tokens}")
+        return dict(B=B, H=H, W=W, co=C)
+
+    def linear_attn(self, x, p, heads, dim_head):
+        geo = self._attn_geometry("unet2d_mega linear attention", x, p, heads, dim_head)
+        ctx = self._new((x.shape[0], ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
+        common = {"x": x, "w": p["norm_g"], "aux": p["wqkv"]}
+        self._stage(LA_CONTEXT, {**common, "scr": ctx}, [ctx], **geo)
+        out = self._new(x.shape)
+        self._stage(LA_OUTPUT, {**common, "scr": ctx, "x2": p["wo"], "bias": p["bo"],
+                                "res": p["out_g"], "out": out}, [out], **geo)
+        return out
+
+    def attn(self, x, p, heads, dim_head):
+        geo = self._attn_geometry("unet2d_mega attention", x, p, heads, dim_head,
+                                  max_tokens=MAX_FULL_TOKENS)
+        B, H, W, _ = x.shape
+        o = self._new((B, H * W, ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD))
+        self._stage(ATT_HEADS, {"x": x, "w": p["norm_g"], "aux": p["wqkv"], "scr": o}, [o],
+                    **geo)
+        out = self._new(x.shape)
+        self._stage(ATT_OUTPUT, {"x": x, "scr": o, "x2": p["wo"], "bias": p["bo"],
+                                 "out": out}, [out], **geo)
+        return out
+
+    @property
+    def ops(self):
+        return (self.resblock, self.downsample, self.conv, self.linear_attn, self.attn)
+
+    # -- barriers, workspace, table -------------------------------------------
+
+    def finish(self, out: _Val, **meta) -> Plan:
+        """Place the barriers and the workspace buffers, bind ``out`` to the
+        output base, and write the table."""
+        stages = self.stages
+        out.base = 2 + len(self.inputs)
+        # a barrier before any stage that reads what its phase wrote, or
+        # writes what its phase read or wrote
+        phase_of, reads, writes, phase = [], set(), set(), 0
+        for i, st in enumerate(stages):
+            r, w = st.reads(), {id(v) for v in st.writes}
+            if r & writes or w & (reads | writes):
+                stages[i - 1].sync = True
+                phase += 1
+                reads, writes = set(), set()
+            reads |= r
+            writes |= w
+            phase_of.append(phase)
+        # workspace: a buffer is free again after the last phase that reads
+        # it; reused by exact size (the UNet's shapes recur level by level)
+        last = {}
+        for st, ph in zip(stages, phase_of):
+            for key in st.reads() | {id(v) for v in st.writes}:
+                last[key] = ph
+        free, top, by_phase = {}, 0, {}
+        for st, ph in zip(stages, phase_of):
+            for v in st.writes:
+                by_phase.setdefault(ph, []).append(v)
+        vals = {id(v): v for st in stages for v in st.writes}
+        for ph in range(phase + 1):
+            for v in by_phase.get(ph, ()):
+                if v.base != 1:
+                    continue
+                size = -(-v.nbytes // _ALIGN) * _ALIGN
+                if free.get(size):
+                    v.off = free[size].pop()
+                else:
+                    v.off, top = top, top + size
+            for key, ph_last in last.items():
+                v = vals.get(key)
+                if ph_last == ph and v is not None and v.base == 1:
+                    free.setdefault(-(-v.nbytes // _ALIGN) * _ALIGN, []).append(v.off)
+        table = np.zeros((len(stages), _ROW), np.int64)
+        for i, st in enumerate(stages):
+            ints = {"op": st.op, "sync": int(st.sync), **st.ints}
+            for k, name in enumerate(_INTS):
+                table[i, k] = ints.get(name, 0)
+            for name, p in st.ptrs.items():
+                base, off = _resolve(p)
+                table[i, 16 + _SLOTS[name]] = off
+                table[i, 24 + _SLOTS[name]] = base
+        return Plan(table, stages, max(top, _ALIGN), tuple(v.shape for v in self.inputs),
+                    out.shape, self.device, **meta)
+
+
+def _resolve(p):
+    """(base id, byte offset) of a pointer slot."""
+    if p is None:
+        return 0, 0
+    if isinstance(p, torch.Tensor):
+        return 0, p.data_ptr()
+    if isinstance(p, _Film):
+        return p.val.base, p.val.off + 4 * p.col
+    return p.base, p.off
+
+
+# ---------------------------------------------------------------------------
+# launch
+# ---------------------------------------------------------------------------
+
+
+def _launch(plan: Plan, inputs, out) -> int:
+    """One cooperative launch of the plan on CUDA tensors; returns the grid
+    size. The caller has checked ``inputs`` and ``out``."""
+    if plan.device_table is None:
+        plan.device_table = torch.from_numpy(plan.table).to(out.device)
+    ws = torch.empty(plan.workspace_bytes // 4, device=out.device, dtype=torch.float32)
+    bases = [0, ws.data_ptr(), *(t.data_ptr() for t in inputs), out.data_ptr()]
+    bases += [0] * (_N_BASES - len(bases))
+    grid = ctypes.c_int(0)
+    err = _build.load_library().unet2d_persistent_f32(
+        plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
+        ctypes.byref(grid), kb._stream(out))
+    _build.check(err, "unet2d_persistent")
+    return grid.value
+
+
+def _check_inputs(name, plan: Plan, tensors):
+    for t, shape in zip(tensors, plan.in_shapes):
+        if t.device != plan.device:
+            raise ValueError(f"{name}: an input is on {t.device}, the plan on {plan.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: input dtype {t.dtype}; the kernel takes float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: input {tuple(t.shape)}, the plan was recorded for {shape}")
+        if t.data_ptr() % 16 or t.stride(-1) != 1 or t.stride(0) % 4:
+            raise ValueError(f"{name}: inputs need unit channel stride, rows of a multiple "
+                             "of 4 floats and 16-byte alignment")
+
+
+def _forward_only(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward-only (no backward kernel, as the Pallas call "
+                           "has no VJP): call it under torch.no_grad()")
+
+
+# ---------------------------------------------------------------------------
+# K8: the whole forward
+# ---------------------------------------------------------------------------
+
+
+def mega_plan(packs, x_shape, groups: int, heads: int, dim_head: int, device) -> Plan:
+    """K8's plan for init-conv outputs of ``x_shape`` (B, H, W, dim), built
+    once and cached in ``packs`` (a cached ``UNet2D`` pack lives until a
+    parameter changes)."""
+    key = (tuple(x_shape), groups, heads, dim_head, str(device))
+    plans = packs.setdefault("mega_plans", {})
+    if key not in plans:
+        rec = _Recorder(device)
+        x0 = rec.input(x_shape)
+        width = sum(packs["film_widths"])
+        film_val = rec.input((x_shape[0], width))
+        cols = np.cumsum([0, *packs["film_widths"]])[:-1]
+        film = iter(_Film(film_val, int(c), width) for c in cols)
+        out = unet2d_sequence(rec.ops, x0, film, packs, groups, heads, dim_head)
+        plans[key] = rec.finish(out, groups=groups, heads=heads, dim_head=dim_head)
+    return plans[key]
+
+
+def unet2d_mega_plain(x0, film, packs, plan: Plan):
+    """The plain versions through :func:`unet2d_sequence` (K8's reference)."""
+    ss = iter(torch.split(film, packs["film_widths"], dim=1))
+    return unet2d_sequence(PLAIN_OPS, x0, ss, packs, plan.groups, plan.heads, plan.dim_head)
+
+
+def unet2d_mega(x0, film, packs, plan: Plan):
+    """K8. x0: (B, H, W, dim) init-conv output; film: (B, F) every
+    ResBlock's FiLM projection (``UNet2D`` order); packs: ``UNet2D.pack()``;
+    plan: :func:`mega_plan`. Returns the input of the final 1x1 conv. A CPU
+    tensor takes :func:`unet2d_mega_plain`; a CUDA tensor one launch of the
+    persistent kernel, or the wrapper raises."""
+    if not kb._dispatch("unet2d_mega", x0):
+        return unet2d_mega_plain(x0, film, packs, plan)
+    _forward_only("unet2d_mega", x0, film)
+    _check_inputs("unet2d_mega", plan, (x0, film))
+    if not (x0.is_contiguous() and film.is_contiguous()):
+        raise ValueError("unet2d_mega: x0 and film must be contiguous")
+    out = torch.empty(plan.out_shape, device=x0.device, dtype=torch.float32)
+    unet2d_mega.grid = _launch(plan, (x0, film), out)  # blocks of the last launch
+    unet2d_mega.launches += 1
+    return out
+
+
+register_launch_counters(unet2d_mega, "launches")
+
+
+# ---------------------------------------------------------------------------
+# K7: two ResnetBlocks in one launch
+# ---------------------------------------------------------------------------
+
+
+_PAIR_PLANS = {}  # K7 plans by (device, shapes, strides, weight addresses)
+
+
+def _pair_plan(x_shape, ss_strides, groups, p_a, p_b, device) -> Plan:
+    rec = _Recorder(device)
+    h = rec.input(x_shape)
+    ss = [_Film(rec.input((x_shape[0], 2 * x_shape[3])), 0, st) for st in ss_strides]
+    for s, p in zip(ss, (p_a, p_b)):
+        h = rec.resblock(h, s, p, groups=groups)
+    return rec.finish(h, groups=groups)
+
+
+def resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups: int):
+    """One K7 launch on CUDA tensors (called by ``unet2d_blocks.resblock_pair``
+    after its channel check)."""
+    _forward_only("resblock_pair", x, ss_a, ss_b, *p_a.values(), *p_b.values())
+    kb._check_cuda("resblock_pair", x=x)
+    strides = (ss_a.stride(0), ss_b.stride(0))
+    key = (str(x.device), tuple(x.shape), strides, groups,
+           tuple((k, t.data_ptr(), tuple(t.shape), t.dtype)
+                 for p in (p_a, p_b) for k, t in sorted(p.items())))
+    if key not in _PAIR_PLANS:
+        if len(_PAIR_PLANS) >= 32:
+            _PAIR_PLANS.clear()
+        _PAIR_PLANS[key] = _pair_plan(tuple(x.shape), strides, groups, p_a, p_b, x.device)
+    plan = _PAIR_PLANS[key]
+    _check_inputs("resblock_pair", plan, (x, ss_a, ss_b))
+    out = torch.empty(plan.out_shape, device=x.device, dtype=torch.float32)
+    _launch(plan, (x, ss_a, ss_b), out)
+    return out

@@ -15,11 +15,15 @@ kernel-backed forward ``unet2d_pallas_apply``
 
 :meth:`UNet2D.forward` is that kernel-backed path (on a CPU tensor each
 wrapper takes its plain version). :meth:`UNet2D.forward_plain` runs the same
-sequence from the plain versions only; the tests and ``chip_smoke.py`` hold
-one against the other. Both forwards are differentiable: the kernel wrappers
-are autograd Functions whose backward is the VJP of their plain versions.
-For inference the kernel-layout weights are cached; when a gradient can reach
-a parameter they are rebuilt under autograd at every forward.
+sequence (``kernels.unet2d_mega.unet2d_sequence``) from the plain versions
+only; the tests and ``chip_smoke.py`` hold one against the other. Both
+forwards are differentiable: the kernel wrappers are autograd Functions whose
+backward is the VJP of their plain versions. :meth:`UNet2D.forward_mega` runs
+everything between the init conv and the final conv as ONE launch of K8
+(``kernels/unet2d_mega.py``, the port of ``unet2d_mega_apply``); it is
+forward-only. For inference the kernel-layout weights (and K8's stage plans)
+are cached; when a gradient can reach a parameter they are rebuilt under
+autograd at every forward.
 """
 
 from __future__ import annotations
@@ -30,8 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffphycon_tpu_torch.kernels import attention as ka
-from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+from diffphycon_tpu_torch.kernels import unet2d_mega as kmega
 from diffphycon_tpu_torch.nets.blocks import (
     AttentionBlock,
     Downsample,
@@ -41,11 +44,6 @@ from diffphycon_tpu_torch.nets.blocks import (
     conv_pack,
     time_mlp,
 )
-
-_KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
-               ka.attention_block)
-_PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
-              ka.linear_attention_block_plain, ka.attention_block_plain)
 
 
 def _conv_nchw(x, conv: nn.Conv2d):
@@ -145,50 +143,38 @@ class UNet2D(nn.Module):
 
     def forward(self, x, time):
         """Kernel-backed forward. x: (B, T, X, C) float32; time: (B,)."""
-        return self._forward(x, time, self._kernel_pack(), _KERNEL_OPS)
+        return self._forward(x, time, self._kernel_pack(), kmega.KERNEL_OPS)
 
     def forward_plain(self, x, time):
         """The same block sequence from the plain versions only."""
-        return self._forward(x, time, self.pack(), _PLAIN_OPS)
+        return self._forward(x, time, self.pack(), kmega.PLAIN_OPS)
 
-    def _forward(self, x, time, packs, ops):
-        resblock, downsample, conv, linear_attn, attn = ops
+    def forward_mega(self, x, time):
+        """The forward with one K8 launch between the init conv and the final
+        conv (time MLP, FiLM matmul and both convs in torch, as JAX runs them
+        outside its kernel). Forward-only: raises when a gradient could reach
+        the input or a parameter. A CPU input takes the plain versions."""
+        kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
+        packs = self._kernel_pack()
+        film = self._film(time, packs)
+        x0 = _conv_nchw(self._check_input(x), self.init_conv)
+        plan = kmega.mega_plan(packs, x0.shape, self.groups, self.attn_heads,
+                               self.attn_dim_head, x0.device)
+        return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv)
+
+    @staticmethod
+    def _check_input(x):
         if x.dim() != 4:
             raise ValueError(f"UNet2D expects (B, T, X, C), got {tuple(x.shape)}")
-        g, heads, dh = self.groups, self.attn_heads, self.attn_dim_head
-        temb = self.time_mlp(time)
-        ss_all = F.silu(temb) @ packs["film_w"] + packs["film_b"]
-        film = iter(torch.split(ss_all, packs["film_widths"], dim=1))
-        res_p = iter(packs["res"])
+        return x
 
-        def block(x_a, x_b=None):
-            return resblock(x_a, next(film), next(res_p), x_b=x_b, groups=g)
+    def _film(self, time, packs):
+        """Every ResBlock's FiLM projection as one (B, sum of 2*Co) matmul."""
+        return F.silu(self.time_mlp(time)) @ packs["film_w"] + packs["film_b"]
 
-        x = _conv_nchw(x, self.init_conv)
-        r = x
-        h = []
-        for i, lvl in enumerate(self.downs):
-            x = block(x)
-            h.append(x)
-            x = block(x)
-            x = linear_attn(x, packs["down_attn"][i], heads, dh)
-            h.append(x)
-            p = packs["down"][i]
-            if isinstance(lvl[3], Downsample):
-                x = downsample(x, p["w"], p["b"])
-            else:
-                x = conv(x, p["w"], p["b"], k=3)
-
-        x = block(x)
-        x = attn(x, packs["mid_attn"], heads, dh)
-        x = block(x)
-
-        for i, lvl in enumerate(self.ups):
-            x = block(x, h.pop())
-            x = block(x, h.pop())
-            x = linear_attn(x, packs["up_attn"][i], heads, dh)
-            p = packs["up"][i]
-            x = conv(x, p["w"], p["b"], k=3, upsample=isinstance(lvl[3], Upsample))
-
-        x = block(x, r)
+    def _forward(self, x, time, packs, ops):
+        film = iter(torch.split(self._film(time, packs), packs["film_widths"], dim=1))
+        x = _conv_nchw(self._check_input(x), self.init_conv)
+        x = kmega.unet2d_sequence(ops, x, film, packs, self.groups, self.attn_heads,
+                                  self.attn_dim_head)
         return _conv_nchw(x, self.final_conv)

@@ -164,3 +164,64 @@ def test_port_unet2d_kernel_gradients_match_plain_on_gpu(cuda_device):
         gp = grads[1][name]
         assert gp.abs().max() > 0, name
         assert (gk - gp).norm() <= 1e-4 * gp.norm(), name
+
+
+def _res_pack(c, g, device):
+    def r(*s, scale=1.0, shift=0.0):
+        return torch.randn(*s, generator=g, device=device) * scale + shift
+
+    return {"w1": r(9 * c, c, scale=(9 * c) ** -0.5), "b1": r(c, scale=0.1),
+            "gs1": r(c, scale=0.1, shift=1.0), "gb1": r(c, scale=0.1),
+            "w2": r(9 * c, c, scale=(9 * c) ** -0.5), "b2": r(c, scale=0.1),
+            "gs2": r(c, scale=0.1, shift=1.0), "gb2": r(c, scale=0.1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((3, 16, 128, 64), 1), ((2, 4, 32, 256), 2)])
+def test_port_resblock_pair_kernel_matches_plain_on_gpu(cuda_device, shape, groups):
+    """K7 (one launch of the persistent kernel) against two plain ResBlocks,
+    with the second FiLM a strided column slice of a wider tensor."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, c = shape[0], shape[-1]
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    ss_a = 0.5 * torch.randn(b, 2 * c, generator=g, device=cuda_device)
+    ss_b = (0.5 * torch.randn(b, 4 * c, generator=g, device=cuda_device))[:, c:3 * c]
+    p_a, p_b = _res_pack(c, g, cuda_device), _res_pack(c, g, cuda_device)
+    kb.reset_launch_counts()
+    out = kb.resblock_pair(x, ss_a, ss_b, p_a, p_b, groups=groups)
+    counts = kb.launch_counts()
+    assert counts["resblock_pair"] == 1 and sum(counts.values()) == 1, counts
+    assert_close(out, kb.resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups), RTOL)
+    assert torch.equal(out, kb.resblock_pair(x, ss_a, ss_b, p_a, p_b, groups=groups))
+    with pytest.raises(TypeError, match="float32"):
+        kb.resblock_pair(x.double(), ss_a, ss_b, p_a, p_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,mults,shape,groups", [(8, (1, 2, 4, 8), (3, 16, 128, 2), 1),
+                                                    (16, (1, 2, 4), (2, 16, 128, 2), 2)])
+def test_port_unet2d_mega_kernel_matches_plain_on_gpu(cuda_device, dim, mults, shape, groups):
+    """K8: one launch per forward_mega, against forward_plain (the 3-level
+    net has the kernel's largest bottleneck, 128 tokens), bit-equal from run
+    to run; forward-only; a 512-token bottleneck raises."""
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D
+
+    net = seeded_init_(UNet2D(dim=dim, dim_mults=mults, resnet_block_groups=groups),
+                       torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    t = torch.linspace(0, 999, shape[0], device=cuda_device)
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = net.forward_mega(x, t)
+        counts = kb.launch_counts()
+        assert counts["unet2d_mega"] == 1 and sum(counts.values()) == 1, counts
+        assert_close(out, net.forward_plain(x, t), RTOL)
+        assert torch.equal(out, net.forward_mega(x, t))
+        wide = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2)),
+                            torch.Generator().manual_seed(0)).to(cuda_device)
+        with pytest.raises(ValueError, match="tokens"):
+            wide.forward_mega(x, t)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        net.forward_mega(x, t)

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_or_reference_package():
     for new in ("kernels.cg_pressure", "physics.fluids.pressure", "physics.fluids.smoke_env",
                 "nets.unet3d", "benchmarks.smoke", "apps.generate_smoke", "apps.infer_smoke",
                 "kernels.attention", "training.train_state", "training.trainer",
-                "apps.train_burgers"):
+                "apps.train_burgers", "kernels.unet2d_mega"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
