@@ -14,12 +14,17 @@ Burgers:
 3. kernels: every hand-written kernel at every shape one UNet2D forward
    gives it (K1-K3 convs and norms, K5 at its 8 linear-attention sites, K6
    at the bottleneck), against its plain PyTorch version (max |err| <=
-   KERNEL_RTOL * max(1, max |plain|)), with CUDA-event timings of the
-   kernel, the plain version and the library call (cuDNN ``F.conv2d`` /
-   ``F.group_norm``, TF32 off; none for K5 and K6, beside which
+   KERNEL_RTOL * max(1, max |plain|)), with CUDA-event timings (one call
+   per event pair) of the kernel, the plain version and the library call
+   (cuDNN ``F.conv2d`` / ``F.group_norm``, TF32 off; none for K5 and K6, beside which
    ``F.scaled_dot_product_attention`` on K6's q, k, v is timed as a
-   yardstick of its core), and the bound max(flops / fp32 peak, bytes / HBM
-   rate);
+   yardstick of its core), and the bound max(flops / peak, bytes / HBM
+   rate). K1 and K2 (3xTF32 tensor cores) are bound at 3 * flops over the
+   TF32 rate, with their fp32 CUDA-core bound beside it in the signature's
+   line; each also prints its tile plan (BM, BN, split-K, CTAs), the cuDNN
+   call timed a second time under ``cudnn.benchmark`` (``library_tuned_ms``),
+   its ratios to both cuDNN times (a record, not a check) and, as a
+   diagnostic, ``stream_ms``: 20 calls back to back, per call;
 4. UNet2D: kernel-backed forward against the plain forward, and the launch
    counts of one forward (K1, K2, K3, K5, K6) against those the
    architecture implies;
@@ -102,6 +107,9 @@ UNET_RTOL = 1e-4     # the same, compounded over ~40 blocks (GN renormalises)
 DDIM_RTOL = 2e-3
 CG_ITER_RTOL = 0.02  # iteration counts, kernel vs plain (summation order)
 FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
+# K1 and K2 run 3xTF32: three TF32 products per fp32-accurate FMA
+TC_KERNELS = ("conv2d_nhwc", "downsample_nhwc")
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
 TRAIN_B = 16  # the train app's default batch
@@ -243,9 +251,53 @@ def timed(torch, fn, n=20, warm=3):
     return ts[len(ts) // 2]
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def timed_stream(torch, fn, n=20, warm=3):
+    """Mean ms of n calls enqueued back to back between two CUDA events: the
+    device time once the host's enqueue overlaps the previous call (timed()
+    also counts the wrapper's host time while the card waits for it)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def timed_tuned(torch, fn, n=20):
+    """timed() with cuDNN's autotuner on (cudnn.benchmark), restored after."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return timed(torch, fn, n=n)
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
+def bound(flops, nbytes, peak=FP32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bound(kname, flops, nbytes):
+    """(bound ms, bound by, ms of the operations alone) of one launch: K1
+    and K2 at the 3xTF32 tensor-core rate, the others at fp32."""
+    if kname in TC_KERNELS:
+        return (*bound(3 * flops, nbytes, TF32_PEAK), 1e3 * 3 * flops / TF32_PEAK)
+    return (*bound(flops, nbytes), 1e3 * flops / FP32_PEAK)
+
+
+def gemm_dims(kname, args):
+    """(m, n, k) of the implicit GEMM of one K1 or K2 signature."""
+    if kname == "conv2d_nhwc":
+        b_, h, w, ca, cb, co, k, up = args
+        return b_ * h * w * (4 if up else 1), co, k * k * (ca + cb)
+    b_, h, w, c, co = args
+    return b_ * (h // 2) * (w // 2), co, 4 * c
 
 
 def attention_flops(kind, b_, n, c):
@@ -1019,7 +1071,7 @@ def main() -> int:
     _build.load_library()
     ptxas = [ln.replace("ptxas info    :", "").strip() for ln in
              (lib.parent / "ptxas.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "wgmma" in ln]
     emit({"phase": "build", "library": str(lib.relative_to(_build.PKG_DIR.parent)),
           "ptxas": ptxas, "seconds": round(time.time() - t0, 3)})
 
@@ -1033,6 +1085,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     agg = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0} for k in SOURCES}
+    for k in TC_KERNELS:
+        agg[k]["library_tuned_ms"] = 0.0
     bad = []
     with torch.no_grad():
         for (kname, args), count in per_fwd.items():
@@ -1044,12 +1098,23 @@ def main() -> int:
             tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
             ms, plain_ms = timed(torch, kern), timed(torch, plain)
             lib_ms = None if library is None else timed(torch, library)
-            b_ms, b_by = bound(flops, nbytes)
+            b_ms, b_by, ops_ms = kernel_bound(kname, flops, nbytes)
+            tc = {}
+            if kname in TC_KERNELS:
+                m, n, k = gemm_dims(kname, args)
+                plan = kb.tile_plan(m, n, k)
+                tuned_ms = timed_tuned(torch, library)
+                tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,
+                                    "ctas": plan.ctas(m, n)},
+                      "library_tuned_ms": tuned_ms, "ratio_vs_library": ms / lib_ms,
+                      "ratio_vs_library_tuned": ms / tuned_ms,
+                      "bound_fp32_simt_ms": bound(flops, nbytes)[0],
+                      "tflop_per_s": flops / ms / 1e9, "stream_ms": timed_stream(torch, kern)}
             emit({"phase": "kernel", "kernel": kname, "args": list(args),
                   "per_forward": count, "max_abs_err": err, "tol": tol,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-                  "mbytes": nbytes / 1e6,
+                  "mbytes": nbytes / 1e6, **tc,
                   **{f"{k}_ms": timed(torch, fn) for k, fn in extra.items()}})
             if not err <= tol:
                 bad.append((kname, args, err, tol))
@@ -1060,9 +1125,11 @@ def main() -> int:
             a["plain_ms"] += count * plain_ms
             a["library_ms"] = None if lib_ms is None else a["library_ms"] + count * lib_ms
             a["bound_ms"] += count * b_ms
-            a["ops_ms"] += count * 1e3 * flops / FP32_PEAK
+            a["ops_ms"] += count * ops_ms
             a["bytes_ms"] += count * 1e3 * nbytes / HBM_RATE
             a["max_abs_err"] = max(a["max_abs_err"], err)
+            if "library_tuned_ms" in tc:
+                a["library_tuned_ms"] += count * tc["library_tuned_ms"]
             del out, ref
     # per Pallas kernel replaced: launches and summed times in one forward;
     # _concat_kernel is the two-source K1 reads and _matmul_bias_kernel the
@@ -1216,7 +1283,8 @@ def main() -> int:
             "launches": main_counts[k], "max_abs_err": a["max_abs_err"],
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
-            "library_ms": a["library_ms"]})
+            "library_ms": a["library_ms"],
+            **({"library_tuned_ms": a["library_tuned_ms"]} if k in TC_KERNELS else {})})
     for k, (route, src) in SMOKE_SOURCES.items():
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
                         "launches": cg_launches, **cg_row})
@@ -1228,7 +1296,9 @@ def main() -> int:
                   "and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
                   "sums over one UNet2D forward at batch 50 (library_ms null where "
                   "no single PyTorch call computes the block), launches those of the "
-                  "Burgers main path; "
+                  "Burgers main path; K1 and K2 (3xTF32 tensor cores): bound_ms at 3 "
+                  "TF32 products per FMA (495 TFLOP/s), library_tuned_ms cuDNN under "
+                  "cudnn.benchmark; "
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
                   "solves the system, so library_ms is null), launches those of "
                   "the smoke main path; resblock_pair (K7): sums over its five "

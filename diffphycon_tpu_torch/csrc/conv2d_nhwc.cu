@@ -11,26 +11,34 @@
 //   and the two 3x3 convs and the 1x1 residual conv inside _resblock_kernel.
 //
 // Bound: operations. The smallest Burgers case (3x3, Ci=Co=64 at 16x128) does
-// 2*9*64 = 1152 flops per output pixel against ~2*64*4 bytes of activations,
-// far above the fp32 ridge of 67 TFLOP/s / 3.35 TB/s = 20 flops/byte. The
-// design keeps A (im2col) out of device memory and spends its effort on FMA
-// issue; see igemm_nhwc.cuh.
+// 2*9*64*64 = 73,728 flops per output pixel against 2*64*4 = 512 bytes of
+// activations (144 flops/byte), above the ridge of the tensor cores at the
+// 3xTF32 rate (495 / 3 TFLOP/s over 3.35 TB/s = 49 flops/byte). The design
+// keeps A (im2col) out of device memory and runs 3xTF32 wgmma products; see
+// igemm_tc.cuh.
 //
 // Weight layout (chosen once when weights are packed): w[k, co] with
 // k = (dy*K + dx) * (Ca + Cb) + c, i.e. the flax kernel (kh, kw, Ci, Co)
 // flattened to (kh*kw*Ci, Co).
 #include "conv_gathers.cuh"
+#include "igemm_tc.cuh"
 
-// B: batch; H, W: output size; Ca, Cb: channels of xa and xb (Cb = 0 and
-// xb = NULL for one source); Co: output channels; ks: 1 or 3; upsample: 0/1
-// (then xa/xb are (B, H/2, W/2, C)). Ca, Cb, Co multiples of 4 and every
-// pointer 16-byte aligned (the wrapper checks). Returns cudaGetLastError().
+// dims: {B, H, W, Ca, Cb, Co, ks, upsample, bm, bn, splits, per}, one array
+// so that the host passes one argument for twelve. B: batch; H, W: output
+// size; Ca, Cb: channels of xa and xb (Cb = 0 and xb = NULL for one source);
+// Co: output channels; ks: 1 or 3; upsample: 0/1 (then xa/xb are (B, H/2,
+// W/2, C)). bm, bn, splits, per: the tile plan. w: (K, Co); ws: splits * M *
+// Co floats when splits > 1 (else unused). Ca, Cb, Co multiples of 4 and
+// every pointer 16-byte aligned (the wrapper checks). Returns
+// cudaGetLastError().
 extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
-                               const float* bias, float* out, int B, int H, int W,
-                               int Ca, int Cb, int Co, int ks, int upsample,
+                               const float* bias, float* out, float* ws, const int* dims,
                                void* stream) {
-  const auto g = igemm::make_conv_gather<false>(xa, xb, H, W, Ca, Cb, ks, upsample);
+  const int B = dims[0], H = dims[1], W = dims[2], Ca = dims[3], Cb = dims[4], Co = dims[5];
+  const int ks = dims[6];
+  const auto g = igemm::make_conv_gather<false>(xa, xb, H, W, Ca, Cb, ks, dims[7]);
   const int M = B * H * W;
   const int K = ks * ks * (Ca + Cb);
-  return (int)igemm::launch(g, w, bias, out, M, Co, K, (cudaStream_t)stream);
+  return (int)igemm_tc::launch(g, w, bias, out, ws, M, Co, K, dims[8], dims[9], dims[10],
+                               dims[11], (cudaStream_t)stream);
 }

@@ -1,12 +1,14 @@
 // The implicit-GEMM gathers of the NHWC convolutions (see igemm_nhwc.cuh for
-// the contract): ConvGather for K1 and DownGather for K2, shared with the
-// persistent kernel (unet2d_persistent.cu).
+// the contract): ConvGather for K1 and DownGather for K2 (through
+// igemm_tc.cuh, by address: ptr4), shared with the persistent kernel
+// (unet2d_persistent.cu, by value: load4).
 //
-// kCoherent picks how activations are read. K1 and K2 read tensors that no
-// launch writes while they run, through the read-only path (__ldg). The
-// persistent kernel reads activations that other blocks wrote earlier in the
-// same launch: those loads must not go through the non-coherent read-only
-// path or L1, so they use __ldcg (cached in L2 only).
+// kCoherent picks how load4 reads activations. The persistent kernel reads
+// activations that other blocks wrote earlier in the same launch: those
+// loads must not go through the non-coherent read-only path or L1, so they
+// use __ldcg (cached in L2 only); the read-only path (__ldg) is for tensors
+// no launch writes meanwhile. K1 and K2 take only addresses (ptr4) and copy
+// them with cp.async.cg, which also bypasses L1.
 #pragma once
 
 #include "igemm_nhwc.cuh"
@@ -52,7 +54,20 @@ struct ConvGather {
     const int t = k / Ci;
     return {t / ks - pad, t % ks - pad, k - t * Ci};
   }
-  // channels c .. c+3 (c % 4 == 0, Ca % 4 == 0: never split across sources)
+  // channels c .. c+3 (c % 4 == 0, Ca % 4 == 0: never split across sources);
+  // nullptr outside the image
+  __device__ const float* ptr4(const Row& r, const Tap& tp) const {
+    int ih = r.oh + tp.dy;
+    int iw = r.ow + tp.dx;
+    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return nullptr;
+    if (up) {
+      ih >>= 1;
+      iw >>= 1;
+    }
+    const int pix = r.base + ih * Ws + iw;
+    return tp.c < Ca ? xa + pix * Ca + tp.c : xb + pix * Cb + (tp.c - Ca);
+  }
+  // the same read by value (the persistent kernel's igemm_tile)
   __device__ float4 load4(const Row& r, const Tap& tp) const {
     int ih = r.oh + tp.dy;
     int iw = r.ow + tp.dx;
@@ -115,7 +130,11 @@ struct DownGather {
     const int p = k / C;
     return {(p >> 1) * W + (p & 1), k - p * C};
   }
-  // channels c .. c+3 of one window pixel (C % 4 == 0)
+  // channels c .. c+3 of one window pixel (C % 4 == 0); nullptr past the end
+  __device__ const float* ptr4(const Row& r, const Tap& tp) const {
+    return r.base < 0 ? nullptr : x + (r.base + tp.off) * C + tp.c;
+  }
+  // the same read by value (the persistent kernel's igemm_tile)
   __device__ float4 load4(const Row& r, const Tap& tp) const {
     if (r.base < 0) return make_float4(0.f, 0.f, 0.f, 0.f);
     return load_act4<kCoherent>(x + (r.base + tp.off) * C + tp.c);

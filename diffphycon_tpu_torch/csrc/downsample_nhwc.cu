@@ -7,21 +7,24 @@
 //
 // Bound: operations. Each output pixel does 2*4*C*Co flops (C=64, Co=64 at the
 // first level: 32768) against 4*C*4 + Co*4 bytes of activations, far above
-// the fp32 ridge of ~20 flops/byte. Same FMA tiling as the convs
-// (igemm_nhwc.cuh).
+// the tensor cores' ridge (~49 flops/byte at the 3xTF32 rate). The same
+// 3xTF32 tensor-core core as the convs (igemm_tc.cuh).
 //
 // Weight layout: w[k, co] with k = (p1*2 + p2) * C + c, the (p1 p2 c) row
 // order of the packed Pallas weight (_down_p); the reference checkpoint's
 // (c p1 p2) order is permuted when weights are packed.
 #include "conv_gathers.cuh"
+#include "igemm_tc.cuh"
 
-// x: (B, H, W, C) with even H, W; out: (B, H/2, W/2, Co); C and Co
-// multiples of 4, pointers 16-byte aligned (the wrapper checks).
-// Returns cudaGetLastError() after launch.
+// dims: {B, H, W, C, Co, bm, bn, splits, per}. x: (B, H, W, C) with even H,
+// W; out: (B, H/2, W/2, Co); w: (4C, Co); bm, bn, splits, per, ws: the tile
+// plan as in conv2d_nhwc_f32. C and Co multiples of 4, pointers 16-byte
+// aligned (the wrapper checks). Returns cudaGetLastError() after launch.
 extern "C" int downsample_nhwc_f32(const float* x, const float* w, const float* bias,
-                                   float* out, int B, int H, int W, int C, int Co,
-                                   void* stream) {
-  const auto g = igemm::make_down_gather<false>(x, H, W, C);
+                                   float* out, float* ws, const int* dims, void* stream) {
+  const int B = dims[0], C = dims[3], Co = dims[4];
+  const auto g = igemm::make_down_gather<false>(x, dims[1], dims[2], C);
   const int M = B * g.Ho * g.Wo;
-  return (int)igemm::launch(g, w, bias, out, M, Co, 4 * C, (cudaStream_t)stream);
+  return (int)igemm_tc::launch(g, w, bias, out, ws, M, Co, 4 * C, dims[5], dims[6], dims[7],
+                               dims[8], (cudaStream_t)stream);
 }

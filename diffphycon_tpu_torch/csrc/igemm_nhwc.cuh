@@ -1,23 +1,21 @@
-// Implicit-GEMM core shared by the NHWC convolution kernels.
+// SIMT implicit-GEMM tile of the persistent kernel (unet2d_persistent.cu:
+// K7 resblock_pair, K8 unet2d_mega). K1 and K2 run on the tensor-core core,
+// igemm_tc.cuh.
 //
 // out[m, n] = bias[n] + sum_k A[m, k] * Wt[k, n], where m walks the output
 // pixels (b, oh, ow) of an NHWC tensor, n the output channels and k the
 // (tap, input channel) pairs. A is never materialised: a `Gather` functor
-// reads it straight from the NHWC input(s), so im2col, the skip concat and
-// the nearest-2x upsample all happen at load time.
+// (conv_gathers.cuh) reads it straight from the NHWC input(s), so im2col,
+// the skip concat and the nearest-2x upsample all happen at load time.
 //
-// Design: plain fp32 FMA on CUDA cores (no wgmma or TMA). A BM x 64 output
-// tile per block, K walked in 16-deep slices through two shared-memory
-// buffers: the next slice is loaded into registers while the current one is
-// multiplied, then stored to the other buffer (one barrier per slice). Each
-// thread owns 8x4 outputs, 32 FMAs per three 16-byte shared loads. A, the
-// weights and the output move as 16-byte vectors of 4 channels, so the
-// gather computes one address per 4 values (the caller guarantees channel
-// counts that are multiples of 4 and 16-byte aligned pointers). fp32 on H100
-// peaks at 67 TFLOP/s outside the tensor cores; every conv of the Burgers
-// UNet2D does >= 64 FMAs per byte it must move, so the convs are bound by
-// operations and the tile is sized for FMA issue. BM = 128 (256 threads)
-// when that grid fills the card, else BM = 64 (128 threads).
+// Design: plain fp32 FMA on CUDA cores. A BM x 64 output tile, K walked in
+// 16-deep slices through two shared-memory buffers: the next slice is loaded
+// into registers while the current one is multiplied, then stored to the
+// other buffer (one barrier per slice). Each thread owns TMT x 4 outputs. A,
+// the weights and the output move as 16-byte vectors of 4 channels, so the
+// gather computes one address per 4 values (channel counts are multiples of
+// 4, pointers 16-byte aligned). Bound: operations, at 67 TFLOP/s fp32
+// outside the tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,7 +27,6 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int TM = 8;  // outputs per thread along m (igemm_tile's default)
 constexpr int TN = 4;  // outputs per thread along n
-constexpr int SM_COUNT_H100 = 132;
 
 // Gather contract (k4 is a multiple of 4; the 4 values k4..k4+3 share a tap
 // and a source tensor):
@@ -38,6 +35,8 @@ constexpr int SM_COUNT_H100 = 132;
 //   Row row(int m) const;               m < 0 marks a row past the end
 //   Tap tap(int k4) const;
 //   float4 load4(const Row&, const Tap&) const;   0 outside the image
+//   const float* ptr4(const Row&, const Tap&) const;  the 4 values' address,
+//                                       nullptr outside the image (igemm_tc.cuh)
 //
 // One BM x BN output tile at (m0, n0). As and Bs are the tile's shared
 // buffers, [2][BK][BM + 4] and [2][BK][BN + 4] floats. Called by every
@@ -159,34 +158,6 @@ __device__ __forceinline__ void igemm_tile(const G& g, const float* __restrict__
             make_float4(acc[i][0] + bb.x, acc[i][1] + bb.y, acc[i][2] + bb.z, acc[i][3] + bb.w);
     }
   }
-}
-
-template <class G, int BM>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-igemm_kernel(G g, const float* __restrict__ w, const float* __restrict__ bias,
-             float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Bs[2][BK][BN + 4];
-  igemm_tile<G, BM>(g, w, bias, out, M, N, K, blockIdx.x * BM, blockIdx.y * BN, &As[0][0][0],
-                    &Bs[0][0][0]);
-}
-
-template <class G, int BM>
-inline cudaError_t launch_bm(const G& g, const float* w, const float* bias, float* out,
-                             int M, int N, int K, cudaStream_t stream) {
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  igemm_kernel<G, BM><<<grid, THREADS, 0, stream>>>(g, w, bias, out, M, N, K);
-  return cudaGetLastError();
-}
-
-// M, N, K: GEMM sizes; N and K multiples of 4, pointers 16-byte aligned.
-template <class G>
-inline cudaError_t launch(const G& g, const float* w, const float* bias, float* out,
-                          int M, int N, int K, cudaStream_t stream) {
-  const long tiles128 = (long)((M + 127) / 128) * ((N + BN - 1) / BN);
-  if (tiles128 >= SM_COUNT_H100) return launch_bm<G, 128>(g, w, bias, out, M, N, K, stream);
-  return launch_bm<G, 64>(g, w, bias, out, M, N, K, stream);
 }
 
 }  // namespace igemm

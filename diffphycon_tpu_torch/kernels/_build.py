@@ -32,8 +32,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
-    "conv2d_nhwc_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "downsample_nhwc_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "conv2d_nhwc_f32": [_P] * 8,  # ..., const int dims[12], stream
+    "downsample_nhwc_f32": [_P] * 7,  # ..., const int dims[9], stream
     "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "linear_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

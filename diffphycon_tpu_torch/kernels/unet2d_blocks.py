@@ -16,9 +16,14 @@ Pallas kernel (pallas_unet2d.py)  Port
 ``_resblock_pair_kernel`` :170    K7 :func:`resblock_pair` (one launch)
 ===============================  ==========================================
 
-K1 = csrc/conv2d_nhwc.cu, K2 = csrc/downsample_nhwc.cu (CUDA C++, sm_90a),
-K3 = group_norm_triton.py (Triton), K7 = csrc/unet2d_persistent.cu (its stage
-tables in ``kernels/unet2d_mega.py``).
+K1 = csrc/conv2d_nhwc.cu, K2 = csrc/downsample_nhwc.cu (CUDA C++, sm_90a, on
+the 3xTF32 tensor-core core csrc/igemm_tc.cuh), K3 = group_norm_triton.py
+(Triton), K7 = csrc/unet2d_persistent.cu (its stage tables in
+``kernels/unet2d_mega.py``).
+
+K1 and K2 take a tile plan per GEMM shape from the host (:func:`tile_plan`:
+tile size and split-K count). :func:`tf32_split` is their TF32 rounding in
+plain PyTorch, for the tests.
 
 Every public wrapper dispatches on the device of its input: a CPU tensor goes
 to the ``*_plain`` version, a CUDA tensor to the kernel (or the wrapper
@@ -43,7 +48,10 @@ Layouts: activations NHWC fp32, contiguous. Conv weights are packed once
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -66,15 +74,18 @@ _INT32_MAX = 2**31 - 1
 
 
 def _check_cuda(name: str, **tensors) -> None:
+    # is_cuda and get_device(): reading t.device.type costs several times more
+    # host time, on every launch
     dev = None
     for key, t in tensors.items():
         if t is None:
             continue
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{name}: {key} is on {t.device}, others on {dev}")
-        dev = t.device
+        if dev is None:
+            dev = t.get_device()
+        elif t.get_device() != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, others on cuda:{dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}; the kernel takes float32")
         if not t.is_contiguous():
@@ -92,13 +103,16 @@ def _check_vec4(name: str, channels, tensors) -> None:
         raise ValueError(f"{name}: tensors must start 16-byte aligned")
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on t's device (the same stream
+    as ``torch.cuda.current_stream(t.device)``, without building its Python
+    object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _dispatch(name: str, x: torch.Tensor) -> bool:
     """True for the CUDA kernel, False for the plain CPU version."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False
@@ -127,12 +141,128 @@ class _PlainVJP(torch.autograd.Function):
         return (None, None, *(next(grads) if need else None for need in needs))
 
 
-def with_plain_vjp(launch, plain, *inputs):
-    """``launch(*inputs)``, differentiable through the plain version when
-    grad is enabled and an input requires it (else the bare launch)."""
+def with_plain_vjp(launch, plain, *inputs, **kw):
+    """``launch(*inputs, **kw)``, differentiable through the plain version
+    when grad is enabled and an input requires it (else the bare launch)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        if kw:
+            launch, plain = functools.partial(launch, **kw), functools.partial(plain, **kw)
         return _PlainVJP.apply(launch, plain, *inputs)
-    return launch(*inputs)
+    return launch(*inputs, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2's tensor-core core (csrc/igemm_tc.cuh): tile plan, TF32 split
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132              # SMs of an H100 SXM: one wave of one CTA each
+TC_BK = 32                  # K per ring stage (igemm_tc.cuh: BK)
+MIN_SLICES_PER_SPLIT = 4    # ring stages of K each split walks at least
+# (BM, BN) -> (us per ring slice, us per CTA besides its slices, CTAs per
+# SM), and us per million split-K partial floats: the `fit` line of
+# `python3 -m diffphycon_tpu_torch.tools.sweep_igemm_tc`, which times every
+# plan at the batch-50 shapes (on an NVIDIA H100 80GB HBM3 at 700 W)
+TC_TILES = {(128, 128): (2.27, 1.94, 1), (128, 64): (1.57, 1.43, 1),
+            (64, 64): (1.59, 1.79, 2)}
+SPLIT_US_PER_MFLOAT = 1.82
+
+
+class TilePlan(NamedTuple):
+    bm: int
+    bn: int
+    splits: int  # split-K count (blockIdx.z)
+    per: int     # TC_BK-slices of K per split; the last split may take fewer
+
+    def ctas(self, m: int, n: int) -> int:
+        return math.ceil(m / self.bm) * math.ceil(n / self.bn) * self.splits
+
+    def workspace_floats(self, m: int, n: int) -> int:
+        """Floats of the split-K partials (none without a split)."""
+        return self.splits * m * n if self.splits > 1 else 0
+
+
+def plan_candidates(n: int, k: int):
+    """Every plan :func:`tile_plan` weighs for a GEMM of n columns and depth
+    k, each once: every tile of TC_TILES (128 columns only when n > 64)
+    with every split count that keeps MIN_SLICES_PER_SPLIT slices of K per
+    split."""
+    slices = math.ceil(k / TC_BK)
+    for bm, bn in TC_TILES:
+        if bn > 64 and n <= 64:
+            continue
+        seen = set()
+        for want in range(1, max(1, slices // MIN_SLICES_PER_SPLIT) + 1):
+            per = math.ceil(slices / want)
+            if per not in seen:
+                seen.add(per)
+                yield TilePlan(bm, bn, math.ceil(slices / per), per)
+
+
+def plan_waves(plan: TilePlan, m: int, n: int) -> int:
+    """Waves of SM_COUNT SMs, each holding the tile's CTAs per SM."""
+    return math.ceil(plan.ctas(m, n) / (SM_COUNT * TC_TILES[plan.bm, plan.bn][2]))
+
+
+def pick_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None) -> TilePlan:
+    """The plan of :func:`tile_plan` under the costs `tiles` (as TC_TILES)
+    and `split_us` (as SPLIT_US_PER_MFLOAT), the module's by default."""
+    tiles = TC_TILES if tiles is None else tiles
+    split_us = SPLIT_US_PER_MFLOAT if split_us is None else split_us
+    best = None
+    for plan in plan_candidates(n, k):
+        slice_us, cta_us, _ = tiles[plan.bm, plan.bn]
+        us = plan_waves(plan, m, n) * (plan.per * slice_us + cta_us)
+        us += split_us * plan.workspace_floats(m, n) / 1e6
+        key = (plan.ctas(m, n) < SM_COUNT, us)  # a full wave first, then the time
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(m: int, n: int, k: int) -> TilePlan:
+    """Tile and split-K of one (m, n, k) GEMM of K1 or K2, among
+    :func:`plan_candidates`: the plans that fill one wave of SM_COUNT CTAs
+    come first, and among them the one whose modelled time is least: waves
+    * (slices per split * us per slice + us per CTA) plus the split-K
+    pass."""
+    return pick_plan(m, n, k)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of a float32 tensor as the kernels split it: hi = x rounded
+    to TF32 (10 explicit mantissa bits) to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), lo = the same rounding of x - hi (exact in fp32).
+    Plain integer ops, for the tests and ``chip_smoke.py``; the kernels split
+    on the card."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+# int tuple -> (address, C int array): K1 and K2 take their shape and tile
+# plan as one `const int*`, since a ctypes call converts every argument in
+# Python, on the host's time before the launch
+_INT_ARRAYS: dict = {}
+
+
+def _plan_args(x, gemm, shape_ints):
+    """(split-K workspace or None, address of the kernel's int arguments:
+    its shape ints, then the plan) of one K1 or K2 launch of GEMM (m, n, k)
+    on float32 input x."""
+    plan = tile_plan(*gemm)
+    ws = None
+    if plan.splits > 1:
+        ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]))
+    ints = shape_ints + plan
+    found = _INT_ARRAYS.get(ints)
+    if found is None:
+        arr = (ctypes.c_int * len(ints))(*ints)
+        found = _INT_ARRAYS[ints] = (ctypes.addressof(arr), arr)
+    return ws, found[0]
 
 
 # ---------------------------------------------------------------------------
@@ -169,38 +299,48 @@ def conv2d_nhwc(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     b: (Co,). With ``upsample`` the output is (B, 2H, 2W, Co)."""
     if not _dispatch("conv2d_nhwc", x_a):
         return conv2d_nhwc_plain(x_a, w, b, x_b=x_b, k=k, upsample=upsample)
-    return with_plain_vjp(functools.partial(_conv2d_launch, k=k, upsample=upsample),
-                          functools.partial(conv2d_nhwc_plain, k=k, upsample=upsample),
-                          x_a, w, b, x_b)
+    return with_plain_vjp(_conv2d_launch, conv2d_nhwc_plain, x_a, w, b, x_b, k=k,
+                          upsample=upsample)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv2d_shapes(xa_shape, xb_shape, w_shape, b_shape, k, upsample):
+    """The checks of one K1 call that depend on shapes alone, once per
+    shape: (output shape, GEMM (m, n, k), the kernel's shape ints)."""
+    if k not in (1, 3):
+        raise ValueError(f"conv2d_nhwc: k={k}; the kernel takes 1 or 3")
+    if len(xa_shape) != 4:
+        raise ValueError(f"conv2d_nhwc: x_a must be NHWC, got {tuple(xa_shape)}")
+    B, Hs, Ws, ca = xa_shape
+    cb = 0
+    if xb_shape is not None:
+        if len(xb_shape) != 4 or xb_shape[:3] != xa_shape[:3]:
+            raise ValueError(f"conv2d_nhwc: x_b {tuple(xb_shape)} does not "
+                             f"match x_a {tuple(xa_shape)}")
+        cb = xb_shape[3]
+    co = w_shape[-1]
+    if len(w_shape) != 2 or w_shape[0] != k * k * (ca + cb) or b_shape != (co,):
+        raise ValueError(f"conv2d_nhwc: weight {tuple(w_shape)} / bias "
+                         f"{tuple(b_shape)} do not fit k={k}, Ci={ca + cb}")
+    _check_vec4("conv2d_nhwc", (ca, cb, co), ())
+    H, W = (2 * Hs, 2 * Ws) if upsample else (Hs, Ws)
+    if B * H * W * co > _INT32_MAX:
+        raise ValueError("conv2d_nhwc: output too large for int32 indexing")
+    return ((B, H, W, co), (B * H * W, co, k * k * (ca + cb)),
+            (B, H, W, ca, cb, co, k, int(upsample)))
 
 
 def _conv2d_launch(x_a, w, b, x_b, k, upsample):
     _check_cuda("conv2d_nhwc", x_a=x_a, x_b=x_b, w=w, b=b)
-    if k not in (1, 3):
-        raise ValueError(f"conv2d_nhwc: k={k}; the kernel takes 1 or 3")
-    if x_a.dim() != 4:
-        raise ValueError(f"conv2d_nhwc: x_a must be NHWC, got {tuple(x_a.shape)}")
-    B, Hs, Ws, ca = x_a.shape
-    cb = 0
-    if x_b is not None:
-        if x_b.dim() != 4 or x_b.shape[:3] != x_a.shape[:3]:
-            raise ValueError(f"conv2d_nhwc: x_b {tuple(x_b.shape)} does not "
-                             f"match x_a {tuple(x_a.shape)}")
-        cb = x_b.shape[3]
-    co = w.shape[-1]
-    if w.dim() != 2 or w.shape[0] != k * k * (ca + cb) or b.shape != (co,):
-        raise ValueError(f"conv2d_nhwc: weight {tuple(w.shape)} / bias "
-                         f"{tuple(b.shape)} do not fit k={k}, Ci={ca + cb}")
-    _check_vec4("conv2d_nhwc", (ca, cb, co), (x_a, x_b, w, b))
-    H, W = (2 * Hs, 2 * Ws) if upsample else (Hs, Ws)
-    out = torch.empty((B, H, W, co), device=x_a.device, dtype=torch.float32)
-    if out.numel() > _INT32_MAX:
-        raise ValueError("conv2d_nhwc: output too large for int32 indexing")
-    lib = _build.load_library()
-    err = lib.conv2d_nhwc_f32(
+    out_shape, gemm, ints = _conv2d_shapes(x_a.shape, None if x_b is None else x_b.shape,
+                                           w.shape, b.shape, k, bool(upsample))
+    _check_vec4("conv2d_nhwc", (), (x_a, x_b, w, b))
+    out = x_a.new_empty(out_shape)
+    ws, args = _plan_args(x_a, gemm, ints)
+    err = _build.load_library().conv2d_nhwc_f32(
         x_a.data_ptr(), x_b.data_ptr() if x_b is not None else None,
-        w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        B, H, W, ca, cb, co, k, int(upsample), _stream(x_a))
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        args, _stream(x_a))
     _build.check(err, "conv2d_nhwc")
     conv2d_nhwc.launches += 1
     conv2d_nhwc.dual_launches += int(x_b is not None)
@@ -232,21 +372,32 @@ def downsample_nhwc(x, w, b):
     return with_plain_vjp(_downsample_launch, downsample_nhwc_plain, x, w, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _downsample_shapes(x_shape, w_shape, b_shape):
+    """The shape checks of one K2 call, once per shape: (output shape, GEMM
+    (m, n, k), the kernel's shape ints)."""
+    if len(x_shape) != 4 or x_shape[1] % 2 or x_shape[2] % 2:
+        raise ValueError(f"downsample_nhwc: x must be NHWC with even H, W, "
+                         f"got {tuple(x_shape)}")
+    B, H, W, C = x_shape
+    co = w_shape[-1]
+    if len(w_shape) != 2 or w_shape[0] != 4 * C or b_shape != (co,):
+        raise ValueError(f"downsample_nhwc: weight {tuple(w_shape)} / bias "
+                         f"{tuple(b_shape)} do not fit C={C}")
+    _check_vec4("downsample_nhwc", (C, co), ())
+    m = B * (H // 2) * (W // 2)
+    return (B, H // 2, W // 2, co), (m, co, 4 * C), (B, H, W, C, co)
+
+
 def _downsample_launch(x, w, b):
     _check_cuda("downsample_nhwc", x=x, w=w, b=b)
-    if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(f"downsample_nhwc: x must be NHWC with even H, W, "
-                         f"got {tuple(x.shape)}")
-    B, H, W, C = x.shape
-    co = w.shape[-1]
-    if w.dim() != 2 or w.shape[0] != 4 * C or b.shape != (co,):
-        raise ValueError(f"downsample_nhwc: weight {tuple(w.shape)} / bias "
-                         f"{tuple(b.shape)} do not fit C={C}")
-    _check_vec4("downsample_nhwc", (C, co), (x, w, b))
-    out = torch.empty((B, H // 2, W // 2, co), device=x.device, dtype=torch.float32)
-    lib = _build.load_library()
-    err = lib.downsample_nhwc_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                  out.data_ptr(), B, H, W, C, co, _stream(x))
+    out_shape, gemm, ints = _downsample_shapes(x.shape, w.shape, b.shape)
+    _check_vec4("downsample_nhwc", (), (x, w, b))
+    out = x.new_empty(out_shape)
+    ws, args = _plan_args(x, gemm, ints)
+    err = _build.load_library().downsample_nhwc_f32(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, args, _stream(x))
     _build.check(err, "downsample_nhwc")
     downsample_nhwc.launches += 1
     return out

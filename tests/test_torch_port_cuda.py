@@ -6,12 +6,16 @@ only the port is installed:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest``.
 
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|); both are
-float32 and differ in summation order only.
+fp32-accurate and differ in summation order (and, for K1 and K2, by the
+~2^-22 relative term that 3xTF32 drops).
 """
+
+import math
 
 import pytest
 import torch
 
+import chip_smoke
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 from torch_port_helpers import assert_close
 
@@ -47,6 +51,127 @@ def test_port_kernels_match_plain_on_gpu(cuda_device):
         kb.conv2d_nhwc(r(1, 4, 4, 6), r(54, 8), r(8))
     with pytest.raises(TypeError, match="float32"):
         kb.conv2d_nhwc(xa.double(), w.double(), b.double())
+
+
+def _conv_case(g, device, b, h, w, ca, cb, co, k, up=False):
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=device) * scale
+
+    ci = ca + cb
+    return (r(b, h, w, ca), r(b, h, w, cb) if cb else None,
+            r(k * k * ci, co, scale=(k * k * ci) ** -0.5), r(co, scale=0.1))
+
+
+def _check_conv(case, k, up):
+    xa, xb, w, b = case
+    assert_close(kb.conv2d_nhwc(xa, w, b, x_b=xb, k=k, upsample=up),
+                 kb.conv2d_nhwc_plain(xa, w, b, x_b=xb, k=k, upsample=up), RTOL)
+
+
+@pytest.mark.cuda
+def test_port_tc_convs_match_plain_at_main_path_signatures(cuda_device):
+    """K1 and K2 (3xTF32 tensor cores) at every signature of the Burgers
+    UNet2D forward at batch 50, each through its own tile plan (split-K at
+    the small levels)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    seen = set()
+    for name, args, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), 50):
+        if name not in ("conv2d_nhwc", "downsample_nhwc") or (name, args) in seen:
+            continue
+        seen.add((name, args))
+        if name == "conv2d_nhwc":
+            b, h, w, ca, cb, co, k, up = args
+            _check_conv(_conv_case(g, cuda_device, b, h, w, ca, cb, co, k), k, up)
+        else:
+            b, h, w, c, co = args
+            x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
+            assert_close(kb.downsample_nhwc(x, wt, bias), kb.downsample_nhwc_plain(x, wt, bias),
+                         RTOL)
+        torch.cuda.synchronize()
+    assert len(seen) == 22
+
+
+def _forced_plan(bm, bn, splits):
+    def plan(m, n, k):
+        slices = math.ceil(k / kb.TC_BK)
+        per = math.ceil(slices / splits)
+        return kb.TilePlan(bm, bn, math.ceil(slices / per), per)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES)
+@pytest.mark.parametrize("splits", [1, 3])
+def test_port_tc_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, bn, splits):
+    """Every tile shape, with and without split-K, on shapes no tile
+    divides: M not a multiple of BM, Co = 4, Ca = 4 with Cb = 8, k = 1, an
+    odd upsampled source, Co = 136 over two N tiles, C = 4 downsampling."""
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    for args in [(3, 5, 7, 4, 8, 4, 3), (3, 5, 7, 4, 8, 12, 1), (2, 9, 15, 36, 0, 136, 3),
+                 (1, 3, 5, 8, 0, 20, 3, True), (2, 4, 4, 64, 32, 64, 1)]:
+        k, up = args[6], bool(args[7:] and args[7])
+        _check_conv(_conv_case(g, cuda_device, *args[:7]), k, up)
+    for b, h, w, c, co in [(3, 6, 10, 4, 4), (2, 10, 18, 20, 72)]:
+        x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
+        assert_close(kb.downsample_nhwc(x, wt, bias), kb.downsample_nhwc_plain(x, wt, bias), RTOL)
+
+
+@pytest.mark.cuda
+def test_port_tc_split_k_launches_are_bit_equal(cuda_device):
+    """No atomics: the split partials are added in a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    assert kb.tile_plan(1600, 512, 6912).splits > 1 and kb.tile_plan(1600, 256, 512).splits > 1
+    xa, xb, w, b = _conv_case(g, cuda_device, 50, 2, 16, 512, 256, 512, 3)
+    one = kb.conv2d_nhwc(xa, w, b, x_b=xb)
+    assert torch.equal(one, kb.conv2d_nhwc(xa, w, b, x_b=xb))
+    x, _, wd, bd = _conv_case(g, cuda_device, 50, 4, 32, 128, 0, 256, 2)
+    assert torch.equal(kb.downsample_nhwc(x, wd, bd), kb.downsample_nhwc(x, wd, bd))
+
+
+@pytest.mark.cuda
+def test_port_tc_conv_error_is_fp32_level_at_the_deepest_k(cuda_device):
+    """At K = 6912 (the skip-concat conv of the 2 x 16 level) K1 stays within
+    5e-6 relative of a float64 conv: the 3xTF32 products and the per-slice
+    fp32 promotion (one accumulator over all of K on the tensor cores drifts
+    further as K grows). A weight edited in place between two launches is
+    read afresh."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    xa, xb, w, b = _conv_case(g, cuda_device, 8, 2, 16, 512, 256, 512, 3)
+    ref = kb.conv2d_nhwc_plain(xa.double(), w.double(), b.double(), x_b=xb.double())
+    scale = max(1.0, ref.abs().max().item())
+    assert (kb.conv2d_nhwc(xa, w, b, x_b=xb).double() - ref).abs().max().item() <= 5e-6 * scale
+    w.mul_(-0.5)
+    assert_close(kb.conv2d_nhwc(xa, w, b, x_b=xb), kb.conv2d_nhwc_plain(xa, w, b, x_b=xb), RTOL)
+
+
+@pytest.mark.cuda
+def test_port_tc_conv_gradients_match_plain_on_gpu(cuda_device):
+    """Gradients through the K1 and K2 forwards (their autograd Functions'
+    backward is the plain VJP) against the plain versions'."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    for args, k, up in [((2, 4, 16, 64, 32, 48, 3), 3, False), ((2, 4, 8, 32, 0, 16, 3), 3, True)]:
+        case = [t.requires_grad_(True) if t is not None else None
+                for t in _conv_case(g, cuda_device, *args)]
+        xa, xb, w, b = case
+        with torch.no_grad():
+            shape = kb.conv2d_nhwc_plain(xa, w, b, x_b=xb, k=k, upsample=up).shape
+        seed = torch.randn(shape, generator=g, device=cuda_device)
+        grads = []
+        for fn in (kb.conv2d_nhwc, kb.conv2d_nhwc_plain):
+            (fn(xa, w, b, x_b=xb, k=k, upsample=up) * seed).sum().backward()
+            grads.append([t.grad.clone() for t in case if t is not None])
+            for t in case:
+                if t is not None:
+                    t.grad = None
+        for gk, gp in zip(*grads):
+            assert_close(gk, gp, RTOL)
+    x, _, w, b = [t.requires_grad_(True) if t is not None else None
+                  for t in _conv_case(g, cuda_device, 2, 8, 16, 32, 0, 64, 2)]
+    gk = torch.autograd.grad(kb.downsample_nhwc(x, w, b).square().sum(), (x, w, b))
+    gp = torch.autograd.grad(kb.downsample_nhwc_plain(x, w, b).square().sum(), (x, w, b))
+    for a, c in zip(gk, gp):
+        assert_close(a, c, RTOL)
 
 
 @pytest.mark.cuda

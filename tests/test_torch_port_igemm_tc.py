@@ -1,0 +1,156 @@
+"""The arithmetic and the host-side plan of K1 and K2's tensor-core core
+(``csrc/igemm_tc.cuh``), on the CPU.
+
+- ``tf32_split`` is the kernels' rounding (``cvt.rna.tf32.f32``): hi keeps 10
+  explicit mantissa bits, ties go away from zero, hi + lo is x to 2^-22.
+- The kernels' 3xTF32 products (lo*hi' + hi*lo' + hi*hi', fp32 sums),
+  emulated with ``tf32_split`` and float32 matmuls over the K1/K2 gather,
+  agree with the Pallas conv, upsample, concat, 1x1 and downsample kernels
+  (interpret mode) within the kernels' tolerance at K up to 6912: the
+  design's error budget fits ``chip_smoke.py``'s KERNEL_RTOL (1e-4).
+- ``tile_plan`` covers K exactly and fills one wave of the card at every
+  K1/K2 shape of the Burgers UNet2D at batch 50 (sampling) and 16 (training).
+
+The kernels themselves run only on an NVIDIA GPU: ``test_torch_port_cuda.py``.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke
+from diffphycon_tpu.research import pallas_unet2d as pu
+from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+from torch_port_helpers import assert_close, rand
+
+RTOL = chip_smoke.KERNEL_RTOL  # 1e-4, as on the card
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    pu.set_interpret(True)
+    yield
+    pu.set_interpret(False)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _from_bits(*words):
+    return torch.tensor(np.array(words, dtype=np.uint32).view(np.int32)).view(torch.float32)
+
+
+def test_port_tf32_split_keeps_10_bits_and_sums_back_to_x():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(20000)
+                          * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32))
+    hi, lo = kb.tf32_split(x)
+    assert (_bits(hi) & 0x1FFF).eq(0).all() and (_bits(lo) & 0x1FFF).eq(0).all()
+    x64 = x.double()
+    assert ((hi.double() - x64).abs() <= 2.0 ** -11 * x64.abs()).all()
+    assert ((hi.double() + lo.double() - x64).abs() <= 2.0 ** -22 * x64.abs()).all()
+    assert torch.equal(torch.sign(hi), torch.sign(x))
+
+
+@pytest.mark.parametrize("sign", [0, 0x80000000])
+def test_port_tf32_split_rounds_ties_away_from_zero(sign):
+    # 1 + 2^-11 is halfway between two TF32 values; so are the others with
+    # low bits 0x1000. cvt.rna takes the larger magnitude.
+    x = _from_bits(*(sign | w for w in (0x3F801000, 0x3F803000, 0x3F800FFF, 0x3F801001,
+                                        0x3FFFF000, 0x00001000)))
+    want = _from_bits(*(sign | w for w in (0x3F802000, 0x3F804000, 0x3F800000, 0x3F802000,
+                                           0x40000000, 0x00002000)))
+    hi, _ = kb.tf32_split(x)
+    assert torch.equal(_bits(hi), _bits(want))
+
+
+def _tc3(a, w):
+    """a @ w as the kernels compute it: 3xTF32 products, fp32 sums."""
+    ah, al = kb.tf32_split(a)
+    wh, wl = kb.tf32_split(w)
+    return al @ wh + ah @ wl + ah @ wh
+
+
+def _conv_gather(x_a, x_b, k, upsample):
+    """The (M, K) im2col matrix K1 gathers, K ordered (dy*k + dx)*Ci + c."""
+    x = kb._conv_input(x_a, x_b, upsample)
+    B, H, W, ci = x.shape
+    p = (k - 1) // 2
+    xp = F.pad(x, (0, 0, p, k - 1 - p, p, k - 1 - p))
+    taps = [xp[:, dy:dy + H, dx:dx + W, :].reshape(B * H * W, ci)
+            for dy in range(k) for dx in range(k)]
+    return torch.cat(taps, dim=1), (B, H, W)
+
+
+@pytest.mark.parametrize("ca,cb,k,up", [(768, 0, 3, False),   # K = 6912
+                                        (512, 256, 3, False),  # the skip concat, K = 6912
+                                        (512, 256, 1, False),  # _matmul_bias_kernel
+                                        (512, 0, 3, True)])    # _upsample_kernel, K = 4608
+def test_port_3xtf32_conv_emulation_matches_pallas(ca, cb, k, up):
+    co = 16
+    xa, xb = rand(2, 2, 8, ca, seed=1), rand(2, 2, 8, cb, seed=2) if cb else None
+    w = rand(k * k, ca + cb, co, seed=3) / np.float32(np.sqrt(k * k * (ca + cb)))
+    b = 0.1 * rand(co, seed=4)
+    p = {"w": jnp.asarray(w if k == 3 else w[0]), "b": jnp.asarray(b)}
+    xin = jnp.asarray(xa) if xb is None else pu.concat_channels(jnp.asarray(xa), jnp.asarray(xb))
+    ref = pu.upsample(xin, p) if up else pu.conv(xin, p, k, k)
+    a, (B, H, W) = _conv_gather(torch.from_numpy(xa), None if xb is None else torch.from_numpy(xb),
+                                k, up)
+    out = _tc3(a, torch.from_numpy(w).reshape(-1, co)) + torch.from_numpy(b)
+    assert_close(out.reshape(B, H, W, co), ref, RTOL)
+
+
+def test_port_3xtf32_downsample_emulation_matches_pallas():
+    x = rand(2, 4, 16, 128)
+    w, b = rand(4, 128, 64, seed=1) / np.float32(np.sqrt(512)), 0.1 * rand(64, seed=2)
+    ref = pu.downsample(jnp.asarray(x), {"w": jnp.asarray(w), "b": jnp.asarray(b)})
+    x6 = torch.from_numpy(x).reshape(2, 2, 2, 8, 2, 128).permute(0, 1, 3, 2, 4, 5)
+    out = _tc3(x6.reshape(32, 512), torch.from_numpy(w).reshape(512, 64)) + torch.from_numpy(b)
+    assert_close(out.reshape(2, 2, 8, 64), ref, RTOL)
+
+
+def _gemm_shapes(batch):
+    """(m, n, k) of every K1 and K2 signature of the Burgers UNet2D."""
+    return sorted({chip_smoke.gemm_dims(name, args)
+                   for name, args, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), batch)
+                   if name in chip_smoke.TC_KERNELS})
+
+
+@pytest.mark.parametrize("batch", [50, 16])
+def test_port_tile_plan_covers_k_and_fills_a_wave(batch):
+    shapes = _gemm_shapes(batch)
+    assert len(shapes) >= 15
+    for m, n, k in shapes:
+        plan = kb.tile_plan(m, n, k)
+        assert (plan.bm, plan.bn) in kb.TC_TILES, (m, n, k, plan)
+        slices = math.ceil(k / kb.TC_BK)
+        # split z walks K slices [z * per, min((z + 1) * per, slices)): all
+        # non-empty, disjoint, together exactly [0, K)
+        ranges = [(z * plan.per, min((z + 1) * plan.per, slices)) for z in range(plan.splits)]
+        assert all(lo < hi for lo, hi in ranges)
+        assert ranges[0][0] == 0 and ranges[-1][1] == slices
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert plan.splits == 1 or plan.per >= kb.MIN_SLICES_PER_SPLIT
+        most = plan.ctas(m, n) // plan.splits * max(1, slices // kb.MIN_SLICES_PER_SPLIT)
+        assert plan.ctas(m, n) >= kb.SM_COUNT or most < kb.SM_COUNT, (m, n, k, plan)
+        assert plan.bn == 64 or n > 64
+        want_ws = plan.splits * m * n if plan.splits > 1 else 0
+        assert plan.workspace_floats(m, n) == want_ws
+    # the 2 x 16 level needs split-K to fill the card
+    assert kb.tile_plan(batch * 32, 512, 4608).splits > 1
+
+
+def test_port_tile_plan_balances_waves():
+    plan = kb.tile_plan(24, 4, 108)  # 4 slices: too few to split
+    assert plan.splits == 1 and plan.workspace_floats(24, 4) == 0
+    plan = kb.tile_plan(100, 40, 2304)  # few tiles, 72 slices: split to 4 each
+    assert plan.per == 4 and plan.ctas(100, 40) < kb.SM_COUNT
+    # 52 tiles of 128 x 128, 144 slices: 5 splits fill two waves (260 CTAs)
+    # with 29 slices each; 3 splits (156 CTAs) would leave a second wave of 24
+    plan = kb.tile_plan(1600, 512, 4608)
+    assert plan == kb.TilePlan(128, 128, 5, 29) and plan.ctas(1600, 512) == 260
