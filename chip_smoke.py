@@ -19,12 +19,18 @@ Burgers:
    (cuDNN ``F.conv2d`` / ``F.group_norm``, TF32 off; none for K5 and K6, beside which
    ``F.scaled_dot_product_attention`` on K6's q, k, v is timed as a
    yardstick of its core), and the bound max(flops / peak, bytes / HBM
-   rate). K1 and K2 (3xTF32 tensor cores) are bound at 3 * flops over the
-   TF32 rate, with their fp32 CUDA-core bound beside it in the signature's
-   line; each also prints its tile plan (BM, BN, split-K, CTAs), the cuDNN
-   call timed a second time under ``cudnn.benchmark`` (``library_tuned_ms``),
-   its ratios to both cuDNN times (a record, not a check) and, as a
-   diagnostic, ``stream_ms``: 20 calls back to back, per call;
+   rate). K1, K2 and K5 (3xTF32 tensor cores) are bound at 3 * flops over
+   the TF32 rate, with their fp32 CUDA-core bound beside it in the
+   signature's line; K1 and K2 also print their tile plan (BM, BN, split-K,
+   CTAs), the cuDNN call timed a second time under ``cudnn.benchmark``
+   (``library_tuned_ms``), its ratios to both cuDNN times (a record, not a
+   check) and, as a diagnostic, ``stream_ms``: 20 calls back to back, per
+   call. K3 (one cluster launch) and K5 (K5a, the merge, K5b) must give
+   bit-equal repeats; their lines add ``device_ms``, the device time alone
+   (20 calls captured in a CUDA graph, its replay timed by two events), so
+   that the host's share of ``ms`` stands apart; K3 prints its cluster size,
+   K5 its chunk plan and head groups and its stages timed apart (K5a; the merge with K5b),
+   each per event pair and on the device;
 4. UNet2D: kernel-backed forward against the plain forward, and the launch
    counts of one forward (K1, K2, K3, K5, K6) against those the
    architecture implies;
@@ -110,6 +116,9 @@ FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
 # K1 and K2 run 3xTF32: three TF32 products per fp32-accurate FMA
 TC_KERNELS = ("conv2d_nhwc", "downsample_nhwc")
+TF32X3_KERNELS = TC_KERNELS + ("linear_attention_block",)  # bound at 3xTF32
+# the kernels whose device time alone is measured (timed_graph) in phase 3
+DEVICE_TIMED = ("group_norm_act", "linear_attention_block")
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
 TRAIN_B = 16  # the train app's default batch
@@ -137,8 +146,8 @@ REPLACES = {
 SOURCES = {
     "conv2d_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/conv2d_nhwc.cu"),
     "downsample_nhwc": ("cuda", "diffphycon_tpu_torch/csrc/downsample_nhwc.cu"),
-    "group_norm_act": ("triton", "diffphycon_tpu_torch/kernels/group_norm_triton.py"),
-    "linear_attention_block": ("cuda", "diffphycon_tpu_torch/csrc/linear_attention.cu"),
+    "group_norm_act": ("cuda", "diffphycon_tpu_torch/csrc/group_norm_act.cu"),
+    "linear_attention_block": ("cuda", "diffphycon_tpu_torch/csrc/linear_attention_tc.cu"),
     "attention_block": ("cuda", "diffphycon_tpu_torch/csrc/attention.cu"),
 }
 SMOKE_SOURCES = {"cg_pressure": ("cuda", "diffphycon_tpu_torch/csrc/cg_pressure.cu")}
@@ -268,6 +277,41 @@ def timed_stream(torch, fn, n=20, warm=3):
     return a.elapsed_time(b) / n
 
 
+def timed_graph(torch, fn, n=20):
+    """(device ms per call, None) with n calls of fn captured in one CUDA
+    graph and its replay timed between two events: the device's time alone,
+    without the host's launch path; (None, the error) if the capture fails
+    (a diagnostic, not a check)."""
+    try:
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / n)
+        del graph
+        return sorted(ts)[1], None
+    except Exception as e:  # noqa: BLE001 (a diagnostic: record why and go on)
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {e}"[:200]
+
+
 def timed_tuned(torch, fn, n=20):
     """timed() with cuDNN's autotuner on (cudnn.benchmark), restored after."""
     prev = torch.backends.cudnn.benchmark
@@ -284,9 +328,9 @@ def bound(flops, nbytes, peak=FP32_PEAK):
 
 
 def kernel_bound(kname, flops, nbytes):
-    """(bound ms, bound by, ms of the operations alone) of one launch: K1
-    and K2 at the 3xTF32 tensor-core rate, the others at fp32."""
-    if kname in TC_KERNELS:
+    """(bound ms, bound by, ms of the operations alone) of one launch: K1,
+    K2 and K5 at the 3xTF32 tensor-core rate, the others at fp32."""
+    if kname in TF32X3_KERNELS:
         return (*bound(3 * flops, nbytes, TF32_PEAK), 1e3 * 3 * flops / TF32_PEAK)
     return (*bound(flops, nbytes), 1e3 * flops / FP32_PEAK)
 
@@ -336,7 +380,9 @@ def kernel_case(torch, F, kb, gen, kind, args):
         n = h * w
         nbytes = 4 * (2 * x.numel() + c * 3 * hidden + hidden * c + 3 * c)
         extra = {}
-        if not linear:  # yardstick of the core: SDPA on this block's q, k, v
+        if linear:  # the stages apart: K5a, then the merge with K5b
+            extra["k5a"], extra["k5b"] = ka.linear_attention_stages(x, p)
+        else:  # yardstick of the core: SDPA on this block's q, k, v
             qkv = ka._qkv(x, p["norm_g"], p["wqkv"], HEADS, DIM_HEAD)
             q, k, v = (t.permute(0, 2, 1, 3).contiguous() for t in qkv.unbind(2))
             extra["sdpa_core"] = lambda: F.scaled_dot_product_attention(q, k, v)
@@ -1044,6 +1090,7 @@ def main() -> int:
         from diffphycon_tpu_torch.apps import infer_burgers
         from diffphycon_tpu_torch.benchmarks import burgers as bench
         from diffphycon_tpu_torch.kernels import _build
+        from diffphycon_tpu_torch.kernels import attention as ka
         from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
     except ImportError as e:
         fail(f"the port is not importable here ({e}); run from the repository root")
@@ -1087,6 +1134,10 @@ def main() -> int:
                "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0} for k in SOURCES}
     for k in TC_KERNELS:
         agg[k]["library_tuned_ms"] = 0.0
+    for k in DEVICE_TIMED:
+        agg[k]["device_ms"] = 0.0
+    agg["linear_attention_block"].update(
+        {"k5a_ms": 0.0, "k5b_ms": 0.0, "k5a_device_ms": 0.0, "k5b_device_ms": 0.0})
     bad = []
     with torch.no_grad():
         for (kname, args), count in per_fwd.items():
@@ -1110,12 +1161,33 @@ def main() -> int:
                       "ratio_vs_library_tuned": ms / tuned_ms,
                       "bound_fp32_simt_ms": bound(flops, nbytes)[0],
                       "tflop_per_s": flops / ms / 1e9, "stream_ms": timed_stream(torch, kern)}
+            extra_ms = {f"{k}_ms": timed(torch, fn) for k, fn in extra.items()}
+            dev = {}
+            if kname in DEVICE_TIMED:
+                repeat_equal = torch.equal(out, kern())
+                dev = {"repeat_bit_equal": repeat_equal}
+                fns = {"device_ms": kern}
+                if kname == "linear_attention_block":
+                    b_, h, w, _ = args
+                    chunk, n_chunks = ka.la_chunk_plan(b_, h * w)
+                    dev.update({"chunk": chunk, "S": n_chunks,
+                                "head_groups": ka.la_head_groups(b_, n_chunks),
+                                "bound_fp32_ms": bound(flops, nbytes)[0]})
+                    fns.update({"k5a_device_ms": extra["k5a"], "k5b_device_ms": extra["k5b"]})
+                else:
+                    b_, h, w, c, _ = args
+                    dev["cluster"] = kb.gn_cluster_plan(b_, h * w * c)
+                for key, fn in fns.items():
+                    dev[key], why = timed_graph(torch, fn)
+                    if why is not None:
+                        dev[key + "_error"] = why
+                if not repeat_equal:
+                    bad.append((kname, args, "two calls are not bit-equal"))
             emit({"phase": "kernel", "kernel": kname, "args": list(args),
                   "per_forward": count, "max_abs_err": err, "tol": tol,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-                  "mbytes": nbytes / 1e6, **tc,
-                  **{f"{k}_ms": timed(torch, fn) for k, fn in extra.items()}})
+                  "mbytes": nbytes / 1e6, **tc, **extra_ms, **dev})
             if not err <= tol:
                 bad.append((kname, args, err, tol))
             sig_times[(kname, args)] = {"ms": ms, "plain_ms": plain_ms,
@@ -1130,6 +1202,13 @@ def main() -> int:
             a["max_abs_err"] = max(a["max_abs_err"], err)
             if "library_tuned_ms" in tc:
                 a["library_tuned_ms"] += count * tc["library_tuned_ms"]
+            for key in ("device_ms", "k5a_device_ms", "k5b_device_ms"):
+                if key in dev:  # a failed graph capture leaves the sum unknown
+                    known = dev[key] is not None and a[key] is not None
+                    a[key] = a[key] + count * dev[key] if known else None
+            for key in ("k5a_ms", "k5b_ms"):
+                if key in extra_ms:
+                    a[key] += count * extra_ms[key]
             del out, ref
     # per Pallas kernel replaced: launches and summed times in one forward;
     # _concat_kernel is the two-source K1 reads and _matmul_bias_kernel the
@@ -1234,7 +1313,9 @@ def main() -> int:
 
     wall_ms, dev_ms, rows = profile_window(torch, three_steps)
     busy = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
-            "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:8]]}
+            "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:8]],
+            "k3_device_ms": sum(v for k, v in rows if "group_norm_act_kernel" in k),
+            "k5_device_ms": sum(v for k, v in rows if "la_" in k and "_tc_kernel" in k)}
     emit({"phase": "guided_ddpm", "batch": B, "steps_timed": n_steps,
           "seconds_timed": dt, "guided_denoise_steps_per_sec": steps_per_sec,
           "ms_per_step": 1e3 * dt / n_steps, "profile": busy,
@@ -1284,7 +1365,9 @@ def main() -> int:
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
             "library_ms": a["library_ms"],
-            **({"library_tuned_ms": a["library_tuned_ms"]} if k in TC_KERNELS else {})})
+            **({"library_tuned_ms": a["library_tuned_ms"]} if k in TC_KERNELS else {}),
+            **{key: a[key] for key in ("device_ms", "k5a_ms", "k5b_ms", "k5a_device_ms",
+                                       "k5b_device_ms") if key in a}})
     for k, (route, src) in SMOKE_SOURCES.items():
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
                         "launches": cg_launches, **cg_row})
@@ -1292,13 +1375,15 @@ def main() -> int:
         kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
                         "replaces": REPLACES[k], **row})
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
-          "note": "K1-K3, K5 (linear_attention_block, one K5a + one K5b per launch) "
-                  "and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
+          "note": "K1-K3, K5 (linear_attention_block: K5a, the merge and K5b per "
+                  "call) and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
                   "sums over one UNet2D forward at batch 50 (library_ms null where "
                   "no single PyTorch call computes the block), launches those of the "
-                  "Burgers main path; K1 and K2 (3xTF32 tensor cores): bound_ms at 3 "
-                  "TF32 products per FMA (495 TFLOP/s), library_tuned_ms cuDNN under "
-                  "cudnn.benchmark; "
+                  "Burgers main path; K1, K2 and K5 (3xTF32 tensor cores): bound_ms at 3 "
+                  "TF32 products per FMA (495 TFLOP/s; K5's fp32 bound per site in "
+                  "its phase-3 kernel records), library_tuned_ms cuDNN under cudnn.benchmark; K3 "
+                  "and K5: device_ms the device time alone (CUDA-graph replay), "
+                  "k5a/k5b the stages apart (K5b with the merge); "
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
                   "solves the system, so library_ms is null), launches those of "
                   "the smoke main path; resblock_pair (K7): sums over its five "

@@ -86,7 +86,7 @@ def build_diffusion(cfg: SmokeConfig, model, model_w=None, device=None) -> Gauss
         sampling_timesteps=cfg.ddim_sampling_steps if cfg.using_ddim else cfg.timesteps,
         ddim_sampling_eta=cfg.ddim_eta,
         beta_schedule=cfg.beta_schedule,
-        cond=smoke_cond_spec(),
+        cond=smoke_cond_spec(cfg.is_w_model),
         prior_beta=cfg.w_prob_exp,
         combine_w_with_guidance=model_w is not None,
         clip_denoised=True,

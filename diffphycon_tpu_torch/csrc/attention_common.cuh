@@ -1,4 +1,5 @@
-// Pieces shared by K5 (linear_attention.cu) and K6 (attention.cu): the
+// Pieces shared by K5 (linear_attention_tc.cuh), K6 (attention.cu) and the
+// persistent kernel's attention stages (linear_attention.cuh): the
 // UNet2D attention geometry, warp reductions, the ChanLayerNorm statistics
 // of a tile of tokens, and the normalised input chunk both projections read.
 //

@@ -1,7 +1,17 @@
-// K5's two stages as block-level bodies, shared by the K5 launches
-// (linear_attention.cu) and the persistent kernel (unet2d_persistent.cu).
-// See linear_attention.cu for the design. Both take a 256-thread block;
-// kCoherent as in attention_common.cuh.
+// The persistent kernel's linear-attention stages (unet2d_persistent.cu:
+// kLaContext, kLaOutput) as block-level bodies, on plain fp32 FMAs:
+//   context body, per (sample b, head h): walks the sample's tokens in tiles
+//        of 32, projects each tile onto the head's 32 k and 32 v columns, and
+//        keeps the 32x32 context with a running max and sum per k row (the
+//        online softmax), then writes context / sum to a (B, 4, 32, 32)
+//        scratch;
+//   output body, per (sample, 32-token tile): projects the tile onto q (all
+//        heads), softmaxes and scales it, applies context^T, the
+//        out-projection with its bias, the out-ChanLN and the residual.
+// Each thread owns 8 (context) or 16 (output) tokens of one output column,
+// so one weight load from L2 feeds 8-16 FMAs. No atomics. Both take a
+// 256-thread block; kCoherent as in attention_common.cuh. (K5's own
+// launches run the tensor-core design of linear_attention_tc.cu.)
 #pragma once
 
 #include "attention_common.cuh"

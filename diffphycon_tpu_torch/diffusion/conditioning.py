@@ -1,6 +1,7 @@
 """Burgers and smoke conditioning specs (port of
 ``diffphycon_tpu/diffusion/conditioning.py``): the Burgers spec carries the
-sampling side and the training masks; the smoke spec the sampling side.
+sampling side and the training masks; the smoke spec the sampling side and
+the noise target's zeroed frame-0 density.
 
 Burgers x is (B, 16, 128, 2) channels-last: channel 0 = u (11 valid rows +
 padding), channel 1 = f (10 valid rows). Smoke x is (B, 32, 64, 64, 6):
@@ -123,16 +124,22 @@ def _frame_chan_mask5(x, f_idx: int, chan: int):
     return m_f[None, :, None, None, None] * m_c[None, None, None, None, :]
 
 
-def smoke_cond_spec() -> CondSpec:
-    """Sampling-side conditioning of the smoke video DDPMs: the frame-0
-    density is pinned every step; the prior (w) model sees channels 3:5
-    (c1, c2) of the joint tensor and its output is zero-embedded back."""
-
+def smoke_cond_spec(is_w_model: bool = False) -> CondSpec:
+    """Conditioning of the smoke video DDPMs. The frame-0 density is pinned
+    every step and its noise target zeroed, for the joint model (C=6) and,
+    as JAX keeps the reference's quirk, for the w model (C=2, where frame 0,
+    channel 0 is c1). In two-model sampling the prior (w) model sees
+    channels 3:5 (c1, c2) of the joint tensor and its output is
+    zero-embedded back. ``is_w_model`` is JAX's argument: both models take
+    the same masks."""
     def pin(x, cond):
         if "init" in cond:
             m = _frame_chan_mask5(x, 0, 0)
             x = x * (1 - m) + cond["init"][:, None, :, :, None] * m
         return x
+
+    def zero_target(target, cond):
+        return target * (1 - _frame_chan_mask5(target, 0, 0))
 
     def w_slice_input(x, cond):
         return x[..., 3:5]
@@ -142,7 +149,8 @@ def smoke_cond_spec() -> CondSpec:
         z1 = out_w.new_zeros(out_w.shape[:-1] + (1,))
         return torch.cat([z3, out_w, z1], dim=-1)
 
-    return CondSpec(pin=pin, w_zero_input=w_slice_input, w_zero_output=w_embed_output)
+    return CondSpec(pin=pin, zero_target=zero_target, w_zero_input=w_slice_input,
+                    w_zero_output=w_embed_output)
 
 
 def smoke_derive_cond(x_start):

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels (CUDA C++ under ``csrc/``, Triton here) and
+"""Hand-written Hopper kernels (CUDA C++ under ``csrc/``) and
 their plain PyTorch versions.
 
 Launch counters of the UNet2D kernels: each wrapper module registers its

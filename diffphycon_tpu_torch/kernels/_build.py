@@ -35,7 +35,8 @@ SIGNATURES = {
     "conv2d_nhwc_f32": [_P] * 8,  # ..., const int dims[12], stream
     "downsample_nhwc_f32": [_P] * 7,  # ..., const int dims[9], stream
     "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "linear_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "group_norm_act_f32": [_P] * 7 + [_F, _P],  # ..., const int dims[6], eps, stream
+    "linear_attention_tc_f32": [_P] * 10,  # ..., const int dims[7], stream
     "attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "unet2d_persistent_f32": [_P, _I, _P, _P, _P],
 }
@@ -66,10 +67,11 @@ def _nvcc() -> str:
                        "(nvcc on PATH or under /usr/local/cuda/bin)")
 
 
-def build() -> Path:
+def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library path."""
-    out_dir = BUILD_ROOT / source_hash()
+    the library path. ``defines`` (macro names passed as ``-D``) build a
+    variant into a directory of its own, for diagnostic tools."""
+    out_dir = BUILD_ROOT / "-".join((source_hash(), *defines))
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -81,8 +83,8 @@ def build() -> Path:
         procs = []
         for cu in cus:
             obj = tmp / (cu.stem + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-c", str(cu), "-o", str(obj)]
+            cmd = [nvcc, *ARCH_FLAGS, *(f"-D{d}" for d in defines), "-std=c++17", "-O3",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", str(cu), "-o", str(obj)]
             procs.append((cu, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []

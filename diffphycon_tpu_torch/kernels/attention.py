@@ -6,8 +6,9 @@ The port of two kernels of ``diffphycon_tpu/research/pallas_unet2d.py``:
 Pallas kernel (pallas_unet2d.py)    Port
 ==================================  =========================================
 ``_linear_attention_kernel`` :194   K5 :func:`linear_attention_block`
-                                    (``csrc/linear_attention.cu``: K5a, the
-                                    per-head context; K5b, the output)
+                                    (``csrc/linear_attention_tc.cu``: K5a,
+                                    the per-chunk context partials; their
+                                    merge; K5b, the output)
 ``_attention_kernel`` :229          K6 :func:`attention_block`
                                     (``csrc/attention.cu``)
 ==================================  =========================================
@@ -24,14 +25,24 @@ full block has no out-ChanLN and softmaxes in fp32. The plain versions keep
 the token axis last where they softmax over tokens (a softmax over a strided
 inner axis takes a slow CUDA path).
 
+K5 cuts each sample's tokens into S chunks (:func:`la_chunk_plan`), and
+the heads over one or two CTAs (:func:`la_head_groups`); K5a writes each
+chunk's (context, max, sum), a merge launch joins them in chunk order with
+the online-softmax rescale, and K5b applies the context.
+:func:`linear_attention_chunked_emulated` is that arithmetic in plain
+PyTorch, for the tests.
+
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
 wrapper raises; the backward is the VJP of the plain version (no backward
 kernels yet). ``linear_attention_block.launches`` counts K5 launches (each
-one K5a and one K5b), ``attention_block.launches`` K6 launches.
+one K5a, one merge and one K5b), ``attention_block.launches`` K6 launches.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -42,6 +53,9 @@ LN_EPS = 1e-5
 KERNEL_HEADS, KERNEL_DIM_HEAD = 4, 32  # the geometry K5 and K6 are built for
 MAX_CHANNELS = 512
 MAX_FULL_TOKENS = 32  # K6 holds one sample's tokens in one block
+LA_TILE = 64  # tokens per tile of K5's two stages (linear_attention_tc.cuh: kRows)
+LA_CHUNKS = (256, 128, 64)  # K5a chunk sizes, a multiple of LA_TILE, largest first
+LA_PART = KERNEL_DIM_HEAD + 2  # a partial context row, its max and its sum
 
 
 def _chan_ln(x, g):
@@ -106,26 +120,125 @@ def _check_block(name, x, max_tokens=None, **weights):
     if max_tokens is not None and H * W > max_tokens:
         raise ValueError(f"{name}: {H * W} tokens; the kernel takes at most {max_tokens}")
     hidden = KERNEL_HEADS * KERNEL_DIM_HEAD
-    want = {"norm_g": (C,), "wqkv": (C, 3 * hidden), "wo": (hidden, C), "bo": (C,),
-            "out_g": (C,)}
+    want = {"norm_g": (C,), "wqkv": (C, 3 * hidden), "wo": (hidden, C), "bo": (C,)}
     for key, t in weights.items():
         if tuple(t.shape) != want[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {want[key]}")
     return B, H * W, C
 
 
-def _linear_launch(x, norm_g, wqkv, wo, bo, out_g):
-    B, n, C = _check_block("linear_attention_block", x, norm_g=norm_g, wqkv=wqkv, wo=wo,
-                           bo=bo, out_g=out_g)
+@functools.lru_cache(maxsize=None)
+def la_chunk_plan(B: int, n: int):
+    """(chunk, S) of K5a: each sample's n tokens in S = ceil(n / chunk)
+    chunks, the largest chunk of LA_CHUNKS that still gives B * S >= SM_COUNT
+    CTAs (one wave); the smallest when none does. A larger chunk reads the
+    k/v weights fewer times per token and leaves K5b fewer partials to
+    merge."""
+    for chunk in LA_CHUNKS:
+        if B * math.ceil(n / chunk) >= kb.SM_COUNT:
+            return chunk, math.ceil(n / chunk)
+    return LA_CHUNKS[-1], math.ceil(n / LA_CHUNKS[-1])
+
+
+def la_head_groups(B: int, S: int) -> int:
+    """CTAs per (sample, chunk) of K5a: 2 (two heads each, one 128-column
+    k|v pass per tile) where even twice B * S CTAs leave SMs idle, else 1
+    (all four heads, a k pass and a v pass per tile). Where the CTAs already
+    share SMs, the split mostly repeats the x tile's copy and ChanLN
+    (``tools/sweep_la_head_groups.py`` times both choices at every site)."""
+    return 2 if 2 * B * S <= kb.SM_COUNT else 1
+
+
+def linear_attention_chunked_emulated(x, p, chunk: int):
+    """The linear block as K5 computes it, in plain PyTorch: per chunk of
+    `chunk` tokens the (context, max, sum) partial of exp(k - max)^T v,
+    merged in chunk order with the online-softmax rescale, then divided by
+    the sum (fp32 products, not K5's 3xTF32). For the tests."""
+    norm_g, wqkv, wo, bo, out_g = p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"]
+    b, hs, ws, c = x.shape
+    n = hs * ws
+    q, k, v = _qkv(x, norm_g, wqkv, KERNEL_HEADS, KERNEL_DIM_HEAD).unbind(2)  # (b, n, h, d)
+    parts = []
+    for t0 in range(0, n, chunk):
+        kc, vc = k[:, t0:t0 + chunk], v[:, t0:t0 + chunk]
+        m = kc.amax(dim=1)  # (b, h, d)
+        e = torch.exp(kc - m[:, None])
+        parts.append((torch.einsum("bnhd,bnhe->bhde", e, vc), m, e.sum(dim=1)))
+    m_all = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    ctx = torch.zeros_like(parts[0][0])
+    total = torch.zeros_like(m_all)
+    for ctx_s, m_s, l_s in parts:
+        w = torch.exp(m_s - m_all)
+        ctx = ctx + w[..., None] * ctx_s
+        total = total + w * l_s
+    ctx = ctx / total[..., None]
+    q = torch.softmax(q, dim=-1) * KERNEL_DIM_HEAD ** -0.5
+    out = torch.einsum("bhde,bnhd->bnhe", ctx, q).reshape(b * n, KERNEL_HEADS * KERNEL_DIM_HEAD)
+    out = (out @ wo + bo).reshape(b, hs, ws, c)
+    return x + _chan_ln(out, out_g)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_shapes(x_shape):
+    """The checks of one K5 call that depend on x's shape alone, once per
+    shape: (the kernel's ints (B, n, C, S, chunk, head groups), the
+    weights' shapes, floats of its scratch: the chunks' partials, then the
+    merged contexts)."""
+    if len(x_shape) != 4:
+        raise ValueError(f"linear_attention_block: x must be NHWC, got {tuple(x_shape)}")
+    B, H, W, C = x_shape
+    if not 4 <= C <= MAX_CHANNELS or C % 4:
+        raise ValueError(f"linear_attention_block: C={C}; the kernel takes 4 to "
+                         f"{MAX_CHANNELS} channels, a multiple of 4")
+    n = H * W
+    if B > 65535 or B * n * C > kb._INT32_MAX:
+        raise ValueError(f"linear_attention_block: x {tuple(x_shape)} is too large")
+    hidden = KERNEL_HEADS * KERNEL_DIM_HEAD
+    chunk, S = la_chunk_plan(B, n)
+    weights = ((C,), (C, 3 * hidden), (hidden, C), (C,), (C,))
+    scratch = B * S * hidden * LA_PART + B * hidden * KERNEL_DIM_HEAD
+    return (B, n, C, S, chunk, la_head_groups(B, S)), weights, scratch
+
+
+_WEIGHT_NAMES = ("norm_g", "wqkv", "wo", "bo", "out_g")
+
+
+def _linear_launch(x, norm_g, wqkv, wo, bo, out_g, stages=3, part=None):
+    kb._check_cuda("linear_attention_block", x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo,
+                   out_g=out_g)
+    ints, weights, part_floats = _linear_shapes(x.shape)
+    for key, t, shape in zip(_WEIGHT_NAMES, (norm_g, wqkv, wo, bo, out_g), weights):
+        if t.shape != shape:
+            raise ValueError(f"linear_attention_block: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    kb._check_vec4("linear_attention_block", (), (x, norm_g, wqkv, wo, bo, out_g))
     out = torch.empty_like(x)
-    ctx = torch.empty((B, KERNEL_HEADS, KERNEL_DIM_HEAD, KERNEL_DIM_HEAD),
-                      device=x.device, dtype=torch.float32)
-    err = _build.load_library().linear_attention_f32(
+    if part is None:
+        part = x.new_empty(part_floats)
+    err = _build.load_library().linear_attention_tc_f32(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out_g.data_ptr(), ctx.data_ptr(), out.data_ptr(), B, n, C, kb._stream(x))
+        out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints + (stages,)),
+        kb._stream(x))
     _build.check(err, "linear_attention_block")
+    return out
+
+
+def _linear_block_launch(x, norm_g, wqkv, wo, bo, out_g):
+    out = _linear_launch(x, norm_g, wqkv, wo, bo, out_g)
     linear_attention_block.launches += 1
     return out
+
+
+def linear_attention_stages(x, p):
+    """(K5a alone, the merge and K5b) on CUDA tensors: two functions that
+    launch one stage of K5 each, sharing one scratch (the second merges what
+    the first last wrote there; call the first before the second), so that
+    the stages can be timed apart. They count no launch: the main path's
+    launches are those of :func:`linear_attention_block`."""
+    args = (x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"])
+    part = x.new_empty(_linear_shapes(x.shape)[2])
+    return (functools.partial(_linear_launch, *args, stages=1, part=part),
+            functools.partial(_linear_launch, *args, stages=2, part=part))
 
 
 def _full_launch(x, norm_g, wqkv, wo, bo):
@@ -141,11 +254,12 @@ def _full_launch(x, norm_g, wqkv, wo, bo):
 
 
 def linear_attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_HEAD):
-    """K5. x: (B, H, W, C) with C <= 512; 4 heads of 32 on CUDA."""
+    """K5. x: (B, H, W, C); on CUDA 4 heads of 32 and C a multiple of 4 up
+    to 512."""
     if not kb._dispatch("linear_attention_block", x):
         return linear_attention_block_plain(x, p, heads, dim_head)
     _check_heads("linear_attention_block", heads, dim_head)
-    return kb.with_plain_vjp(_linear_launch, _linear_plain, x, p["norm_g"], p["wqkv"],
+    return kb.with_plain_vjp(_linear_block_launch, _linear_plain, x, p["norm_g"], p["wqkv"],
                              p["wo"], p["bo"], p["out_g"])
 
 

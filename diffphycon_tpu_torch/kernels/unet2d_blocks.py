@@ -17,13 +17,14 @@ Pallas kernel (pallas_unet2d.py)  Port
 ===============================  ==========================================
 
 K1 = csrc/conv2d_nhwc.cu, K2 = csrc/downsample_nhwc.cu (CUDA C++, sm_90a, on
-the 3xTF32 tensor-core core csrc/igemm_tc.cuh), K3 = group_norm_triton.py
-(Triton), K7 = csrc/unet2d_persistent.cu (its stage tables in
-``kernels/unet2d_mega.py``).
+the 3xTF32 tensor-core core csrc/igemm_tc.cuh), K3 = csrc/group_norm_act.cu
+(one thread-block cluster per GroupNorm row), K7 = csrc/unet2d_persistent.cu
+(its stage tables in ``kernels/unet2d_mega.py``).
 
 K1 and K2 take a tile plan per GEMM shape from the host (:func:`tile_plan`:
-tile size and split-K count). :func:`tf32_split` is their TF32 rounding in
-plain PyTorch, for the tests.
+tile size and split-K count), K3 its cluster size (:func:`gn_cluster_plan`).
+:func:`tf32_split` is K1/K2's TF32 rounding in plain PyTorch, and
+:func:`group_norm_cluster_emulated` K3's statistics merge, for the tests.
 
 Every public wrapper dispatches on the device of its input: a CPU tensor goes
 to the ``*_plain`` version, a CUDA tensor to the kernel (or the wrapper
@@ -58,7 +59,6 @@ import torch.nn.functional as F
 
 from diffphycon_tpu_torch.kernels import (  # noqa: F401 (counters re-exported)
     _build,
-    group_norm_triton,
     launch_counts,
     register_launch_counters,
     reset_launch_counts,
@@ -243,10 +243,19 @@ def tf32_split(x: torch.Tensor):
     return hi, rna(x - hi)
 
 
-# int tuple -> (address, C int array): K1 and K2 take their shape and tile
+# int tuple -> (address, C int array): K1-K3 and K5 take their shape and
 # plan as one `const int*`, since a ctypes call converts every argument in
 # Python, on the host's time before the launch
 _INT_ARRAYS: dict = {}
+
+
+def int_array(ints: tuple) -> int:
+    """Address of a C int array holding ``ints``, built once per tuple."""
+    found = _INT_ARRAYS.get(ints)
+    if found is None:
+        arr = (ctypes.c_int * len(ints))(*ints)
+        found = _INT_ARRAYS[ints] = (ctypes.addressof(arr), arr)
+    return found[0]
 
 
 def _plan_args(x, gemm, shape_ints):
@@ -257,12 +266,7 @@ def _plan_args(x, gemm, shape_ints):
     ws = None
     if plan.splits > 1:
         ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]))
-    ints = shape_ints + plan
-    found = _INT_ARRAYS.get(ints)
-    if found is None:
-        arr = (ctypes.c_int * len(ints))(*ints)
-        found = _INT_ARRAYS[ints] = (ctypes.addressof(arr), arr)
-    return ws, found[0]
+    return ws, int_array(shape_ints + plan)
 
 
 # ---------------------------------------------------------------------------
@@ -435,32 +439,99 @@ def group_norm_act(x, gamma, beta, groups: int = 1, ss=None, res=None,
     strided (a column slice of the batched FiLM projection)."""
     if not _dispatch("group_norm_act", x):
         return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
+    return with_plain_vjp(_group_norm_launch, _group_norm_plain, x, gamma, beta, ss, res,
+                          groups=groups, eps=eps)
 
-    def plain(x, gamma, beta, ss, res):
-        return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
 
-    return with_plain_vjp(functools.partial(_group_norm_launch, groups=groups, eps=eps),
-                          plain, x, gamma, beta, ss, res)
+def _group_norm_plain(x, gamma, beta, ss, res, groups, eps):
+    return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
+
+
+GN_MAX_CLUSTER = 8       # the portable thread-block cluster size
+GN_HELD_FLOATS = 13312   # the most of its slice a CTA holds (group_norm_act.cu: kHeldFloats)
+GN_MAX_GROUP_CHANNELS = 2048  # channels per group (group_norm_act.cu: kMaxGroupChannels)
+# one wave: below 128 KB rows, 4-CTA clusters timed faster than 8-CTA ones
+# (tools/sweep_gn_cluster.py on an H100)
+GN_MIN_CTAS = SM_COUNT
+
+
+@functools.lru_cache(maxsize=None)
+def gn_cluster_plan(rows: int, length: int) -> int:
+    """CTAs per cluster of K3 for `rows` GroupNorm rows of `length` floats:
+    the fewest of 1, 2, 4, 8 that give GN_MIN_CTAS CTAs (one per SM) with
+    each CTA's slice (at most ceil(length / cluster) floats) held in shared
+    memory; else 8 (a CTA then holds GN_HELD_FLOATS of its slice and reads
+    the rest from device memory in each pass)."""
+    for cs in (1, 2, 4, GN_MAX_CLUSTER):
+        if rows * cs >= GN_MIN_CTAS and math.ceil(length / cs) <= GN_HELD_FLOATS:
+            return cs
+    return GN_MAX_CLUSTER
+
+
+def group_norm_cluster_emulated(x, groups: int, cluster: int, eps: float = GN_EPS):
+    """K3's statistics in plain PyTorch: (mean, rstd) per (sample, group)
+    row, (B, groups) each. Each row is cut into `cluster` slices of whole
+    float4 vectors as the CTAs cut it; each slice gives (count, mean, sum of
+    squared deviations from its own mean) and the slices merge with Chan's
+    formula in rank order. For the tests."""
+    B, H, W, C = x.shape
+    rows = x.reshape(B, H * W, groups, C // groups).permute(0, 2, 1, 3).reshape(B, groups, -1)
+    nvec = rows.shape[-1] // 4
+    n = x.new_zeros(B, groups)
+    mean, m2 = torch.zeros_like(n), torch.zeros_like(n)
+    for r in range(cluster):
+        v0, v1 = nvec * r // cluster, nvec * (r + 1) // cluster
+        if v1 == v0:
+            continue
+        sl = rows[..., 4 * v0:4 * v1]
+        nb = float(sl.shape[-1])
+        mb = sl.mean(dim=-1)
+        m2b = ((sl - mb[..., None]) ** 2).sum(dim=-1)
+        nab = n + nb
+        delta = mb - mean
+        mean = mean + delta * (nb / nab)
+        m2 = m2 + m2b + delta * delta * (n * nb / nab)
+        n = nab
+    return mean, torch.rsqrt(m2 / n + eps)
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_plan(x_shape, groups):
+    """The checks of one K3 call that depend on x's shape and the groups
+    alone, once per shape: (B, H*W, C, cluster size)."""
+    if len(x_shape) != 4:
+        raise ValueError(f"group_norm_act: x must be NHWC, got {tuple(x_shape)}")
+    B, H, W, C = x_shape
+    if C % groups or (C // groups) % 4 or C // groups > GN_MAX_GROUP_CHANNELS:
+        raise ValueError(f"group_norm_act: C={C} in {groups} groups; the kernel takes "
+                         f"groups of a multiple of 4 channels, at most {GN_MAX_GROUP_CHANNELS}")
+    if B * groups > 65535:
+        raise ValueError(f"group_norm_act: {B * groups} rows; the kernel takes at most 65535")
+    return B, H * W, C, gn_cluster_plan(B * groups, H * W * (C // groups))
 
 
 def _group_norm_launch(x, gamma, beta, ss, res, groups, eps):
     _check_cuda("group_norm_act", x=x, gamma=gamma, beta=beta, res=res)
-    if x.dim() != 4:
-        raise ValueError(f"group_norm_act: x must be NHWC, got {tuple(x.shape)}")
-    B, H, W, C = x.shape
-    if C % groups:
-        raise ValueError(f"group_norm_act: C={C} not divisible by groups={groups}")
+    B, hw, C, cs = _gn_plan(x.shape, groups)
     if gamma.shape != (C,) or beta.shape != (C,):
         raise ValueError("group_norm_act: gamma/beta must be (C,)")
-    # ss is a column slice of the batched FiLM matmul: any row stride
-    if ss is not None and (ss.device != x.device or ss.dtype != torch.float32
-                           or ss.shape != (B, 2 * C) or ss.stride(1) != 1):
-        raise ValueError("group_norm_act: ss must be a float32 (B, 2C) tensor on "
-                         "x's device with unit column stride")
     if res is not None and res.shape != x.shape:
         raise ValueError(f"group_norm_act: res {tuple(res.shape)} != x {tuple(x.shape)}")
+    ss_stride = 0
+    if ss is not None:
+        # a column slice of the batched FiLM matmul: any row stride
+        if (not ss.is_cuda or ss.get_device() != x.get_device() or ss.dtype != torch.float32
+                or ss.shape != (B, 2 * C) or ss.stride(1) != 1):
+            raise ValueError("group_norm_act: ss must be a float32 (B, 2C) tensor on "
+                             "x's device with unit column stride")
+        ss_stride = ss.stride(0)
+    _check_vec4("group_norm_act", (), (x, res))
     out = torch.empty_like(x)
-    group_norm_triton.launch(x, gamma, beta, groups, eps, ss, res, out)
+    err = _build.load_library().group_norm_act_f32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        ss.data_ptr() if ss is not None else None, res.data_ptr() if res is not None else None,
+        out.data_ptr(), int_array((B, hw, C, groups, ss_stride, cs)), eps, _stream(x))
+    _build.check(err, "group_norm_act")
     group_norm_act.launches += 1
     return out
 

@@ -38,13 +38,14 @@ the Pallas call (no VJP).
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from diffphycon_tpu_torch.kernels import _build, group_norm_triton, register_launch_counters
+from diffphycon_tpu_torch.kernels import _build, register_launch_counters
 from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 
@@ -91,6 +92,19 @@ def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int)
         p = packs["up"][i]
         x = conv(x, p["w"], p["b"], k=3, upsample=i < n - 1)
     return block(x, r)
+
+
+GN_BLOCK = 1024
+_GN_TARGET_PROGRAMS = 528  # ~4 blocks per SM on a 132-SM H100
+
+
+def chunking(rows: int, L: int):
+    """(chunk, S) of the GroupNorm stages: split each of `rows` reductions of
+    length L into S non-empty chunks of `chunk` elements (a multiple of
+    GN_BLOCK)."""
+    want = max(1, min(64, math.ceil(_GN_TARGET_PROGRAMS / rows)))
+    chunk = math.ceil(math.ceil(L / want) / GN_BLOCK) * GN_BLOCK
+    return chunk, math.ceil(L / chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +256,7 @@ class _Recorder:
             raise ValueError(f"unet2d_mega: C={C} in {groups} groups; the kernel takes "
                              "groups of a multiple of 4 channels")
         self._weights("unet2d_mega group norm", gamma, beta)
-        chunk, S = group_norm_triton.chunking(B * groups, H * W * (C // groups))
+        chunk, S = chunking(B * groups, H * W * (C // groups))
         part = self._new((B * groups * S, 2))
         geo = dict(B=B, H=H, W=W, co=C, groups=groups, chunk=chunk, S=S)
         self._stage(GN_STATS, {"x": x, "scr": part}, [part], **geo)

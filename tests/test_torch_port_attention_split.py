@@ -1,0 +1,140 @@
+"""What the host code of K5 (linear attention) and K3 (GroupNorm + FiLM +
+SiLU) decides, and the arithmetic of their split reductions, on the CPU:
+
+- K5's chunk plan (``attention.la_chunk_plan``) and K3's cluster plan
+  (``unet2d_blocks.gn_cluster_plan``) at every main-path shape of the
+  Burgers UNet2D at batch 50, 16 and 1;
+- K5's chunked context (per-chunk partials merged in chunk order with the
+  online-softmax rescale, ``linear_attention_chunked_emulated``) against
+  ``linear_attention_block_plain`` and the Pallas kernel in interpret mode,
+  with token counts that are not a multiple of the chunk;
+- K3's statistics (per-CTA partials merged with Chan's formula in rank
+  order, ``group_norm_cluster_emulated``) against ``group_norm_act_plain``
+  and the Pallas ``_group_norm``.
+
+Tolerances (max |port - ref| <= rtol * max(1, max |ref|)): 1e-5 for the
+emulations against the plain versions and JAX, float32 on every side, sums
+in another order only. The kernels themselves run on the card
+(test_torch_port_cuda.py).
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from diffphycon_tpu.research import pallas_unet2d as pu
+from diffphycon_tpu_torch.kernels import attention as ka
+from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+from torch_port_helpers import assert_close, rand
+
+RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    pu.set_interpret(True)
+    yield
+    pu.set_interpret(False)
+
+
+def _sites(batch, kind):
+    return sorted({a for k, a, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), batch)
+                   if k == kind})
+
+
+@pytest.mark.parametrize("batch", [50, 16, 1])
+def test_port_la_chunk_plan_at_main_path_shapes(batch):
+    """Chunks of whole 64-token tiles, at most 256 tokens, that cover the
+    sample with none empty; one wave of CTAs unless the smallest chunk
+    cannot give one; the heads split over two CTAs while that leaves SMs
+    idle."""
+    for b, h, w, c in _sites(batch, "linear_attention_block"):
+        n = h * w
+        chunk, S = ka.la_chunk_plan(b, n)
+        assert chunk % ka.LA_TILE == 0 and chunk in ka.LA_CHUNKS
+        assert (S - 1) * chunk < n <= S * chunk
+        assert b * S >= kb.SM_COUNT or chunk == ka.LA_CHUNKS[-1], (b, n, chunk, S)
+        if chunk < ka.LA_CHUNKS[0]:  # a larger chunk would not fill the wave
+            assert b * math.ceil(n / (2 * chunk)) < kb.SM_COUNT
+        groups = ka.la_head_groups(b, S)
+        assert groups in (1, 2) and (groups == 2) == (2 * b * S <= kb.SM_COUNT)
+    if batch == 50:
+        plans = {h * w: ka.la_chunk_plan(50, h * w)
+                 for _, h, w, _ in _sites(50, "linear_attention_block")}
+        assert plans == {2048: (256, 8), 512: (128, 4), 128: (64, 2), 32: (64, 1)}
+        groups = {n: ka.la_head_groups(50, S) for n, (_, S) in plans.items()}
+        assert groups == {2048: 1, 512: 1, 128: 1, 32: 2}  # 50 CTAs doubled
+
+
+@pytest.mark.parametrize("batch", [50, 16, 1])
+def test_port_gn_cluster_plan_at_main_path_shapes(batch):
+    """Clusters of 1-8 CTAs; one CTA per SM unless the largest cluster
+    cannot reach it; each CTA's slice held in shared memory at every
+    main-path shape but the widest level (512 KB rows: 64 KB slices, of
+    which a CTA holds 52 KB, so that four fit on an SM)."""
+    for b, h, w, c, _ in _sites(batch, "group_norm_act"):
+        length = h * w * c
+        cs = kb.gn_cluster_plan(b, length)
+        assert cs in (1, 2, 4, kb.GN_MAX_CLUSTER)
+        assert math.ceil(length / cs) <= kb.GN_HELD_FLOATS or length == 16 * 128 * 64
+        assert b * cs >= kb.GN_MIN_CTAS or cs == kb.GN_MAX_CLUSTER
+    assert kb.gn_cluster_plan(50, 16 * 128 * 64) == 8  # 512 KB rows: 64 KB slices
+    assert kb.gn_cluster_plan(50, 8 * 64 * 128) == 8  # 32 KB slices: six CTAs per SM
+    assert kb.gn_cluster_plan(50, 2 * 16 * 512) == 4  # 16 KB slices, 200 CTAs
+    assert kb.gn_cluster_plan(400, 4096) == 1
+    assert kb.gn_cluster_plan(1, 10 ** 6) == 8  # mostly read from device memory
+
+
+def _la_params(c, seed=0):
+    p = {"norm_g": 1 + 0.1 * rand(c, seed=seed),
+         "wqkv": rand(c, 384, seed=seed + 1) / np.sqrt(c),
+         "wo": rand(128, c, seed=seed + 2) / np.sqrt(128), "bo": 0.1 * rand(c, seed=seed + 3),
+         "out_g": 1 + 0.1 * rand(c, seed=seed + 4)}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 5, 20, 16), 64), ((3, 4, 33, 32), 64),
+                                         ((2, 8, 40, 8), 128), ((1, 4, 16, 24), 256)])
+def test_port_chunked_linear_attention_matches_plain_and_pallas(shape, chunk):
+    """n = 100, 132, 320, 64 tokens: a ragged last chunk (36, 4, 64) and one
+    chunk that holds the whole sample. x is shifted so that k's max moves
+    between chunks."""
+    x = 2 * rand(*shape, seed=7) + 0.3
+    x[:, -1] += 3.0  # the last rows' k dominate: the merge must rescale
+    p = _la_params(shape[-1])
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    out = ka.linear_attention_chunked_emulated(torch.from_numpy(x), tp, chunk)
+    assert_close(out, ka.linear_attention_block_plain(torch.from_numpy(x), tp), RTOL)
+    ref = pu.linear_attention_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()})
+    assert_close(out, ref, RTOL)
+
+
+@pytest.mark.parametrize("shape,groups,cluster", [((2, 4, 8, 16), 1, 8), ((2, 4, 8, 16), 2, 3),
+                                                  ((3, 2, 6, 32), 4, 4), ((1, 1, 1, 8), 1, 8)])
+def test_port_cluster_group_norm_matches_plain_and_pallas(shape, groups, cluster):
+    """The statistics of K3's cluster merge: slices of whole float4 vectors
+    per CTA (the last case has 2 vectors for 8 CTAs, so 6 slices are empty
+    and skipped), merged in rank order, then the plain affine, FiLM and
+    SiLU."""
+    x = 2 * rand(*shape, seed=3) + 0.5
+    c = shape[-1]
+    gamma, beta = 1 + 0.1 * rand(c, seed=4), 0.1 * rand(c, seed=5)
+    ss = 0.5 * rand(shape[0], 2 * c, seed=6)
+    xt = torch.from_numpy(x)
+    mean, rstd = kb.group_norm_cluster_emulated(xt, groups, cluster)
+    b, h, w, _ = shape
+    g = xt.reshape(b, h * w, groups, c // groups)
+    gn = ((g - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(shape)
+    gn = gn * torch.from_numpy(gamma) + torch.from_numpy(beta)
+    ref_gn = pu._group_norm(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), groups)
+    assert_close(gn, ref_gn, RTOL)
+    sst = torch.from_numpy(ss)
+    y = gn * (sst[:, None, None, :c] + 1.0) + sst[:, None, None, c:]
+    y = y * torch.sigmoid(y)
+    plain = kb.group_norm_act_plain(xt, torch.from_numpy(gamma), torch.from_numpy(beta), groups,
+                                    ss=sst)
+    assert_close(y, plain, RTOL)

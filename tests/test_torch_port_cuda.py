@@ -350,3 +350,108 @@ def test_port_unet2d_mega_kernel_matches_plain_on_gpu(cuda_device, dim, mults, s
             wide.forward_mega(x, t)
     with pytest.raises(RuntimeError, match="forward-only"):
         net.forward_mega(x, t)
+
+
+def _main_path_sites(kind, batch=50):
+    return sorted({a for k, a, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), batch)
+                   if k == kind})
+
+
+@pytest.mark.cuda
+def test_port_linear_attention_tc_at_main_path_sites(cuda_device):
+    """K5 (3xTF32 projections, chunked context) at the seven shapes of its 8
+    sites in the Burgers UNet2D at batch 50, each against the plain version,
+    and two calls bit-equal (no atomics; the partials merge in chunk
+    order)."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    sites = _main_path_sites("linear_attention_block")
+    assert len(sites) == 7
+    for b, h, w, c in sites:
+        x = 2 * torch.randn(b, h, w, c, generator=g, device=cuda_device) + 0.3
+        p = _attn_params(c, g, cuda_device, linear=True)
+        out = ka.linear_attention_block(x, p)
+        assert_close(out, ka.linear_attention_block_plain(x, p), RTOL)
+        assert torch.equal(out, ka.linear_attention_block(x, p))
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5, 27, 64), (2, 9, 40, 96), (5, 4, 8, 8), (1, 16, 128, 16),
+                                   (2, 1, 3, 512)])
+def test_port_linear_attention_tc_ragged_shapes(cuda_device, shape):
+    """Token counts that no tile or chunk divides (135, 360, 32, 2048, 3),
+    channels below one 32-deep slice (8, 16) or off a multiple of 32 (96),
+    and the stages launched apart (K5a, then K5b on its partials) equal to
+    the whole call."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    x = 2 * torch.randn(*shape, generator=g, device=cuda_device) + 0.3
+    p = _attn_params(shape[-1], g, cuda_device, linear=True)
+    out = ka.linear_attention_block(x, p)
+    assert_close(out, ka.linear_attention_block_plain(x, p), RTOL)
+    stage_a, stage_b = ka.linear_attention_stages(x, p)
+    stage_a()
+    assert torch.equal(stage_b(), out)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ka.linear_attention_block(torch.randn(1, 2, 2, 6, device=cuda_device),
+                                  _attn_params(6, g, cuda_device, linear=True))
+
+
+def _gn_case(g, device, shape, film, groups=1):
+    def r(*s, scale=1.0, shift=0.0):
+        return torch.randn(*s, generator=g, device=device) * scale + shift
+
+    b, c = shape[0], shape[-1]
+    x = r(*shape, scale=2.0, shift=0.5)
+    gamma, beta = r(c, scale=0.5, shift=1.0), r(c, scale=0.1)
+    # the FiLM as a strided column slice of a wider projection, as UNet2D passes it
+    ss = r(b, 4 * c, scale=0.5)[:, c:3 * c] if film else None
+    res = None if film else r(*shape)
+    return x, gamma, beta, groups, ss, res
+
+
+@pytest.mark.cuda
+def test_port_group_norm_cluster_at_main_path_signatures(cuda_device):
+    """K3 (one cluster launch per call) at every signature of the Burgers
+    UNet2D forward at batch 50 and 16, against the plain version, and two
+    calls bit-equal (the cluster merges its partials in rank order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    seen = 0
+    for batch in (50, 16):
+        for b, h, w, c, film in _main_path_sites("group_norm_act", batch):
+            x, gamma, beta, groups, ss, res = _gn_case(g, cuda_device, (b, h, w, c), film)
+            kb.reset_launch_counts()
+            out = kb.group_norm_act(x, gamma, beta, groups, ss=ss, res=res)
+            assert kb.launch_counts()["group_norm_act"] == 1
+            assert_close(out, kb.group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res), RTOL)
+            assert torch.equal(out, kb.group_norm_act(x, gamma, beta, groups, ss=ss, res=res))
+            seen += 1
+    assert seen == 28  # 14 signatures at each batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,film", [((3, 5, 7, 32), 2, True), ((2, 4, 8, 64), 4, False),
+                                               ((1, 3, 3, 8), 2, True), ((2, 64, 256, 64), 1, True),
+                                               ((2, 40, 256, 64), 2, False)])
+def test_port_group_norm_cluster_ragged_and_groups(cuda_device, shape, groups, film):
+    """Groups 2 and 4 (strided rows), rows no cluster divides evenly (9
+    vectors over 8 CTAs), and rows of 1M and 320k floats (each CTA holds 52
+    KB of its slice and reads the rest from device memory); then the
+    gradients through the plain VJP against the plain version's."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    x, gamma, beta, groups, ss, res = _gn_case(g, cuda_device, shape, film, groups)
+    out = kb.group_norm_act(x, gamma, beta, groups, ss=ss, res=res)
+    assert_close(out, kb.group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res), RTOL)
+    assert torch.equal(out, kb.group_norm_act(x, gamma, beta, groups, ss=ss, res=res))
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, gamma, beta)]
+    seed = torch.randn(shape, generator=g, device=cuda_device)
+    grads = []
+    for fn in (kb.group_norm_act, kb.group_norm_act_plain):
+        grads.append(torch.autograd.grad((fn(*ins, groups, ss=ss, res=res) * seed).sum(), ins))
+    for gk, gp in zip(*grads):
+        assert_close(gk, gp, RTOL)
+    with pytest.raises(ValueError, match="multiple of 4 channels"):
+        kb.group_norm_act(torch.randn(1, 2, 2, 12, device=cuda_device), gamma[:12], beta[:12], 2)

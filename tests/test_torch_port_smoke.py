@@ -112,8 +112,9 @@ def test_port_relative_position_buckets():
         np.testing.assert_array_equal(t5_relative_position_buckets(n), jax_buckets(n))
 
 
-def test_port_smoke_cond_spec():
-    jc, tc = jax_smoke_cond(), smoke_cond_spec()
+@pytest.mark.parametrize("is_w_model", [False, True])
+def test_port_smoke_cond_spec(is_w_model):
+    jc, tc = jax_smoke_cond(is_w_model), smoke_cond_spec(is_w_model)
     x = rand(*X_SHAPE, 6, seed=13)
     init = rand(2, 16, 16, seed=14)
     jv, tv = {"init": jnp.asarray(init)}, {"init": _t(init)}
@@ -125,6 +126,31 @@ def test_port_smoke_cond_spec():
     np.testing.assert_array_equal(tc.w_zero_output(_t(out_w), tv).numpy(),
                                   np.asarray(jc.w_zero_output(jnp.asarray(out_w), jv)))
     np.testing.assert_array_equal(smoke_derive_cond(_t(x))["init"].numpy(), x[:, 0, :, :, 0])
+    for ch in (6, 2):  # the noise target: frame 0, channel 0 zeroed for both models
+        target = rand(*X_SHAPE, ch, seed=20 + ch)
+        zeroed = tc.zero_target(_t(target), tv).numpy()
+        np.testing.assert_array_equal(zeroed, np.asarray(jc.zero_target(jnp.asarray(target), jv)))
+        assert not zeroed[:, 0, :, :, 0].any() and (zeroed[:, 1:] == target[:, 1:]).all()
+
+
+@pytest.mark.parametrize("ch", [6, 2])
+def test_port_smoke_p_losses_matches_jax(nets, ch):
+    """p_losses on the smoke spec (q_sample, the frame-0 pin, zero_target,
+    loss_weight[t]) through the joint (C=6) and the w (C=2) UNet3D, fed
+    JAX's noise: 1e-4, the UNet3D forwards' summation order."""
+    apply, params, port = nets[ch]
+    kw = dict(is_w_model=ch == 2, **SMALL)
+    x = 0.5 * rand(*X_SHAPE, ch, seed=30 + ch)
+    t = np.array([17, 903])
+    key = jax.random.PRNGKey(ch)
+    noise = np.array(jax.random.normal(key, x.shape, jnp.float32))
+    jgd = jbench.build_diffusion(jbench.SmokeConfig(**kw), apply)
+    ref = jgd.p_losses(params, key, jnp.asarray(x), jnp.asarray(t),
+                       jbench.derive_cond(jnp.asarray(x)))
+    tgd = tbench.build_diffusion(tbench.SmokeConfig(**kw), port, device="cpu")
+    with torch.no_grad():
+        out = tgd.p_losses(_t(x), _t(t), smoke_derive_cond(_t(x)), _t(noise))
+    assert_close(out, ref, 1e-4)
 
 
 @pytest.mark.parametrize("design,w_energy", [("standard", 0.0), ("standard", 0.5),
