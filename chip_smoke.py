@@ -19,18 +19,20 @@ Burgers:
    (cuDNN ``F.conv2d`` / ``F.group_norm``, TF32 off; none for K5 and K6, beside which
    ``F.scaled_dot_product_attention`` on K6's q, k, v is timed as a
    yardstick of its core), and the bound max(flops / peak, bytes / HBM
-   rate). K1, K2 and K5 (3xTF32 tensor cores) are bound at 3 * flops over
-   the TF32 rate, with their fp32 CUDA-core bound beside it in the
+   rate). K1, K2, K5 and K6 (3xTF32 tensor cores) are bound at 3 * flops
+   over the TF32 rate, with their fp32 CUDA-core bound beside it in the
    signature's line; K1 and K2 also print their tile plan (BM, BN, split-K,
    CTAs), the cuDNN call timed a second time under ``cudnn.benchmark``
    (``library_tuned_ms``), its ratios to both cuDNN times (a record, not a
    check) and, as a diagnostic, ``stream_ms``: 20 calls back to back, per
-   call. K3 (one cluster launch) and K5 (K5a, the merge, K5b) must give
-   bit-equal repeats; their lines add ``device_ms``, the device time alone
-   (20 calls captured in a CUDA graph, its replay timed by two events), so
-   that the host's share of ``ms`` stands apart; K3 prints its cluster size,
-   K5 its chunk plan and head groups and its stages timed apart (K5a; the merge with K5b),
-   each per event pair and on the device;
+   call. K3 (one cluster launch), K5 (K5a, the merge, K5b) and K6 (K6a,
+   K6b, K6c) must give bit-equal repeats; their lines add ``device_ms``, the
+   device time alone (20 calls captured in a CUDA graph, its replay timed by
+   two events), so that the host's share of ``ms`` stands apart; K3 prints
+   its cluster size, K5 its chunk plan and head groups and its stages timed
+   apart (K5a; the merge with K5b), each per event pair and on the device,
+   K6 its token tile; K6 is also checked at 128 and 2048 tokens
+   (``K6_EXTRA``, not part of the forward's sums);
 4. UNet2D: kernel-backed forward against the plain forward, and the launch
    counts of one forward (K1, K2, K3, K5, K6) against those the
    architecture implies;
@@ -46,8 +48,11 @@ Smoke:
 6. K4: the CG pressure kernel against its plain version at batch 8 on the
    smoke domain (accuracy 1e-6, 500 iterations at most), on divergences of a
    real generator rollout step: max |err| <= KERNEL_RTOL * max(1, |plain|),
-   iteration counts within 2%, the divergence left after projection; CUDA
-   event times per solve and the bound for the iterations actually run;
+   iteration counts within 2%, two solves bit-equal, the divergence left
+   after projection; its cluster plan (CTAs per element, row bands, the
+   clusters the card holds at each size), CUDA event times per solve, us
+   per iteration and the bound for the iterations actually run; the same
+   at batch 1;
 7. main path: the port's ``apps/generate_smoke.py`` ``main()`` (8 test sims,
    one batch of 8, every scene accepted) and ``apps/infer_smoke.py``
    ``main()`` (two seeded UNet3Ds at full width, DDIM SMOKE_DDIM_STEPS steps
@@ -70,7 +75,8 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
 10. K8 ``UNet2D.forward_mega`` at full width (batch 50): against the plain
    and the K1-K6 forwards, exactly 1 K8 launch and nothing else per
    forward, two forwards bit-equal, the 3-level dim-16 net at batch 4 (a
-   128-token bottleneck); the kernel against its plain version on the same
+   128-token bottleneck) through K8 and through K1-K6 (``forward``: K6 on
+   128 tokens); the kernel against its plain version on the same
    inputs; ``forward_mega``, ``forward`` and ``forward_plain`` timed in one
    call, two ``forward_mega`` calls profiled and the host time of its parts;
    20 guided DDPM steps at batch 50 with both models through
@@ -116,9 +122,13 @@ FP32_PEAK = 67e12    # H100 SXM fp32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
 # K1 and K2 run 3xTF32: three TF32 products per fp32-accurate FMA
 TC_KERNELS = ("conv2d_nhwc", "downsample_nhwc")
-TF32X3_KERNELS = TC_KERNELS + ("linear_attention_block",)  # bound at 3xTF32
+TF32X3_KERNELS = TC_KERNELS + ("linear_attention_block", "attention_block")  # at 3xTF32
 # the kernels whose device time alone is measured (timed_graph) in phase 3
-DEVICE_TIMED = ("group_norm_act", "linear_attention_block")
+DEVICE_TIMED = ("group_norm_act", "linear_attention_block", "attention_block")
+# K6 beside the bottleneck, checked and timed in phase 3 but not part of the
+# forward's sums: the 3-level dim-16 net's 4x32 bottleneck (128 tokens) and a
+# 16x128 level (2048 tokens), at batch 4 and C = 64
+K6_EXTRA = ((4, 4, 32, 64), (4, 16, 128, 64))
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
 TRAIN_B = 16  # the train app's default batch
@@ -471,22 +481,22 @@ def profile_window(torch, fn):
     return wall * 1e3, sum(v for _, v in rows), sorted(rows, key=lambda r: -r[1])
 
 
-def smoke_kernel_phase(torch, smi_line):
-    """Phase 6: K4 against its plain version on real rollout divergences."""
+def rollout_divergence(torch, batch=SMOKE_B):
+    """(sim, staggered velocity (B, 129, 129, 2), its divergence (B, 127,
+    127)) of a carry-over step of a seeded generator rollout on the smoke
+    domain: the right-hand sides K4 solves on the smoke path."""
     import numpy as np
 
     from diffphycon_tpu_torch.apps.generate_smoke import sample_waypoints, segment_schedule
-    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
     from diffphycon_tpu_torch.physics.fluids import grids
     from diffphycon_tpu_torch.physics.fluids import smoke_env
 
-    t0 = time.time()
     sim = smoke_env.SmokeSim.create(accuracy=1e-6, max_iterations=500, device="cuda")
     rng = np.random.default_rng(0)
-    dens0 = np.zeros((SMOKE_B, 128, 128), np.float32)
-    seg_v = np.zeros((SMOKE_B, 4, 2), np.float32)
-    seg_starts = np.zeros((SMOKE_B, 4), np.int32)
-    for j in range(SMOKE_B):
+    dens0 = np.zeros((batch, 128, 128), np.float32)
+    seg_v = np.zeros((batch, 4, 2), np.float32)
+    seg_starts = np.zeros((batch, 4), np.int32)
+    for j in range(batch):
         xs, ys = sample_waypoints(rng)
         dens0[j, ys[0] : ys[0] + 10, xs[0] : xs[0] + 10] = 1.0
         seg_v[j], seg_starts[j] = segment_schedule(rng, xs, ys)
@@ -501,10 +511,25 @@ def smoke_kernel_phase(torch, smi_line):
         stag = smoke_env.controlled_velocity(out["velocitys"][:, k], ctrl[..., 0],
                                              ctrl[..., 1]) * sim.velocity_mask[None]
         div = grids.staggered_divergence(stag)[..., 0].contiguous()
-        coeffs, acc, maxit = sim.coeffs, 1e-6, 500
+    return sim, stag, div
+
+
+def smoke_kernel_phase(torch, smi_line):
+    """Phase 6: K4 against its plain version on real rollout divergences, at
+    batch 8 and at batch 1."""
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.physics.fluids import grids
+    from diffphycon_tpu_torch.physics.fluids import smoke_env
+
+    t0 = time.time()
+    sim, stag, div = rollout_divergence(torch)
+    coeffs, acc, maxit = sim.coeffs, 1e-6, 500
+    with torch.no_grad():
         p, iters = kcg.cg_pressure(div, coeffs, acc, maxit)
         p_plain, iters_plain = kcg.cg_pressure_plain(div, coeffs, acc, maxit)
+        p2, iters2 = kcg.cg_pressure(div, coeffs, acc, maxit)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(p, p2) and torch.equal(iters, iters2)
         err = (p - p_plain).abs().max().item()
         tol = KERNEL_RTOL * max(1.0, p_plain.abs().max().item())
         iter_gap = (iters - iters_plain).abs().float() / iters_plain.float().clamp(min=1)
@@ -514,24 +539,44 @@ def smoke_kernel_phase(torch, smi_line):
         ms = timed(torch, lambda: kcg.cg_pressure(div, coeffs, acc, maxit), n=10, warm=2)
         plain_ms = timed(torch, lambda: kcg.cg_pressure_plain(div, coeffs, acc, maxit),
                          n=3, warm=1)
-    n_cells = div.shape[1] * div.shape[2]
+        # batch 1: one cluster on the card
+        div1 = div[:1].contiguous()
+        p1, iters1 = kcg.cg_pressure(div1, coeffs, acc, maxit)
+        err1 = (p1 - p_plain[:1]).abs().max().item()
+        tol1 = KERNEL_RTOL * max(1.0, p_plain[:1].abs().max().item())
+        ms1 = timed(torch, lambda: kcg.cg_pressure(div1, coeffs, acc, maxit), n=10, warm=2)
+    H, W = div.shape[1:]
+    plan, plan1 = kcg._plan(SMOKE_B, H, W), kcg._plan(1, H, W)
+    n_cells = H * W
     total_iters = int(iters.sum().item())
     flops = CG_FLOPS_PER_CELL * n_cells * (total_iters + SMOKE_B)
     nbytes = 4 * (2 * div.numel() + 5 * n_cells + SMOKE_B)  # div, coeffs in; p, iters out
     b_ms, b_by = bound(flops, nbytes)
+    us_it = 1e3 * ms / iters.max().item()
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": None}
-    emit({"phase": "cg_kernel", "batch": SMOKE_B, "grid": list(div.shape[1:]),
+           "bound_by": b_by, "library_ms": None, "cluster": plan.cluster,
+           "us_per_iteration": us_it}
+    emit({"phase": "cg_kernel", "batch": SMOKE_B, "grid": [H, W],
           "accuracy": acc, "iterations": iters.tolist(),
           "plain_iterations": iters_plain.tolist(), "max_iter_gap": iter_gap.max().item(),
-          "tol": tol, "max_div_after_projection": div_after.abs().max().item(),
+          "tol": tol, "bit_equal_repeat": bit_equal,
+          "plan": {"cluster": plan.cluster, "bands": plan.bands, "waves": plan.waves,
+                   "resident_clusters": {S: kcg._resident(H, W, S) for S in kcg.CG_CLUSTERS}},
+          "max_div_after_projection": div_after.abs().max().item(),
           "max_div_before": div.abs().max().item(), "gflop": flops / 1e9,
-          "mbytes": nbytes / 1e6, "us_per_iteration": 1e3 * ms / iters.max().item(),
+          "mbytes": nbytes / 1e6,
+          "batch_1": {"cluster": plan1.cluster, "ms": ms1, "iterations": iters1.tolist(),
+                      "us_per_iteration": 1e3 * ms1 / max(1, iters1.max().item()),
+                      "max_abs_err": err1, "tol": tol1},
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3), **row})
-    if not err <= tol:
-        fail(f"K4 differs from its plain version: {err} > {tol}")
-    if not iter_gap.max().item() <= CG_ITER_RTOL:
-        fail(f"K4 iteration counts {iters.tolist()} vs plain {iters_plain.tolist()}")
+    if not (err <= tol and err1 <= tol1):
+        fail(f"K4 differs from its plain version: {err} > {tol} or {err1} > {tol1} (batch 1)")
+    gap1 = abs(int(iters1[0]) - int(iters_plain[0])) / max(1, int(iters_plain[0]))
+    if not (iter_gap.max().item() <= CG_ITER_RTOL and gap1 <= CG_ITER_RTOL):
+        fail(f"K4 iteration counts {iters.tolist()} (batch 1: {iters1.tolist()}) vs plain "
+             f"{iters_plain.tolist()}")
+    if not bit_equal:
+        fail("two K4 solves are not bit-equal")
     if not div_after.abs().max().item() < 1e-4:
         fail("the projected velocity keeps divergence in the interior")
     return row
@@ -624,7 +669,7 @@ def smoke_main_path(torch, smi_line):
         kcg.cg_pressure.launches = 0
         wall_ms, dev_ms, rows = profile_window(
             torch, lambda: sbench.evaluate_samples(sim, pred, data))
-        cg_ms = sum(v for k, v in rows if "cg_pressure" in k)
+        cg_ms = sum(v for k, v in rows if "cg_cluster_kernel" in k)
     emit({"phase": "smoke_timings", "batch": SMOKE_B, "unet3d_forward_ms": fwd_ms,
           "unet3d_forward_tflop": fwd_flops / 1e12,
           "unet3d_tflop_per_s": fwd_flops / fwd_ms / 1e9,
@@ -997,6 +1042,13 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
         s_out, s_ref = small.forward_mega(xs, ts), small.forward_plain(xs, ts)
         s_err = (s_out - s_ref).abs().max().item()
         s_tol = KERNEL_RTOL * max(1.0, s_ref.abs().max().item())
+        # the same net through K1-K6 (K6 on the 128-token bottleneck)
+        kb.reset_launch_counts()
+        s_fwd = small(xs, ts)
+        torch.cuda.synchronize()
+        s_counts = kb.launch_counts()
+        s_err_k = (s_fwd - s_ref).abs().max().item()
+        s_tol_k = UNET_RTOL * max(1.0, s_ref.abs().max().item())
     emit({"phase": "unet2d_mega", "batch": B, "stages": plan.counts(),
           "barriers": plan.barriers(), "grid_blocks": kmega.unet2d_mega.grid,
           "workspace_mb": plan.workspace_bytes / 1e6, "launches_per_forward": counts,
@@ -1011,7 +1063,8 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
           "profile_two_forward_mega": {"wall_ms": prof_wall, "device_ms": prof_dev,
                                        "top": [[k[:60], v] for k, v in prof_rows[:6]]},
           "small_3_level": {"batch": 4, "bottleneck_tokens": 128, "max_abs_err": s_err,
-                            "tol": s_tol},
+                            "tol": s_tol, "forward_k1_k6_max_abs_err": s_err_k,
+                            "forward_k1_k6_tol": s_tol_k, "forward_k1_k6_launches": s_counts},
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
     if not (err_plain <= tol and err_k <= tol and finite):
         fail(f"forward_mega differs: {err_plain} (plain), {err_k} (K1-K6) > {tol}")
@@ -1023,7 +1076,10 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
         fail("two K8 forwards are not bit-equal")
     if not s_err <= s_tol:
         fail(f"K8 on the 128-token bottleneck differs: {s_err} > {s_tol}")
-    del small, xs, s_out, s_ref
+    if not s_err_k <= s_tol_k or s_counts["attention_block"] != 1:
+        fail(f"UNet2D.forward (K1-K6) on the 128-token bottleneck differs: {s_err_k} > "
+             f"{s_tol_k}, or its launches {s_counts} hold no K6 call")
+    del small, xs, s_out, s_ref, s_fwd
 
     # 20 guided DDPM steps at batch 50, both models through forward_mega, in
     # turns with 20 through K1-K6 (K1-K6, K8, K8, K1-K6)
@@ -1174,6 +1230,10 @@ def main() -> int:
                                 "head_groups": ka.la_head_groups(b_, n_chunks),
                                 "bound_fp32_ms": bound(flops, nbytes)[0]})
                     fns.update({"k5a_device_ms": extra["k5a"], "k5b_device_ms": extra["k5b"]})
+                elif kname == "attention_block":
+                    b_, h, w, _ = args
+                    dev.update({"tile_rows": ka.attn_tile_rows(b_, h * w),
+                                "bound_fp32_ms": bound(flops, nbytes)[0]})
                 else:
                     b_, h, w, c, _ = args
                     dev["cluster"] = kb.gn_cluster_plan(b_, h * w * c)
@@ -1210,6 +1270,29 @@ def main() -> int:
                 if key in extra_ms:
                     a[key] += count * extra_ms[key]
             del out, ref
+    # K6 at 128 and 2048 tokens: checked, bit-equal, timed (a record)
+    for args in K6_EXTRA:
+        kern, plain, _, flops, nbytes, _ = kernel_case(torch, F, kb, gen, "attention_block",
+                                                       args)
+        out, ref = kern(), plain()
+        err = (out - ref).abs().max().item()
+        tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
+        repeat_equal = torch.equal(out, kern())
+        b_ms, b_by, _ = kernel_bound("attention_block", flops, nbytes)
+        dev_ms, why = timed_graph(torch, kern)
+        emit({"phase": "kernel", "kernel": "attention_block", "args": list(args),
+              "per_forward": 0, "tokens": args[1] * args[2], "max_abs_err": err, "tol": tol,
+              "repeat_bit_equal": repeat_equal, "ms": timed(torch, kern),
+              "plain_ms": timed(torch, plain), "device_ms": dev_ms,
+              **({"device_ms_error": why} if why else {}), "bound_ms": b_ms, "bound_by": b_by,
+              "bound_fp32_ms": bound(flops, nbytes)[0],
+              "tile_rows": ka.attn_tile_rows(args[0], args[1] * args[2])})
+        if not err <= tol:
+            bad.append(("attention_block", args, err, tol))
+        if not repeat_equal:
+            bad.append(("attention_block", args, "two calls are not bit-equal"))
+        del out, ref
+
     # per Pallas kernel replaced: launches and summed times in one forward;
     # _concat_kernel is the two-source K1 reads and _matmul_bias_kernel the
     # 1x1 K1 convs, both already inside _resblock_kernel
@@ -1315,7 +1398,8 @@ def main() -> int:
     busy = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
             "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:8]],
             "k3_device_ms": sum(v for k, v in rows if "group_norm_act_kernel" in k),
-            "k5_device_ms": sum(v for k, v in rows if "la_" in k and "_tc_kernel" in k)}
+            "k5_device_ms": sum(v for k, v in rows if "la_" in k and "_tc_kernel" in k),
+            "k6_device_ms": sum(v for k, v in rows if "attn_" in k and "_kernel" in k)}
     emit({"phase": "guided_ddpm", "batch": B, "steps_timed": n_steps,
           "seconds_timed": dt, "guided_denoise_steps_per_sec": steps_per_sec,
           "ms_per_step": 1e3 * dt / n_steps, "profile": busy,
@@ -1376,17 +1460,20 @@ def main() -> int:
                         "replaces": REPLACES[k], **row})
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
           "note": "K1-K3, K5 (linear_attention_block: K5a, the merge and K5b per "
-                  "call) and K6 (attention_block): ms/plain_ms/bound_ms/library_ms are "
+                  "call) and K6 (attention_block: K6a, K6b and K6c per call): "
+                  "ms/plain_ms/bound_ms/library_ms are "
                   "sums over one UNet2D forward at batch 50 (library_ms null where "
                   "no single PyTorch call computes the block), launches those of the "
-                  "Burgers main path; K1, K2 and K5 (3xTF32 tensor cores): bound_ms at 3 "
-                  "TF32 products per FMA (495 TFLOP/s; K5's fp32 bound per site in "
-                  "its phase-3 kernel records), library_tuned_ms cuDNN under cudnn.benchmark; K3 "
-                  "and K5: device_ms the device time alone (CUDA-graph replay), "
+                  "Burgers main path; K1, K2, K5 and K6 (3xTF32 tensor cores): bound_ms at "
+                  "3 TF32 products per FMA (495 TFLOP/s; K5's and K6's fp32 bounds per site "
+                  "in their phase-3 kernel records), library_tuned_ms cuDNN under "
+                  "cudnn.benchmark; K3, K5 and K6: device_ms the device time alone "
+                  "(CUDA-graph replay), "
                   "k5a/k5b the stages apart (K5b with the merge); "
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
-                  "solves the system, so library_ms is null), launches those of "
-                  "the smoke main path; resblock_pair (K7): sums over its five "
+                  "solves the system, so library_ms is null; cluster its CTAs per "
+                  "element, us_per_iteration ms over the most iterations), launches "
+                  "those of the smoke main path; resblock_pair (K7): sums over its five "
                   "shapes at batch 50, launches those of the phase-9 path (one "
                   "per shape), library_ms the pair from cuDNN convs and "
                   "F.group_norm (TF32 off); unet2d_mega (K8): per forward at "

@@ -34,10 +34,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "conv2d_nhwc_f32": [_P] * 8,  # ..., const int dims[12], stream
     "downsample_nhwc_f32": [_P] * 7,  # ..., const int dims[9], stream
-    "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "cg_cluster_occupancy": [_I, _I, _I, _P],
+    "cg_barrier_probe": [_I, _I, _P, _P],
     "group_norm_act_f32": [_P] * 7 + [_F, _P],  # ..., const int dims[6], eps, stream
     "linear_attention_tc_f32": [_P] * 10,  # ..., const int dims[7], stream
-    "attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream
     "unet2d_persistent_f32": [_P, _I, _P, _P, _P],
 }
 

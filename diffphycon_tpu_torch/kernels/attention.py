@@ -10,7 +10,9 @@ Pallas kernel (pallas_unet2d.py)    Port
                                     the per-chunk context partials; their
                                     merge; K5b, the output)
 ``_attention_kernel`` :229          K6 :func:`attention_block`
-                                    (``csrc/attention.cu``)
+                                    (``csrc/attention.cu``: K6a, the qkv
+                                    projection; K6b, the online softmax;
+                                    K6c, the out-projection)
 ==================================  =========================================
 
 ``p`` is the Pallas packing (``_attn_p``, pallas_unet2d.py:650-659):
@@ -32,11 +34,18 @@ the online-softmax rescale, and K5b applies the context.
 :func:`linear_attention_chunked_emulated` is that arithmetic in plain
 PyTorch, for the tests.
 
+K6 takes any token count: K6a projects tiles of 32 or 64 tokens
+(:func:`attn_tile_rows`) onto q, k and v; K6b runs the softmax online over
+64-key tiles per (64 queries, head, sample); K6c applies the
+out-projection, whose 32-deep slices are the heads, summed in head order.
+:func:`attention_tiled_emulated` is that arithmetic in plain PyTorch.
+
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
 wrapper raises; the backward is the VJP of the plain version (no backward
-kernels yet). ``linear_attention_block.launches`` counts K5 launches (each
-one K5a, one merge and one K5b), ``attention_block.launches`` K6 launches.
+kernels yet). ``linear_attention_block.launches`` counts K5 calls (each
+one K5a, one merge and one K5b launch), ``attention_block.launches`` K6
+calls (each one K6a, one K6b and one K6c launch).
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 LN_EPS = 1e-5
 KERNEL_HEADS, KERNEL_DIM_HEAD = 4, 32  # the geometry K5 and K6 are built for
 MAX_CHANNELS = 512
-MAX_FULL_TOKENS = 32  # K6 holds one sample's tokens in one block
+ATTN_KEY_TILE = 64  # keys per online-softmax step of K6b (attention.cu: kKTile)
 LA_TILE = 64  # tokens per tile of K5's two stages (linear_attention_tc.cuh: kRows)
 LA_CHUNKS = (256, 128, 64)  # K5a chunk sizes, a multiple of LA_TILE, largest first
 LA_PART = KERNEL_DIM_HEAD + 2  # a partial context row, its max and its sum
@@ -108,23 +117,6 @@ def _check_heads(name, heads, dim_head):
     if (heads, dim_head) != (KERNEL_HEADS, KERNEL_DIM_HEAD):
         raise ValueError(f"{name}: the kernel takes {KERNEL_HEADS} heads of "
                          f"{KERNEL_DIM_HEAD}, got {heads} x {dim_head}")
-
-
-def _check_block(name, x, max_tokens=None, **weights):
-    kb._check_cuda(name, x=x, **weights)
-    if x.dim() != 4:
-        raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
-    B, H, W, C = x.shape
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"{name}: C={C}; the kernel takes 1 to {MAX_CHANNELS} channels")
-    if max_tokens is not None and H * W > max_tokens:
-        raise ValueError(f"{name}: {H * W} tokens; the kernel takes at most {max_tokens}")
-    hidden = KERNEL_HEADS * KERNEL_DIM_HEAD
-    want = {"norm_g": (C,), "wqkv": (C, 3 * hidden), "wo": (hidden, C), "bo": (C,)}
-    for key, t in weights.items():
-        if tuple(t.shape) != want[key]:
-            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {want[key]}")
-    return B, H * W, C
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,14 +195,17 @@ def _linear_shapes(x_shape):
 _WEIGHT_NAMES = ("norm_g", "wqkv", "wo", "bo", "out_g")
 
 
+def _check_weights(name, tensors, shapes):
+    for key, t, shape in zip(_WEIGHT_NAMES, tensors, shapes):
+        if t.shape != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
+
+
 def _linear_launch(x, norm_g, wqkv, wo, bo, out_g, stages=3, part=None):
     kb._check_cuda("linear_attention_block", x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo,
                    out_g=out_g)
     ints, weights, part_floats = _linear_shapes(x.shape)
-    for key, t, shape in zip(_WEIGHT_NAMES, (norm_g, wqkv, wo, bo, out_g), weights):
-        if t.shape != shape:
-            raise ValueError(f"linear_attention_block: {key} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+    _check_weights("linear_attention_block", (norm_g, wqkv, wo, bo, out_g), weights)
     kb._check_vec4("linear_attention_block", (), (x, norm_g, wqkv, wo, bo, out_g))
     out = torch.empty_like(x)
     if part is None:
@@ -241,13 +236,71 @@ def linear_attention_stages(x, p):
             functools.partial(_linear_launch, *args, stages=2, part=part))
 
 
+def attn_tile_rows(B: int, n: int) -> int:
+    """Tokens per K6a/K6c tile: 64, or 32 where 64-token tiles would give
+    K6a's three passes fewer than one CTA per SM (a 32-token CTA fits twice
+    on an SM at C = 512, a 64-token one once)."""
+    return 64 if 3 * math.ceil(B * n / 64) >= kb.SM_COUNT else 32
+
+
+def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):
+    """The full block as K6 computes it, in plain PyTorch: per (sample,
+    head) the softmax taken online over tiles of `key_tile` keys (running
+    max, rescaled running sum and output), then the out-projection as the
+    four heads' partials o_h wo[32 h : 32 h + 32] summed in head order, the
+    bias and the residual (fp32 products, not K6's 3xTF32). For the tests."""
+    norm_g, wqkv, wo, bo = p["norm_g"], p["wqkv"], p["wo"], p["bo"]
+    b, hs, ws, c = x.shape
+    n = hs * ws
+    q, k, v = _qkv(x, norm_g, wqkv, KERNEL_HEADS, KERNEL_DIM_HEAD).unbind(2)  # (b, n, h, d)
+    q = q * KERNEL_DIM_HEAD ** -0.5
+    m = x.new_full((b, KERNEL_HEADS, n), -math.inf)
+    total = x.new_zeros(b, KERNEL_HEADS, n)
+    o = x.new_zeros(b, KERNEL_HEADS, n, KERNEL_DIM_HEAD)
+    for k0 in range(0, n, key_tile):
+        s = torch.einsum("bihd,bjhd->bhij", q, k[:, k0:k0 + key_tile])
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[..., None])
+        total = total * alpha + e.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum("bhij,bjhd->bhid", e, v[:, k0:k0 + key_tile])
+        m = m_new
+    o = o / total[..., None]  # (b, h, n, d)
+    acc = o[:, 0] @ wo[:KERNEL_DIM_HEAD]
+    for h in range(1, KERNEL_HEADS):
+        acc = acc + o[:, h] @ wo[h * KERNEL_DIM_HEAD:(h + 1) * KERNEL_DIM_HEAD]
+    return x + (acc + bo).reshape(b, hs, ws, c)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_shapes(x_shape):
+    """The checks of one K6 call that depend on x's shape alone, once per
+    shape: (the kernel's ints (B, n, C, tile rows), the weights' shapes,
+    floats of its scratch: qkv, then the attention output)."""
+    if len(x_shape) != 4:
+        raise ValueError(f"attention_block: x must be NHWC, got {tuple(x_shape)}")
+    B, H, W, C = x_shape
+    if not 4 <= C <= MAX_CHANNELS or C % 4:
+        raise ValueError(f"attention_block: C={C}; the kernel takes 4 to {MAX_CHANNELS} "
+                         f"channels, a multiple of 4")
+    n = H * W
+    hidden = KERNEL_HEADS * KERNEL_DIM_HEAD
+    if not 1 <= B <= 65535 or n < 1 or B * n * 4 * hidden > kb._INT32_MAX:
+        raise ValueError(f"attention_block: x {tuple(x_shape)} is too large")
+    weights = ((C,), (C, 3 * hidden), (hidden, C), (C,))
+    return (B, n, C, attn_tile_rows(B, n)), weights, B * n * 4 * hidden
+
+
 def _full_launch(x, norm_g, wqkv, wo, bo):
-    B, n, C = _check_block("attention_block", x, max_tokens=MAX_FULL_TOKENS, norm_g=norm_g,
-                           wqkv=wqkv, wo=wo, bo=bo)
+    kb._check_cuda("attention_block", x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo)
+    ints, weights, scratch_floats = _full_shapes(x.shape)
+    _check_weights("attention_block", (norm_g, wqkv, wo, bo), weights)
+    kb._check_vec4("attention_block", (), (x, norm_g, wqkv, wo, bo))
     out = torch.empty_like(x)
+    scratch = x.new_empty(scratch_floats)
     err = _build.load_library().attention_f32(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out.data_ptr(), B, n, C, kb._stream(x))
+        out.data_ptr(), scratch.data_ptr(), kb.int_array(ints), kb._stream(x))
     _build.check(err, "attention_block")
     attention_block.launches += 1
     return out
@@ -264,8 +317,8 @@ def linear_attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERN
 
 
 def attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_HEAD):
-    """K6. x: (B, H, W, C) with H*W <= 32 and C <= 512; 4 heads of 32 on
-    CUDA."""
+    """K6. x: (B, H, W, C), any H*W; on CUDA 4 heads of 32 and C a multiple
+    of 4 up to 512."""
     if not kb._dispatch("attention_block", x):
         return attention_block_plain(x, p, heads, dim_head)
     _check_heads("attention_block", heads, dim_head)

@@ -18,17 +18,64 @@ instead. Both routes here return each element's iteration count.
 (``csrc/cg_pressure.cu``), which raises on what it cannot take. The kernel
 reads the coefficients packed one byte per cell (:func:`pack_coeffs`), so it
 takes only the integer coefficients a FluidDomain produces (centre -1..-4,
-neighbours 0 or 1). ``cg_pressure.launches`` counts kernel launches.
+neighbours 0 or 1). ``cg_pressure.launches`` counts kernel launches (one
+per solve).
+
+The kernel runs one thread-block cluster of S CTAs per batch element, each
+CTA on a band of rows (:func:`cg_cluster_plan` picks S and the bands);
+:func:`cg_pressure_cluster_emulated` is its split arithmetic in plain
+PyTorch, for the tests.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
 from diffphycon_tpu_torch.kernels import _build
 
-_THREADS = 1024
-_MAX_CELLS = _THREADS * 16  # cells per block the kernel's registers hold
+CG_THREADS = 256  # threads per CTA (csrc/cg_pressure.cu: kThreads)
+CG_BAND_CELLS = CG_THREADS * 32  # cells a CTA's registers hold (kBandCells)
+CG_CLUSTERS = (16, 8, 4)  # CTAs per cluster, largest first (16 is non-portable)
+
+
+class CgPlan(NamedTuple):
+    """K4's launch: S CTAs per batch element, rank q on rows
+    ``bands[q] = (q H // S, (q + 1) H // S)``; ``waves`` of resident
+    clusters the B elements take."""
+    cluster: int
+    bands: tuple
+    waves: int
+
+
+def cg_bands(H: int, S: int) -> tuple:
+    """Rank q's rows [q H // S, (q + 1) H // S), as the kernel cuts them."""
+    return tuple((q * H // S, (q + 1) * H // S) for q in range(S))
+
+
+def cg_cluster_plan(B: int, H: int, W: int, resident: Callable[[int], int]) -> CgPlan:
+    """S for B elements of an (H, W) domain: the largest of CG_CLUSTERS
+    whose bands (ceil(H / S) rows of W cells at most) fit a CTA and for which
+    all B clusters are resident at once (one wave); where none is, the
+    smallest S the card can hold (the most clusters per wave), in more
+    waves. ``resident(S)``: clusters of S CTAs the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, queried once per shape and S on
+    the card; the tests pass their own numbers)."""
+    fits = [S for S in CG_CLUSTERS if S <= H and math.ceil(H / S) * W <= CG_BAND_CELLS]
+    if not fits:
+        raise ValueError(f"cg_pressure: a {H}x{W} domain does not fit the kernel: it takes "
+                         f"at least {min(CG_CLUSTERS)} rows and bands of ceil(H / S) rows "
+                         f"of at most {CG_BAND_CELLS} cells, S in {CG_CLUSTERS}")
+    held = {S: resident(S) for S in fits}
+    usable = [S for S in fits if held[S] > 0]
+    if not usable:
+        raise ValueError(f"cg_pressure: the card holds no cluster of {fits} CTAs")
+    S = next((S for S in usable if B <= held[S]), usable[-1])
+    return CgPlan(S, cg_bands(H, S), math.ceil(B / held[S]))
 
 
 class LaplacianCoeffs(tuple):
@@ -112,10 +159,88 @@ def pack_coeffs(coeffs) -> torch.Tensor:
     return packed
 
 
+def cg_pressure_cluster_emulated(div: torch.Tensor, coeffs, accuracy: float,
+                                 max_iterations: int, ranks: int):
+    """The per-element CG as K4 splits it, in plain PyTorch: each element's
+    rows cut into the `ranks` bands of :func:`cg_cluster_plan`, every dot
+    product and max|r| taken per band and the band partials then summed in
+    rank order (the kernel's halo rows, r + b p of the neighbour band's
+    edge, are the values the neighbour computes, so the field is updated
+    whole here). (p, iterations (B,) int32). For the tests."""
+    bands = cg_bands(div.shape[1], ranks)
+
+    def split(v, maximum=False):  # (B, H, W) -> (B,): per band, then the bands in order
+        total = None
+        for r0, r1 in bands:
+            part = v[:, r0:r1].amax(dim=(1, 2)) if maximum else v[:, r0:r1].sum(dim=(1, 2))
+            total = part if total is None else (torch.maximum(total, part) if maximum
+                                                else total + part)
+        return total
+
+    def dot(a, b):
+        return split(a * b)
+
+    x = torch.zeros_like(div)
+    r = div.clone()
+    p = div.clone()
+    ap = masked_laplacian(p, coeffs)
+    pap, pr = dot(p, ap), dot(p, r)
+    rmax = split(r.abs(), maximum=True)
+    iters = torch.zeros(div.shape[0], dtype=torch.int32, device=div.device)
+    for _ in range(max_iterations):
+        active = rmax >= accuracy
+        if not bool(active.any()):
+            break
+        act = active[:, None, None]
+        a = pr / pap
+        x = torch.where(act, x + a[:, None, None] * p, x)
+        r = torch.where(act, r - a[:, None, None] * ap, r)
+        rmax = torch.where(active, split(r.abs(), maximum=True), rmax)
+        b = -dot(r, ap) / pap
+        p = torch.where(act, torch.addcmul(r, b[:, None, None], p), p)
+        ap = masked_laplacian(p, coeffs)
+        pap = torch.where(active, dot(p, ap), pap)
+        pr = torch.where(active, dot(p, r), pr)
+        iters += active.to(torch.int32)
+    return x, iters
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(H: int, W: int, S: int) -> int:
+    """Clusters of S CTAs of an (H, W) solve the card holds at once."""
+    n = ctypes.c_int(0)
+    err = _build.load_library().cg_cluster_occupancy(H, W, S, ctypes.byref(n))
+    _build.check(err, "cg_pressure (cudaOccupancyMaxActiveClusters)")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, H: int, W: int) -> CgPlan:
+    return cg_cluster_plan(B, H, W, functools.partial(_resident, H, W))
+
+
+def cg_launch(div: torch.Tensor, packed: torch.Tensor, accuracy: float, max_iterations: int,
+              cluster: int):
+    """One K4 launch with clusters of `cluster` CTAs, on checked inputs;
+    counts nothing (``tools/sweep_cg_cluster.py`` forces S through it)."""
+    B, H, W = div.shape
+    out = torch.empty_like(div)
+    iters = torch.empty(B, dtype=torch.int32, device=div.device)
+    err = _build.load_library().cg_pressure_f32(
+        div.data_ptr(), packed.data_ptr(), out.data_ptr(), iters.data_ptr(), B, H, W,
+        float(accuracy), int(max_iterations), cluster,
+        torch.cuda.current_stream(div.device).cuda_stream)
+    _build.check(err, "cg_pressure")
+    return out, iters
+
+
 def cg_pressure(div: torch.Tensor, coeffs, accuracy: float = 1e-8,
                 max_iterations: int = 500):
     """K4. div: (B, H, W) float32; coeffs: five (H, W) fields. Returns
-    (p (B, H, W), iterations (B,) int32)."""
+    (p (B, H, W), iterations (B,) int32). On CUDA the domain needs at least
+    4 rows and bands of ceil(H / S) rows of at most 8192 cells for some S
+    in (4, 8, 16): every domain of up to 16384 cells with 4 rows or more,
+    and up to 131072 cells in 16 bands."""
     if div.device.type == "cpu":
         return cg_pressure_plain(div, coeffs, accuracy, max_iterations)
     if div.device.type != "cuda":
@@ -126,24 +251,14 @@ def cg_pressure(div: torch.Tensor, coeffs, accuracy: float = 1e-8,
         raise ValueError(f"cg_pressure: div must be a contiguous (B, H, W) tensor, "
                          f"got {tuple(div.shape)}")
     B, H, W = div.shape
-    if H * W > _MAX_CELLS:
-        raise ValueError(f"cg_pressure: {H}x{W} cells exceed the kernel's "
-                         f"{_MAX_CELLS} per block")
     if any(c.shape != (H, W) for c in coeffs):
         raise ValueError(f"cg_pressure: coefficient fields must be ({H}, {W})")
     packed = pack_coeffs(coeffs)
     if packed.device != div.device:
         raise ValueError(f"cg_pressure: coefficients on {packed.device}, div on {div.device}")
-    out = torch.empty_like(div)
-    iters = torch.empty(B, dtype=torch.int32, device=div.device)
     if B == 0:
-        return out, iters
-    lib = _build.load_library()
-    err = lib.cg_pressure_f32(div.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                              iters.data_ptr(), B, H, W, float(accuracy),
-                              int(max_iterations),
-                              torch.cuda.current_stream(div.device).cuda_stream)
-    _build.check(err, "cg_pressure")
+        return torch.empty_like(div), torch.empty(0, dtype=torch.int32, device=div.device)
+    out, iters = cg_launch(div, packed, accuracy, max_iterations, _plan(B, H, W).cluster)
     cg_pressure.launches += 1
     return out, iters
 

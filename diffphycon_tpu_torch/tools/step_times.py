@@ -1,0 +1,152 @@
+#!/usr/bin/env python
+"""End-to-end step times of the port on one NVIDIA GPU, for comparing two
+checkouts in turns on one card.
+
+Prints one JSON line: the Burgers training step at batch 16 (ms per step
+in 4 windows of 10 steps after 3 warm-up steps, as ``chip_smoke.py`` phase
+8 times it), guided DDPM steps/s at batch 50 with two seeded UNet2Ds and
+guidance (3 windows of 20 steps after 3 warm-up steps), K6 at the Burgers
+bottleneck (50, 2, 16, 512) (median ms per CUDA-event pair of 50 calls, and
+the device time alone: 20 calls in a CUDA graph), and K4 per solve at batch
+8 on the 127x127 smoke domain (median per event pair of 10 solves of seeded
+random divergences, accuracy 1e-6). ``--ddpm-only`` times the guided DDPM
+steps alone.
+
+``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
+earlier version of the port, e.g. the parent commit unpacked with ``git
+archive`` into a git-ignored directory) and builds its kernels there; the
+timing code is this file's. Compare two checkouts in turns, each run a
+process of its own, e.g. ``for r in A B B A A B; do python3
+diffphycon_tpu_torch/tools/step_times.py --root $r; done``.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]  # the checkout holding this file
+
+
+def timed(torch, fn, n):
+    """Median ms of n CUDA-event-timed calls after 3 untimed ones."""
+    for _ in range(3):
+        fn()
+    ts = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return sorted(ts)[n // 2]
+
+
+def graph_ms(torch, fn, n=20):
+    """Device ms per call: n calls captured in one CUDA graph, one replay
+    timed by two events after a warm replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE),
+                    help="checkout whose diffphycon_tpu_torch is timed")
+    ap.add_argument("--ddpm-only", action="store_true", help="time the guided DDPM steps alone")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    os.chdir(root)  # the kernels build, and the data cache lands, under that checkout
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.kernels import _build
+    from diffphycon_tpu_torch.kernels import attention as ka
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.physics.fluids import smoke_env
+    from diffphycon_tpu_torch.training import data
+    from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    if not Path(ka.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"imported {ka.__file__}, not the port under {root}")
+    _build.load_library()
+    out = {"root": str(root)}
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+    net = bench.init_params(cfg, seed=0, device="cuda")
+    if not args.ddpm_only:
+        u, f = data.synthetic_burgers(64, seed=0, cache_dir="build/step_times/data",
+                                      device="cuda")
+        stacked = data.stack_burgers_uf(u, f, rescaler=bench.RESCALER)
+        trainer = Trainer(bench.build_diffusion(cfg, net.train(), device="cuda"), net,
+                          data.ArrayDataset(stacked).batches(16, seed=1), bench.derive_cond,
+                          TrainerConfig(results_folder="build/step_times/train"), device="cuda")
+        for _ in range(3):
+            trainer.train_step(next(trainer.batch_iter))
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(4):
+            tic = time.perf_counter()
+            for _ in range(10):
+                trainer.train_step(next(trainer.batch_iter))
+            torch.cuda.synchronize()
+            windows.append(1e3 * (time.perf_counter() - tic) / 10)
+        out["train_window_ms"] = windows
+        del trainer
+    net.eval()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u_target = torch.randn(50, 11, 128, generator=gen, device="cuda")
+    cond = {"u0": u_target[:, 0, :] / bench.RESCALER, "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfg, u_target, wu=1000.0)
+    gd = bench.build_diffusion(cfg, net, model_w=bench.init_params(cfg, seed=1, device="cuda"),
+                               device="cuda")
+    ts, xg = gd.sample_ts(), torch.Generator(device="cuda").manual_seed(1)
+    x = gd.sample_chunk(gd.sample_init(50, xg), ts[:3], cond, guidance, xg)
+    torch.cuda.synchronize()
+    rates = []
+    for w in range(3):
+        tic = time.perf_counter()
+        x = gd.sample_chunk(x, ts[3 + 20 * w:23 + 20 * w], cond, guidance, xg)
+        torch.cuda.synchronize()
+        rates.append(20 / (time.perf_counter() - tic))
+    out["ddpm_steps_per_s"] = rates
+    if not args.ddpm_only:
+        c = 512
+        xa = torch.randn(50, 2, 16, c, generator=gen, device="cuda")
+        p = {"norm_g": 1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+             "wqkv": torch.randn(c, 384, generator=gen, device="cuda") * c ** -0.5,
+             "wo": torch.randn(128, c, generator=gen, device="cuda") * 128 ** -0.5,
+             "bo": 0.1 * torch.randn(c, generator=gen, device="cuda")}
+        coeffs = smoke_env.smoke_domain_128().laplacian_coeffs("cuda")
+        div = torch.randn(8, 127, 127, generator=gen, device="cuda")
+        with torch.no_grad():
+            out["k6_event_pair_ms"] = timed(torch, lambda: ka.attention_block(xa, p), 50)
+            out["k6_device_ms"] = graph_ms(torch, lambda: ka.attention_block(xa, p))
+            out["k4_ms"] = timed(torch, lambda: kcg.cg_pressure(div, coeffs, 1e-6, 500), 10)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
