@@ -70,18 +70,22 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
    the pair at batch 50 on the four down-path pair shapes of the flagship
    UNet2D and the script's own (4, 32, 256), each launched once with the
    counters reset (5 K7 launches, nothing else); then against the plain
-   pair and two K1/K3 ``resblock`` calls, timed beside them and beside the
-   pair from cuDNN convs and ``F.group_norm`` (TF32 off);
+   pair and two K1/K3 ``resblock`` calls, timed beside them (per event pair,
+   and on the device alone from a CUDA graph) and beside the pair from
+   cuDNN convs and ``F.group_norm`` (TF32 off); bound at 3xTF32 for the
+   convs, the fp32 bound beside it;
 10. K8 ``UNet2D.forward_mega`` at full width (batch 50): against the plain
    and the K1-K6 forwards, exactly 1 K8 launch and nothing else per
-   forward, two forwards bit-equal, the 3-level dim-16 net at batch 4 (a
-   128-token bottleneck) through K8 and through K1-K6 (``forward``: K6 on
-   128 tokens); the kernel against its plain version on the same
-   inputs; ``forward_mega``, ``forward`` and ``forward_plain`` timed in one
-   call, two ``forward_mega`` calls profiled and the host time of its parts;
-   20 guided DDPM steps at batch 50 with both models through
-   ``forward_mega`` (exactly 40 K8 launches) in turns with 20 through K1-K6,
-   and a profile of 3 of its steps.
+   forward, two forwards bit-equal, one CTA per SM; the kernel against its
+   plain version on the same inputs, timed per event pair and on the device
+   alone (CUDA graph), with its stage and barrier counts and the bound at
+   3xTF32 (fp32 beside it); the 3-level and the 2-level dim-16 nets at
+   batch 4 (bottlenecks of 128 and 512 tokens) through K8 and through K1-K6
+   (``forward``: K6 on the bottleneck); ``forward_mega``, ``forward`` and
+   ``forward_plain`` timed in one call, two ``forward_mega`` calls profiled
+   and the host time of its parts; 20 guided DDPM steps at batch 50 with
+   both models through ``forward_mega`` (exactly 40 K8 launches) in turns
+   with 20 through K1-K6, and a profile of 3 of its steps.
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
@@ -930,15 +934,26 @@ def resblock_pair_phase(torch, F, smi_line):
                            n=10)
             plain_ms = timed(torch, lambda: kb.resblock_pair_plain(*case), n=5)
             lib_ms = timed(torch, library, n=10)
+            device_ms, _ = timed_graph(torch, lambda: kb.resblock_pair(*case), n=10)
+            two_device_ms, _ = timed_graph(
+                torch, lambda: kb.resblock(kb.resblock(x, ss_a, p_a), ss_b, p_b), n=10)
             m = B * h * w
-            # 4 convs; per element GN (two passes) + affine + FiLM / residual + SiLU ~16
-            flops = 4 * 2 * m * c * 9 * c + 4 * 16 * m * c
+            # 4 convs (3xTF32 on the tensor cores); per element GN (two
+            # passes) + affine + FiLM / residual + SiLU ~16
+            conv_flops, other_flops = 4 * 2 * m * c * 9 * c, 4 * 16 * m * c
+            flops = conv_flops + other_flops
             nbytes = 4 * (2 * m * c + 2 * (2 * 9 * c * c + 6 * c) + 2 * 2 * B * c)
-            b_ms, b_by = bound(flops, nbytes)
+            ops_ms = 1e3 * (3 * conv_flops / TF32_PEAK + other_flops / FP32_PEAK)
+            bytes_ms = 1e3 * nbytes / HBM_RATE
+            b_ms, b_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
             row = {"shape": [B, h, w, c], "max_abs_err": err, "max_abs_err_vs_two_resblocks":
                    err_two, "tol": tol, "repeat_bit_equal": repeat_equal, "ms": ms,
-                   "two_resblock_ms": two_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
+                   "device_ms": device_ms, "two_resblock_ms": two_ms,
+                   "two_resblock_device_ms": two_device_ms,
+                   "not_slower_than_two_resblocks": ms <= two_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": bound(flops, nbytes)[0],
+                   "gflop": flops / 1e9}
             rows.append(row)
             emit({"phase": "resblock_pair", **row})
             if not (err <= tol and err_two <= tol and repeat_equal):
@@ -952,8 +967,10 @@ def resblock_pair_phase(torch, F, smi_line):
         fail(f"K7 path launches {counts} != {want}")
     agg = {"launches": counts["resblock_pair"],
            "max_abs_err": max(r["max_abs_err"] for r in rows)}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "two_resblock_ms"):
         agg[key] = sum(r[key] for r in rows)
+    dev = [r["device_ms"] for r in rows]
+    agg["device_ms"] = None if None in dev else sum(dev)
     agg["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) \
         else "bytes"
     return agg
@@ -1007,7 +1024,11 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
         nbytes = 4 * (sum(w.numel() for w in weights.values()) + x0.numel() + film.numel()
                       + k_out.numel())
         flops = counter.get_total_flops()
-        b_ms, b_by = bound(flops, nbytes)
+        # the convs (~97% of the flops) and the attention projections run
+        # 3xTF32 on the tensor cores: bound at 3 TF32 products per FMA, the
+        # fp32 CUDA-core bound beside it
+        b_ms, b_by = bound(3 * flops, nbytes, TF32_PEAK)
+        b_fp32_ms = bound(flops, nbytes)[0]
         del k_out, k_ref
         k_ms = timed(torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
         k_plain_ms = timed(torch, lambda: kmega.unet2d_mega_plain(x0, film, packs, plan), n=5)
@@ -1034,37 +1055,61 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
             host[name] = 1e3 * (time.perf_counter() - tic)
         torch.cuda.synchronize()
 
-        # the 3-level net: a 4 x 32 = 128-token bottleneck, K8's largest
-        small = seeded_init_(tunet.UNet2D(dim=16, dim_mults=(1, 2, 4)),
-                             torch.Generator().manual_seed(0)).cuda()
-        xs = torch.randn(4, 16, 128, 2, generator=gen, device="cuda")
-        ts = torch.tensor([3.0, 500.0, 999.0, 0.0], device="cuda")
-        s_out, s_ref = small.forward_mega(xs, ts), small.forward_plain(xs, ts)
-        s_err = (s_out - s_ref).abs().max().item()
-        s_tol = KERNEL_RTOL * max(1.0, s_ref.abs().max().item())
-        # the same net through K1-K6 (K6 on the 128-token bottleneck)
-        kb.reset_launch_counts()
-        s_fwd = small(xs, ts)
-        torch.cuda.synchronize()
-        s_counts = kb.launch_counts()
-        s_err_k = (s_fwd - s_ref).abs().max().item()
-        s_tol_k = UNET_RTOL * max(1.0, s_ref.abs().max().item())
+        # the device time alone (a CUDA graph of 10 launches) and the grid
+        k_device_ms, k_device_err = timed_graph(
+            torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
+        grid_blocks = kmega.grid_blocks(x0.device)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+        # smaller nets at batch 4 through K8 and through K1-K6 (K6 on their
+        # bottlenecks): the 3-level net's 4 x 32 = 128 tokens, and the
+        # 2-level net's 8 x 64 = 512 (K8 refused more than 128 tokens before
+        # its attention stages became K6's)
+        small = {}
+        for mults, tokens in (((1, 2, 4), 128), ((1, 2), 512)):
+            snet = seeded_init_(tunet.UNet2D(dim=16, dim_mults=mults),
+                                torch.Generator().manual_seed(0)).cuda()
+            xs = torch.randn(4, 16, 128, 2, generator=gen, device="cuda")
+            ts = torch.tensor([3.0, 500.0, 999.0, 0.0], device="cuda")
+            kb.reset_launch_counts()
+            s_out = snet.forward_mega(xs, ts)
+            torch.cuda.synchronize()
+            s_mega_counts = kb.launch_counts()
+            s_ref = snet.forward_plain(xs, ts)
+            kb.reset_launch_counts()
+            s_fwd = snet(xs, ts)
+            torch.cuda.synchronize()
+            s_counts = kb.launch_counts()
+            scale = max(1.0, s_ref.abs().max().item())
+            small[tokens] = {
+                "dim": 16, "mults": list(mults), "batch": 4, "bottleneck_tokens": tokens,
+                "max_abs_err": (s_out - s_ref).abs().max().item(), "tol": KERNEL_RTOL * scale,
+                "launches": s_mega_counts, "bit_equal_repeat": torch.equal(
+                    s_out, snet.forward_mega(xs, ts)),
+                "forward_mega_ms": timed(torch, lambda: snet.forward_mega(xs, ts), n=10),
+                "forward_k1_k6_max_abs_err": (s_fwd - s_ref).abs().max().item(),
+                "forward_k1_k6_tol": UNET_RTOL * scale, "forward_k1_k6_launches": s_counts,
+                "forward_k1_k6_ms": timed(torch, lambda: snet(xs, ts), n=10)}
+            del snet, s_out, s_ref, s_fwd
+    split_k = sum(st.ints.get("splits", 1) > 1 for st in plan.stages)
     emit({"phase": "unet2d_mega", "batch": B, "stages": plan.counts(),
-          "barriers": plan.barriers(), "grid_blocks": kmega.unet2d_mega.grid,
+          "split_k_stages": split_k, "barriers": plan.barriers(),
+          "grid_blocks": kmega.unet2d_mega.grid, "grid_planned": plan.grid, "sms": sms,
+          "arrival_counters": plan.n_counters,
           "workspace_mb": plan.workspace_bytes / 1e6, "launches_per_forward": counts,
           "expected": want, "max_abs_err_vs_plain_forward": err_plain,
           "max_abs_err_vs_kernel_forward": err_k, "tol": tol, "bit_equal_repeat": bit_equal,
           "finite": finite, "kernel_max_abs_err": k_err, "kernel_tol": k_tol,
-          "kernel_ms": k_ms, "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+          "kernel_ms": k_ms, "kernel_device_ms": k_device_ms,
+          **({"kernel_device_ms_error": k_device_err} if k_device_err else {}),
+          "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "bound_fp32_ms": b_fp32_ms, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
           "forward_mega_ms": [mega_fwd_ms, mega_fwd_ms_2], "forward_k1_k6_ms": fwd_ms,
           "forward_plain_ms": plain_fwd_ms,
           "forward_mega_enqueue_ms": enqueue_ms, "forward_mega_host_ms": host,
           "profile_two_forward_mega": {"wall_ms": prof_wall, "device_ms": prof_dev,
                                        "top": [[k[:60], v] for k, v in prof_rows[:6]]},
-          "small_3_level": {"batch": 4, "bottleneck_tokens": 128, "max_abs_err": s_err,
-                            "tol": s_tol, "forward_k1_k6_max_abs_err": s_err_k,
-                            "forward_k1_k6_tol": s_tol_k, "forward_k1_k6_launches": s_counts},
+          "small_nets": list(small.values()),
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
     if not (err_plain <= tol and err_k <= tol and finite):
         fail(f"forward_mega differs: {err_plain} (plain), {err_k} (K1-K6) > {tol}")
@@ -1074,12 +1119,18 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
         fail(f"launches per forward_mega {counts} != {want}")
     if not bit_equal:
         fail("two K8 forwards are not bit-equal")
-    if not s_err <= s_tol:
-        fail(f"K8 on the 128-token bottleneck differs: {s_err} > {s_tol}")
-    if not s_err_k <= s_tol_k or s_counts["attention_block"] != 1:
-        fail(f"UNet2D.forward (K1-K6) on the 128-token bottleneck differs: {s_err_k} > "
-             f"{s_tol_k}, or its launches {s_counts} hold no K6 call")
-    del small, xs, s_out, s_ref, s_fwd
+    if grid_blocks != sms or kmega.unet2d_mega.grid != sms:
+        fail(f"K8 launched {kmega.unet2d_mega.grid} CTAs (grid {grid_blocks}), not one per "
+             f"SM of {sms}")
+    for tokens, r in small.items():
+        if not (r["max_abs_err"] <= r["tol"] and r["bit_equal_repeat"]
+                and r["launches"]["unet2d_mega"] == 1 and sum(r["launches"].values()) == 1):
+            fail(f"K8 on the {tokens}-token bottleneck differs or repeats unequal: {r}")
+        if not (r["forward_k1_k6_max_abs_err"] <= r["forward_k1_k6_tol"]
+                and r["forward_k1_k6_launches"]["attention_block"] == 1):
+            fail(f"UNet2D.forward (K1-K6) on the {tokens}-token bottleneck differs, or its "
+                 f"launches hold no K6 call: {r}")
+    del small
 
     # 20 guided DDPM steps at batch 50, both models through forward_mega, in
     # turns with 20 through K1-K6 (K1-K6, K8, K8, K1-K6)
@@ -1134,7 +1185,8 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
     if mega_counts != want_steps:
         fail(f"launches of 20 guided steps through forward_mega {mega_counts} != {want_steps}")
     return {"launches": mega_counts["unet2d_mega"], "max_abs_err": k_err, "ms": k_ms,
-            "plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": k_device_ms}
 
 
 def main() -> int:
@@ -1476,9 +1528,13 @@ def main() -> int:
                   "those of the smoke main path; resblock_pair (K7): sums over its five "
                   "shapes at batch 50, launches those of the phase-9 path (one "
                   "per shape), library_ms the pair from cuDNN convs and "
-                  "F.group_norm (TF32 off); unet2d_mega (K8): per forward at "
+                  "F.group_norm (TF32 off), bound_ms with the convs at 3xTF32 (the fp32 "
+                  "bounds in the phase-9 records); "
+                  "unet2d_mega (K8): per forward at "
                   "batch 50, launches those of 20 guided DDPM steps through "
-                  "forward_mega (2 per step), library_ms null (no PyTorch call "
+                  "forward_mega (2 per step), bound_ms at 3xTF32 (the fp32 bound "
+                  "in the phase-10 record), device_ms from a CUDA graph of 10 launches, "
+                  "library_ms null (no PyTorch call "
                   "computes the net; phase 10 times the K1-K6 forward beside it)"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,43 +39,15 @@
 // No atomics: every output is written by one thread in a fixed order, so two
 // calls on the same inputs are bit-equal. expf, not __expf.
 //
-// The persistent kernel (unet2d_persistent.cu) keeps its own attention
-// stage (linear_attention.cuh, attention_common.cuh's 32-token tiles).
-#include "linear_attention_tc.cuh"
+// The bodies live in attention.cuh: the kernels below call them for their
+// own blockIdx, the persistent kernel (unet2d_persistent.cu) for each work
+// item of its attention stages.
+#include "attention.cuh"
 
 namespace {
 
-using namespace la_tc;
+using namespace attn_tc;
 
-constexpr int kQTile = 64;        // queries per K6b CTA: 4 warps x 16
-constexpr int kKTile = 64;        // keys per K6b step
-constexpr int kCoreThreads = 128;
-constexpr int kQS = kDimHead + 4;  // q and k rows: conflict-free A and B fragments
-constexpr int kVS = kDimHead + 8;  // v rows
-constexpr int kPS = kKTile + 4;    // a warp's P rows
-constexpr int kOS = kHidden + 4;   // K6c's O tile rows
-
-// Rows 0 .. rows - 1 of src (cols floats each, src_ld apart, cols a
-// multiple of 4) into dst (ld apart); rows rows .. TR - 1 zero-filled.
-// Commits one cp.async group.
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, size_t src_ld,
-                                          int rows, int TR, int cols, int threads) {
-  const int c4 = cols / 4;
-  for (int i = threadIdx.x; i < TR * c4; i += threads) {
-    const int r = i / c4, ch = i - r * c4;
-    const bool ok = r < rows;
-    cp_async16(dst + r * ld + 4 * ch, ok ? src + r * src_ld + 4 * ch : src, ok);
-  }
-  cp_async_commit();
-}
-
-__host__ __device__ constexpr int qkv_smem_floats(int TR, int C) {
-  return TR * (C + 4) + kWFloats + 2 * kRows;
-}
-__host__ __device__ constexpr int out_smem_floats(int TR) { return TR * kOS + kWFloats; }
-
-// K6a: tokens tile0 = blockIdx.x * TR .. of the flattened (T, C) input,
-// projected onto pass blockIdx.y of wqkv (0 q, 1 k, 2 v).
 template <int TR>
 __global__ void __launch_bounds__(kThreads) attn_qkv_kernel(const float* __restrict__ x,
                                                             const float* __restrict__ g,
@@ -83,138 +55,15 @@ __global__ void __launch_bounds__(kThreads) attn_qkv_kernel(const float* __restr
                                                             float* __restrict__ qkv, int T,
                                                             int C) {
   extern __shared__ __align__(16) float smem[];
-  const int ldx = C + 4;
-  float* X = smem;             // TR x ldx: the tile, normalised in place
-  float* wbuf = X + TR * ldx;  // two weight slices
-  float* mean = wbuf + kWFloats;
-  float* rstd = mean + kRows;
-  const int tile0 = blockIdx.x * TR, pass = blockIdx.y;
-  const int rows = min(TR, T - tile0);
-  const WeightPass wp{wqkv, kQKV, pass * kCols, kCols, C, pass * kCols + kCols / 2};
-  int slot = 0;
-  load_w_slice(wp, 0, wbuf, slot);
-  load_rows(X, ldx, x + static_cast<size_t>(tile0) * C, C, rows, TR, C, kThreads);
-  cp_async_wait<0>();
-  __syncthreads();
-  norm_x_tile(X, ldx, g, rows, C, mean, rstd);  // gemm_tile's first barrier orders it
-  float acc[2][4][4];  // with TR = 32 the warps of rows 32..63 idle
-  gemm_tile(X, ldx, 1, rows, wp, nullptr, wbuf, slot, acc);
-  const WarpTile<2> wt;
-  const float scale = pass == 0 ? kScale : 1.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wt.row(mt, 2 * h);
-      if (r >= rows) continue;
-      float* dst = qkv + static_cast<size_t>(tile0 + r) * kQKV + pass * kCols;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        *reinterpret_cast<float2*>(dst + wt.col(nt, 0)) =
-            make_float2(acc[mt][nt][2 * h] * scale, acc[mt][nt][2 * h + 1] * scale);
-    }
+  attn_qkv_body<TR>(x, g, wqkv, qkv, T, C, blockIdx.x, blockIdx.y, smem);
 }
 
-// K6b: queries q0 = blockIdx.x * 64 .. of head blockIdx.y of sample
-// blockIdx.z; qkv: (B n, 384) with q already scaled; o: (B n, 128).
 __global__ void __launch_bounds__(kCoreThreads) attn_core_kernel(const float* __restrict__ qkv,
                                                                  float* __restrict__ o, int n) {
-  __shared__ __align__(16) float Qs[kQTile * kQS];
-  __shared__ __align__(16) float Ks[kKTile * kQS];
-  __shared__ __align__(16) float Vs[kKTile * kVS];
-  __shared__ __align__(16) float Ps[kCoreThreads / 32][16 * kPS];
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
-  const int rows = min(kQTile, n - q0);
-  const float* base = qkv + static_cast<size_t>(b) * n * kQKV + h * kDimHead;
-  load_rows(Qs, kQS, base + static_cast<size_t>(q0) * kQKV, kQKV, rows, kQTile, kDimHead,
-            kCoreThreads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool active = 16 * warp < rows;  // warp-uniform
-  float* pw = Ps[warp];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
-  float oacc[1][4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[0][nt][e] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kKTile) {
-    const int kr = min(kKTile, n - k0);
-    __syncthreads();  // every warp is done with the last tile's k and v
-    load_rows(Ks, kQS, base + static_cast<size_t>(k0) * kQKV + kHidden, kQKV, kr, kKTile,
-              kDimHead, kCoreThreads);
-    load_rows(Vs, kVS, base + static_cast<size_t>(k0) * kQKV + 2 * kHidden, kQKV, kr, kKTile,
-              kDimHead, kCoreThreads);
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    float s[1][8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[0][nt][e] = 0.f;
-    mma_smem(Qs, kQS, 1, Ks, 1, kQS, kDimHead, 16 * warp, 0, s);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (8 * nt + 2 * t + (e & 1) >= kr) s[0][nt][e] = -INFINITY;  // past the keys
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[0][nt][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mx[i] = fmaxf(m[i], mx[i]);  // finite: key k0 is in the tile
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[0][nt][e] - m[e >> 1]);
-        s[0][nt][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[0][nt][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(pw + (g + 8 * i) * kPS + 8 * nt + 2 * t) =
-            make_float2(s[0][nt][2 * i], s[0][nt][2 * i + 1]);
-    __syncwarp();
-    mma_smem(pw, kPS, 1, Vs, kVS, 1, kKTile, 0, 0, oacc);
-    __syncwarp();  // P is read before the next tile overwrites it
-  }
-  if (!active) return;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + g + 8 * i;
-    if (r >= rows) continue;
-    const float inv = 1.f / l[i];
-    float* dst = o + (static_cast<size_t>(b) * n + q0 + r) * kHidden + h * kDimHead;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      *reinterpret_cast<float2*>(dst + 8 * nt + 2 * t) =
-          make_float2(oacc[0][nt][2 * i] * inv, oacc[0][nt][2 * i + 1] * inv);
-  }
+  __shared__ __align__(16) float smem[kCoreSmemFloats];
+  attn_core_body(qkv, o, n, blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x, 0, smem);
 }
 
-// K6c: tokens tile0 = blockIdx.x * TR .., output channels n0 =
-// blockIdx.y * 128 ..: out = x + (O wo + bo).
 template <int TR>
 __global__ void __launch_bounds__(kThreads) attn_out_kernel(const float* __restrict__ o,
                                                             const float* __restrict__ wo,
@@ -223,46 +72,7 @@ __global__ void __launch_bounds__(kThreads) attn_out_kernel(const float* __restr
                                                             float* __restrict__ out, int T,
                                                             int C) {
   extern __shared__ __align__(16) float smem[];
-  float* Os = smem;              // TR x kOS
-  float* wbuf = Os + TR * kOS;   // two weight slices
-  const int tile0 = blockIdx.x * TR, n0 = blockIdx.y * kCols;
-  const int rows = min(TR, T - tile0), nvalid = min(kCols, C - n0);
-  const WeightPass wp{wo, C, n0, nvalid, kHidden, n0 + kCols / 2};
-  int slot = 0;
-  load_w_slice(wp, 0, wbuf, slot);
-  load_rows(Os, kOS, o + static_cast<size_t>(tile0) * kHidden, kHidden, rows, TR, kHidden,
-            kThreads);
-  cp_async_wait<0>();  // gemm_tile's first barrier makes the tile visible
-
-  auto store = [&](const auto& acc, const auto& wt) {
-#pragma unroll
-    for (int mt = 0; mt < static_cast<int>(sizeof(acc) / sizeof(acc[0])); ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wt.row(mt, 2 * hh);
-        if (r >= rows) continue;
-        const size_t idx = static_cast<size_t>(tile0 + r) * C + n0;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c = wt.col(nt, 0);  // even; c < nvalid means c + 1 < nvalid too
-          if (c >= nvalid) continue;
-          const float2 xv = *reinterpret_cast<const float2*>(x + idx + c);
-          const float2 bv = *reinterpret_cast<const float2*>(bo + n0 + c);
-          *reinterpret_cast<float2*>(out + idx + c) =
-              make_float2(xv.x + (acc[mt][nt][2 * hh] + bv.x),
-                          xv.y + (acc[mt][nt][2 * hh + 1] + bv.y));
-        }
-      }
-  };
-  if (nvalid > kCols / 2) {
-    float acc[2][4][4];
-    gemm_tile(Os, kOS, 1, rows, wp, nullptr, wbuf, slot, acc);
-    store(acc, WarpTile<2>());
-  } else {  // at most 64 channels left: all 8 warps on 16 x 32 blocks
-    float acc[1][4][4];
-    gemm_tile(Os, kOS, 1, rows, wp, nullptr, wbuf, slot, acc);
-    store(acc, WarpTile<1>());
-  }
+  attn_out_body<TR>(o, wo, bo, x, out, T, C, blockIdx.x, blockIdx.y, smem);
 }
 
 template <int TR>

@@ -36,7 +36,7 @@ extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
                                void* stream) {
   const int B = dims[0], H = dims[1], W = dims[2], Ca = dims[3], Cb = dims[4], Co = dims[5];
   const int ks = dims[6];
-  const auto g = igemm::make_conv_gather<false>(xa, xb, H, W, Ca, Cb, ks, dims[7]);
+  const auto g = igemm::make_conv_gather(xa, xb, H, W, Ca, Cb, ks, dims[7]);
   const int M = B * H * W;
   const int K = ks * ks * (Ca + Cb);
   return (int)igemm_tc::launch(g, w, bias, out, ws, M, Co, K, dims[8], dims[9], dims[10],

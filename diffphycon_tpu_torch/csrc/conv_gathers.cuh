@@ -1,33 +1,34 @@
-// The implicit-GEMM gathers of the NHWC convolutions (see igemm_nhwc.cuh for
-// the contract): ConvGather for K1 and DownGather for K2 (through
-// igemm_tc.cuh, by address: ptr4), shared with the persistent kernel
-// (unet2d_persistent.cu, by value: load4).
+// The implicit-GEMM gathers of the NHWC convolutions: ConvGather for K1
+// (conv2d_nhwc.cu) and DownGather for K2 (downsample_nhwc.cu), read by
+// address through igemm_tc.cuh, which K1, K2 and the persistent kernel
+// (unet2d_persistent.cu) share.
 //
-// kCoherent picks how load4 reads activations. The persistent kernel reads
-// activations that other blocks wrote earlier in the same launch: those
-// loads must not go through the non-coherent read-only path or L1, so they
-// use __ldcg (cached in L2 only); the read-only path (__ldg) is for tensors
-// no launch writes meanwhile. K1 and K2 take only addresses (ptr4) and copy
-// them with cp.async.cg, which also bypasses L1.
+// out[m, n] = bias[n] + sum_k A[m, k] * W[k, n]: m walks the output pixels
+// (b, oh, ow) of an NHWC tensor, n the output channels and k the (tap, input
+// channel) pairs. A is never materialised: a gather turns (m, k) into an
+// address, so im2col, the skip concat and the nearest-2x upsample all
+// happen at load time.
+//
+// Gather contract (k4 is a multiple of 4; the 4 values k4..k4+3 share a tap
+// and a source tensor):
+//   struct Row;                         per-output-pixel context
+//   struct Tap;                         per-k4 context
+//   Row row(int m) const;               m < 0 marks a row past the end
+//   Tap tap(int k4) const;
+//   const float* ptr4(const Row&, const Tap&) const;  the 4 values' address,
+//                                       nullptr outside the image
+// The tile copies the addresses with cp.async.cg, which reads through L2
+// only: in the persistent kernel other blocks wrote the activations earlier
+// in the same launch.
 #pragma once
 
-#include "igemm_nhwc.cuh"
+#include <cuda_runtime.h>
 
 namespace igemm {
-
-template <bool kCoherent>
-__device__ __forceinline__ float4 load_act4(const float* p) {
-  if constexpr (kCoherent) {
-    return __ldcg(reinterpret_cast<const float4*>(p));
-  } else {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-}
 
 // Same-padded ks x ks conv (ks in {1, 3}) of xa [| xb] (the skip concat:
 // channel c < Ca from xa, the rest from xb), optionally of the nearest-2x
 // upsampled input (`up`: the source pixel at half index).
-template <bool kCoherent>
 struct ConvGather {
   const float* xa;
   const float* xb;
@@ -67,29 +68,14 @@ struct ConvGather {
     const int pix = r.base + ih * Ws + iw;
     return tp.c < Ca ? xa + pix * Ca + tp.c : xb + pix * Cb + (tp.c - Ca);
   }
-  // the same read by value (the persistent kernel's igemm_tile)
-  __device__ float4 load4(const Row& r, const Tap& tp) const {
-    int ih = r.oh + tp.dy;
-    int iw = r.ow + tp.dx;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return make_float4(0.f, 0.f, 0.f, 0.f);
-    if (up) {
-      ih >>= 1;
-      iw >>= 1;
-    }
-    const int pix = r.base + ih * Ws + iw;
-    const float* p = tp.c < Ca ? xa + pix * Ca + tp.c : xb + pix * Cb + (tp.c - Ca);
-    return load_act4<kCoherent>(p);
-  }
 };
 
 // B: batch; H, W: output size; Ca, Cb: channels of xa and xb (Cb = 0 and xb
 // = nullptr for one source); upsample: xa / xb are (B, H/2, W/2, C).
-template <bool kCoherent>
-__device__ __host__ inline ConvGather<kCoherent> make_conv_gather(const float* xa,
-                                                                  const float* xb, int H, int W,
-                                                                  int Ca, int Cb, int ks,
-                                                                  int upsample) {
-  ConvGather<kCoherent> g;
+__device__ __host__ inline ConvGather make_conv_gather(const float* xa, const float* xb, int H,
+                                                      int W, int Ca, int Cb, int ks,
+                                                      int upsample) {
+  ConvGather g;
   g.xa = xa;
   g.xb = xb;
   g.Ca = Ca;
@@ -106,7 +92,6 @@ __device__ __host__ inline ConvGather<kCoherent> make_conv_gather(const float* x
 }
 
 // 2x2 stride-2 conv (space-to-depth + 1x1) with rows k = (p1*2 + p2)*C + c.
-template <bool kCoherent>
 struct DownGather {
   const float* x;
   int C, H, W;  // input size
@@ -134,18 +119,11 @@ struct DownGather {
   __device__ const float* ptr4(const Row& r, const Tap& tp) const {
     return r.base < 0 ? nullptr : x + (r.base + tp.off) * C + tp.c;
   }
-  // the same read by value (the persistent kernel's igemm_tile)
-  __device__ float4 load4(const Row& r, const Tap& tp) const {
-    if (r.base < 0) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return load_act4<kCoherent>(x + (r.base + tp.off) * C + tp.c);
-  }
 };
 
 // x: (B, H, W, C) with even H, W.
-template <bool kCoherent>
-__device__ __host__ inline DownGather<kCoherent> make_down_gather(const float* x, int H, int W,
-                                                                  int C) {
-  DownGather<kCoherent> g;
+__device__ __host__ inline DownGather make_down_gather(const float* x, int H, int W, int C) {
+  DownGather g;
   g.x = x;
   g.C = C;
   g.H = H;

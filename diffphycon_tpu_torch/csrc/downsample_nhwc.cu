@@ -23,7 +23,7 @@
 extern "C" int downsample_nhwc_f32(const float* x, const float* w, const float* bias,
                                    float* out, float* ws, const int* dims, void* stream) {
   const int B = dims[0], C = dims[3], Co = dims[4];
-  const auto g = igemm::make_down_gather<false>(x, dims[1], dims[2], C);
+  const auto g = igemm::make_down_gather(x, dims[1], dims[2], C);
   const int M = B * g.Ho * g.Wo;
   return (int)igemm_tc::launch(g, w, bias, out, ws, M, Co, 4 * C, dims[5], dims[6], dims[7],
                                dims[8], (cudaStream_t)stream);

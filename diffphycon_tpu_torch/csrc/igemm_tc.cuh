@@ -50,7 +50,9 @@
 //   (kernels/unet2d_blocks.py: tile_plan). Each split writes its partial
 //   tile to a workspace that the wrapper allocates; a second pass adds the
 //   partials in split order, then the bias. No atomics: two launches on the
-//   same inputs are bit-equal.
+//   same inputs are bit-equal. (The persistent kernel, unet2d_persistent.cu,
+//   runs the same tile body, igemm_tc_tile, and adds the partials in the
+//   same order inside its launch.)
 // - Epilogue: bias and 16-byte NHWC stores; one lane-pair shuffle turns the
 //   accumulator's 2-column pieces into 4-column vectors.
 //
@@ -208,24 +210,30 @@ struct Mma<128> {
   }
 };
 
-// One BM x BN output tile over the K slices [z * per, (z + 1) * per) of
-// split z = blockIdx.z. w: the (K, N) weight as stored. Writes dst[z][m][n]
-// (+ bias[n] when bias is not null: the unsplit case).
+// One BM x BN output tile (bx, by) over the K slices [z * per, (z + 1) *
+// per) of split z. w: the (K, N) weight as stored. Writes dst[z][m][n]
+// (+ bias[n] when bias is not null: the unsplit case). Called by all
+// 2 * BM threads of a block, with Tile<BM, BN>::SMEM_BYTES of shared memory
+// at smem_raw; K1/K2's kernel calls it once for its block index, the
+// persistent kernel (unet2d_persistent.cu) for each tile of a grid-stride
+// loop. It ends with every thread past its last shared-memory read, so the
+// caller may start the next tile without a barrier.
 template <class G, int BM, int BN>
-__global__ void __launch_bounds__(2 * BM, 1)
-igemm_tc_kernel(const G g, const float* __restrict__ w, const float* __restrict__ bias,
-                float* __restrict__ dst, int M, int N, int K, int per) {
+__device__ __forceinline__ void igemm_tc_tile(const G& g, const float* __restrict__ w,
+                                              const float* __restrict__ bias,
+                                              float* __restrict__ dst, int M, int N, int K,
+                                              int per, int bx, int by, int z,
+                                              unsigned char* smem_raw) {
   using T = Tile<BM, BN>;
-  extern __shared__ unsigned char smem_raw[];
   // the swizzle and the descriptors assume 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int s_begin = blockIdx.z * per;
+  const int m0 = bx * BM;
+  const int n0 = by * BN;
+  const int s_begin = z * per;
   const int s_count = min((K + BK - 1) / BK, s_begin + per) - s_begin;
 
   // A copy roles: 16-byte chunk c (k = 4c .. 4c + 3 of a slice) of tile
@@ -379,7 +387,7 @@ igemm_tc_kernel(const G g, const float* __restrict__ w, const float* __restrict_
   // + 3; odd t stores row g + 8, columns 8j + 2t - 2 .. + 1
   const bool odd = at & 1;
   const int m = m0 + ar + (odd ? 8 : 0);
-  float* out = dst + static_cast<size_t>(blockIdx.z) * M * N;
+  float* out = dst + static_cast<size_t>(z) * M * N;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const float q0 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * j] : acc[4 * j + 2], 1);
@@ -398,6 +406,15 @@ igemm_tc_kernel(const G g, const float* __restrict__ w, const float* __restrict_
       *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * N + n) = v;
     }
   }
+}
+
+template <class G, int BM, int BN>
+__global__ void __launch_bounds__(2 * BM, 1)
+igemm_tc_kernel(const G g, const float* __restrict__ w, const float* __restrict__ bias,
+                float* __restrict__ dst, int M, int N, int K, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  igemm_tc_tile<G, BM, BN>(g, w, bias, dst, M, N, K, per, blockIdx.x, blockIdx.y, blockIdx.z,
+                           smem_raw);
 }
 
 // out = bias + the split partials ws[0] + ws[1] + ..., added in split order.

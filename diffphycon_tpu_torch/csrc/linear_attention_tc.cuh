@@ -1,24 +1,40 @@
-// The block-level pieces of K5 (linear_attention_tc.cu): a 64 x 128 tile
-// GEMM on the tensor cores in 3xTF32, the x-tile copy and its
-// ChanLayerNorm. See linear_attention_tc.cu for the design.
+// The block-level pieces of K5 (linear_attention_tc.cu), shared with K6
+// (attention.cu) and the persistent kernel (unet2d_persistent.cu): a
+// 64 x 128 tile GEMM on the tensor cores in 3xTF32, the x-tile copy and its
+// ChanLayerNorm, and K5's three bodies (K5a, the merge, K5b) as device
+// functions of a block index. See linear_attention_tc.cu for the design.
+//
+// Layouts: x is NHWC fp32 viewed as (B, n, C) tokens; wqkv is (C, 384) with
+// columns [q | k | v], each (head, d); wo is (128, C).
+//
+// Coherence: the persistent kernel runs these bodies on activations that
+// other blocks wrote earlier in the same launch, so every read of an
+// activation or a partial goes through L2 only (cp.async.cg, __ldcg), never
+// the non-coherent read-only path; only weights are read with __ldg.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_common.cuh"
+// Phase clocks of K5's bodies: linear_attention_tc.cu defines LA_STAMP(i)
+// under -DLA_PHASE_CLOCKS before it includes this header; elsewhere a stamp
+// is nothing.
+#ifndef LA_STAMP
+#define LA_STAMP(i) \
+  do {              \
+  } while (0)
+#endif
 
 namespace la_tc {
 
-using attn::kDimHead;
-using attn::kHeads;
-using attn::kHidden;
-using attn::kLnEps;
-using attn::kMaxC;
-using attn::kQKV;
-using attn::kScale;
-using attn::warp_sum;
+constexpr int kHeads = 4;
+constexpr int kDimHead = 32;
+constexpr int kHidden = kHeads * kDimHead;  // 128
+constexpr int kQKV = 3 * kHidden;           // 384 columns of wqkv
+constexpr int kMaxC = 512;                  // widest UNet2D level of the Burgers net
+constexpr float kLnEps = 1e-5f;             // ChanLayerNorm eps in fp32
+constexpr float kScale = 0.17677669529663687f;  // kDimHead^-0.5
 
 constexpr int kThreads = 256;         // 8 warps
 constexpr int kRows = 64;             // tokens per tile, in both stages
@@ -344,5 +360,398 @@ __device__ __forceinline__ void norm_x_tile(float* X, int ldx, const float* __re
     *p = v;
   }
 }
+
+constexpr int kCtxFloats = kHeads * kDimHead * kDimHead;  // one sample's context
+
+__host__ __device__ constexpr int context_smem_floats(int C) {
+  // x tile (then v), k tile, weight slices; running max, sum, rescale; the
+  // two row halves' column maxima and sums; the tile's row statistics
+  return kRows * x_stride(C) + kRows * kKStride + kWFloats + 3 * kHidden + 4 * kHidden +
+         2 * kRows;
+}
+
+__host__ __device__ constexpr int output_smem_floats(int C) {
+  // x tile (then the projected rows), q (then the attention output)
+  // transposed, the merged context, weight slices, the row statistics
+  return kRows * (C + 4) + kHidden * kTStride + kHidden * kCtxStride + kWFloats + 2 * kRows;
+}
+
+// K5a: chunk s of sample b (of S chunks), tokens [s * chunk, min(n, (s + 1)
+// * chunk)), heads kHpc * hg .. + kHpc - 1; smem: context_smem_floats(C)
+// floats. Writes (context, max, sum) of the chunk to part[b][s]. With all
+// 4 heads a tile takes two 128-column passes (k, then v); with 2 (the
+// host's plan where B * S CTAs would leave SMs idle) one pass holds
+// both heads' k (columns 0..63) and v (64..127), and twice as many CTAs
+// share the work.
+template <int kHpc>
+__device__ __forceinline__ void la_context_body(const float* __restrict__ x,
+                                                const float* __restrict__ g,
+                                                const float* __restrict__ wqkv,
+                                                float* __restrict__ part, int n, int C, int chunk,
+                                                int s, int b, int hg, int S, float* smem) {
+  static_assert(kHpc == 4 || kHpc == 2, "4 or 2 heads per CTA");
+  constexpr int kJ = kHpc * kDimHead;  // this CTA's k columns (and v columns)
+  constexpr int kNT = kHpc == 4 ? 2 : 1;  // context columns per warp / 8
+  const int ldx = x_stride(C);
+  float* X = smem;                     // kRows x ldx: the normalised x tile, then v
+  float* Kt = X + kRows * ldx;         // kRows x kKStride: exp(k - max)
+  float* wbuf = Kt + kRows * kKStride;
+  float* mrow = wbuf + kWFloats;       // running max per (head, d)
+  float* lrow = mrow + kHidden;        // running sum per (head, d)
+  float* scl = lrow + kHidden;         // this tile's rescale per (head, d)
+  float* pmax = scl + kHidden;         // [row half][column] max of k over the half's rows
+  float* psum = pmax + 2 * kHidden;    // [row half][column] sum of exp(k - max)
+  float* mean = psum + 2 * kHidden;    // row statistics of the x tile
+  float* rstd = mean + kRows;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int h0 = kHpc * hg;
+  const int t_begin = s * chunk, t_end = min(n, t_begin + chunk);
+  const float* xb = x + static_cast<size_t>(b) * n * C;
+  // the partial context of local head ch, columns ce .. ce + 8 kNT - 1 (all
+  // 32 rows d), on the tensor cores: cacc[mt][nt] as mma_smem's acc
+  const int ch = kHpc == 4 ? warp >> 1 : warp >> 2;
+  const int ce = kHpc == 4 ? (warp & 1) * 16 : (warp & 3) * 8;
+  float cacc[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cacc[mt][nt][e] = 0.f;
+  if (tid < kJ) {
+    mrow[tid] = -INFINITY;
+    lrow[tid] = 0.f;
+  }
+  const WarpTile<2> wt;
+  const int half = wt.wr >> 5;  // this warp's half of the tile's rows
+  const bool kwarp = wt.wc < kJ;  // this warp's columns are k (else v)
+  float acc[2][4][4];
+  // 4 heads: k (columns 128 .. 255 of wqkv), then v (256 .. 383); 2 heads:
+  // their k and v columns in one pass
+  const WeightPass kpass{wqkv, kQKV, kHidden + h0 * kDimHead, kCols, C,
+                         kHpc == 4 ? kHidden + 64 : 2 * kHidden + h0 * kDimHead};
+  const WeightPass vpass{wqkv, kQKV, 2 * kHidden, kCols, C, 2 * kHidden + 64};
+  int slot = 0;
+  load_w_slice(kpass, 0, wbuf, slot);  // later tiles': issued by the tile before
+
+  for (int tile0 = t_begin; tile0 < t_end; tile0 += kRows) {
+    const int rows = min(kRows, t_end - tile0);
+    const bool more = tile0 + kRows < t_end;
+    [[maybe_unused]] const int stamp = 8 * ((tile0 - t_begin) / kRows);  // LA_STAMP slots
+    LA_STAMP(stamp);
+    load_x_tile(X, ldx, xb + static_cast<size_t>(tile0) * C, rows, C);
+    cp_async_wait<0>();
+    __syncthreads();
+    LA_STAMP(stamp + 1);
+    norm_x_tile(X, ldx, g, rows, C, mean, rstd);
+    LA_STAMP(stamp + 2);
+    gemm_tile(X, ldx, 1, rows, kpass, kHpc == 4 ? &vpass : (more ? &kpass : nullptr), wbuf, slot,
+              acc);
+    LA_STAMP(stamp + 3);
+
+    // the online softmax over tokens, from the k accumulators: per column,
+    // the max over this warp's valid rows (lanes of one t hold one column
+    // pair: shuffles over g), joined with the other row half and the
+    // running max; then exp(k - max) into Kt and its column sums. With 2
+    // heads the v warps store v into the x tile meanwhile (its last reader
+    // finished before gemm_tile's closing barrier).
+    if (kwarp) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float m = -INFINITY;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (wt.row(mt, 2 * h + j) < rows) m = fmaxf(m, acc[mt][nt][2 * h + j]);
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+          if (wt.g == 0) pmax[half * kHidden + wt.col(nt, j)] = m;
+        }
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            X[wt.row(mt, e) * kKStride + wt.col(nt, e) - kJ] = acc[mt][nt][e];
+    }
+    __syncthreads();
+    if (tid < kJ) {
+      const float m_old = mrow[tid];
+      const float m = fmaxf(m_old, fmaxf(pmax[tid], pmax[kHidden + tid]));
+      scl[tid] = expf(m_old - m);  // 0 on the first tile (m_old = -inf)
+      mrow[tid] = m;
+    }
+    __syncthreads();
+    if (kwarp) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = wt.col(nt, j);
+          const float m = mrow[col];
+          float sum = 0.f;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wt.row(mt, 2 * h + j);
+              const float p = r < rows ? expf(acc[mt][nt][2 * h + j] - m) : 0.f;
+              Kt[r * kKStride + col] = p;
+              sum += p;
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+          if (wt.g == 0) psum[half * kHidden + col] = sum;
+        }
+    }
+    LA_STAMP(stamp + 4);
+    if constexpr (kHpc == 4) {
+      // v, into the x tile; the next tile's first k slice is issued meanwhile
+      gemm_tile(X, ldx, 1, rows, vpass, more ? &kpass : nullptr, wbuf, slot, acc);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            X[wt.row(mt, e) * kKStride + wt.col(nt, e)] = acc[mt][nt][e];
+    }
+    __syncthreads();
+    LA_STAMP(stamp + 5);
+    if (tid < kJ) lrow[tid] = lrow[tid] * scl[tid] + (psum[tid] + psum[kHidden + tid]);
+    // context[d][e] = context[d][e] * rescale[d] + sum_t p[t][d] v[t][e]
+    // (rows past the chunk have p = 0 and v = 0)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sc = scl[ch * kDimHead + wt.row(mt, e) - wt.wr];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) cacc[mt][nt][e] *= sc;
+      }
+    mma_smem(Kt + ch * kDimHead, 1, kKStride, X + ch * kDimHead, kKStride, 1, kRows, 0, ce, cacc);
+    __syncthreads();  // the next tile rewrites X, Kt and the statistics
+    LA_STAMP(stamp + 6);
+  }
+  float* o = part + ((static_cast<size_t>(b) * S + s) * kHidden + h0 * kDimHead) * kPartStride;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = wt.row(mt, 2 * h) - wt.wr, e = ce + 8 * nt + 2 * wt.t;
+        *reinterpret_cast<float2*>(o + (ch * kDimHead + d) * kPartStride + e) =
+            make_float2(cacc[mt][nt][2 * h], cacc[mt][nt][2 * h + 1]);
+      }
+  if (tid < kJ)
+    *reinterpret_cast<float2*>(o + tid * kPartStride + kDimHead) =
+        make_float2(mrow[tid], lrow[tid]);
+}
+
+// The merge of sample b: the S partials in order s = 0 .. S-1 with the
+// online-softmax rescale, then / sum, into ctx (B, 4, 32, 32). Reads the
+// partials through L2 (__ldcg): in the persistent kernel other blocks wrote
+// them in the same launch.
+__device__ __forceinline__ void la_merge_body(const float* __restrict__ part,
+                                              float* __restrict__ ctx, int S, int b) {
+  const int tid = threadIdx.x;
+  const int hd = tid >> 1, e0 = (tid & 1) * 16;
+  const size_t step = static_cast<size_t>(kHidden) * kPartStride;
+  const float* pb = part + static_cast<size_t>(b) * S * step + hd * kPartStride;
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) m = fmaxf(m, __ldcg(pb + s * step + kDimHead));
+  float c[16], l = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < S; ++s) {
+    const float* ps = pb + s * step;
+    const float w = expf(__ldcg(ps + kDimHead) - m);
+    l += w * __ldcg(ps + kDimHead + 1);
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(ps + e0 + i));
+      c[i] += w * v.x;
+      c[i + 1] += w * v.y;
+    }
+  }
+  const float inv = 1.f / l;
+  float* o = ctx + static_cast<size_t>(b) * kCtxFloats + hd * kDimHead + e0;
+#pragma unroll
+  for (int i = 0; i < 16; i += 4)
+    *reinterpret_cast<float4*>(o + i) =
+        make_float4(c[i] * inv, c[i + 1] * inv, c[i + 2] * inv, c[i + 3] * inv);
+}
+
+// K5b: tokens tile * 64 .. + 63 of sample b; smem: output_smem_floats(C)
+// floats.
+__device__ __forceinline__ void la_output_body(const float* __restrict__ x,
+                                               const float* __restrict__ g,
+                                               const float* __restrict__ wqkv,
+                                               const float* __restrict__ ctx,
+                                               const float* __restrict__ wo,
+                                               const float* __restrict__ bo,
+                                               const float* __restrict__ og,
+                                               float* __restrict__ out, int n, int C, int tile,
+                                               int b, float* smem) {
+  const int ldx = C + 4;
+  float* X = smem;                        // kRows x ldx: normalised x, then the projected rows
+  float* QT = X + kRows * ldx;            // kHidden x kTStride: q, then the attention output
+  float* cS = QT + kHidden * kTStride;    // [head][d][e] the context, rows kCtxStride apart
+  float* wbuf = cS + kHidden * kCtxStride;
+  float* mean = wbuf + kWFloats;          // row statistics of the x tile, then of the rows
+  float* rstd = mean + kRows;
+
+  const int tid = threadIdx.x;
+  const int tile0 = tile * kRows;
+  const int rows = min(kRows, n - tile0);
+  const float* xt = x + (static_cast<size_t>(b) * n + tile0) * C;
+  // q: columns 0 .. 127 of wqkv; then the out-projection in passes of 128
+  // output channels. The first q slice, the x tile and the context are
+  // copied together.
+  LA_STAMP(0);
+  const WeightPass qpass{wqkv, kQKV, 0, kCols, C, 64};
+  int slot = 0;
+  load_w_slice(qpass, 0, wbuf, slot);
+  const float* cb = ctx + static_cast<size_t>(b) * kCtxFloats;
+  for (int i = tid; i < kCtxFloats / 4; i += kThreads)
+    cp_async16(cS + (i >> 3) * kCtxStride + 4 * (i & 7), cb + 4 * i, true);
+  load_x_tile(X, ldx, xt, rows, C);
+  cp_async_wait<0>();
+  __syncthreads();
+  LA_STAMP(1);
+  norm_x_tile(X, ldx, g, rows, C, mean, rstd);
+  LA_STAMP(2);
+
+  // q, stored transposed
+  const WarpTile<2> wt;
+  float acc[2][4][4];
+  const WeightPass opass0{wo, C, 0, min(kCols, C), kHidden, 64};
+  gemm_tile(X, ldx, 1, rows, qpass, &opass0, wbuf, slot, acc);
+  LA_STAMP(3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) QT[wt.col(nt, e) * kTStride + wt.row(mt, e)] = acc[mt][nt][e];
+  __syncthreads();
+
+  {  // softmax over each head's 32 channels, then the 32^-0.5 scale: thread
+     // (token t, head h)
+    const int t = tid & (kRows - 1), h = tid >> 6;
+    float* q = QT + h * kDimHead * kTStride + t;
+    float v[kDimHead];
+    float m = -INFINITY;
+#pragma unroll
+    for (int d = 0; d < kDimHead; ++d) {
+      v[d] = q[d * kTStride];
+      m = fmaxf(m, v[d]);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDimHead; ++d) {
+      v[d] = expf(v[d] - m);
+      sum += v[d];
+    }
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int d = 0; d < kDimHead; ++d) q[d * kTStride] = v[d] * inv * kScale;
+  }
+  __syncthreads();
+  LA_STAMP(4);
+
+  {  // o[t][h*32 + e] = sum_d q[t][h*32 + d] context[h][d][e] on the
+     // tensor cores: warp (head h, tokens th .. th + 31) reads and then
+     // overwrites only its own block of QT
+    const int h = (tid >> 5) >> 1, th = ((tid >> 5) & 1) * 32;
+    float o[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
+    mma_smem(QT + h * kDimHead * kTStride, 1, kTStride, cS + h * kDimHead * kCtxStride,
+             kCtxStride, 1, kDimHead, th, 0, o);
+    __syncwarp();
+    const int lane = tid & 31;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = th + 16 * mt + (lane >> 2) + (e >> 1) * 8;
+          const int j = h * kDimHead + 8 * nt + 2 * (lane & 3) + (e & 1);
+          QT[j * kTStride + t] = o[mt][nt][e];
+        }
+  }
+  // (the barrier before gemm_tile's first slice orders these writes before its reads)
+  LA_STAMP(5);
+
+  // out-projection + bias into the x tile, 128 output channels per pass
+  // (64 when at most 64 are left: all 8 warps then take 16 x 32 blocks)
+  auto store_y = [&](auto& a, const auto& w, int n0, int nvalid) {
+#pragma unroll
+    for (int mt = 0; mt < static_cast<int>(sizeof(a) / sizeof(a[0])); ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = w.col(nt, 0);  // even; c < nvalid means c + 1 < nvalid too
+        if (c < nvalid) {
+          const float b0 = __ldg(bo + n0 + c), b1 = __ldg(bo + n0 + c + 1);
+          *reinterpret_cast<float2*>(X + w.row(mt, 0) * ldx + n0 + c) =
+              make_float2(a[mt][nt][0] + b0, a[mt][nt][1] + b1);
+          *reinterpret_cast<float2*>(X + w.row(mt, 2) * ldx + n0 + c) =
+              make_float2(a[mt][nt][2] + b0, a[mt][nt][3] + b1);
+        }
+      }
+  };
+  for (int n0 = 0; n0 < C; n0 += kCols) {
+    const int nvalid = min(kCols, C - n0);
+    const WeightPass opass{wo, C, n0, nvalid, kHidden, n0 + 64},
+        onext{wo, C, n0 + kCols, min(kCols, C - n0 - kCols), kHidden, n0 + kCols + 64};
+    const WeightPass* next = n0 + kCols < C ? &onext : nullptr;
+    if (nvalid > kCols / 2) {
+      gemm_tile(QT, 1, kTStride, rows, opass, next, wbuf, slot, acc);
+      store_y(acc, wt, n0, nvalid);
+    } else {
+      float acc1[1][4][4];
+      gemm_tile(QT, 1, kTStride, rows, opass, next, wbuf, slot, acc1);
+      store_y(acc1, WarpTile<1>(), n0, nvalid);
+    }
+  }
+  __syncthreads();
+
+  LA_STAMP(6);
+  // out-ChanLN and the residual: the rows' statistics, then elementwise
+  // with 16-byte loads and stores
+  row_stats(X, ldx, rows, C, mean, rstd);
+  __syncthreads();
+  const int c4 = C / 4;
+  float* ob = out + (static_cast<size_t>(b) * n + tile0) * C;
+  for (int i = tid; i < rows * c4; i += kThreads) {
+    const int r = i / c4, c = 4 * (i - r * c4);
+    const float4 y = *reinterpret_cast<const float4*>(X + r * ldx + c);
+    const float4 xv = __ldcg(reinterpret_cast<const float4*>(xt + static_cast<size_t>(r) * C + c));
+    const float4 gv = __ldg(reinterpret_cast<const float4*>(og + c));
+    const float m = mean[r], rs = rstd[r];
+    *reinterpret_cast<float4*>(ob + static_cast<size_t>(r) * C + c) =
+        make_float4(xv.x + (y.x - m) * rs * gv.x, xv.y + (y.y - m) * rs * gv.y,
+                    xv.z + (y.z - m) * rs * gv.z, xv.w + (y.w - m) * rs * gv.w);
+  }
+  LA_STAMP(7);
+}
+
 
 }  // namespace la_tc

@@ -40,7 +40,8 @@ SIGNATURES = {
     "group_norm_act_f32": [_P] * 7 + [_F, _P],  # ..., const int dims[6], eps, stream
     "linear_attention_tc_f32": [_P] * 10,  # ..., const int dims[7], stream
     "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream
-    "unet2d_persistent_f32": [_P, _I, _P, _P, _P],
+    "unet2d_persistent_f32": [_P, _I, _P, _I, _P, _P],  # ..., n_counters, grid_out, stream
+    "unet2d_persistent_grid": [_P],
 }
 
 

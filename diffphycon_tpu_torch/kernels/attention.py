@@ -120,25 +120,26 @@ def _check_heads(name, heads, dim_head):
 
 
 @functools.lru_cache(maxsize=None)
-def la_chunk_plan(B: int, n: int):
+def la_chunk_plan(B: int, n: int, sms: int = kb.SM_COUNT):
     """(chunk, S) of K5a: each sample's n tokens in S = ceil(n / chunk)
-    chunks, the largest chunk of LA_CHUNKS that still gives B * S >= SM_COUNT
-    CTAs (one wave); the smallest when none does. A larger chunk reads the
-    k/v weights fewer times per token and leaves K5b fewer partials to
-    merge."""
+    chunks, the largest chunk of LA_CHUNKS that still gives B * S >= sms
+    CTAs (one wave; the persistent kernel passes its grid); the smallest
+    when none does. A larger chunk reads the k/v weights fewer times per
+    token and leaves fewer partials to merge."""
     for chunk in LA_CHUNKS:
-        if B * math.ceil(n / chunk) >= kb.SM_COUNT:
+        if B * math.ceil(n / chunk) >= sms:
             return chunk, math.ceil(n / chunk)
     return LA_CHUNKS[-1], math.ceil(n / LA_CHUNKS[-1])
 
 
-def la_head_groups(B: int, S: int) -> int:
+def la_head_groups(B: int, S: int, sms: int = kb.SM_COUNT) -> int:
     """CTAs per (sample, chunk) of K5a: 2 (two heads each, one 128-column
-    k|v pass per tile) where even twice B * S CTAs leave SMs idle, else 1
-    (all four heads, a k pass and a v pass per tile). Where the CTAs already
-    share SMs, the split mostly repeats the x tile's copy and ChanLN
-    (``tools/sweep_la_head_groups.py`` times both choices at every site)."""
-    return 2 if 2 * B * S <= kb.SM_COUNT else 1
+    k|v pass per tile) where even twice B * S CTAs leave some of `sms` SMs
+    idle, else 1 (all four heads, a k pass and a v pass per tile). Where the
+    CTAs already share SMs, the split mostly repeats the x tile's copy and
+    ChanLN (``tools/sweep_la_head_groups.py`` times both choices at every
+    site)."""
+    return 2 if 2 * B * S <= sms else 1
 
 
 def linear_attention_chunked_emulated(x, p, chunk: int):
@@ -236,11 +237,11 @@ def linear_attention_stages(x, p):
             functools.partial(_linear_launch, *args, stages=2, part=part))
 
 
-def attn_tile_rows(B: int, n: int) -> int:
+def attn_tile_rows(B: int, n: int, sms: int = kb.SM_COUNT) -> int:
     """Tokens per K6a/K6c tile: 64, or 32 where 64-token tiles would give
-    K6a's three passes fewer than one CTA per SM (a 32-token CTA fits twice
-    on an SM at C = 512, a 64-token one once)."""
-    return 64 if 3 * math.ceil(B * n / 64) >= kb.SM_COUNT else 32
+    K6a's three passes fewer than one CTA per SM of `sms` (a 32-token CTA
+    fits twice on an SM at C = 512, a 64-token one once)."""
+    return 64 if 3 * math.ceil(B * n / 64) >= sms else 32
 
 
 def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):

@@ -181,13 +181,13 @@ class TilePlan(NamedTuple):
         return self.splits * m * n if self.splits > 1 else 0
 
 
-def plan_candidates(n: int, k: int):
+def plan_candidates(n: int, k: int, tiles=None):
     """Every plan :func:`tile_plan` weighs for a GEMM of n columns and depth
-    k, each once: every tile of TC_TILES (128 columns only when n > 64)
-    with every split count that keeps MIN_SLICES_PER_SPLIT slices of K per
-    split."""
+    k, each once: every tile of `tiles` (TC_TILES by default; 128 columns
+    only when n > 64) with every split count that keeps
+    MIN_SLICES_PER_SPLIT slices of K per split."""
     slices = math.ceil(k / TC_BK)
-    for bm, bn in TC_TILES:
+    for bm, bn in TC_TILES if tiles is None else tiles:
         if bn > 64 and n <= 64:
             continue
         seen = set()
@@ -198,22 +198,27 @@ def plan_candidates(n: int, k: int):
                 yield TilePlan(bm, bn, math.ceil(slices / per), per)
 
 
-def plan_waves(plan: TilePlan, m: int, n: int) -> int:
-    """Waves of SM_COUNT SMs, each holding the tile's CTAs per SM."""
-    return math.ceil(plan.ctas(m, n) / (SM_COUNT * TC_TILES[plan.bm, plan.bn][2]))
+def plan_waves(plan: TilePlan, m: int, n: int, tiles=None, sms: int = SM_COUNT) -> int:
+    """Waves of `sms` SMs, each holding the tile's CTAs per SM (from
+    `tiles`, TC_TILES by default)."""
+    per_sm = (TC_TILES if tiles is None else tiles)[plan.bm, plan.bn][2]
+    return math.ceil(plan.ctas(m, n) / (sms * per_sm))
 
 
-def pick_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None) -> TilePlan:
+def pick_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None,
+              sms: int = SM_COUNT) -> TilePlan:
     """The plan of :func:`tile_plan` under the costs `tiles` (as TC_TILES)
-    and `split_us` (as SPLIT_US_PER_MFLOAT), the module's by default."""
+    and `split_us` (as SPLIT_US_PER_MFLOAT), the module's by default, for
+    a card of `sms` SMs (the persistent kernel passes its grid and its
+    128-row tiles, one CTA per SM)."""
     tiles = TC_TILES if tiles is None else tiles
     split_us = SPLIT_US_PER_MFLOAT if split_us is None else split_us
     best = None
-    for plan in plan_candidates(n, k):
+    for plan in plan_candidates(n, k, tiles):
         slice_us, cta_us, _ = tiles[plan.bm, plan.bn]
-        us = plan_waves(plan, m, n) * (plan.per * slice_us + cta_us)
+        us = plan_waves(plan, m, n, tiles, sms) * (plan.per * slice_us + cta_us)
         us += split_us * plan.workspace_floats(m, n) / 1e6
-        key = (plan.ctas(m, n) < SM_COUNT, us)  # a full wave first, then the time
+        key = (plan.ctas(m, n) < sms, us)  # a full wave first, then the time
         if best is None or key < best[0]:
             best = (key, plan)
     return best[1]

@@ -28,16 +28,27 @@ once per weight pack and input shape and caches it in the pack, which
 relative to a few bases (the workspace, the call's inputs and its output),
 so a cached plan serves every call.
 
+Each stage runs the tensor-core body of the per-block kernel it stands
+for: the convs K1's 3xTF32 ``wgmma`` tile on a tile plan
+(``unet2d_blocks.pick_plan``) made for the persistent grid (128-row tiles,
+:data:`MEGA_TILES`), split-K reduced inside the launch by the last split of
+a tile to finish, in split order; linear attention K5's bodies (chunked
+context, merged in chunk order by the last chunk of a sample to finish,
+then the output tiles); full attention K6's three steps (any token count).
+The plan holds each stage's choices: K1's, K5's and K6's host plans with
+the persistent grid (:func:`grid_blocks`: one 256-thread CTA per SM; a CPU
+plan takes ``SM_COUNT``) in place of the card's SMs.
+
 The kernel takes float32 weights, channel counts (and channels per
-GroupNorm group) that are multiples of 4, 4 heads of 32, at most 512
-channels in the attention blocks and at most 128 tokens at the bottleneck;
-the plan raises otherwise. It is forward-only, as
-the Pallas call (no VJP).
+GroupNorm group) that are multiples of 4, 4 heads of 32 and at most 512
+channels in the attention blocks; the plan raises otherwise. It is
+forward-only, as the Pallas call (no VJP).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -54,7 +65,9 @@ KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attenti
 PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
              ka.linear_attention_block_plain, ka.attention_block_plain)
 
-MAX_FULL_TOKENS = 128  # the kAttHeads stage holds one sample's q, k, v in shared memory
+# the persistent kernel's conv tiles: igemm_tc's 128-row tiles (two
+# warpgroups fill its 256 threads), one CTA per SM, K1's measured costs
+MEGA_TILES = {tile: cost for tile, cost in kb.TC_TILES.items() if tile[0] == 128}
 
 
 def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int):
@@ -95,7 +108,7 @@ def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int)
 
 
 GN_BLOCK = 1024
-_GN_TARGET_PROGRAMS = 528  # ~4 blocks per SM on a 132-SM H100
+_GN_TARGET_PROGRAMS = 528  # ~4 items per CTA of a 132-CTA grid
 
 
 def chunking(rows: int, L: int):
@@ -111,13 +124,14 @@ def chunking(rows: int, L: int):
 # the stage table (layout: csrc/unet2d_persistent.cu, struct Stage)
 # ---------------------------------------------------------------------------
 
-CONV, DOWN, GN_STATS, GN_APPLY, LA_CONTEXT, LA_OUTPUT, ATT_HEADS, ATT_OUTPUT = range(8)
-OP_NAMES = ("conv", "down", "gn_stats", "gn_apply", "la_context", "la_output", "att_heads",
-            "att_output")
-_INTS = ("op", "sync", "B", "H", "W", "ca", "cb", "co", "ks", "up", "groups", "chunk", "S",
-         "ss_stride")
-_SLOTS = {"x": 0, "x2": 1, "w": 2, "bias": 3, "out": 4, "scr": 5, "aux": 6, "res": 7}
-_ROW = 32         # int64 per stage: 16 ints, 8 offsets, 8 base ids
+CONV, DOWN, GN_STATS, GN_APPLY, LA_CONTEXT, LA_OUTPUT, ATT_QKV, ATT_CORE, ATT_OUT = range(9)
+OP_NAMES = ("conv", "down", "gn_stats", "gn_apply", "la_context", "la_output", "att_qkv",
+            "att_core", "att_out")
+INTS = ("op", "sync", "B", "H", "W", "ca", "cb", "co", "ks", "up", "groups", "chunk", "S",
+        "ss_stride", "bm", "bn", "splits", "per", "hg", "tr")
+SLOTS = {"x": 0, "x2": 1, "w": 2, "bias": 3, "out": 4, "scr": 5, "aux": 6, "res": 7, "cnt": 8}
+OFF, BASE = len(INTS), len(INTS) + len(SLOTS)  # columns of the slots' offsets and bases
+_ROW = BASE + len(SLOTS)  # int64 per stage: 20 ints, 9 offsets, 9 base ids
 _N_BASES = 8      # 0: null (absolute addresses), 1: workspace, 2..: inputs, then the output
 _ALIGN = 256
 
@@ -134,6 +148,14 @@ class _Val:
     @property
     def nbytes(self) -> int:
         return 4 * int(np.prod(self.shape))
+
+
+@dataclass
+class _Counters:
+    """`n` arrival counters (int32) from int `first` of the workspace's
+    counter region."""
+    first: int
+    n: int
 
 
 @dataclass
@@ -160,12 +182,17 @@ class _Stage:
 
 @dataclass
 class Plan:
-    """A recorded stage table. ``table``: (n_stages, 32) int64; ``stages``:
-    the records (op codes in ``OP_NAMES`` order); ``workspace_bytes``;
-    ``out_shape``; groups/heads/dim_head of the recorded net."""
+    """A recorded stage table. ``table``: (n_stages, _ROW) int64 (columns
+    ``INTS``, then the slots' offsets from ``OFF`` and bases from
+    ``BASE``); ``stages``: the records (op codes in ``OP_NAMES`` order);
+    ``workspace_bytes`` (its first ``n_counters`` int32 are the arrival
+    counters); ``grid``: the CTAs the plan was made for; ``out_shape``;
+    groups/heads/dim_head of the recorded net."""
     table: np.ndarray
     stages: list
     workspace_bytes: int
+    n_counters: int
+    grid: int
     in_shapes: tuple
     out_shape: tuple
     device: torch.device
@@ -182,80 +209,79 @@ class Plan:
         return out
 
     def barriers(self) -> int:
-        return sum(s.sync for s in self.stages)
+        """Grid barriers per launch: the stages' and the one after the
+        counters are zeroed."""
+        return sum(s.sync for s in self.stages) + (self.n_counters > 0)
 
 
 class _Recorder:
     """The kernel wrappers' signatures, recording stages instead of
-    computing. With ``check`` (a plan for the CUDA kernel) every weight and
-    shape is held to what the kernel takes."""
+    computing, with the tile, chunk and token-tile plans of a grid of
+    `grid` CTAs. A plan for CUDA is held to what the kernel takes
+    (:func:`check_kernel_plan`) when it is finished."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, grid: int = kb.SM_COUNT):
         self.device = torch.device(device)
-        self.check = self.device.type == "cuda"
+        self.grid = grid
         self.stages = []
         self.inputs = []
+        self.n_counters = 0
 
     def input(self, shape) -> _Val:
         self.inputs.append(_Val(shape, base=2 + len(self.inputs)))
         return self.inputs[-1]
 
     def _new(self, shape) -> _Val:
-        v = _Val(shape)
-        if self.check and int(np.prod(v.shape)) > kb._INT32_MAX:
-            raise ValueError(f"unet2d_mega: intermediate {v.shape} exceeds 2^31-1 elements")
-        return v
+        return _Val(shape)
 
-    def _weights(self, name, *tensors):
-        if not self.check:
-            return
-        for t in tensors:
-            kb._check_cuda(name, weight=t)
-            if t.device != self.device:
-                raise ValueError(f"{name}: a weight is on {t.device}, the input on {self.device}")
-        kb._check_vec4(name, (), tensors)
+    def _counters(self, n: int) -> _Counters:
+        c = _Counters(self.n_counters, n)
+        self.n_counters += n
+        return c
 
     def _stage(self, op, ptrs, writes, **ints):
         self.stages.append(_Stage(op, ints, ptrs, tuple(writes)))
 
     # -- the ops of unet2d_sequence / unet2d_blocks._resblock ---------------
 
+    def _gemm(self, op, ptrs, out, m, k, **ints):
+        """A conv or down stage on the tile plan for this grid
+        (``unet2d_blocks.pick_plan`` over MEGA_TILES, one CTA per SM); with a
+        split, its partials (splits, m, co) and one arrival counter per
+        tile."""
+        co = out.shape[-1]
+        plan = kb.pick_plan(m, co, k, tiles=MEGA_TILES, sms=self.grid)
+        writes = [out]
+        if plan.splits > 1:
+            ptrs["scr"] = self._new((plan.splits, m, co))
+            ptrs["cnt"] = self._counters(plan.ctas(m, co) // plan.splits)
+            writes.append(ptrs["scr"])
+        self._stage(op, ptrs, writes, bm=plan.bm, bn=plan.bn, splits=plan.splits, per=plan.per,
+                    **ints)
+
     def conv(self, x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
         B, hs, ws, ca = x_a.shape
         cb = 0 if x_b is None else x_b.shape[3]
         co = w.shape[-1]
-        if self.check:
-            self._weights("unet2d_mega conv", w, b)
-            if k not in (1, 3) or w.shape != (k * k * (ca + cb), co):
-                raise ValueError(f"unet2d_mega: conv weight {tuple(w.shape)} does not fit "
-                                 f"k={k}, Ci={ca + cb}")
-            kb._check_vec4("unet2d_mega conv", (ca, cb, co), ())
         H, W = (2 * hs, 2 * ws) if upsample else (hs, ws)
         out = self._new((B, H, W, co))
-        self._stage(CONV, {"x": x_a, "x2": x_b, "w": w, "bias": b, "out": out}, [out],
-                    B=B, H=H, W=W, ca=ca, cb=cb, co=co, ks=k, up=int(upsample))
+        self._gemm(CONV, {"x": x_a, "x2": x_b, "w": w, "bias": b, "out": out}, out, B * H * W,
+                   k * k * (ca + cb), B=B, H=H, W=W, ca=ca, cb=cb, co=co, ks=k,
+                   up=int(upsample))
         return out
 
     def downsample(self, x, w, b):
         B, H, W, C = x.shape
         co = w.shape[-1]
-        if self.check:
-            self._weights("unet2d_mega downsample", w, b)
-            if H % 2 or W % 2 or w.shape != (4 * C, co):
-                raise ValueError(f"unet2d_mega: downsample of {x.shape} with weight "
-                                 f"{tuple(w.shape)}")
-            kb._check_vec4("unet2d_mega downsample", (C, co), ())
         out = self._new((B, H // 2, W // 2, co))
-        self._stage(DOWN, {"x": x, "w": w, "bias": b, "out": out}, [out],
-                    B=B, H=H, W=W, ca=C, co=co)
+        self._gemm(DOWN, {"x": x, "w": w, "bias": b, "out": out}, out, B * (H // 2) * (W // 2),
+                   4 * C, B=B, H=H, W=W, ca=C, co=co)
         return out
 
     def group_norm_act(self, x, gamma, beta, groups: int = 1, ss=None, res=None):
         B, H, W, C = x.shape
-        if C % groups or (self.check and (C // groups) % 4):
-            raise ValueError(f"unet2d_mega: C={C} in {groups} groups; the kernel takes "
-                             "groups of a multiple of 4 channels")
-        self._weights("unet2d_mega group norm", gamma, beta)
+        if C % groups:
+            raise ValueError(f"unet2d_mega: C={C} in {groups} groups")
         chunk, S = chunking(B * groups, H * W * (C // groups))
         part = self._new((B * groups * S, 2))
         geo = dict(B=B, H=H, W=W, co=C, groups=groups, chunk=chunk, S=S)
@@ -269,38 +295,39 @@ class _Recorder:
     def resblock(self, x_a, ss, p, x_b=None, groups: int = 1):
         return kb._resblock(self.conv, self.group_norm_act, x_a, x_b, ss, p, groups)
 
-    def _attn_geometry(self, name, x, p, heads, dim_head, max_tokens=None):
-        B, H, W, C = x.shape
-        if self.check:
-            ka._check_heads(name, heads, dim_head)
-            self._weights(name, *p.values())
-            if not 1 <= C <= ka.MAX_CHANNELS:
-                raise ValueError(f"{name}: C={C}; the kernel takes 1 to {ka.MAX_CHANNELS}")
-            if max_tokens is not None and H * W > max_tokens:
-                raise ValueError(f"{name}: {H * W} tokens; the kernel takes at most "
-                                 f"{max_tokens}")
-        return dict(B=B, H=H, W=W, co=C)
-
     def linear_attn(self, x, p, heads, dim_head):
-        geo = self._attn_geometry("unet2d_mega linear attention", x, p, heads, dim_head)
-        ctx = self._new((x.shape[0], ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
+        """K5a per (chunk, sample, head group), the merge by the last chunk
+        of a sample to arrive, then K5b."""
+        geo = _geometry(x)
+        B, n = x.shape[0], x.shape[1] * x.shape[2]
+        chunk, S = ka.la_chunk_plan(B, n, self.grid)
+        hg = ka.la_head_groups(B, S, self.grid)
+        hidden = ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
+        part = self._new((B, S, hidden, ka.LA_PART))
+        ctx = self._new((B, ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
         common = {"x": x, "w": p["norm_g"], "aux": p["wqkv"]}
-        self._stage(LA_CONTEXT, {**common, "scr": ctx}, [ctx], **geo)
+        self._stage(LA_CONTEXT, {**common, "scr": part, "out": ctx, "cnt": self._counters(B)},
+                    [part, ctx], chunk=chunk, S=S, hg=hg, **geo)
         out = self._new(x.shape)
         self._stage(LA_OUTPUT, {**common, "scr": ctx, "x2": p["wo"], "bias": p["bo"],
                                 "res": p["out_g"], "out": out}, [out], **geo)
         return out
 
     def attn(self, x, p, heads, dim_head):
-        geo = self._attn_geometry("unet2d_mega attention", x, p, heads, dim_head,
-                                  max_tokens=MAX_FULL_TOKENS)
-        B, H, W, _ = x.shape
-        o = self._new((B, H * W, ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD))
-        self._stage(ATT_HEADS, {"x": x, "w": p["norm_g"], "aux": p["wqkv"], "scr": o}, [o],
-                    **geo)
+        """K6a (qkv of token tiles across samples), K6b (the online softmax),
+        K6c (out-projection, bias, residual): any token count."""
+        geo = _geometry(x)
+        B, n = x.shape[0], x.shape[1] * x.shape[2]
+        tr = ka.attn_tile_rows(B, n, self.grid)
+        hidden = ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
+        qkv = self._new((B * n, 3 * hidden))
+        self._stage(ATT_QKV, {"x": x, "w": p["norm_g"], "aux": p["wqkv"], "out": qkv}, [qkv],
+                    tr=tr, **geo)
+        o = self._new((B * n, hidden))
+        self._stage(ATT_CORE, {"x": qkv, "out": o}, [o], **geo)
         out = self._new(x.shape)
-        self._stage(ATT_OUTPUT, {"x": x, "scr": o, "x2": p["wo"], "bias": p["bo"],
-                                 "out": out}, [out], **geo)
+        self._stage(ATT_OUT, {"x": x, "scr": o, "x2": p["wo"], "bias": p["bo"], "out": out},
+                    [out], tr=tr, **geo)
         return out
 
     @property
@@ -332,7 +359,9 @@ class _Recorder:
         for st, ph in zip(stages, phase_of):
             for key in st.reads() | {id(v) for v in st.writes}:
                 last[key] = ph
-        free, top, by_phase = {}, 0, {}
+        # the arrival counters first, then the buffers
+        counters_bytes = -(-4 * self.n_counters // _ALIGN) * _ALIGN
+        free, top, by_phase = {}, counters_bytes, {}
         for st, ph in zip(stages, phase_of):
             for v in st.writes:
                 by_phase.setdefault(ph, []).append(v)
@@ -353,14 +382,64 @@ class _Recorder:
         table = np.zeros((len(stages), _ROW), np.int64)
         for i, st in enumerate(stages):
             ints = {"op": st.op, "sync": int(st.sync), **st.ints}
-            for k, name in enumerate(_INTS):
+            for k, name in enumerate(INTS):
                 table[i, k] = ints.get(name, 0)
             for name, p in st.ptrs.items():
                 base, off = _resolve(p)
-                table[i, 16 + _SLOTS[name]] = off
-                table[i, 24 + _SLOTS[name]] = base
-        return Plan(table, stages, max(top, _ALIGN), tuple(v.shape for v in self.inputs),
-                    out.shape, self.device, **meta)
+                table[i, OFF + SLOTS[name]] = off
+                table[i, BASE + SLOTS[name]] = base
+        plan = Plan(table, stages, max(top, _ALIGN), self.n_counters, self.grid,
+                    tuple(v.shape for v in self.inputs), out.shape, self.device, **meta)
+        if self.device.type == "cuda":
+            check_kernel_plan(plan)
+        return plan
+
+
+def _geometry(x: _Val) -> dict:
+    B, H, W, C = x.shape
+    return dict(B=B, H=H, W=W, co=C)
+
+
+def check_kernel_plan(plan: Plan) -> None:
+    """Hold a recorded plan to what the persistent kernel takes, or raise:
+    float32 weights on the plan's device, 16-byte aligned; 3x3 or 1x1 convs
+    and downsamples of even sizes whose weights fit their channels; channel
+    counts, and channels per GroupNorm group, multiples of 4; 4 heads of 32
+    and 4 to 512 channels in the attention stages; no buffer of more than
+    2^31-1 elements. A plan for CUDA is checked when it is recorded."""
+    for st in plan.stages:
+        name = f"unet2d_mega {OP_NAMES[st.op]}"
+        i = st.ints
+        weights = [t for t in st.ptrs.values() if isinstance(t, torch.Tensor)]
+        for t in weights:
+            if t.device != plan.device:
+                raise ValueError(f"{name}: a weight is on {t.device}, the input on {plan.device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: a weight has dtype {t.dtype}; the kernel takes float32")
+        kb._check_vec4(name, (), weights)
+        for v in st.writes:
+            if int(np.prod(v.shape)) > kb._INT32_MAX:
+                raise ValueError(f"{name}: intermediate {v.shape} exceeds 2^31-1 elements")
+        if st.op == CONV:
+            w, k = st.ptrs["w"], i["ks"]
+            if k not in (1, 3) or w.shape != (k * k * (i["ca"] + i["cb"]), i["co"]):
+                raise ValueError(f"{name}: weight {tuple(w.shape)} does not fit k={k}, "
+                                 f"Ci={i['ca'] + i['cb']}")
+            kb._check_vec4(name, (i["ca"], i["cb"], i["co"]), ())
+        elif st.op == DOWN:
+            w = st.ptrs["w"]
+            if i["H"] % 2 or i["W"] % 2 or w.shape != (4 * i["ca"], i["co"]):
+                raise ValueError(f"{name}: input {i['H']}x{i['W']}x{i['ca']}, weight "
+                                 f"{tuple(w.shape)}")
+            kb._check_vec4(name, (i["ca"], i["co"]), ())
+        elif st.op == GN_STATS and (i["co"] // i["groups"]) % 4:
+            raise ValueError(f"{name}: C={i['co']} in {i['groups']} groups; the kernel takes "
+                             "groups of a multiple of 4 channels")
+        elif st.op in (LA_CONTEXT, ATT_QKV):
+            ka._check_heads(name, plan.heads, plan.dim_head)
+            if not 4 <= i["co"] <= ka.MAX_CHANNELS or i["co"] % 4:
+                raise ValueError(f"{name}: C={i['co']}; the kernel takes 4 to "
+                                 f"{ka.MAX_CHANNELS} channels, a multiple of 4")
 
 
 def _resolve(p):
@@ -371,6 +450,8 @@ def _resolve(p):
         return 0, p.data_ptr()
     if isinstance(p, _Film):
         return p.val.base, p.val.off + 4 * p.col
+    if isinstance(p, _Counters):
+        return 1, 4 * p.first
     return p.base, p.off
 
 
@@ -379,9 +460,31 @@ def _resolve(p):
 # ---------------------------------------------------------------------------
 
 
+def grid_blocks(device) -> int:
+    """CTAs of the persistent kernel's cooperative launch on a CUDA device
+    (one per SM as the occupancy calculator finds it); ``SM_COUNT`` for a
+    CPU plan."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return kb.SM_COUNT
+    return _cuda_grid(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_grid(index: int) -> int:
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.load_library().unet2d_persistent_grid(ctypes.byref(blocks))
+    _build.check(err, "unet2d_persistent_grid")
+    return blocks.value
+
+
 def _launch(plan: Plan, inputs, out) -> int:
     """One cooperative launch of the plan on CUDA tensors; returns the grid
     size. The caller has checked ``inputs`` and ``out``."""
+    if plan.grid != grid_blocks(out.device):
+        raise RuntimeError(f"unet2d_persistent: the card runs {grid_blocks(out.device)} CTAs, "
+                           f"the plan was made for {plan.grid}")
     if plan.device_table is None:
         plan.device_table = torch.from_numpy(plan.table).to(out.device)
     ws = torch.empty(plan.workspace_bytes // 4, device=out.device, dtype=torch.float32)
@@ -390,7 +493,7 @@ def _launch(plan: Plan, inputs, out) -> int:
     grid = ctypes.c_int(0)
     err = _build.load_library().unet2d_persistent_f32(
         plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
-        ctypes.byref(grid), kb._stream(out))
+        plan.n_counters, ctypes.byref(grid), kb._stream(out))
     _build.check(err, "unet2d_persistent")
     return grid.value
 
@@ -419,14 +522,19 @@ def _forward_only(name, *tensors):
 # ---------------------------------------------------------------------------
 
 
-def mega_plan(packs, x_shape, groups: int, heads: int, dim_head: int, device) -> Plan:
+def mega_plan(packs, x_shape, groups: int, heads: int, dim_head: int, device,
+              grid: Optional[int] = None) -> Plan:
     """K8's plan for init-conv outputs of ``x_shape`` (B, H, W, dim), built
     once and cached in ``packs`` (a cached ``UNet2D`` pack lives until a
-    parameter changes)."""
-    key = (tuple(x_shape), groups, heads, dim_head, str(device))
+    parameter changes). grid: the CTAs to plan for (default
+    :func:`grid_blocks` of ``device``). A plan for CUDA passes
+    :func:`check_kernel_plan` or raises."""
+    device = torch.device(device)
+    grid = grid_blocks(device) if grid is None else grid
+    key = (tuple(x_shape), groups, heads, dim_head, str(device), grid)
     plans = packs.setdefault("mega_plans", {})
     if key not in plans:
-        rec = _Recorder(device)
+        rec = _Recorder(device, grid)
         x0 = rec.input(x_shape)
         width = sum(packs["film_widths"])
         film_val = rec.input((x_shape[0], width))
@@ -473,7 +581,7 @@ _PAIR_PLANS = {}  # K7 plans by (device, shapes, strides, weight addresses)
 
 
 def _pair_plan(x_shape, ss_strides, groups, p_a, p_b, device) -> Plan:
-    rec = _Recorder(device)
+    rec = _Recorder(device, grid_blocks(device))
     h = rec.input(x_shape)
     ss = [_Film(rec.input((x_shape[0], 2 * x_shape[3])), 0, st) for st in ss_strides]
     for s, p in zip(ss, (p_a, p_b)):

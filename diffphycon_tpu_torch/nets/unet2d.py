@@ -154,7 +154,8 @@ class UNet2D(nn.Module):
         conv (time MLP, FiLM matmul and both convs in torch, as JAX runs them
         outside its kernel). Forward-only: raises when a gradient could reach
         the input or a parameter. A CPU input takes the plain versions."""
-        kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
+        if torch.is_grad_enabled():  # (walking the parameters costs ~1 ms of host time)
+            kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
         packs = self._kernel_pack()
         film = self._film(time, packs)
         x0 = _conv_nchw(self._check_input(x), self.init_conv)

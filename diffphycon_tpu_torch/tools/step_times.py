@@ -10,7 +10,12 @@ bottleneck (50, 2, 16, 512) (median ms per CUDA-event pair of 50 calls, and
 the device time alone: 20 calls in a CUDA graph), and K4 per solve at batch
 8 on the 127x127 smoke domain (median per event pair of 10 solves of seeded
 random divergences, accuracy 1e-6). ``--ddpm-only`` times the guided DDPM
-steps alone.
+steps alone. ``--conv-digests`` times nothing: it runs K1 and K2 once at
+every signature of one Burgers UNet2D forward at batch 50 (``chip_smoke.py``
+phase 3's shapes, inputs from a CUDA generator seeded per signature) and
+prints per signature the tile plan and the first 16 hex digits of the
+SHA-256 of the output's bytes, so that two checkouts' lines show whether
+their convolutions are bit-equal.
 
 ``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
 earlier version of the port, e.g. the parent commit unpacked with ``git
@@ -21,6 +26,7 @@ diffphycon_tpu_torch/tools/step_times.py --root $r; done``.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -66,11 +72,35 @@ def graph_ms(torch, fn, n=20):
     return a.elapsed_time(b) / n
 
 
+def conv_digests(torch) -> dict:
+    """K1's and K2's output digests at every signature of one forward, from
+    the ``chip_smoke.py`` and the port on ``sys.path``."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+
+    sigs = sorted({(k, a) for k, a, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B)
+                   if k in cs.TC_KERNELS})
+    digests = {}
+    with torch.no_grad():
+        for i, (kind, sig) in enumerate(sigs):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            out = cs.kernel_case(torch, F, kb, gen, kind, sig)[0]()
+            torch.cuda.synchronize()
+            plan = kb.tile_plan(*cs.gemm_dims(kind, sig))
+            digests[f"{kind}{list(sig)}"] = [
+                list(plan), hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]]
+    return {"signatures": len(sigs), "digests": digests}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose diffphycon_tpu_torch is timed")
     ap.add_argument("--ddpm-only", action="store_true", help="time the guided DDPM steps alone")
+    ap.add_argument("--conv-digests", action="store_true",
+                    help="print K1's and K2's output digests at every signature instead")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -93,6 +123,9 @@ def main() -> int:
         raise SystemExit(f"imported {ka.__file__}, not the port under {root}")
     _build.load_library()
     out = {"root": str(root)}
+    if args.conv_digests:
+        print(json.dumps({**out, **conv_digests(torch)}), flush=True)
+        return 0
     cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
     net = bench.init_params(cfg, seed=0, device="cuda")
     if not args.ddpm_only:

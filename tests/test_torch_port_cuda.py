@@ -365,11 +365,14 @@ def test_port_resblock_pair_kernel_matches_plain_on_gpu(cuda_device, shape, grou
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,mults,shape,groups", [(8, (1, 2, 4, 8), (3, 16, 128, 2), 1),
-                                                    (16, (1, 2, 4), (2, 16, 128, 2), 2)])
+                                                    (16, (1, 2, 4), (2, 16, 128, 2), 2),
+                                                    (16, (1, 2), (2, 16, 128, 2), 1),
+                                                    (8, (4,), (3, 8, 24, 2), 1)])
 def test_port_unet2d_mega_kernel_matches_plain_on_gpu(cuda_device, dim, mults, shape, groups):
-    """K8: one launch per forward_mega, against forward_plain (the 3-level
-    net has the kernel's largest bottleneck, 128 tokens), bit-equal from run
-    to run; forward-only; a 512-token bottleneck raises."""
+    """K8: one launch per forward_mega, against forward_plain, bit-equal
+    from run to run; forward-only. Bottlenecks of 32, 128, 512 (the 2-level
+    net: K8 refused more than 128 tokens before its attention stages became
+    K6's) and 192 tokens (a one-level net, a ragged last 64-query tile)."""
     from diffphycon_tpu_torch.nets.init import seeded_init_
     from diffphycon_tpu_torch.nets.unet2d import UNet2D
 
@@ -385,12 +388,43 @@ def test_port_unet2d_mega_kernel_matches_plain_on_gpu(cuda_device, dim, mults, s
         assert counts["unet2d_mega"] == 1 and sum(counts.values()) == 1, counts
         assert_close(out, net.forward_plain(x, t), RTOL)
         assert torch.equal(out, net.forward_mega(x, t))
-        wide = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2)),
-                            torch.Generator().manual_seed(0)).to(cuda_device)
-        with pytest.raises(ValueError, match="tokens"):
-            wide.forward_mega(x, t)
     with pytest.raises(RuntimeError, match="forward-only"):
         net.forward_mega(x, t)
+
+
+@pytest.mark.cuda
+def test_port_unet2d_mega_grid_and_split_plans_on_gpu(cuda_device):
+    """One CTA per SM; a plan made for the card's grid, with split-K convs,
+    gives the same output as forward_plain, and bit-equal repeats: the last
+    split to arrive adds the partials in split order whichever CTA it is."""
+    from diffphycon_tpu_torch.kernels import unet2d_mega as km
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D, _conv_nchw
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert km.grid_blocks(cuda_device) == sms
+    net = seeded_init_(UNet2D(dim=32, dim_mults=(1, 2, 4)),
+                       torch.Generator().manual_seed(1)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(4, 16, 128, 2, generator=g, device=cuda_device)
+    t = torch.linspace(0, 999, 4, device=cuda_device)
+    with torch.no_grad():
+        packs = net._kernel_pack()
+        film = net._film(t, packs)
+        x0 = _conv_nchw(x, net.init_conv)
+        plan = km.mega_plan(packs, x0.shape, net.groups, 4, 32, x0.device)
+        assert plan.grid == sms and plan.n_counters > 0
+        assert any(st.ints.get("splits", 1) > 1 for st in plan.stages)
+        ref = km.unet2d_mega_plain(x0, film, packs, plan)
+        out = km.unet2d_mega(x0, film, packs, plan)
+        assert km.unet2d_mega.grid == sms
+        assert_close(out, ref, RTOL)
+        for _ in range(3):
+            assert torch.equal(out, km.unet2d_mega(x0, film, packs, plan))
+        # a plan for another grid is refused, not run
+        other = km.mega_plan(packs, x0.shape, net.groups, 4, 32, x0.device, grid=sms // 2)
+        with pytest.raises(RuntimeError, match="the plan was made for"):
+            km.unet2d_mega(x0, film, packs, other)
 
 
 def _main_path_sites(kind, batch=50):

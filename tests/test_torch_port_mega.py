@@ -13,7 +13,10 @@ stage table replayed on the CPU.
   reads the workspace as it was at the phase's barrier, so a missing barrier
   or a buffer reused while still live gives a different result (the
   workspace starts as NaN, so reading a buffer before it is written shows
-  too). Equal to ``unet2d_mega_plain`` within 1e-5 relative.
+  too). Split-K partials are added in split order, linear attention's
+  chunk partials merged in chunk order and full attention's softmax taken
+  over 64-key tiles, as the kernel does. Equal to ``unet2d_mega_plain``
+  within 1e-5 relative.
 
 The kernels themselves run only on an NVIDIA GPU (test_torch_port_cuda.py).
 """
@@ -147,20 +150,69 @@ def _gn_merge(part, L, chunk):
     return mean, var
 
 
-def _run_stage(op, i, view):
+def _mm(a, b, tc3):
+    """a @ b, or as the tensor-core bodies compute it (tc3): 3xTF32
+    products lo*hi' + hi*lo' + hi*hi' with fp32 sums."""
+    if not tc3:
+        return a @ b
+    ah, al = kb.tf32_split(a)
+    bh, bl = kb.tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _im2col(x_a, x_b, k, up):
+    """The (M, K) matrix K1's gather reads, K ordered (dy*k + dx)*Ci + c."""
+    x = kb._conv_input(x_a, x_b, up)
+    B, H, W, ci = x.shape
+    p = (k - 1) // 2
+    xp = torch.nn.functional.pad(x, (0, 0, p, k - 1 - p, p, k - 1 - p))
+    return torch.cat([xp[:, dy:dy + H, dx:dx + W, :].reshape(B * H * W, ci)
+                      for dy in range(k) for dx in range(k)], dim=1)
+
+
+def _gemm_stage(a, w, b, i, tc3):
+    """The GEMM of a conv or down stage on its split-K plan: bias + the
+    splits' partials over K slices [z*per*32, (z+1)*per*32), added in split
+    order."""
+    step = i["per"] * kb.TC_BK
+    acc = None
+    for z in range(i["splits"]):
+        term = _mm(a[:, z * step:(z + 1) * step], w[z * step:(z + 1) * step], tc3)
+        acc = term if acc is None else acc + term
+    return acc + b
+
+
+def _qkv(x, g, wqkv, tc3):
+    B, H, W, C = x.shape
+    hidden = ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
+    return _mm(ka._chan_ln(x, g).reshape(-1, C), wqkv, tc3).reshape(B, H * W, 3 * hidden)
+
+
+def _heads(t):
+    """(B, n, 128) -> (B, n, 4, 32)."""
+    return t.reshape(*t.shape[:2], ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD)
+
+
+def _run_stage(op, i, view, tc3=False):
     """One stage of the table on CPU tensors; view(slot, shape) reads and
-    view(slot, shape, write=True) gives the output buffer."""
+    view(slot, shape, write=True) gives the output buffer. Split-K partials
+    are added in split order, K5's chunk partials merged in chunk order and
+    K6's softmax taken online over 64-key tiles, as the kernel does; tc3:
+    every product as 3xTF32."""
     B, H, W, ca, cb, co = i["B"], i["H"], i["W"], i["ca"], i["cb"], i["co"]
+    n, hidden = H * W, ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
     if op == km.CONV:
         src = (B, H // 2, W // 2) if i["up"] else (B, H, W)
         k = i["ks"]
-        out = kb.conv2d_nhwc_plain(view("x", src + (ca,)), view("w", (k * k * (ca + cb), co)),
-                                   view("bias", (co,)),
-                                   view("x2", src + (cb,)) if cb else None, k=k,
-                                   upsample=bool(i["up"]))
+        a = _im2col(view("x", src + (ca,)), view("x2", src + (cb,)) if cb else None, k,
+                    bool(i["up"]))
+        out = _gemm_stage(a, view("w", (k * k * (ca + cb), co)), view("bias", (co,)), i, tc3)
+        out = out.reshape(B, H, W, co)
     elif op == km.DOWN:
-        out = kb.downsample_nhwc_plain(view("x", (B, H, W, ca)), view("w", (4 * ca, co)),
-                                       view("bias", (co,)))
+        x6 = view("x", (B, H, W, ca)).reshape(B, H // 2, 2, W // 2, 2, ca)
+        a = x6.permute(0, 1, 3, 2, 4, 5).reshape(-1, 4 * ca)
+        out = _gemm_stage(a, view("w", (4 * ca, co)), view("bias", (co,)), i, tc3)
+        out = out.reshape(B, H // 2, W // 2, co)
     elif op in (km.GN_STATS, km.GN_APPLY):
         g, chunk, S = i["groups"], i["chunk"], i["S"]
         x = view("x", (B, H, W, co))
@@ -178,85 +230,126 @@ def _run_stage(op, i, view):
         y = y * torch.sigmoid(y)
         res = view("res", x.shape)
         out = y if res is None else y + res
-    else:
+    elif op == km.LA_CONTEXT:
+        chunk, S = i["chunk"], i["S"]
+        qkv = _qkv(view("x", (B, H, W, co)), view("w", (co,)), view("aux", (co, 3 * hidden)), tc3)
+        k, v = _heads(qkv[..., hidden:2 * hidden]), _heads(qkv[..., 2 * hidden:])
+        part = view("scr", (B, S, hidden, ka.LA_PART), write=True)
+        for s in range(S):  # each chunk's (context, max, sum) of exp(k - max)^T v
+            kc, vc = k[:, s * chunk:(s + 1) * chunk], v[:, s * chunk:(s + 1) * chunk]
+            m = kc.amax(dim=1)  # (B, 4, 32)
+            e = torch.exp(kc - m[:, None])
+            ctx_s = torch.einsum("bnhd,bnhe->bhde", e, vc) if not tc3 else torch.stack(
+                [_mm(e[:, :, h].transpose(1, 2), vc[:, :, h], True) for h in range(4)], 1)
+            part[:, s, :, :ka.KERNEL_DIM_HEAD] = ctx_s.reshape(B, hidden, -1)
+            part[:, s, :, ka.KERNEL_DIM_HEAD] = m.reshape(B, hidden)
+            part[:, s, :, ka.KERNEL_DIM_HEAD + 1] = e.sum(dim=1).reshape(B, hidden)
+        # the merge, in chunk order (the last chunk to arrive runs it)
+        m_all = part[..., ka.KERNEL_DIM_HEAD].amax(dim=1)
+        ctx, total = 0.0, 0.0
+        for s in range(S):
+            w = torch.exp(part[:, s, :, ka.KERNEL_DIM_HEAD] - m_all)
+            total = total + w * part[:, s, :, ka.KERNEL_DIM_HEAD + 1]
+            ctx = ctx + w[..., None] * part[:, s, :, :ka.KERNEL_DIM_HEAD]
+        out = (ctx / total[..., None]).reshape(B, ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, -1)
+    elif op == km.LA_OUTPUT:
         x = view("x", (B, H, W, co))
-        n, hidden = H * W, ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
-        qkv = lambda: ka._qkv(x, view("w", (co,)), view("aux", (co, 3 * hidden)),  # noqa: E731
-                              ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD)
-        wo, bo = view("x2", (hidden, co)), view("bias", (co,))
-        if op == km.LA_CONTEXT:
-            _, k, v = qkv().unbind(2)
-            k = torch.softmax(k.permute(0, 2, 3, 1), dim=-1)
-            out = torch.einsum("bhdn,bnhe->bhde", k, v)
-            view("scr", out.shape, write=True).copy_(out)
-            return
-        if op == km.LA_OUTPUT:
-            q = torch.softmax(qkv()[:, :, 0], dim=-1) * ka.KERNEL_DIM_HEAD ** -0.5
-            ctx = view("scr", (B, ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
-            o = torch.einsum("bhde,bnhd->bnhe", ctx, q).reshape(B * n, hidden)
-            out = x + ka._chan_ln((o @ wo + bo).reshape(x.shape), view("res", (co,)))
-        elif op == km.ATT_HEADS:
-            q, k, v = qkv().unbind(2)
-            sim = torch.einsum("bihd,bjhd->bhij", q * ka.KERNEL_DIM_HEAD ** -0.5, k)
-            out = torch.einsum("bhij,bjhd->bihd", torch.softmax(sim, dim=-1), v)
-            out = out.reshape(B, n, hidden)
-            view("scr", out.shape, write=True).copy_(out)
-            return
-        else:  # ATT_OUTPUT
-            o = view("scr", (B, n, hidden)).reshape(B * n, hidden)
-            out = x + (o @ wo + bo).reshape(x.shape)
+        q = _heads(_qkv(x, view("w", (co,)), view("aux", (co, 3 * hidden)), tc3)[..., :hidden])
+        q = torch.softmax(q, dim=-1) * ka.KERNEL_DIM_HEAD ** -0.5
+        ctx = view("scr", (B, ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
+        o = torch.stack([_mm(q[:, :, h], ctx[:, h], tc3) for h in range(4)], 2)
+        y = _mm(o.reshape(B * n, hidden), view("x2", (hidden, co)), tc3) + view("bias", (co,))
+        out = x + ka._chan_ln(y.reshape(x.shape), view("res", (co,)))
+    elif op == km.ATT_QKV:
+        qkv = _qkv(view("x", (B, H, W, co)), view("w", (co,)), view("aux", (co, 3 * hidden)), tc3)
+        scale = torch.ones(3 * hidden)
+        scale[:hidden] = ka.KERNEL_DIM_HEAD ** -0.5
+        out = (qkv * scale).reshape(B * n, 3 * hidden)
+    elif op == km.ATT_CORE:  # online softmax over 64-key tiles
+        qkv = view("x", (B, n, 3 * hidden))
+        q, k, v = (_heads(qkv[..., j * hidden:(j + 1) * hidden]).transpose(1, 2)
+                   for j in range(3))  # (B, 4, n, 32), q scaled
+        m = torch.full((B, 4, n), -math.inf)
+        total, o = torch.zeros(B, 4, n), torch.zeros(B, 4, n, ka.KERNEL_DIM_HEAD)
+        for k0 in range(0, n, ka.ATTN_KEY_TILE):
+            kt, vt = k[:, :, k0:k0 + ka.ATTN_KEY_TILE], v[:, :, k0:k0 + ka.ATTN_KEY_TILE]
+            sc = _mm(q, kt.transpose(-1, -2), tc3)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            e = torch.exp(sc - m_new[..., None])
+            total = total * alpha + e.sum(dim=-1)
+            o = o * alpha[..., None] + _mm(e, vt, tc3)
+            m = m_new
+        out = (o / total[..., None]).transpose(1, 2).reshape(B * n, hidden)
+    else:  # ATT_OUT: the heads' partials of the out-projection in head order
+        x = view("x", (B, H, W, co))
+        o, wo = view("scr", (B * n, hidden)), view("x2", (hidden, co))
+        d = ka.KERNEL_DIM_HEAD
+        acc = None
+        for h in range(ka.KERNEL_HEADS):
+            term = _mm(o[:, h * d:(h + 1) * d], wo[h * d:(h + 1) * d], tc3)
+            acc = term if acc is None else acc + term
+        out = x + (acc + view("bias", (co,))).reshape(x.shape)
     view("out", out.shape, write=True).copy_(out)
 
 
-def _replay(plan, inputs, weights):
+def _replay(plan, inputs, weights, tc3=False):
     """Run plan.table on the CPU: phase by phase, each stage reading the
-    workspace as it stood at the phase's barrier."""
+    workspace as it stood at the phase's barrier (a stage reads what it
+    wrote itself: K5's merge and the split-K sums run in the stage that
+    wrote their partials)."""
     by_addr = {t.data_ptr(): t for t in weights}
     ws = torch.full((plan.workspace_bytes // 4,), float("nan"))
     out = torch.empty(plan.out_shape)
     flats = {1: ws, 2 + len(inputs): out.reshape(-1)}
     flats.update({2 + k: t.reshape(-1) for k, t in enumerate(inputs)})
-    names = dict(zip(km._INTS, range(len(km._INTS))))
+    names = dict(zip(km.INTS, range(len(km.INTS))))
     snapshot = {1: ws.clone()}
     for row in plan.table:
         ints = {name: int(row[k]) for name, k in names.items()}
 
         def view(slot, shape, write=False, stride=None, row=row):
-            s = km._SLOTS[slot]
-            base, off = int(row[24 + s]), int(row[16 + s])
+            s = km.SLOTS[slot]
+            base, off = int(row[km.BASE + s]), int(row[km.OFF + s])
             if base == 0:
                 return by_addr[off].reshape(shape) if off else None
             flat = flats[base] if write or base != 1 else snapshot[1]
             if stride is not None:
                 return flat.as_strided(shape, (stride, 1), off // 4)
             assert off % 4 == 0 and off // 4 + math.prod(shape) <= flat.numel()
+            assert base != 1 or off >= 4 * plan.n_counters  # clear of the counters
             return flat[off // 4: off // 4 + math.prod(shape)].view(shape)
 
-        _run_stage(ints["op"], ints, view)
+        _run_stage(ints["op"], ints, view, tc3)
         if ints["sync"]:
             snapshot[1] = ws.clone()
     return out
+
+
+def _mega_inputs(net, shape, t, seed=3):
+    """(x0, film, packs) of forward_mega for a CPU net."""
+    x = torch.from_numpy(rand(*shape, seed=seed))
+    packs = net.pack()
+    return _conv_nchw(x, net.init_conv), net._film(t, packs), packs
 
 
 @pytest.mark.parametrize("dim,mults,shape", [(8, (1, 2, 4, 8), (2, 16, 128, 2)),
                                              (16, (1, 2, 4), (2, 16, 128, 2))])
 def test_port_mega_stage_table_replays_to_the_plain_forward(dim, mults, shape):
     """The 4-level Burgers layout (a 32-token bottleneck) and the 3-level one
-    (128 tokens, the kernel's largest): stage counts as the architecture
-    implies, then the table run on the CPU against forward_plain."""
+    (128 tokens): stage counts as the architecture implies, then the table
+    run on the CPU against forward_plain."""
     net = seeded_init_(UNet2D(dim=dim, dim_mults=mults), torch.Generator().manual_seed(0))
-    x, t = torch.from_numpy(rand(*shape, seed=3)), torch.tensor([3.0, 600.0])
     with torch.no_grad():
-        packs = net.pack()
-        film = net._film(t, packs)
-        x0 = _conv_nchw(x, net.init_conv)
+        x0, film, packs = _mega_inputs(net, shape, torch.tensor([3.0, 600.0]))
         plan = km.mega_plan(packs, x0.shape, net.groups, 4, 32, x0.device)
         # 4n + 3 ResBlocks (2n + 1 with a residual conv), n - 1 downsamples,
         # n - 1 upsamples and two last-level 3x3 convs, 2n linear attentions
+        # (context, output), one full attention (qkv, core, out)
         n = len(mults)
         assert plan.counts() == {"conv": 11 * n + 8, "down": n - 1, "gn_stats": 8 * n + 6,
                                  "gn_apply": 8 * n + 6, "la_context": 2 * n,
-                                 "la_output": 2 * n, "att_heads": 1, "att_output": 1}
+                                 "la_output": 2 * n, "att_qkv": 1, "att_core": 1, "att_out": 1}
         got = _replay(plan, (x0, film), list(_tensors(packs)))
         ref = km.unet2d_mega_plain(x0, film, packs, plan)
     assert_close(got, ref, 1e-5)
