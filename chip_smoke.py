@@ -1,11 +1,13 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``diffphycon_tpu_torch`` (never JAX) at full width on three paths:
+Drives ``diffphycon_tpu_torch`` (never JAX) at full width on five paths:
 Burgers sampling (UNet2D dim 64, mults (1, 2, 4, 8), batch 50, input (50,
 16, 128, 2)), smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch
-8, input (8, 32, 64, 64, 6); 128^2 fluid solver) and Burgers training (the
-same UNet2D at batch 16).
+8, input (8, 32, 64, 64, 6); 128^2 fluid solver), Burgers training (the
+same UNet2D at batch 16), smoke training (the UNet3D at batch 16) and the
+jellyfish benchmark (UNet3Ds (16, 20, 64, 64, 7) -> 4 and 1 channels;
+UNet2Dv2 / ForceUNet surrogates dim 64, mults (1, 2, 4, 8)).
 
 Burgers:
 
@@ -86,6 +88,23 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
    and the host time of its parts; 20 guided DDPM steps at batch 50 with
    both models through ``forward_mega`` (exactly 40 K8 launches) in turns
    with 20 through K1-K6, and a profile of 3 of its steps.
+
+Smoke training and jellyfish (no kernel of their own: cuDNN, TF32 off):
+11. smoke training at full width: 16 train sims from ``generate_smoke``,
+   ``apps/train_smoke.py`` ``main()`` for the joint (C=6, 3 steps, a
+   checkpoint, resumed to 4) and the w model (C=2) at batch 16, then 3
+   steps each timed with remat on and off (forward, backward, update; peak
+   memory). A micro-batch that does not fit is halved by gradient
+   accumulation (``--grad_accum``) and the reason printed;
+12. jellyfish at full width: synthetic sims (4 train, 8 test),
+   ``generate_jellyfish_forces``, ``train_surrogates_jellyfish`` for the
+   force, simulator and boundary-updater nets (3 steps at batch 16),
+   ``train_jellyfish`` for the states (EBM, double backward) and thetas
+   models at batch 16 (2 steps, then 2 timed with remat on and off),
+   ``infer_jellyfish`` at batch 8 (guided DDIM, 3 steps, closed-loop
+   rollout), 3 timed guided DDIM and DDPM steps at batch 8 (the default
+   1000-step run projected from them), and the EBM loss, its parameter
+   gradient and one guided step at dim 16 on CUDA against the CPU.
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
@@ -172,6 +191,16 @@ REPLACES.update({
     "unet2d_mega": "diffphycon_tpu/research/pallas_unet2d_mega.py:283 (unet2d_mega_apply; "
                    "pallas_call :392)",
 })
+JELLY_TRAIN_SIMS, JELLY_TEST_SIMS, JELLY_B = 4, 8, 8
+JELLY_DDIM_STEPS = 3
+# CUDA against the CPU on one EBM loss, its parameter gradient and one guided
+# DDPM step (dim 16, batch 2, 8 frames of 32x32, fixed draws): fp32 on both
+# (TF32 off) differs in summation order only, ~1e-6 relative in a forward.
+# A TF32 conv (10-bit mantissa products) would put ~1e-3 into the loss and
+# the step; the gradient is second order (the backward of a backward), so
+# it gets 10x more room
+JELLY_CPU_RTOL = 1e-4
+JELLY_CPU_GRAD_RTOL = 1e-3
 # the down-path pair shapes of the flagship UNet2D, then the JAX bench
 # script's level2 (4, 32, 256)
 PAIR_SHAPES = ((16, 128, 64), (8, 64, 64), (4, 32, 128), (2, 16, 256), (4, 32, 256))
@@ -1189,6 +1218,350 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
             "device_ms": k_device_ms}
 
 
+def _fit(torch, run, batch):
+    """run(accum): a training run at ``batch`` with gradient accumulation
+    1, 2, 4, ..., the first whose micro-batch fits in device memory (the
+    apps' --grad_accum); returns (result, accum, why or None)."""
+    accum, why = 1, None
+    while True:
+        try:
+            return run(accum), accum, why
+        except torch.cuda.OutOfMemoryError as e:  # the stated fallback, printed
+            if accum >= batch:
+                raise
+            why = (f"micro-batch {batch // accum} does not fit "
+                   f"({str(e).splitlines()[0][:120]}); trying {batch // accum // 2}")
+        print(why, flush=True)
+        torch.cuda.empty_cache()
+        accum *= 2
+
+
+def _step_split(torch, trainer, batch_fn, n):
+    """n optimizer steps of ``trainer`` on its own loss seam, cut by
+    synchronisations: (ms per step of forward, backward and update, summed
+    over the micro-batches of its gradient accumulation; peak device memory
+    in GB; the losses)."""
+    from diffphycon_tpu_torch.training.trainer import _chunks
+
+    gd, accum = trainer.gd, trainer.cfg.gradient_accumulate_every
+    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(n):
+        batch = batch_fn()
+        t, noise = gd.draw_t_noise(batch, trainer.generator)
+        for p in trainer.params:
+            p.grad = None
+        total = 0.0
+        for xs, ts, ns in zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)):
+            tic = time.perf_counter()
+            loss = gd.p_losses(xs, ts, trainer.derive_cond(xs), ns) / accum
+            torch.cuda.synchronize()
+            toc = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            split["forward"] += 1e3 * (toc - tic) / n
+            split["backward"] += 1e3 * (time.perf_counter() - toc) / n
+            total += loss.item()
+        tic = time.perf_counter()
+        trainer.apply_gradients()
+        torch.cuda.synchronize()
+        split["update"] += 1e3 * (time.perf_counter() - tic) / n
+        losses.append(total)
+    split["step"] = sum(split.values())
+    return split, torch.cuda.max_memory_allocated() / 1e9, losses
+
+
+def _timed_remat(torch, tr, batch_fn, n):
+    """{"remat_on"|"remat_off": n timed steps of trainer ``tr`` (its UNet3D's
+    remat_all switched), with the accumulation that fits}."""
+    timing = {}
+    for remat_all in (True, False):
+        tr.model.remat_all = remat_all
+
+        def run(accum):
+            tr.cfg.gradient_accumulate_every = accum
+            return _step_split(torch, tr, batch_fn, n)
+
+        (split, peak, losses), accum, why = _fit(torch, run, TRAIN_B)
+        timing[f"remat_{'on' if remat_all else 'off'}"] = {
+            "grad_accum": accum, "why_accum": why, "ms": split, "peak_memory_gb": peak,
+            "losses": losses}
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"non-finite training losses (remat_all {remat_all}): {losses}")
+    return timing
+
+
+def smoke_training_phase(torch, smi_line):
+    """Phase 11: smoke training at full width (UNet3D dim 64, mults (1, 2,
+    4), input (16, 32, 64, 64, C)): a generated train split, the train app
+    for the joint (C=6) and the w model (C=2) at batch 16 (a few steps, a
+    save, a resume), then ms per optimizer step with its split and peak
+    memory, remat on and off."""
+    from diffphycon_tpu_torch.apps import generate_smoke, train_smoke
+
+    t0 = time.time()
+    work = os.path.join("build", "chip_smoke")
+    data_dir = os.path.join(work, "smoke_train_data")
+    models = os.path.join(work, "smoke_models")
+    tic = time.perf_counter()
+    generate_smoke.main(generate_smoke.build_parser().parse_args([
+        "--out", data_dir, "--n_test", "0", "--n_train", str(TRAIN_B), "--batch", str(TRAIN_B),
+        "--filter_rate", "-1", "--min_sum_rate", "-1", "--max_sum_rate", "1e9"]))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - tic
+
+    def app(extra, folder, fresh):
+        def run(accum):
+            if fresh:
+                shutil.rmtree(folder, ignore_errors=True)
+            tic = time.perf_counter()
+            tr = train_smoke.main(train_smoke.build_parser().parse_args(
+                ["--dataset_path", data_dir, "--batch_size", str(TRAIN_B), "--grad_accum",
+                 str(accum), "--checkpoint_interval", "2", "--results_folder", folder] + extra))
+            torch.cuda.synchronize()
+            return tr, time.perf_counter() - tic
+        return run
+
+    runs, record = {}, []
+    for name, extra, sub, final in (
+            ("joint", ["--train_num_steps", "3"], "smoke", 3),
+            ("joint resumed", ["--train_num_steps", "4", "--resume", "True"], "smoke", 4),
+            ("w", ["--train_num_steps", "2", "--is_w_model", "True"], "smoke_w", 2)):
+        folder = os.path.join(models, sub)
+        if name == "joint resumed":  # the joint run's folder as it stands
+            accum, why = record[0]["grad_accum"], None
+            tr, wall = app(extra, folder, fresh=False)(accum)
+        else:
+            (tr, wall), accum, why = _fit(torch, app(extra, folder, fresh=True), TRAIN_B)
+        log = [json.loads(line) for line in open(os.path.join(folder, "train_log.jsonl"))]
+        ckpts = sorted(int(d) for d in os.listdir(os.path.join(folder, "ckpt")) if d.isdigit())
+        record.append({"run": name, "batch": TRAIN_B, "grad_accum": accum, "why_accum": why,
+                       "final_step": tr.step, "losses": [r["loss"] for r in log],
+                       "checkpoints": ckpts, "remat_all": tr.model.remat_all, "seconds": wall})
+        if tr.step != final or final not in ckpts:
+            fail(f"train_smoke ({name}): step {tr.step}, checkpoints {ckpts} (want {final})")
+        if not log or not all(math.isfinite(r["loss"]) for r in log):
+            fail(f"train_smoke ({name}): non-finite or missing losses {log}")
+        runs[name] = tr
+    emit({"phase": "smoke_train_app", "app": "diffphycon_tpu_torch/apps/train_smoke.py",
+          "generate_seconds": gen_s, "runs": record, "seconds": round(time.time() - t0, 3)})
+
+    t0 = time.time()
+    timing = {}
+    for name, tr in (("joint", runs["joint resumed"]), ("w", runs["w"])):
+        timing[name] = _timed_remat(
+            torch, tr, lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"), 3)
+    emit({"phase": "smoke_train_timing", "channels": {"joint": 6, "w": 2},
+          "input": [TRAIN_B, 32, 64, 64], "steps_timed": 3, "timing": timing,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    del runs
+    torch.cuda.empty_cache()
+
+
+def _jelly_cpu_check(torch, tbench):
+    """The EBM loss, its parameter gradient and one guided DDPM step on CUDA
+    against the same weights and draws on the CPU."""
+    import copy
+
+    cfg = tbench.JellyfishConfig(dim=16, dim_mults=(1, 2, 4), frames=8, image_size=32,
+                                 surrogate_dim=16, reg_ratio=0.1, remat_all=True)
+    g = torch.Generator().manual_seed(11)
+    b, f, h = 2, cfg.frames, cfg.image_size
+    state0 = torch.rand(b, f, h, h, 3, generator=g) * 2 - 1
+    bd0 = torch.randn(b, f, h, h, 3, generator=g)
+    thetas0 = torch.randn(b, f, generator=g)
+    t = torch.tensor([7, 613])
+    noise = torch.randn(b, f, h, h, 3, generator=g)
+    init_noise = tuple(torch.randn(b, f, h, h, c, generator=g) for c in (3, 3, 1))
+    step_noise = torch.randn(b, f, h, h, 4, generator=g)
+    nets_cpu = {"joint": tbench.build_joint_unet(cfg, seed=1, device="cpu"),
+                "thetas": tbench.build_thetas_unet(cfg, seed=2, device="cpu"),
+                "bd": tbench.build_bd_updater(cfg, seed=3, device="cpu"),
+                "force": tbench.build_force_unet(cfg, seed=4, device="cpu")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        nets = {k: copy.deepcopy(v).to(dev) for k, v in nets_cpu.items()}
+        gd = tbench.JellyfishDiffusion(cfg, nets["joint"], thetas_model=nets["thetas"],
+                                       bd_updater=nets["bd"], device=dev)
+        tic = time.perf_counter()
+        loss = gd.p_losses_states(*(a.to(dev) for a in (state0, bd0, thetas0, t, noise)))
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in nets["joint"].named_parameters()}
+        design_fn = tbench.make_force_design_fn(cfg, nets["force"], nets["bd"], -2.0, 3.0)
+        cond = gd._cond(state0[:, 0].to(dev), bd0[:, 0].to(dev), thetas0[:, 0].to(dev))
+        x = gd.sample_init(cond.state_0, cond.bd_0, cond.thetas_0,
+                           noise=tuple(a.to(dev) for a in init_noise))
+        x = gd.step(x, 500, cond, design_fn, noise=step_noise.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (loss.item(), grads, x.cpu(), time.perf_counter() - tic)
+    (lc, gc, xc, sc), (lg, gg, xg, sg) = out["cpu"], out["cuda"]
+    gmax = max(v.abs().max().item() for v in gc.values())
+    grad_err = max((gg[k] - v).abs().max().item() for k, v in gc.items())
+    rec = {"shape": [b, f, h, h], "dim": 16, "loss_cpu": lc, "loss_cuda": lg,
+           "loss_rel_err": abs(lg - lc) / max(1.0, abs(lc)), "loss_tol": JELLY_CPU_RTOL,
+           "grad_max_abs_err": grad_err, "grad_max": gmax,
+           "grad_tol": JELLY_CPU_GRAD_RTOL * max(1.0, gmax),
+           "step_max_abs_err": (xg - xc).abs().max().item(),
+           "step_tol": JELLY_CPU_RTOL * max(1.0, xc.abs().max().item()),
+           "cpu_seconds": sc, "cuda_seconds": sg}
+    ok = (rec["loss_rel_err"] <= JELLY_CPU_RTOL and grad_err <= rec["grad_tol"]
+          and rec["step_max_abs_err"] <= rec["step_tol"] and math.isfinite(lg)
+          and bool(torch.isfinite(xg).all()))
+    return rec, ok
+
+
+def jellyfish_phase(torch, smi_line):
+    """Phase 12: the jellyfish pipeline at full width: synthetic sims,
+    force labels, the three surrogates (UNet2Dv2 / ForceUNet dim 64, mults (1,
+    2, 4, 8), 64x64), the states (EBM) and thetas UNet3Ds (dim 64, mults (1,
+    2, 4), input (16, 20, 64, 64, 7)) at batch 16, guided inference at batch
+    8 with closed-loop scoring, timed guided DDIM and DDPM steps, and the
+    CUDA-against-CPU check."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.apps import (
+        generate_jellyfish_forces,
+        infer_jellyfish,
+        train_jellyfish,
+        train_surrogates_jellyfish,
+    )
+    from diffphycon_tpu_torch.benchmarks import jellyfish as tbench
+    from diffphycon_tpu_torch.training.data import load_jellyfish_dataset, synthetic_jellyfish
+
+    t0 = time.time()
+    work = os.path.join("build", "chip_smoke", "jellyfish")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "data")
+    synthetic_jellyfish(JELLY_TRAIN_SIMS, os.path.join(root, "train_data"), seed=0)
+    synthetic_jellyfish(JELLY_TEST_SIMS, os.path.join(root, "test_data"), seed=1)
+    tic = time.perf_counter()
+    generate_jellyfish_forces.main(generate_jellyfish_forces.build_parser().parse_args(
+        ["--dataset_path", root, "--splits", "train_data"]))
+    torch.cuda.synchronize()
+    forces_s = time.perf_counter() - tic
+    if not all(np.isfinite(np.load(os.path.join(root, "train_data", "forces",
+                                                f"sim_{i:06d}.npy"))).all()
+               for i in range(JELLY_TRAIN_SIMS)):
+        fail("non-finite jellyfish force labels")
+    sur = os.path.join(work, "surrogates")
+    surrogates = {}
+    for model in ("force", "simulator", "boundary_updater"):
+        tic = time.perf_counter()
+        state, last = train_surrogates_jellyfish.main(
+            train_surrogates_jellyfish.build_parser().parse_args(
+                ["--dataset_path", root, "--model", model, "--num_steps", "3",
+                 "--batch_size", str(TRAIN_B), "--log_every", "1", "--results_folder", sur]))
+        torch.cuda.synchronize()
+        surrogates[model] = {"steps": state.step, "last_loss": last,
+                             "seconds": time.perf_counter() - tic}
+        if not (last is not None and math.isfinite(last)):
+            fail(f"surrogate {model}: non-finite loss {last}")
+    emit({"phase": "jellyfish_data_and_surrogates", "train_sims": JELLY_TRAIN_SIMS,
+          "test_sims": JELLY_TEST_SIMS, "force_label_seconds": forces_s,
+          "surrogates": surrogates, "batch": TRAIN_B, "seconds": round(time.time() - t0, 3)})
+
+    # the states (EBM) and thetas models through the train app at batch 16
+    t0 = time.time()
+    data = load_jellyfish_dataset(root, "train")
+    trained = {}
+    for model_type, sub in (("states", "jellyfish"), ("thetas", "jellyfish_w")):
+        folder = os.path.join(work, sub)
+
+        def run(accum):
+            shutil.rmtree(folder, ignore_errors=True)
+            tr = train_jellyfish.main(train_jellyfish.build_parser().parse_args(
+                ["--dataset_path", root, "--model_type", model_type, "--train_num_steps", "2",
+                 "--checkpoint_interval", "2", "--batch_size", str(TRAIN_B),
+                 "--grad_accum", str(accum), "--results_folder", folder]))
+            return tr, [json.loads(line)["loss"]
+                        for line in open(os.path.join(folder, "train_log.jsonl"))]
+
+        (tr, app_losses), accum, why = _fit(torch, run, TRAIN_B)
+        if not app_losses or not all(math.isfinite(v) for v in app_losses):
+            fail(f"train_jellyfish ({model_type}): non-finite losses {app_losses}")
+        batches = train_jellyfish.window_batches(data["states"], data["bd"], data["thetas"],
+                                                 TRAIN_B, 20, seed=3)
+        trained[model_type] = {
+            "batch": TRAIN_B, "app_grad_accum": accum, "why_accum": why, "app_steps": 2,
+            "app_losses": app_losses, "remat_all_default": True,
+            "timing": _timed_remat(torch, tr, lambda: tuple(
+                torch.as_tensor(a, device="cuda") for a in next(batches)), 2)}
+        del tr
+        torch.cuda.empty_cache()
+    emit({"phase": "jellyfish_train", "app": "diffphycon_tpu_torch/apps/train_jellyfish.py",
+          "input": [TRAIN_B, 20, 64, 64, 7], "models": trained, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+
+    # guided inference at batch 8 (DDIM cut to a few steps) with closed-loop
+    # scoring, then 3 timed steps each of a guided DDIM and of the default
+    # 1000-step DDPM loop
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    agg = infer_jellyfish.main(infer_jellyfish.build_parser().parse_args([
+        "--dataset_path", root, "--n_test_samples", str(JELLY_TEST_SIMS),
+        "--batch_size", str(JELLY_B), "--joint_folder", os.path.join(work, "jellyfish"),
+        "--w_folder", os.path.join(work, "jellyfish_w"), "--diffusion_joint_checkpoint", "2",
+        "--diffusion_w_checkpoint", "2", "--surrogate_folder", sur,
+        "--sampling_timesteps", str(JELLY_DDIM_STEPS),
+        "--inference_result_path", os.path.join(work, "results")]))
+    torch.cuda.synchronize()
+    infer_peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(math.isfinite(agg[k]) for k in ("objective", "objective_closed_loop",
+                                                 "theta_mae_vs_gt"))
+    if not finite:
+        fail(f"non-finite jellyfish objectives: {agg}")
+
+    from diffphycon_tpu_torch.apps.infer_jellyfish import _diffusion_net, _surrogates
+
+    cfg = tbench.JellyfishConfig()
+    _, net_force, net_bd = _surrogates(tbench, cfg, sur, "cuda")
+    joint = _diffusion_net(tbench.build_joint_unet, cfg, os.path.join(work, "jellyfish"), 2,
+                           True, "cuda")
+    thetas = _diffusion_net(tbench.build_thetas_unet, cfg, os.path.join(work, "jellyfish_w"),
+                            2, True, "cuda")
+    test = load_jellyfish_dataset(root, "test", n=JELLY_B)
+    s0, b0, th0 = (torch.as_tensor(test[k][:, 0], device="cuda")
+                   for k in ("states", "bd", "thetas"))
+    design_fn = tbench.make_force_design_fn(cfg, net_force, net_bd, -1.0, 1.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step_s = {}
+    for name, steps in (("ddim", 10), ("ddpm", 1000)):  # a warm-up step, then 3 timed
+        gd = tbench.JellyfishDiffusion(
+            tbench.JellyfishConfig(sampling_timesteps=steps), joint, thetas_model=thetas,
+            bd_updater=net_bd, device="cuda")
+        cond = gd._cond(s0, b0, th0)
+        x = gd.sample_init(s0, b0, th0, generator=gen)
+        ts = gd.sample_ts()
+        x = gd.step(x, ts[0], cond, design_fn, gen)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for ts_i in ts[1:4]:
+            x = gd.step(x, ts_i, cond, design_fn, gen)
+        torch.cuda.synchronize()
+        step_s[name] = (time.perf_counter() - tic) / 3
+        if not torch.isfinite(x).all():
+            fail(f"non-finite jellyfish samples ({name})")
+    emit({"phase": "jellyfish_infer", "app": "diffphycon_tpu_torch/apps/infer_jellyfish.py",
+          "sampler": f"guided ddim {JELLY_DDIM_STEPS} steps, eta 0, batch {JELLY_B}, "
+                     "joint + thetas UNet3D, bd-updater in the loop, force guidance",
+          "result": agg, "finite": finite, "peak_memory_gb": infer_peak,
+          "guided_step_s": step_s, "steps_timed": 3,
+          "projected_default_ddpm_run_s": 1000 * step_s["ddpm"],
+          "rollout_s": agg["rollout_s"], "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    del joint, thetas, net_force, net_bd, gd, x
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    rec, ok = _jelly_cpu_check(torch, tbench)
+    emit({"phase": "jellyfish_cuda_vs_cpu", **rec, "seconds": round(time.time() - t0, 3)})
+    if not ok:
+        fail(f"jellyfish on CUDA differs from the CPU: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -1490,6 +1863,11 @@ def main() -> int:
     persistent = {"resblock_pair": resblock_pair_phase(torch, F, smi_line)}
     torch.cuda.empty_cache()
     persistent["unet2d_mega"] = unet2d_mega_phase(torch, smi_line, bench, cfg)
+    torch.cuda.empty_cache()
+
+    # -- 11-12. smoke training; the jellyfish pipeline ----------------------
+    smoke_training_phase(torch, smi_line)
+    jellyfish_phase(torch, smi_line)
 
     # -- kernels line ---------------------------------------------------------
     kernels = []

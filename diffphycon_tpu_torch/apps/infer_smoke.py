@@ -11,9 +11,10 @@ the dataset-control rows.
 
 Weights come from ``--params_npz_joint`` / ``--params_npz_w`` (flat
 flax-path npz files of the JAX package's UNet3D trees, see
-``utils/convert.py``) or from ``--init_seed N`` (seeded random weights; the
-prior model takes N + 1). Orbax checkpoints are not ported yet
-(ROADMAP.md). ``--scan_chunks`` is accepted and has no effect: the port's
+``utils/convert.py``), from ``--init_seed N`` (seeded random weights; the
+prior model takes N + 1), or else from the port's checkpoints
+``<joint_folder>/ckpt/<diffusion_joint_checkpoint>/`` and the w model's
+(``apps/train_smoke.py``). Orbax checkpoints are not ported (ROADMAP.md). ``--scan_chunks`` is accepted and has no effect: the port's
 sampler is a Python loop.
 
 Example:
@@ -28,6 +29,7 @@ import dataclasses
 import json
 import os
 import time
+from pathlib import Path
 
 
 def build_parser():
@@ -74,15 +76,21 @@ def build_parser():
     return p
 
 
-def _load_net(bench, cfg, npz, seed, device):
+def _load_net(bench, cfg, npz, seed, device, folder, milestone, use_ema):
+    from diffphycon_tpu_torch.training.trainer import CKPT_FILE, Trainer
     from diffphycon_tpu_torch.utils.convert import load_flax_npz, load_flax_unet3d
 
     if npz is not None:
         return load_flax_unet3d(bench.build_unet(cfg, device), load_flax_npz(npz))
     if seed is not None:
         return bench.init_params(cfg, seed=seed, device=device)
+    if (Path(folder) / "ckpt" / str(milestone) / CKPT_FILE).is_file():
+        net = bench.build_unet(cfg, device)
+        net.load_state_dict(Trainer.load_params(folder, milestone, use_ema))
+        return net
     raise NotImplementedError(
-        "orbax checkpoints are not ported yet (ROADMAP.md): pass --params_npz_joint / "
+        f"no port checkpoint {folder}/ckpt/{milestone} (apps/train_smoke.py writes them), "
+        "and orbax checkpoints are not ported (ROADMAP.md): pass --params_npz_joint / "
         "--params_npz_w (flax-path npz files of the weights) or --init_seed")
 
 
@@ -104,9 +112,11 @@ def main(args):
         w_energy=args.w_energy, beta_schedule=args.beta_schedule, bf16=args.bf16)
     cfg_w = dataclasses.replace(cfg, is_w_model=True)
     if not args.calibrate_only:
-        net_joint = _load_net(bench, cfg, args.params_npz_joint, args.init_seed, device)
+        net_joint = _load_net(bench, cfg, args.params_npz_joint, args.init_seed, device,
+                              args.joint_folder, args.diffusion_joint_checkpoint, args.use_ema)
         seed_w = None if args.init_seed is None else args.init_seed + 1
-        net_w = _load_net(bench, cfg_w, args.params_npz_w, seed_w, device)
+        net_w = _load_net(bench, cfg_w, args.params_npz_w, seed_w, device,
+                          args.w_folder, args.diffusion_w_checkpoint, args.use_ema)
         gd = bench.build_diffusion(cfg, net_joint, model_w=net_w, device=device)
         guidance = bench.build_guidance(cfg, device=device)
 

@@ -48,6 +48,7 @@ class SmokeConfig:
     design_guidance: str = "standard"  # 'standard' | 'standard-alpha'
     w_energy: float = 0.0
     bf16: bool = False
+    remat_all: bool = False  # recompute every UNet3D block in the backward
 
 
 def channels(cfg: SmokeConfig) -> int:
@@ -59,7 +60,7 @@ def _new_unet(cfg: SmokeConfig) -> UNet3D:
         raise NotImplementedError("bf16 weights are not ported yet (ROADMAP.md); "
                                   "the port runs fp32 (--bf16 False)")
     return UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=channels(cfg),
-                  out_dim=channels(cfg), resnet_groups=8)
+                  out_dim=channels(cfg), resnet_groups=8, remat_all=cfg.remat_all)
 
 
 def build_unet(cfg: SmokeConfig, device=None) -> UNet3D:

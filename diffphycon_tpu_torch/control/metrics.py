@@ -1,5 +1,6 @@
-"""Control evaluation metrics, solver as oracle (port of the Burgers part of
-``diffphycon_tpu/control/metrics.py``)."""
+"""Control evaluation metrics (port of the Burgers part of
+``diffphycon_tpu/control/metrics.py``, solver as oracle, and of
+``jellyfish_objective``)."""
 
 from __future__ import annotations
 
@@ -60,3 +61,18 @@ def burgers_metric(u_target, f, partial_control: Optional[str] = "full",
     nmae = mae / (u_tgt[:, -1, :].abs().mean() + ep)
     return ((mse, _torch_median(d**2), mae, _torch_median(d.abs()), nmse, nmae),
             control_energy)
+
+
+def jellyfish_objective(forces: torch.Tensor, dthetas: torch.Tensor,
+                        reg_ratio: float = 0.0) -> torch.Tensor:
+    """The jellyfish control objective, the one convention of the RL envs,
+    MPC scoring and the diffusion evaluation:
+
+        J = mean_t(force_t * weight_t) - reg_ratio * sum_t dtheta_t^2,
+        weight = (T, T-1, ..., 1),
+
+    forces: (B, T) thrust per frame; dthetas: (B, T') theta steps."""
+    forces, dthetas = torch.as_tensor(forces), torch.as_tensor(dthetas)
+    t = forces.shape[1]
+    weight = torch.arange(t, 0, -1, dtype=forces.dtype, device=forces.device)[None]
+    return (forces * weight).mean(dim=1) - reg_ratio * (dthetas ** 2).sum(dim=1)

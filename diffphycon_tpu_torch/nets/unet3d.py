@@ -14,6 +14,12 @@ convert_unet3d``), so a port state_dict converts to the JAX package's tree.
 Inside, activations are torch's (B, C, F, H, W). The convolutions and
 einsums were XLA ops in the JAX package (no Pallas kernel), so here they
 are cuDNN convolutions and torch matmuls, in full float32 (TF32 off).
+
+``remat`` and ``remat_all`` are the JAX net's memory switches (its
+``nn.remat``): when a gradient is being recorded, ``remat`` recomputes the
+attentions in the backward instead of storing their activations, and
+``remat_all`` the ResnetBlocks too (``torch.utils.checkpoint``, non-reentrant,
+which also carries double backward). Neither changes a number.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffphycon_tpu_torch.nets.blocks import time_mlp
 
@@ -236,9 +243,10 @@ class UNet3D(nn.Module):
                  dim_mults: Sequence[int] = (1, 2, 4), channels: int = 6,
                  attn_heads: int = 4, attn_dim_head: int = 32,
                  init_kernel_size: int = 7, use_sparse_linear_attn: bool = True,
-                 resnet_groups: int = 8):
+                 resnet_groups: int = 8, remat: bool = True, remat_all: bool = False):
         super().__init__()
         self.channels = channels
+        self.remat, self.remat_all = remat, remat_all
         heads, dh, groups = attn_heads, attn_dim_head, resnet_groups
         time_dim = dim * 4
         dims = [dim] + [dim * m for m in dim_mults]
@@ -291,25 +299,36 @@ class UNet3D(nn.Module):
             out = self._forward(x.permute(0, 4, 1, 2, 3), time)
         return out.permute(0, 2, 3, 4, 1)
 
+    def _run(self, fn, *args, block: bool = False, **kw):
+        """fn(*args, **kw), recomputed in the backward when ``remat`` covers
+        it (attentions; ResnetBlocks with ``remat_all``) and autograd is
+        recording."""
+        on = self.remat_all or (self.remat and not block)
+        if on and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
     def _forward(self, x, time):
+        run = self._run
         pos_bias = self.time_rel_pos_bias(x.shape[2], x.device)
         x = self.init_conv(x)
-        x = self.init_temporal_attn(x, pos_bias=pos_bias)
+        x = run(self.init_temporal_attn, x, pos_bias=pos_bias)
         r = x
         t = self.time_mlp(time)
         skips = []
         for block1, block2, sattn, tattn, down in self.downs:
-            x = block2(block1(x, t), t)
-            x = tattn(sattn(x), pos_bias=pos_bias)
+            x = run(block1, x, t, block=True)
+            x = run(block2, x, t, block=True)
+            x = run(tattn, run(sattn, x), pos_bias=pos_bias)
             skips.append(x)
             x = down(x)
-        x = self.mid_block1(x, t)
-        x = self.mid_spatial_attn(x)
-        x = self.mid_temporal_attn(x, pos_bias=pos_bias)
-        x = self.mid_block2(x, t)
+        x = run(self.mid_block1, x, t, block=True)
+        x = run(self.mid_spatial_attn, x)
+        x = run(self.mid_temporal_attn, x, pos_bias=pos_bias)
+        x = run(self.mid_block2, x, t, block=True)
         for block1, block2, sattn, tattn, up in self.ups:
-            x = block1(torch.cat([x, skips.pop()], dim=1), t)
-            x = block2(x, t)
-            x = up(tattn(sattn(x), pos_bias=pos_bias))
-        x = self.final_conv[0](torch.cat([x, r], dim=1))
+            x = run(block1, torch.cat([x, skips.pop()], dim=1), t, block=True)
+            x = run(block2, x, t, block=True)
+            x = up(run(tattn, run(sattn, x), pos_bias=pos_bias))
+        x = run(self.final_conv[0], torch.cat([x, r], dim=1), block=True)
         return self.final_conv[1](x)

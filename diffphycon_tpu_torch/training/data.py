@@ -1,6 +1,9 @@
-"""Burgers and smoke data for the port (the Burgers synthetic generator, h5
-layout, training stack and batch iterator; the smoke sim directories); port
-of those parts of ``diffphycon_tpu/training/data.py``."""
+"""Burgers, smoke and jellyfish data for the port (the Burgers synthetic
+generator, h5 layout, training stack and batch iterator; the smoke sim
+directories; the jellyfish sim files and their synthetic stand-in); port of
+those parts of ``diffphycon_tpu/training/data.py``. Everything here is
+numpy on the host, so it writes and reads the same arrays as the JAX
+package."""
 
 from __future__ import annotations
 
@@ -146,3 +149,103 @@ def load_smoke_dataset(root, split: str = "train", n=None, frames: int = 32,
 
             states = states / RESCALER
     return states
+
+
+# ---------------------------------------------------------------------------
+# jellyfish (the reference on-disk layout: <root>/{train_data,test_data}/
+# {states,bdry_merged_mask_offsets,bdry_head_thetas}/sim_%06d.npz and
+# normalization_max_min.pkl)
+# ---------------------------------------------------------------------------
+
+
+def _minmax_norm(a, lo, hi):
+    return (np.clip((a - lo) / (hi - lo), 0, 1) - 0.5) * 2
+
+
+def load_jellyfish_dataset(root, split: str = "train", n=None, frames: int = 20,
+                           only_vis_pressure: bool = False, offset: int = 0) -> dict:
+    """The sims of <root>/train_data or <root>/test_data (from the
+    ``offset``-th, at most ``n``) as a dict:
+
+    - states: (N, T, 64, 64, n_state) min-max normalised to [-1, 1], NaN -> 0;
+    - bd: (N, T, 64, 64, 3) mask and offsets, zero-padded 62 -> 64;
+    - thetas: (N, T);
+    - p_nan: (N, T, 64, 64) where the raw pressure is NaN (solid cells; the
+      force surrogate's labels need them as raw 0, not the normalised
+      midpoint);
+    - norm: the normalisation dict.
+
+    ``frames`` is accepted as the JAX loader accepts it; whole sims are
+    returned and the callers cut windows."""
+    import pickle
+
+    del frames
+    base = os.path.join(root, "train_data" if split == "train" else "test_data")
+    with open(os.path.join(base, "normalization_max_min.pkl"), "rb") as fh:
+        norm = pickle.load(fh)
+    sims = sorted(f for f in os.listdir(os.path.join(base, "states"))
+                  if f.startswith("sim_"))[offset:]
+    if n is not None:
+        sims = sims[:n]
+    states, bds, thetas, p_nans = [], [], [], []
+    for f in sims:
+        st = np.load(os.path.join(base, "states", f))["a"]  # (T, 3, 64, 64)
+        p = _minmax_norm(st[:, 2], norm["p_min"], norm["p_max"])[..., None]
+        if only_vis_pressure:
+            s = p
+        else:
+            vx = _minmax_norm(st[:, 0], norm["vx_min"], norm["vx_max"])[..., None]
+            vy = _minmax_norm(st[:, 1], norm["vy_min"], norm["vy_max"])[..., None]
+            s = np.concatenate([vx, vy, p], -1)
+        bd62 = np.load(os.path.join(base, "bdry_merged_mask_offsets", f))["a"]
+        bd = np.zeros((bd62.shape[0], 64, 64, 3), np.float32)
+        bd[:, 1:-1, 1:-1, :] = np.nan_to_num(bd62)
+        th = np.load(os.path.join(base, "bdry_head_thetas", f))["thetas"]
+        states.append(np.nan_to_num(s).astype(np.float32))
+        bds.append(bd)
+        thetas.append(th.astype(np.float32))
+        p_nans.append(np.isnan(st[:, 2]))
+    return {"states": np.stack(states), "bd": np.stack(bds), "thetas": np.stack(thetas),
+            "p_nan": np.stack(p_nans), "norm": norm}
+
+
+def synthetic_jellyfish(n: int, out_dir, frames_total: int = 40, seed: int = 0) -> None:
+    """Write ``n`` synthetic sims in the reference layout under ``out_dir``
+    (the JAX generator's arrays for the same seed): two elliptic wing rings
+    hinged at the head, flapping sinusoidally; states are smooth random
+    fields scaled by the flap phase. A structural stand-in for the CFD data,
+    which the reference downloads."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    for sub in ("states", "bdry_merged_mask_offsets", "bdry_head_thetas"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    with open(os.path.join(out_dir, "normalization_max_min.pkl"), "wb") as fh:
+        pickle.dump({"vx_max": 1.0, "vx_min": -1.0, "vy_max": 1.0,
+                     "vy_min": -1.0, "p_max": 1.0, "p_min": -1.0}, fh)
+    yy, xx = np.mgrid[0:62, 0:62]
+    head = np.array([20.0, 31.0])
+    for i in range(n):
+        amp = rng.uniform(0.2, 0.6)
+        phase = rng.uniform(0, 2 * np.pi)
+        thetas = (0.8 + amp * np.sin(np.linspace(0, 2 * np.pi, frames_total) + phase)
+                  ).astype(np.float32)
+        bd = np.zeros((frames_total, 62, 62, 3), np.float32)
+        states = np.zeros((frames_total, 3, 64, 64), np.float32)
+        for t in range(frames_total):
+            th = thetas[t]
+            for sgn in (+1, -1):  # wing centre along the angle sgn * theta
+                cx = head[1] + 12 * np.cos(sgn * th)
+                cy = head[0] + 12 * np.sin(sgn * th)
+                d = ((xx - cx) / 12.0) ** 2 + ((yy - cy) / 3.0) ** 2
+                ring = np.abs(d - 1.0) < 0.25
+                bd[t, :, :, 0][ring] = 1.0
+                bd[t, :, :, 1][ring] = (xx[ring] - cx) / 62.0
+                bd[t, :, :, 2][ring] = (yy[ring] - cy) / 62.0
+            up = np.kron(rng.normal(size=(3, 8, 8)).astype(np.float32),
+                         np.ones((8, 8), np.float32))
+            states[t] = np.tanh(up * 0.5) * (0.5 + 0.5 * np.sin(th))
+        name = f"sim_{i:06d}.npz"
+        np.savez_compressed(os.path.join(out_dir, "states", name), a=states)
+        np.savez_compressed(os.path.join(out_dir, "bdry_merged_mask_offsets", name), a=bd)
+        np.savez_compressed(os.path.join(out_dir, "bdry_head_thetas", name), thetas=thetas)

@@ -104,6 +104,19 @@ def _resolve_milestone(ckpt_dir: Path, milestone: int) -> Path:
     return path / CKPT_FILE
 
 
+def _chunks(a, k: int):
+    """a tensor's k chunks along dim 0, or a tuple's, element by element."""
+    if isinstance(a, tuple):
+        return list(zip(*(x.chunk(k) for x in a)))
+    return a.chunk(k)
+
+
+def _to_device(batch, device):
+    if isinstance(batch, tuple):
+        return tuple(torch.as_tensor(x, device=device) for x in batch)
+    return torch.as_tensor(batch, device=device)
+
+
 def _step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
@@ -112,9 +125,14 @@ class Trainer:
     """Train the model behind a GaussianDiffusion.
 
     Args:
-      diffusion: the GaussianDiffusion; its ``model`` must run ``model``.
+      diffusion: the GaussianDiffusion (its ``model`` must run ``model``), or
+        any object with its two training methods, ``draw_t_noise(batch,
+        generator) -> (t, noise)`` and ``p_losses(batch, t, cond, noise)``,
+        where a batch or a noise may be a tuple of tensors (each split along
+        dim 0 for gradient accumulation).
       model: the nn.Module whose parameters are trained.
-      batch_iter: iterator of numpy batches (B, *spatial, C).
+      batch_iter: iterator of numpy batches (B, *spatial, C), or of tuples of
+        them.
       derive_cond: fn(batch tensor) -> cond_vals dict for p_losses.
       config: TrainerConfig.
       device: default CUDA (see resolve_device); the model moves there.
@@ -142,18 +160,21 @@ class Trainer:
 
     # -- one optimizer step -------------------------------------------------
 
-    def compute_grads(self, batch: torch.Tensor) -> torch.Tensor:
+    def compute_grads(self, batch) -> torch.Tensor:
         """Set every parameter's .grad to the (micro-batch mean) gradient of
-        the loss of ``batch``; returns the mean loss (a device scalar)."""
+        the loss of ``batch`` (a tensor, or a tuple of tensors for a
+        diffusion whose loss takes one, as the jellyfish loss does); returns
+        the mean loss (a device scalar)."""
         accum = self.cfg.gradient_accumulate_every
-        if batch.shape[0] % accum:
-            raise ValueError(f"batch {batch.shape[0]} is not a multiple of "
+        n = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
+        if n % accum:
+            raise ValueError(f"batch {n} is not a multiple of "
                              f"gradient_accumulate_every={accum}")
         t, noise = self.gd.draw_t_noise(batch, self.generator)
         for p in self.params:
             p.grad = None
         total = torch.zeros((), device=self.device)
-        for xs, ts, ns in zip(batch.chunk(accum), t.chunk(accum), noise.chunk(accum)):
+        for xs, ts, ns in zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)):
             loss = self.gd.p_losses(xs, ts, self.derive_cond(xs), ns) / accum
             loss.backward()
             total = total + loss.detach()
@@ -168,8 +189,8 @@ class Trainer:
         self.step += 1
         ema_update_(self.ema, self.params, self.cfg.ema, self.step)
 
-    def train_step(self, batch: np.ndarray) -> torch.Tensor:
-        loss = self.compute_grads(torch.as_tensor(batch, device=self.device))
+    def train_step(self, batch) -> torch.Tensor:
+        loss = self.compute_grads(_to_device(batch, self.device))
         self.apply_gradients()
         return loss
 

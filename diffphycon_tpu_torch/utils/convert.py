@@ -1,7 +1,8 @@
-"""Carry UNet2D and UNet3D weights from the JAX package's parameter trees
-to the port.
+"""Carry UNet2D, UNet3D, UNet2Dv2 and ForceUNet weights from the JAX
+package's parameter trees to the port.
 
-The inverse of ``diffphycon_tpu/utils/torch_convert.py:21-253``:
+The inverse of ``diffphycon_tpu/utils/torch_convert.py:21-253`` and
+``:262-365``:
 
 - flax conv kernel (kh, kw, in, out) -> torch weight (out, in, kh, kw);
 - Dense kernel (in, out) -> Linear weight (out, in);
@@ -42,8 +43,16 @@ def _gain(tree, name, sd):
     sd[f"{name}.g"] = np.asarray(tree["g"]).reshape(1, -1, 1, 1)
 
 
+def _n_levels(p) -> int:
+    n = 0
+    while f"down_{n}_block1" in p:
+        n += 1
+    return n
+
+
 def _resnet_block(tree, prefix, sd):
-    _linear(tree["mlp"], f"{prefix}.mlp.1", sd)
+    if "mlp" in tree:
+        _linear(tree["mlp"], f"{prefix}.mlp.1", sd)
     for blk in ("block1", "block2"):
         _conv(tree[blk]["proj"], f"{prefix}.{blk}.proj", sd)
         _groupnorm(tree[blk]["norm"], f"{prefix}.{blk}.norm", sd)
@@ -68,10 +77,7 @@ def flax_unet2d_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     _conv(p["init_conv"], "init_conv", sd)
     _linear(p["time_mlp"]["fc1"], "time_mlp.1", sd)
     _linear(p["time_mlp"]["fc2"], "time_mlp.3", sd)
-    n = 0
-    while f"down_{n}_block1" in p:
-        n += 1
-    for i in range(n):
+    for i in range(_n_levels(p)):
         for side, key in (("down", "downs"), ("up", "ups")):
             _resnet_block(p[f"{side}_{i}_block1"], f"{key}.{i}.0", sd)
             _resnet_block(p[f"{side}_{i}_block2"], f"{key}.{i}.1", sd)
@@ -92,11 +98,7 @@ def flax_unet2d_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 def load_flax_unet2d(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
     """Copy a JAX ``UNet2D`` tree into the port's ``UNet2D`` (strict: every
     key and shape must match). Returns the module."""
-    sd = flax_unet2d_to_state_dict(flax_params)
-    tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-               for k, v in sd.items()}
-    module.load_state_dict(tensors, strict=True)
-    return module
+    return _load_strict(module, flax_unet2d_to_state_dict(flax_params))
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +152,7 @@ def flax_unet3d_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     _token_attention(p["init_attn_norm"], p["init_temporal_attn"], "init_temporal_attn", sd)
     _linear(p["time_mlp"]["fc1"], "time_mlp.1", sd)
     _linear(p["time_mlp"]["fc2"], "time_mlp.3", sd)
-    n = 0
-    while f"down_{n}_block1" in p:
-        n += 1
-    for i in range(n):
+    for i in range(_n_levels(p)):
         for side, key in (("down", "downs"), ("up", "ups")):
             _resnet_block3d(p[f"{side}_{i}_block1"], f"{key}.{i}.0", sd)
             _resnet_block3d(p[f"{side}_{i}_block2"], f"{key}.{i}.1", sd)
@@ -181,10 +180,81 @@ def flax_unet3d_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 def load_flax_unet3d(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
     """Copy a JAX ``UNet3D`` tree into the port's ``UNet3D`` (strict)."""
-    sd = flax_unet3d_to_state_dict(flax_params)
+    return _load_strict(module, flax_unet3d_to_state_dict(flax_params))
+
+
+# ---------------------------------------------------------------------------
+# UNet2Dv2 / ForceUNet: the inverse of torch_convert.py:262-365
+# (convert_unet2dv2, convert_force_unet)
+# ---------------------------------------------------------------------------
+
+
+def _v2_level(p, side, i, key, sd):
+    _resnet_block(p[f"{side}_{i}_block1"], f"{key}.{i}.0", sd)
+    _resnet_block(p[f"{side}_{i}_block2"], f"{key}.{i}.1", sd)
+    _gain(p[f"{side}_{i}_attn_norm"], f"{key}.{i}.2.fn.norm", sd)
+    attn = p[f"{side}_{i}_attn"]
+    _conv(attn["to_qkv"], f"{key}.{i}.2.fn.fn.to_qkv", sd)
+    _conv(attn["to_out"], f"{key}.{i}.2.fn.fn.to_out.0", sd)
+    _gain(attn["out_norm"], f"{key}.{i}.2.fn.fn.to_out.1", sd)
+    rs = p[f"{side}_{i}_{'downsample' if side == 'down' else 'upsample'}"]
+    if "conv" in rs:
+        _conv(rs["conv"], f"{key}.{i}.3.1", sd)
+    else:
+        _conv(rs, f"{key}.{i}.3", sd)
+
+
+def _v2_mid(p, sd):
+    _resnet_block(p["mid_block1"], "mid_block1", sd)
+    _gain(p["mid_attn_norm"], "mid_attn.fn.norm", sd)
+    _conv(p["mid_attn"]["to_qkv"], "mid_attn.fn.fn.to_qkv", sd)
+    _conv(p["mid_attn"]["to_out"], "mid_attn.fn.fn.to_out", sd)
+    _resnet_block(p["mid_block2"], "mid_block2", sd)
+
+
+def flax_unet2dv2_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``UNet2Dv2`` param tree -> port/reference 2D ``Unet`` state_dict."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    _conv(p["init_conv"], "init_conv", sd)
+    _linear(p["time_mlp"]["fc1"], "time_mlp.1", sd)
+    _linear(p["time_mlp"]["fc2"], "time_mlp.3", sd)
+    for i in range(_n_levels(p)):
+        _v2_level(p, "down", i, "downs", sd)
+        _v2_level(p, "up", i, "ups", sd)
+    _v2_mid(p, sd)
+    _resnet_block(p["final_res_block"], "final_res_block", sd)
+    _conv(p["final_conv"], "final_conv", sd)
+    return sd
+
+
+def flax_force_unet_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``ForceUNet`` param tree -> port/reference ``ForceUnet``
+    state_dict."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    _conv(p["init_conv"], "init_conv", sd)
+    for i in range(_n_levels(p)):
+        _v2_level(p, "down", i, "downs", sd)
+    _v2_mid(p, sd)
+    _linear(p["final"], "final", sd)
+    return sd
+
+
+def _load_strict(module: torch.nn.Module, sd: Mapping) -> torch.nn.Module:
     tensors = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
     module.load_state_dict(tensors, strict=True)
     return module
+
+
+def load_flax_unet2dv2(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``UNet2Dv2`` tree into the port's ``UNet2Dv2`` (strict)."""
+    return _load_strict(module, flax_unet2dv2_to_state_dict(flax_params))
+
+
+def load_flax_force_unet(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``ForceUNet`` tree into the port's ``ForceUNet`` (strict)."""
+    return _load_strict(module, flax_force_unet_to_state_dict(flax_params))
 
 
 def _flatten(tree, prefix=""):

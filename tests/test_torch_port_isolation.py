@@ -6,19 +6,23 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import diffphycon_tpu_torch
 from diffphycon_tpu_torch import resolve_device
 from diffphycon_tpu_torch.benchmarks import burgers as bench
+from diffphycon_tpu_torch.benchmarks import jellyfish as jelly_bench
 from diffphycon_tpu_torch.benchmarks import smoke as smoke_bench
+from diffphycon_tpu_torch.control.geometry import compute_pressforce_from_mask
 from diffphycon_tpu_torch.diffusion import (
     DiffusionConstants,
     GaussianDiffusion,
     make_guidance_schedule,
 )
 from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
+from diffphycon_tpu_torch.training.surrogates import load_surrogate
 from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,7 +36,11 @@ def test_port_imports_no_jax_or_reference_package():
     for new in ("kernels.cg_pressure", "physics.fluids.pressure", "physics.fluids.smoke_env",
                 "nets.unet3d", "benchmarks.smoke", "apps.generate_smoke", "apps.infer_smoke",
                 "kernels.attention", "training.train_state", "training.trainer",
-                "apps.train_burgers", "kernels.unet2d_mega"):
+                "apps.train_burgers", "kernels.unet2d_mega", "apps.train_smoke",
+                "nets.unet2dv2", "training.surrogates", "benchmarks.jellyfish",
+                "control.geometry", "apps.generate_jellyfish_forces",
+                "apps.train_surrogates_jellyfish", "apps.train_jellyfish",
+                "apps.infer_jellyfish"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -49,6 +57,8 @@ def test_port_imports_no_jax_or_reference_package():
 
 def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jelly_cfg = jelly_bench.JellyfishConfig(dim=8, dim_mults=(1,), surrogate_dim=8,
+                                            surrogate_dim_mults=(1,))
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(dev)
@@ -62,7 +72,17 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                  lambda: SmokeSim.create(),
                  lambda: smoke_bench.build_guidance(smoke_bench.SmokeConfig()),
                  lambda: Trainer(None, torch.nn.Linear(2, 2), iter(()), None,
-                                 TrainerConfig(results_folder=str(tmp_path / "run")))):
+                                 TrainerConfig(results_folder=str(tmp_path / "run"))),
+                 # the jellyfish build_* functions, diffusion, surrogate loader, labels
+                 lambda: jelly_bench.build_joint_unet(jelly_cfg),
+                 lambda: jelly_bench.build_thetas_unet(jelly_cfg),
+                 lambda: jelly_bench.build_bd_updater(jelly_cfg),
+                 lambda: jelly_bench.build_force_unet(jelly_cfg),
+                 lambda: jelly_bench.build_simulator_unet(jelly_cfg),
+                 lambda: jelly_bench.JellyfishDiffusion(jelly_cfg, None),
+                 lambda: load_surrogate(str(tmp_path), "force", torch.nn.Linear(2, 2)),
+                 lambda: compute_pressforce_from_mask(np.zeros((64, 64)),
+                                                      np.zeros((62, 62, 3)))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
