@@ -92,19 +92,22 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
 Smoke training and jellyfish (no kernel of their own: cuDNN, TF32 off):
 11. smoke training at full width: 16 train sims from ``generate_smoke``,
    ``apps/train_smoke.py`` ``main()`` for the joint (C=6, 3 steps, a
-   checkpoint, resumed to 4) and the w model (C=2) at batch 16, then 3
-   steps each timed with remat on and off (forward, backward, update; peak
-   memory). A micro-batch that does not fit is halved by gradient
-   accumulation (``--grad_accum``) and the reason printed;
+   checkpoint, resumed to 4) and the w model (C=2) at batch 16, then each
+   timed with remat on and off through ``Trainer.train_step``: after each
+   switch a warm-up step, three one-step windows (ms per optimizer step,
+   their median; peak memory) and one step cut at the trainer's marks
+   (forward, backward, update). A micro-batch that does not fit is halved
+   by gradient accumulation (``--grad_accum``) and the reason printed;
 12. jellyfish at full width: synthetic sims (4 train, 8 test),
    ``generate_jellyfish_forces``, ``train_surrogates_jellyfish`` for the
    force, simulator and boundary-updater nets (3 steps at batch 16),
    ``train_jellyfish`` for the states (EBM, double backward) and thetas
-   models at batch 16 (2 steps, then 2 timed with remat on and off),
+   models at batch 16 (2 steps, then timed as in phase 11),
    ``infer_jellyfish`` at batch 8 (guided DDIM, 3 steps, closed-loop
    rollout), 3 timed guided DDIM and DDPM steps at batch 8 (the default
    1000-step run projected from them), and the EBM loss, its parameter
-   gradient and one guided step at dim 16 on CUDA against the CPU.
+   gradient and one guided step at dim 16 on CUDA, with cuDNN's TF32
+   switch at PyTorch's default (on), against the CPU.
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
@@ -196,11 +199,13 @@ JELLY_DDIM_STEPS = 3
 # CUDA against the CPU on one EBM loss, its parameter gradient and one guided
 # DDPM step (dim 16, batch 2, 8 frames of 32x32, fixed draws): fp32 on both
 # (TF32 off) differs in summation order only, ~1e-6 relative in a forward.
-# A TF32 conv (10-bit mantissa products) would put ~1e-3 into the loss and
-# the step; the gradient is second order (the backward of a backward), so
-# it gets 10x more room
-JELLY_CPU_RTOL = 1e-4
-JELLY_CPU_GRAD_RTOL = 1e-3
+# With the nets' TF32 switch left on (an H100, dim 16, these inputs) the
+# errors were 3.2e-5 in the loss, 2.2e-4 in the gradient (of a 0.47 maximum)
+# and 1.2e-3 in the step; in fp32 9e-8, 7e-7 and 2.5e-6. The limits sit
+# between: each of the three catches a TF32 conv. The gradient is second
+# order (the backward of a backward), so it gets 10x more room.
+JELLY_CPU_RTOL = 1e-5
+JELLY_CPU_GRAD_RTOL = 1e-4
 # the down-path pair shapes of the flagship UNet2D, then the JAX bench
 # script's level2 (4, 32, 256)
 PAIR_SHAPES = ((16, 128, 64), (8, 64, 64), (4, 32, 128), (2, 16, 256), (4, 32, 256))
@@ -818,38 +823,11 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
                       bench.derive_cond,
                       TrainerConfig(results_folder=os.path.join(work, "train_timing")),
                       device=device)
-    for _ in range(3):
-        trainer.train_step(next(trainer.batch_iter))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     n_windows, n_steps = 4, 10
-    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
-    window_ms = []
-    for _ in range(n_windows):
-        tic = time.perf_counter()
-        for _ in range(n_steps):
-            trainer.train_step(next(trainer.batch_iter))
-        torch.cuda.synchronize()
-        window_ms.append(1e3 * (time.perf_counter() - tic) / n_steps)
-    step_ms = sorted(window_ms)[n_windows // 2]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for _ in range(n_steps):  # the same steps cut by synchronisations
-        xb = torch.as_tensor(next(trainer.batch_iter), device=device)
-        tt, nn_ = gd_k.draw_t_noise(xb, trainer.generator)
-        for p in trainer.params:
-            p.grad = None
-        tics = [time.perf_counter()]
-        loss = gd_k.p_losses(xb, tt, bench.derive_cond(xb), nn_)
-        torch.cuda.synchronize()
-        tics.append(time.perf_counter())
-        loss.backward()
-        torch.cuda.synchronize()
-        tics.append(time.perf_counter())
-        trainer.apply_gradients()
-        torch.cuda.synchronize()
-        tics.append(time.perf_counter())
-        for key, a, b_ in zip(split, tics[:-1], tics[1:]):
-            split[key] += 1e3 * (b_ - a) / n_steps
+    tm = _step_timing(torch, trainer,
+                      lambda: torch.as_tensor(next(trainer.batch_iter), device=device),
+                      3, n_windows, n_steps)
+    split = tm["split_ms"]
 
     def two_steps():
         for _ in range(2):
@@ -858,11 +836,11 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
     wall_ms, dev_ms, rows = profile_window(torch, two_steps)
     total = sum(split.values())
     emit({"phase": "train_timing", "batch": TRAIN_B, "steps_timed": n_windows * n_steps,
-          "window_ms_per_step": window_ms, "ms_per_step": step_ms,
-          "optimizer_steps_per_sec": 1e3 / step_ms,
-          "window_spread": (max(window_ms) - min(window_ms)) / step_ms,
+          "window_ms_per_step": tm["window_ms_per_step"], "ms_per_step": tm["ms_per_step"],
+          "optimizer_steps_per_sec": 1e3 / tm["ms_per_step"],
+          "window_spread": tm["window_spread"],
           "split_ms": split, "backward_share": split["backward"] / total,
-          "peak_memory_gb": peak_gb,
+          "peak_memory_gb": tm["peak_memory_gb"],
           "profile": {"steps": 2, "wall_ms": wall_ms, "device_ms": dev_ms,
                       "busy_share": dev_ms / wall_ms,
                       "top": [[k[:60], v] for k, v in rows[:10]]},
@@ -1236,60 +1214,70 @@ def _fit(torch, run, batch):
         accum *= 2
 
 
-def _step_split(torch, trainer, batch_fn, n):
-    """n optimizer steps of ``trainer`` on its own loss seam, cut by
-    synchronisations: (ms per step of forward, backward and update, summed
-    over the micro-batches of its gradient accumulation; peak device memory
-    in GB; the losses)."""
-    from diffphycon_tpu_torch.training.trainer import _chunks
-
-    gd, accum = trainer.gd, trainer.cfg.gradient_accumulate_every
-    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+def _step_timing(torch, trainer, batch_fn, warm, n_windows, n_steps):
+    """``warm`` untimed ``trainer.train_step``s, then ms per optimizer step
+    over ``n_windows`` windows of ``n_steps`` (their median, and the peak
+    device memory of the windows), then ``n_steps`` more steps cut by
+    synchronisations at the trainer's marks: the forward / backward /
+    update split, summed over the micro-batches of its gradient
+    accumulation. batch_fn() -> a device batch."""
+    for _ in range(warm):
+        trainer.train_step(batch_fn())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses = []
-    for _ in range(n):
-        batch = batch_fn()
-        t, noise = gd.draw_t_noise(batch, trainer.generator)
-        for p in trainer.params:
-            p.grad = None
-        total = 0.0
-        for xs, ts, ns in zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)):
-            tic = time.perf_counter()
-            loss = gd.p_losses(xs, ts, trainer.derive_cond(xs), ns) / accum
-            torch.cuda.synchronize()
-            toc = time.perf_counter()
-            loss.backward()
-            torch.cuda.synchronize()
-            split["forward"] += 1e3 * (toc - tic) / n
-            split["backward"] += 1e3 * (time.perf_counter() - toc) / n
-            total += loss.item()
+    window_ms, losses = [], []
+    for _ in range(n_windows):
         tic = time.perf_counter()
-        trainer.apply_gradients()
+        for _ in range(n_steps):
+            losses.append(trainer.train_step(batch_fn()))
         torch.cuda.synchronize()
-        split["update"] += 1e3 * (time.perf_counter() - tic) / n
-        losses.append(total)
-    split["step"] = sum(split.values())
-    return split, torch.cuda.max_memory_allocated() / 1e9, losses
+        window_ms.append(1e3 * (time.perf_counter() - tic) / n_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    last = [0.0]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name] += 1e3 * (now - last[0]) / n_steps
+        last[0] = now
+
+    for _ in range(n_steps):
+        batch = batch_fn()
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        losses.append(trainer.compute_grads(batch, mark))
+        trainer.apply_gradients()
+        mark("update")
+    step_ms = sorted(window_ms)[n_windows // 2]
+    return {"window_ms_per_step": window_ms, "ms_per_step": step_ms,
+            "window_spread": (max(window_ms) - min(window_ms)) / step_ms,
+            "split_ms": split, "peak_memory_gb": peak_gb,
+            "losses": [float(v) for v in losses]}
 
 
-def _timed_remat(torch, tr, batch_fn, n):
-    """{"remat_on"|"remat_off": n timed steps of trainer ``tr`` (its UNet3D's
-    remat_all switched), with the accumulation that fits}."""
+# phases 11-12: one warm-up step after each remat switch (the allocator grows
+# to the new setting's peak there), then three one-step windows and one
+# split step
+REMAT_TIMING = (1, 3, 1)
+
+
+def _timed_remat(torch, tr, batch_fn):
+    """{"remat_on"|"remat_off": _step_timing of trainer ``tr`` with its
+    UNet3D's remat_all switched, at the accumulation that fits}."""
     timing = {}
     for remat_all in (True, False):
         tr.model.remat_all = remat_all
 
         def run(accum):
             tr.cfg.gradient_accumulate_every = accum
-            return _step_split(torch, tr, batch_fn, n)
+            return _step_timing(torch, tr, batch_fn, *REMAT_TIMING)
 
-        (split, peak, losses), accum, why = _fit(torch, run, TRAIN_B)
+        tm, accum, why = _fit(torch, run, TRAIN_B)
         timing[f"remat_{'on' if remat_all else 'off'}"] = {
-            "grad_accum": accum, "why_accum": why, "ms": split, "peak_memory_gb": peak,
-            "losses": losses}
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"non-finite training losses (remat_all {remat_all}): {losses}")
+            "grad_accum": accum, "why_accum": why, **tm}
+        if not all(math.isfinite(v) for v in tm["losses"]):
+            fail(f"non-finite training losses (remat_all {remat_all}): {tm['losses']}")
     return timing
 
 
@@ -1352,9 +1340,9 @@ def smoke_training_phase(torch, smi_line):
     timing = {}
     for name, tr in (("joint", runs["joint resumed"]), ("w", runs["w"])):
         timing[name] = _timed_remat(
-            torch, tr, lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"), 3)
+            torch, tr, lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"))
     emit({"phase": "smoke_train_timing", "channels": {"joint": 6, "w": 2},
-          "input": [TRAIN_B, 32, 64, 64], "steps_timed": 3, "timing": timing,
+          "input": [TRAIN_B, 32, 64, 64], "warm_windows_steps": REMAT_TIMING, "timing": timing,
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
     del runs
     torch.cuda.empty_cache()
@@ -1362,11 +1350,15 @@ def smoke_training_phase(torch, smi_line):
 
 def _jelly_cpu_check(torch, tbench):
     """The EBM loss, its parameter gradient and one guided DDPM step on CUDA
-    against the same weights and draws on the CPU."""
+    against the same weights and draws on the CPU. cuDNN's TF32 switch is put
+    back to PyTorch's default (on) first: the nets must turn it off for their
+    forward, backward and recompute themselves, and a TF32 conv anywhere in
+    the double backward or the guidance gradient shows here."""
     import copy
 
+    torch.backends.cudnn.allow_tf32 = True
     cfg = tbench.JellyfishConfig(dim=16, dim_mults=(1, 2, 4), frames=8, image_size=32,
-                                 surrogate_dim=16, reg_ratio=0.1, remat_all=True)
+                                 reg_ratio=0.1, remat_all=True)
     g = torch.Generator().manual_seed(11)
     b, f, h = 2, cfg.frames, cfg.image_size
     state0 = torch.rand(b, f, h, h, 3, generator=g) * 2 - 1
@@ -1400,7 +1392,8 @@ def _jelly_cpu_check(torch, tbench):
     (lc, gc, xc, sc), (lg, gg, xg, sg) = out["cpu"], out["cuda"]
     gmax = max(v.abs().max().item() for v in gc.values())
     grad_err = max((gg[k] - v).abs().max().item() for k, v in gc.items())
-    rec = {"shape": [b, f, h, h], "dim": 16, "loss_cpu": lc, "loss_cuda": lg,
+    rec = {"shape": [b, f, h, h], "dim": 16, "surrogate_dim": cfg.image_size,
+           "tf32_switch_before": True, "loss_cpu": lc, "loss_cuda": lg,
            "loss_rel_err": abs(lg - lc) / max(1.0, abs(lc)), "loss_tol": JELLY_CPU_RTOL,
            "grad_max_abs_err": grad_err, "grad_max": gmax,
            "grad_tol": JELLY_CPU_GRAD_RTOL * max(1.0, gmax),
@@ -1488,11 +1481,12 @@ def jellyfish_phase(torch, smi_line):
             "batch": TRAIN_B, "app_grad_accum": accum, "why_accum": why, "app_steps": 2,
             "app_losses": app_losses, "remat_all_default": True,
             "timing": _timed_remat(torch, tr, lambda: tuple(
-                torch.as_tensor(a, device="cuda") for a in next(batches)), 2)}
+                torch.as_tensor(a, device="cuda") for a in next(batches)))}
         del tr
         torch.cuda.empty_cache()
     emit({"phase": "jellyfish_train", "app": "diffphycon_tpu_torch/apps/train_jellyfish.py",
-          "input": [TRAIN_B, 20, 64, 64, 7], "models": trained, "nvidia_smi": smi_line,
+          "input": [TRAIN_B, 20, 64, 64, 7], "warm_windows_steps": REMAT_TIMING,
+          "models": trained, "nvidia_smi": smi_line,
           "seconds": round(time.time() - t0, 3)})
 
     # guided inference at batch 8 (DDIM cut to a few steps) with closed-loop

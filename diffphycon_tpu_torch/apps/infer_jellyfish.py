@@ -79,10 +79,6 @@ def build_parser():
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--scan_chunks", default=1, type=int,
                    help="accepted for the JAX app's command lines; no effect here")
-    p.add_argument("--surrogate_dim", default=64, type=int,
-                   help="surrogate width (the JAX nets: 64, mults 1 2 4 8); smaller "
-                        "only for small runs")
-    p.add_argument("--surrogate_dim_mults", nargs="+", default=[1, 2, 4, 8], type=int)
     p.add_argument("--device", default=None, type=str,
                    help="default cuda; pass cpu explicitly to run on the CPU")
     return p
@@ -129,8 +125,7 @@ def main(args):
         coeff_ratio_J=args.coeff_ratio_J, coeff_ratio_w=args.coeff_ratio_w,
         design_guidance=args.design_guidance,
         use_guidance_in_model_predictions=args.use_guidance_in_model_predictions,
-        reg_ratio=args.reg_ratio, bf16=args.bf16, surrogate_dim=args.surrogate_dim,
-        surrogate_dim_mults=tuple(args.surrogate_dim_mults))
+        reg_ratio=args.reg_ratio, bf16=args.bf16)
     data = load_jellyfish_dataset(args.dataset_path, "test", n=args.n_test_samples,
                                   only_vis_pressure=args.only_vis_pressure)
     p_min, p_max = float(data["norm"]["p_min"]), float(data["norm"]["p_max"])

@@ -98,7 +98,6 @@ def main(args):
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     device = resolve_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False  # the backward's convs in full fp32
     if args.synthetic_data > 0:
         train_dir = os.path.join(args.dataset_path, "train_data")
         if not os.path.exists(os.path.join(train_dir, "states")):

@@ -62,8 +62,6 @@ def main(args):
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     device = resolve_device("cpu" if args.cpu else args.device)
-    # the backward's cuDNN convs read the global switch: full fp32 as in JAX
-    torch.backends.cudnn.allow_tf32 = False
     cfg = bench.SmokeConfig(dim=args.dim, dim_mults=tuple(args.dim_mults), frames=args.frames,
                             image_size=args.image_size, is_w_model=args.is_w_model,
                             beta_schedule=args.beta_schedule, bf16=args.bf16,

@@ -43,10 +43,6 @@ def build_parser():
     p.add_argument("--save_every", default=0, type=int,
                    help="periodic full-state checkpoint interval (steps)")
     p.add_argument("--log_every", default=100, type=int)
-    p.add_argument("--surrogate_dim", default=64, type=int,
-                   help="surrogate width (the JAX nets: 64, mults 1 2 4 8); smaller "
-                        "only for small runs")
-    p.add_argument("--surrogate_dim_mults", nargs="+", default=[1, 2, 4, 8], type=int)
     p.add_argument("--device", default=None, type=str,
                    help="default cuda; pass cpu explicitly to run on the CPU")
     return p
@@ -89,10 +85,7 @@ def main(args):
     )
 
     device = resolve_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False  # the backward's convs in full fp32
-    cfg = bench.JellyfishConfig(only_vis_pressure=args.only_vis_pressure,
-                                surrogate_dim=args.surrogate_dim,
-                                surrogate_dim_mults=tuple(args.surrogate_dim_mults))
+    cfg = bench.JellyfishConfig(only_vis_pressure=args.only_vis_pressure)
     data = load_jellyfish_dataset(args.dataset_path, "train", n=args.n_sims,
                                   only_vis_pressure=args.only_vis_pressure,
                                   offset=args.sim_offset)

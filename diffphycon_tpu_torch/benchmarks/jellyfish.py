@@ -55,11 +55,6 @@ class JellyfishConfig:
     reg_ratio: float = 0.0
     bf16: bool = False
     remat_all: bool = False  # recompute every UNet3D block in the backward
-    # width of the UNet2Dv2/ForceUNet surrogates: the JAX build_* functions fix them at
-    # dim = image_size (64), mults (1, 2, 4, 8); these fields only let small
-    # runs on the CPU shrink them
-    surrogate_dim: int = 64
-    surrogate_dim_mults: Sequence[int] = (1, 2, 4, 8)
 
     @property
     def n_state(self) -> int:
@@ -101,23 +96,27 @@ def build_thetas_unet(cfg: JellyfishConfig, seed=None, device=None) -> UNet3D:
     return _place(_unet3d(cfg, 1), seed, device)
 
 
+# the surrogates' widths, as the JAX builders fix them: dim = image_size
+SURROGATE_DIM_MULTS = (1, 2, 4, 8)
+
+
 def build_bd_updater(cfg: JellyfishConfig, seed=None, device=None) -> UNet2Dv2:
     """Boundary updater, 3 -> 3 channels, theta-delta through the time MLP."""
-    return _place(UNet2Dv2(dim=cfg.surrogate_dim, out_dim=3,
-                           dim_mults=tuple(cfg.surrogate_dim_mults), channels=3), seed, device)
+    return _place(UNet2Dv2(dim=cfg.image_size, out_dim=3, dim_mults=SURROGATE_DIM_MULTS,
+                           channels=3), seed, device)
 
 
 def build_force_unet(cfg: JellyfishConfig, seed=None, device=None) -> ForceUNet:
     """Force readout, (pressure, bd) 4 channels -> 1."""
-    return _place(ForceUNet(dim=cfg.surrogate_dim, out_dim=1,
-                            dim_mults=tuple(cfg.surrogate_dim_mults), channels=4), seed, device)
+    return _place(ForceUNet(dim=cfg.image_size, out_dim=1, dim_mults=SURROGATE_DIM_MULTS,
+                            channels=4), seed, device)
 
 
 def build_simulator_unet(cfg: JellyfishConfig, seed=None, device=None) -> UNet2Dv2:
     """Neural simulator, (state, bd) -> next state, theta-delta through the
     time MLP."""
-    return _place(UNet2Dv2(dim=cfg.surrogate_dim, out_dim=cfg.n_state,
-                           dim_mults=tuple(cfg.surrogate_dim_mults), channels=cfg.n_state + 3),
+    return _place(UNet2Dv2(dim=cfg.image_size, out_dim=cfg.n_state,
+                           dim_mults=SURROGATE_DIM_MULTS, channels=cfg.n_state + 3),
                   seed, device)
 
 

@@ -19,3 +19,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available: the port runs on an NVIDIA GPU by default; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def fp32_convs() -> None:
+    """Run cuDNN convolutions in full fp32, forward and backward, as XLA runs
+    the JAX nets' convolutions.
+
+    PyTorch lets cuDNN compute a float32 convolution in TF32 by default. A
+    ``cudnn.flags(allow_tf32=False)`` context around a forward does not reach
+    its backward: autograd runs a convolution's backward (and a checkpointed
+    block's recompute) after the context has closed, and reads the
+    process-wide flag then. So every net of the port clears that flag for the
+    process when its forward starts.
+    """
+    torch.backends.cudnn.allow_tf32 = False

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffphycon_tpu_torch.device import fp32_convs
 from diffphycon_tpu_torch.kernels import unet2d_mega as kmega
 from diffphycon_tpu_torch.nets.blocks import (
     AttentionBlock,
@@ -47,11 +48,10 @@ from diffphycon_tpu_torch.nets.blocks import (
 
 
 def _conv_nchw(x, conv: nn.Conv2d):
-    """NHWC in and out through F.conv2d on the channels-last view (full fp32:
-    cuDNN would otherwise run a float32 conv in TF32)."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias,
-                       padding=conv.padding)
+    """NHWC in and out through F.conv2d on the channels-last view, in full
+    fp32 forward and backward (see ``fp32_convs``)."""
+    fp32_convs()
+    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=conv.padding)
     return out.permute(0, 2, 3, 1).contiguous()
 
 

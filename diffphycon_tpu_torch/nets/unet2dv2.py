@@ -17,7 +17,8 @@ Module and parameter names follow the reference 2D ``Unet`` / ``ForceUnet``
 state_dicts (the keys ``diffphycon_tpu/utils/torch_convert.py:
 convert_unet2dv2`` reads). Inside, activations are torch's (B, C, H, W).
 These nets ran through XLA in the JAX package (no Pallas kernel), so here
-they are plain PyTorch on cuDNN in full float32 (TF32 off); the UNet2D
+they are plain PyTorch on cuDNN in full float32 (TF32 off, forward and
+backward: ``device.fp32_convs``); the UNet2D
 kernels K1-K6 compute another block (groups 1, no weight standardisation,
 no v/n) and are not used.
 """
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffphycon_tpu_torch.device import fp32_convs
 from diffphycon_tpu_torch.nets.blocks import time_mlp
 
 GN_EPS = 1e-5
@@ -239,9 +241,8 @@ class UNet2Dv2(nn.Module):
         self.final_conv = nn.Conv2d(dim, out_dim or channels, 1)
 
     def forward(self, x, time):
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            out = self._forward(_nhwc_to_nchw(x), time)
-        return out.permute(0, 2, 3, 1)
+        fp32_convs()
+        return self._forward(_nhwc_to_nchw(x), time).permute(0, 2, 3, 1)
 
     def _forward(self, x, time):
         t = self.time_mlp(time)
@@ -291,9 +292,9 @@ class ForceUNet(nn.Module):
         self.final = nn.Linear(mid, out_dim)
 
     def forward(self, x):
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            x = self.init_conv(_nhwc_to_nchw(x))
-            for block1, block2, attn, down in self.downs:
-                x = down(attn(block2(block1(x))))
-            x = self.mid_block2(self.mid_attn(self.mid_block1(x)))
+        fp32_convs()
+        x = self.init_conv(_nhwc_to_nchw(x))
+        for block1, block2, attn, down in self.downs:
+            x = down(attn(block2(block1(x))))
+        x = self.mid_block2(self.mid_attn(self.mid_block1(x)))
         return self.final(x.mean(dim=(2, 3)))

@@ -13,7 +13,8 @@ state_dict (the keys read by ``diffphycon_tpu/utils/torch_convert.py:
 convert_unet3d``), so a port state_dict converts to the JAX package's tree.
 Inside, activations are torch's (B, C, F, H, W). The convolutions and
 einsums were XLA ops in the JAX package (no Pallas kernel), so here they
-are cuDNN convolutions and torch matmuls, in full float32 (TF32 off).
+are cuDNN convolutions and torch matmuls, in full float32 (TF32 off,
+forward and backward: ``device.fp32_convs``).
 
 ``remat`` and ``remat_all`` are the JAX net's memory switches (its
 ``nn.remat``): when a gradient is being recorded, ``remat`` recomputes the
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from diffphycon_tpu_torch.device import fp32_convs
 from diffphycon_tpu_torch.nets.blocks import time_mlp
 
 GN_EPS = 1e-5
@@ -295,9 +297,8 @@ class UNet3D(nn.Module):
     def forward(self, x, time):
         if x.dim() != 5:
             raise ValueError(f"UNet3D expects (B, F, H, W, C), got {tuple(x.shape)}")
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            out = self._forward(x.permute(0, 4, 1, 2, 3), time)
-        return out.permute(0, 2, 3, 4, 1)
+        fp32_convs()
+        return self._forward(x.permute(0, 4, 1, 2, 3), time).permute(0, 2, 3, 4, 1)
 
     def _run(self, fn, *args, block: bool = False, **kw):
         """fn(*args, **kw), recomputed in the backward when ``remat`` covers

@@ -160,11 +160,13 @@ class Trainer:
 
     # -- one optimizer step -------------------------------------------------
 
-    def compute_grads(self, batch) -> torch.Tensor:
+    def compute_grads(self, batch, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
         """Set every parameter's .grad to the (micro-batch mean) gradient of
         the loss of ``batch`` (a tensor, or a tuple of tensors for a
         diffusion whose loss takes one, as the jellyfish loss does); returns
-        the mean loss (a device scalar)."""
+        the mean loss (a device scalar). ``mark``, when given, is called with
+        "forward" after each micro-batch's loss and with "backward" after its
+        backward (a timer's hook; it changes no number)."""
         accum = self.cfg.gradient_accumulate_every
         n = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
         if n % accum:
@@ -176,7 +178,11 @@ class Trainer:
         total = torch.zeros((), device=self.device)
         for xs, ts, ns in zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)):
             loss = self.gd.p_losses(xs, ts, self.derive_cond(xs), ns) / accum
+            if mark:
+                mark("forward")
             loss.backward()
+            if mark:
+                mark("backward")
             total = total + loss.detach()
         return total
 

@@ -57,8 +57,7 @@ def test_port_imports_no_jax_or_reference_package():
 
 def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    jelly_cfg = jelly_bench.JellyfishConfig(dim=8, dim_mults=(1,), surrogate_dim=8,
-                                            surrogate_dim_mults=(1,))
+    jelly_cfg = jelly_bench.JellyfishConfig(dim=8, dim_mults=(1,), image_size=8)
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(dev)

@@ -1,7 +1,8 @@
 """The port's jellyfish apps end to end on the CPU at a tiny size (port
 only): ``synthetic_jellyfish`` train and test splits,
 ``generate_jellyfish_forces``, ``train_surrogates_jellyfish`` for the three
-surrogates (dim 8, mults (1, 2)), ``train_jellyfish`` for the states (EBM,
+surrogates (shrunk to dim 8, mults (1, 2), by replacing the benchmark's
+builders, which fix the published widths), ``train_jellyfish`` for the states (EBM,
 with gradient accumulation over the (states, bd, thetas) tuple) and thetas
 models (UNet3D dim 8, mults (1, 2), 4-frame windows), then
 ``infer_jellyfish`` (guided DDIM, 2 steps) with its closed-loop scoring,
@@ -19,12 +20,33 @@ from diffphycon_tpu_torch.apps import (
     train_jellyfish,
     train_surrogates_jellyfish,
 )
+from diffphycon_tpu_torch.benchmarks import jellyfish as tbench
+from diffphycon_tpu_torch.nets.unet2dv2 import ForceUNet, UNet2Dv2
 from diffphycon_tpu_torch.training.data import synthetic_jellyfish
 
 import torch_port_helpers  # noqa: F401  (one intra-op thread per worker)
 
-SUR = ["--surrogate_dim", "8", "--surrogate_dim_mults", "1", "2"]
 NET = ["--dim", "8", "--dim_mults", "1", "2", "--frames", "4"]
+SMALL = dict(dim=8, dim_mults=(1, 2))
+
+
+def _small(make):
+    def build(cfg, seed=None, device=None):
+        return tbench._place(make(cfg), seed, device)
+    return build
+
+
+@pytest.fixture(scope="module", autouse=True)
+def small_surrogates():
+    """The apps build their surrogates through these small builders."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbench, "build_bd_updater",
+                   _small(lambda cfg: UNet2Dv2(out_dim=3, channels=3, **SMALL)))
+        mp.setattr(tbench, "build_force_unet",
+                   _small(lambda cfg: ForceUNet(out_dim=1, channels=4, **SMALL)))
+        mp.setattr(tbench, "build_simulator_unet", _small(
+            lambda cfg: UNet2Dv2(out_dim=cfg.n_state, channels=cfg.n_state + 3, **SMALL)))
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +62,7 @@ def trained(tmp_path_factory):
             train_surrogates_jellyfish.build_parser().parse_args(
                 ["--dataset_path", str(root), "--model", model, "--num_steps", "2",
                  "--batch_size", "2", "--log_every", "1", "--device", "cpu",
-                 "--results_folder", str(root / "sur")] + SUR))
+                 "--results_folder", str(root / "sur")]))
     steps = {}
     for model_type, sub in (("states", "jelly"), ("thetas", "jelly_w")):
         tr = train_jellyfish.main(train_jellyfish.build_parser().parse_args(
@@ -57,7 +79,7 @@ def _infer_args(root, *extra):
          "--joint_folder", str(root / "jelly"), "--w_folder", str(root / "jelly_w"),
          "--surrogate_folder", str(root / "sur"), "--sampling_timesteps", "2",
          "--inference_result_path", str(root / "res"), "--device", "cpu", "--reg_ratio", "0.1"]
-        + NET + SUR + list(extra))
+        + NET + list(extra))
 
 
 def test_port_jellyfish_training_apps(trained):

@@ -2,7 +2,8 @@
 at a small size (dim 8, mults (1, 2), 16x16 frames): ``WSConv2d``,
 ``UNet2Dv2`` and ``ForceUNet`` with weights carried from flax trees (and
 back through the JAX converter), and the surrogate files (torch, the
-flax-npz route, an orbax directory).
+flax-npz route, an orbax directory). Every net of the port runs its conv
+backward, and a checkpointed block's recompute, with cuDNN's TF32 off.
 
 Tolerance: one net forward 1e-5 (max |port - jax| <= rtol * max(1, max
 |jax|)), float32 sums in another order (conv, GroupNorm, LayerNorm and
@@ -13,9 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from diffphycon_tpu.nets import unet2dv2 as jnets
+from diffphycon_tpu_torch.nets.unet2d import UNet2D
 from diffphycon_tpu_torch.nets.unet2dv2 import ForceUNet, UNet2Dv2, WSConv2d
+from diffphycon_tpu_torch.nets.unet3d import UNet3D
 from diffphycon_tpu_torch.training import surrogates as tsur
 from diffphycon_tpu_torch.utils import convert
 from torch_port_helpers import assert_close, flax_tree, rand
@@ -99,3 +103,39 @@ def test_port_surrogate_files(tmp_path):
     with pytest.raises(NotImplementedError, match="save_flax_npz"):
         tsur.load_surrogate(str(tmp_path / "orbax"), "force", ForceUNet(channels=4, **SMALL),
                             device="cpu")
+
+
+_TF32_CASES = {
+    "unet3d_remat_all": lambda: (UNet3D(dim=8, dim_mults=(1, 2), channels=3, remat_all=True),
+                                 (rand(1, 4, 8, 8, 3), np.array([3.0]))),
+    "unet2dv2": lambda: (UNet2Dv2(channels=3, out_dim=3, **SMALL),
+                         (rand(2, 16, 16, 3), np.array([0.1, -0.2]))),
+    "force_unet": lambda: (ForceUNet(channels=4, **SMALL), (rand(2, 16, 16, 4),)),
+    "unet2d": lambda: (UNet2D(dim=8, dim_mults=(1, 2)), (rand(1, 16, 32, 2), np.array([5.0]))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TF32_CASES))
+def test_port_conv_backward_runs_without_tf32(name):
+    """cuDNN's TF32 switch is process-wide, and autograd reads it when it runs
+    a conv's backward or a checkpointed block's recompute, after the forward
+    has returned. Each net clears it in its forward, so with the caller's
+    switch at PyTorch's default (on) every conv, recomputes included, and
+    every conv weight gradient still sees it off."""
+    net, inputs = _TF32_CASES[name]()
+    convs = [m for m in net.modules()
+             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))]
+    runs, grads = [], []
+    for m in convs:
+        m.register_forward_pre_hook(lambda *_: runs.append(torch.backends.cudnn.allow_tf32))
+        m.weight.register_hook(lambda g: grads.append(torch.backends.cudnn.allow_tf32))
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        net(*(torch.from_numpy(a) for a in inputs)).square().sum().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert len(grads) == len(convs)
+    assert not any(runs) and not any(grads)
+    if name == "unet3d_remat_all":  # the ResnetBlocks' convs ran again in the backward
+        assert len(runs) > len(convs)
