@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``diffphycon_tpu_torch`` (never JAX) at full width on five paths:
+Drives ``diffphycon_tpu_torch`` (never JAX) at full width on six paths:
 Burgers sampling (UNet2D dim 64, mults (1, 2, 4, 8), batch 50, input (50,
 16, 128, 2)), smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch
 8, input (8, 32, 64, 64, 6); 128^2 fluid solver), Burgers training (the
-same UNet2D at batch 16), smoke training (the UNet3D at batch 16) and the
+same UNet2D at batch 16), smoke training (the UNet3D at batch 16), the
 jellyfish benchmark (UNet3Ds (16, 20, 64, 64, 7) -> 4 and 1 channels;
-UNet2Dv2 / ForceUNet surrogates dim 64, mults (1, 2, 4, 8)).
+UNet2Dv2 / ForceUNet surrogates dim 64, mults (1, 2, 4, 8)) and the
+baselines (the Burgers solver's gradient, PID, SL, BC, BPPO, SAC at the
+apps' default widths; receding-horizon MPC through the jellyfish
+surrogates).
 
 Burgers:
 
@@ -109,6 +112,27 @@ Smoke training and jellyfish (no kernel of their own: cuDNN, TF32 off):
    gradient and one guided step at dim 16 on CUDA, with cuDNN's TF32
    switch at PyTorch's default (on), against the CPU.
 
+The baselines (no kernel of their own: elementwise solver steps, MLPs and
+1D convs in plain PyTorch, the surrogates on cuDNN, TF32 off):
+13. at the apps' default widths, step, episode and iteration counts cut:
+   the Burgers solver at batch 32 (Nx 128, 10 frames), forward without grad
+   at dt 1e-3 and 1e-4, the SL objective's value and gradient with and
+   without per-frame checkpoint (peak memory; a profile of 100 steps),
+   and that objective and its gradient on CUDA against the CPU (dt 1e-3;
+   BASE_CPU_RTOL, BASE_CPU_GRAD_RTOL); ``apps/train_burgers_operator.py``
+   (batch 256, BASE_OP_STEPS steps, then warm ms per step and a profile);
+   ``apps/eval_pid_sl_burgers.py`` for pid, sl and sl_surrogate (on that
+   operator; n_test 32, BASE_OPT_STEPS Adam steps at dt 1e-3);
+   ``apps/train_baselines_burgers.py`` for bc, bppo and sac (MLPs 512 x 2,
+   BASE_RL_STEPS updates); ``apps/train_sac_burgers.py`` (2 episodes of 50
+   updates at batch 1024); ``apps/infer_jellyfish.py --inference_method
+   MPC`` at batch 8 on phase 12's surrogates (BASE_MPC_ITERS replanning
+   iterations per step; objective, walltime, peak memory), and one
+   replanning iteration at t = 0 (19 steps) timed alone, projected to the
+   default run (30 iterations over the shrinking horizons), one at t = 15
+   (4 steps) profiled. Run alone (``chip_smoke.baselines_phase(torch, smi)``) it
+   builds the jellyfish surrogates it needs.
+
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
 K8: per forward at batch 50), and ``{"ok": true, "device": {...}}`` as the
@@ -206,6 +230,20 @@ JELLY_DDIM_STEPS = 3
 # order (the backward of a backward), so it gets 10x more room.
 JELLY_CPU_RTOL = 1e-5
 JELLY_CPU_GRAD_RTOL = 1e-4
+# phase 13 (baselines): the apps' default widths (Nx 128, 10 frames, MLPs
+# of 512 x 2, the operator at s = s_ob = 128, the jellyfish surrogates of
+# phase 12 at batch 8); step, episode and iteration counts cut
+BASE_B = 32          # the solver batch and eval_pid_sl_burgers' default n_test
+BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
+BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
+BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
+BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
+# the SL objective and its gradient on CUDA against the CPU (batch 32, dt
+# 1e-3, 1000 steps): both are float32 elementwise ops in one order, ~1e-7
+# relative a step; a wrong or missing term moves the objective by O(1) and
+# the gradient by O(max |g|)
+BASE_CPU_RTOL = 1e-5
+BASE_CPU_GRAD_RTOL = 1e-4
 # the down-path pair shapes of the flagship UNet2D, then the JAX bench
 # script's level2 (4, 32, 256)
 PAIR_SHAPES = ((16, 128, 64), (8, 64, 64), (4, 32, 128), (2, 16, 256), (4, 32, 256))
@@ -1406,6 +1444,307 @@ def _jelly_cpu_check(torch, tbench):
     return rec, ok
 
 
+def _busy(torch, fn):
+    """One profiled call of fn: wall and device ms, the device's busy share
+    (a lower bound: the profiler adds host time) and the top 5 kernels."""
+    wall_ms, dev_ms, rows = profile_window(torch, fn)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
+            "top": [[k[:60], v] for k, v in rows[:5]]}
+
+
+def _sl_value_and_grad(u0, f, u_tgt, dt, checkpoint=True, T=1.0):
+    """The SL objective J(f) = mean (u(T) - u_target(T))^2 through the solver
+    and its gradient with respect to f."""
+    from diffphycon_tpu_torch.physics.burgers import burgers_solve
+
+    f = f.detach().clone().requires_grad_(True)
+    j = ((burgers_solve(u0, f, T=T, dt=dt, checkpoint=checkpoint)[:, -1] - u_tgt) ** 2).mean()
+    j.backward()
+    return j.detach(), f.grad
+
+
+def _solver_records(torch, smi_line):
+    """Phase 13, part 1: the solver at batch 32, forward without grad and the
+    SL value-and-gradient with and without per-frame checkpoint, each with
+    its peak memory; then the SL objective on CUDA against the CPU."""
+    from diffphycon_tpu_torch.physics.burgers import burgers_solve, make_burgers_data
+
+    t0 = time.time()
+    u0_np, f_np = make_burgers_data(BASE_B, seed=0)
+    u0, f_true = (torch.as_tensor(a, device="cuda") for a in (u0_np, f_np))
+    with torch.no_grad():
+        u_tgt = burgers_solve(u0, f_true, dt=1e-3)[:, -1]
+    f = 0.5 * f_true  # a control halfway to the generating one
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - tic, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    with torch.no_grad():
+        burgers_solve(u0, f, dt=1e-3)  # warm-up, then the backward's and the recompute's
+    for ckpt in (True, False):
+        _sl_value_and_grad(u0, f, u_tgt, 1e-3, ckpt)
+    rec = {}
+    for dt in (1e-3, 1e-4):
+        steps = round(1.0 / dt)
+        with torch.no_grad():
+            _, fwd_s, fwd_gb = sync_time(lambda: burgers_solve(u0, f, dt=dt))
+        row = {"steps": steps, "forward_s": fwd_s, "forward_us_per_step": 1e6 * fwd_s / steps,
+               "forward_peak_gb": fwd_gb}
+        for ckpt in (True, False):
+            (j, g), s_, gb = sync_time(lambda: _sl_value_and_grad(u0, f, u_tgt, dt, ckpt))
+            key = "checkpoint" if ckpt else "no_checkpoint"
+            row[f"value_and_grad_{key}_s"] = s_
+            row[f"value_and_grad_{key}_us_per_step"] = 1e6 * s_ / steps
+            row[f"value_and_grad_{key}_peak_gb"] = gb
+            row[f"J_{key}"] = j.item()
+            if not torch.isfinite(g).all():
+                fail(f"non-finite SL gradient (dt {dt}, checkpoint {ckpt})")
+        row["grad_over_forward"] = row["value_and_grad_checkpoint_s"] / fwd_s
+        rec[f"dt_{dt:g}"] = row
+    # the profiler's bookkeeping grows with the event count: profile 100
+    # steps (T = 0.1), the same ops per step
+    rec["dt_0.001"]["value_and_grad_checkpoint_profile_100_steps"] = _busy(
+        torch, lambda: _sl_value_and_grad(u0, f, u_tgt, 1e-3, T=0.1))
+    # CUDA against the CPU at dt 1e-3
+    tic = time.perf_counter()
+    j_cpu, g_cpu = _sl_value_and_grad(u0.cpu(), f.cpu(), u_tgt.cpu(), 1e-3)
+    cpu_s = time.perf_counter() - tic
+    j_gpu, g_gpu = _sl_value_and_grad(u0, f, u_tgt, 1e-3)
+    gmax = g_cpu.abs().max().item()
+    cmp = {"J_cpu": j_cpu.item(), "J_cuda": j_gpu.item(),
+           "J_rel_err": abs(j_gpu.item() - j_cpu.item()) / max(abs(j_cpu.item()), 1e-30),
+           "J_tol": BASE_CPU_RTOL, "grad_max_abs_err": (g_gpu.cpu() - g_cpu).abs().max().item(),
+           "grad_max": gmax, "grad_tol": BASE_CPU_GRAD_RTOL * gmax, "cpu_s": cpu_s}
+    emit({"phase": "baselines_solver", "batch": BASE_B, "nx": 128,
+          "solves": rec, "sl_cuda_vs_cpu": cmp, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if not (cmp["J_rel_err"] <= BASE_CPU_RTOL and cmp["grad_max_abs_err"] <= cmp["grad_tol"]):
+        fail(f"the SL objective on CUDA differs from the CPU: {cmp}")
+    return rec
+
+
+def _operator_step_ms(torch, checkpoint, data_root):
+    """ms per train_burgers_operator step at batch 256, warm: the app's step
+    on its checkpoint and data, 3 untimed steps, then 3 windows of 10
+    (synchronised), their median; and a profile of 3 more steps."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.apps.train_burgers_operator import make_train_step
+    from diffphycon_tpu_torch.nets.burgers_operator import RESCALER, SurrogateOperator
+    from diffphycon_tpu_torch.training.data import synthetic_burgers
+
+    op = SurrogateOperator(device="cuda")
+    op.load_state_dict(torch.load(checkpoint, map_location="cuda", weights_only=True))
+    op.train()
+    u, f = synthetic_burgers(4096, seed=0, cache_dir=os.path.join(data_root, "synthetic"),
+                             device="cuda")
+    ut = torch.as_tensor(u[:, :-1].reshape(-1, 128) / RESCALER, device="cuda")
+    un = torch.as_tensor(u[:, 1:].reshape(-1, 128) / RESCALER, device="cuda")
+    ft = torch.as_tensor(f.reshape(-1, 128) / RESCALER, device="cuda")
+    step = make_train_step(op, 1e-3, 5000, 1e-4, 1.0)
+    rng = np.random.default_rng(1)
+    windows = []
+    for w in range(4):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for i in range(3 if w == 0 else 10):
+            idx = torch.as_tensor(rng.integers(0, ut.shape[0], 256), device="cuda")
+            step(i, ut[idx], ft[idx], un[idx])
+        torch.cuda.synchronize()
+        if w:
+            windows.append(1e3 * (time.perf_counter() - tic) / 10)
+
+    def three_steps():
+        for i in range(3):
+            idx = torch.as_tensor(rng.integers(0, ut.shape[0], 256), device="cuda")
+            step(i, ut[idx], ft[idx], un[idx])
+
+    return sorted(windows)[1], _busy(torch, three_steps)
+
+
+def _jelly_surrogates(torch):
+    """(dataset root, surrogate folder) of phase 12; built here (synthetic
+    sims, force labels, one step per surrogate) when phase 13 runs alone."""
+    from diffphycon_tpu_torch.apps import generate_jellyfish_forces, train_surrogates_jellyfish
+    from diffphycon_tpu_torch.training.data import synthetic_jellyfish
+
+    work = os.path.join("build", "chip_smoke", "jellyfish")
+    root, sur = os.path.join(work, "data"), os.path.join(work, "surrogates")
+    if not all(os.path.isfile(os.path.join(sur, m, "params.pt"))
+               for m in ("force", "simulator", "boundary_updater")):
+        synthetic_jellyfish(JELLY_TRAIN_SIMS, os.path.join(root, "train_data"), seed=0)
+        synthetic_jellyfish(JELLY_TEST_SIMS, os.path.join(root, "test_data"), seed=1)
+        generate_jellyfish_forces.main(generate_jellyfish_forces.build_parser().parse_args(
+            ["--dataset_path", root, "--splits", "train_data"]))
+        for model in ("force", "simulator", "boundary_updater"):
+            train_surrogates_jellyfish.main(train_surrogates_jellyfish.build_parser().parse_args(
+                ["--dataset_path", root, "--model", model, "--num_steps", "1",
+                 "--batch_size", str(TRAIN_B), "--results_folder", sur]))
+    return root, sur
+
+
+def _mpc_records(torch, smi_line):
+    """Phase 13, part 7: infer_jellyfish --inference_method MPC at batch 8 on
+    phase 12's surrogates (replanning iterations cut to BASE_MPC_ITERS), then
+    one replanning iteration at t = 0 (the full 19-step horizon) timed alone
+    and projected to the default run, and one at t = 15 profiled."""
+    from diffphycon_tpu_torch.apps import infer_jellyfish
+    from diffphycon_tpu_torch.apps.infer_jellyfish import _surrogates
+    from diffphycon_tpu_torch.baselines.mpc_jellyfish import mpc_objective
+    from diffphycon_tpu_torch.benchmarks import jellyfish as tbench
+    from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
+
+    t0 = time.time()
+    root, sur = _jelly_surrogates(torch)
+    out = os.path.join("build", "chip_smoke", "baselines", "mpc")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    agg = infer_jellyfish.main(infer_jellyfish.build_parser().parse_args(
+        ["--inference_method", "MPC", "--dataset_path", root, "--surrogate_folder", sur,
+         "--n_test_samples", str(JELLY_B), "--batch_size", str(JELLY_B),
+         "--num_iters", str(BASE_MPC_ITERS), "--inference_result_path", out]))
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - tic
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(agg["objective"]):
+        fail(f"non-finite MPC objective: {agg}")
+    row = json.loads(open(os.path.join(out, "results.json")).read().splitlines()[-1])
+    if row["metrics"] != agg:
+        fail("infer_jellyfish MPC wrote another row than it returned")
+
+    cfg = tbench.JellyfishConfig()
+    data = load_jellyfish_dataset(root, "test", n=JELLY_B)
+    ppl = tbench.SurrogatePipeline(cfg, *_surrogates(tbench, cfg, sur, "cuda"),
+                                   p_min=float(data["norm"]["p_min"]),
+                                   p_max=float(data["norm"]["p_max"]))
+    s0, b0, th0 = (torch.as_tensor(data[k][:, 0], device="cuda")
+                   for k in ("states", "bd", "thetas"))
+    num_t = cfg.frames - 1
+    plan0 = 0.7 * torch.rand(JELLY_B, num_t, generator=torch.Generator().manual_seed(0)) + 0.2
+    realized = torch.zeros(JELLY_B, num_t, device="cuda")
+
+    def one_iteration(t=0):
+        plan = plan0.to("cuda").requires_grad_(True)
+        opt = torch.optim.Adam([plan], lr=0.05)
+        mpc_objective(ppl, plan, s0, b0, th0, realized, t, th0, 1000.0, 0.0, 0.0,
+                      0.15).backward()
+        opt.step()
+
+    one_iteration()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        one_iteration()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+    iter_s = sorted(times)[1]
+    # profiled at a 4-step horizon (t = 15): the same ops per step, and the
+    # profiler's bookkeeping grows with the event count
+    profile = _busy(torch, lambda: one_iteration(num_t - 4))
+    horizons = sum(num_t - t for t in range(num_t))  # pipeline steps over all replans
+    emit({"phase": "baselines_mpc", "app": "diffphycon_tpu_torch/apps/infer_jellyfish.py",
+          "batch": JELLY_B, "frames": cfg.frames, "num_iters": BASE_MPC_ITERS,
+          "result": agg, "app_s": app_s, "peak_memory_gb": peak,
+          "replan_iteration_t0_s": times, "replan_iteration_t0_median_s": iter_s,
+          "replan_iteration_t15_profile": profile,
+          "planned_steps_per_iteration_sweep": horizons,
+          "projected_default_batch_s": 30 * iter_s * horizons / num_t,
+          "projection": "30 iterations x sum of the shrinking horizons (190 pipeline "
+                        "steps) at the t = 0 iteration's time per step of 19",
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+
+
+def baselines_phase(torch, smi_line):
+    """Phase 13: the baselines at the apps' default widths: the Burgers
+    solver forward and SL gradient (checkpoint on and off, peak memory), the
+    SL objective on CUDA against the CPU, train_burgers_operator,
+    eval_pid_sl_burgers (pid, sl, sl_surrogate), train_baselines_burgers
+    (bc, bppo, sac), train_sac_burgers, and infer_jellyfish MPC."""
+    from diffphycon_tpu_torch.apps import (
+        eval_pid_sl_burgers,
+        train_baselines_burgers,
+        train_burgers_operator,
+        train_sac_burgers,
+    )
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    _solver_records(torch, smi_line)
+    work = os.path.join("build", "chip_smoke", "baselines")
+    shutil.rmtree(work, ignore_errors=True)
+    op_dir = os.path.join(work, "operator")
+
+    t0 = time.time()
+    op = train_burgers_operator.main(train_burgers_operator.build_parser().parse_args(
+        ["--num_steps", str(BASE_OP_STEPS), "--data_root", os.path.join(work, "data"),
+         "--results_folder", op_dir]))
+    if not all(math.isfinite(v) for v in op["losses"]):
+        fail(f"train_burgers_operator: non-finite losses {op['losses']}")
+    warm_ms, op_profile = _operator_step_ms(torch, op["checkpoint"], os.path.join(work, "data"))
+    emit({"phase": "baselines_operator",
+          "app": "diffphycon_tpu_torch/apps/train_burgers_operator.py", "batch": 256,
+          "steps": BASE_OP_STEPS, "app_ms_per_step": 1e3 * op["train_s"] / BASE_OP_STEPS,
+          "warm_ms_per_step": warm_ms, "profile_3_steps": op_profile,
+          "first_loss": op["losses"][0], "last_loss": op["losses"][-1],
+          "final_one_step_rel_l2": op["final_one_step_rel_l2"],
+          "seconds": round(time.time() - t0, 3), "nvidia_smi": smi_line})
+
+    t0 = time.time()
+    rows = {}
+    for method in ("pid", "sl", "sl_surrogate"):
+        tic = time.perf_counter()
+        out = eval_pid_sl_burgers.main(eval_pid_sl_burgers.build_parser().parse_args(
+            ["--n_test", str(BASE_B), "--pid_steps", str(BASE_OPT_STEPS),
+             "--sl_steps", str(BASE_OPT_STEPS), "--methods", method, "--operator_folder", op_dir,
+             "--save_file", os.path.join(work, "baselines.json")]))
+        torch.cuda.synchronize()
+        app_s = time.perf_counter() - tic
+        if [r["method"] for r in out] != [method] or not math.isfinite(out[0]["J_actual_mse"]):
+            fail(f"eval_pid_sl_burgers {method}: {out}")
+        rows[method] = {**out[0], "app_s": app_s, "s_per_opt_step": app_s / BASE_OPT_STEPS}
+    emit({"phase": "baselines_pid_sl", "app": "diffphycon_tpu_torch/apps/eval_pid_sl_burgers.py",
+          "n_test": BASE_B, "opt_steps": BASE_OPT_STEPS, "solver_dt": 1e-3, "rows": rows,
+          "note": "s_per_opt_step: the app's wall time over its Adam steps (it includes the "
+                  "target solve and the scoring solve)", "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+
+    t0 = time.time()
+    rl_rows = {}
+    for method in ("bc", "bppo", "sac"):
+        res = train_baselines_burgers.main(train_baselines_burgers.build_parser().parse_args(
+            ["--method", method, "--save_file", os.path.join(work, "baselines.json")]
+            + [a for k, v in BASE_RL_STEPS.items() for a in (f"--{k}", str(v))]))
+        if not math.isfinite(res["J_actual_mse"]):
+            fail(f"train_baselines_burgers {method}: {res}")
+        rl_rows[method] = {**res, "ms_per_update": 1e3 * res["update_s"] / res["updates"]}
+    emit({"phase": "baselines_rl", "app": "diffphycon_tpu_torch/apps/train_baselines_burgers.py",
+          "hidden": 512, "depth": 2, "steps": BASE_RL_STEPS, "rows": rl_rows,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+
+    t0 = time.time()
+    sac = train_sac_burgers.main(train_sac_burgers.build_parser().parse_args(
+        ["--num_episode", "2", "--save_file", os.path.join(work, "sac.json")]))
+    if not math.isfinite(sac["J_actual_mse"]):
+        fail(f"train_sac_burgers: {sac}")
+    emit({"phase": "baselines_sac_online", "app": "diffphycon_tpu_torch/apps/train_sac_burgers.py",
+          "episodes": 2, "updates_per_step": 50, "batch": 1024,
+          "J_actual_mse": sac["J_actual_mse"], "control_energy": sac["control_energy"],
+          "ms_per_update": 1e3 * sac["update_s"] / sac["updates"],
+          "seconds": round(time.time() - t0, 3), "nvidia_smi": smi_line})
+
+    _mpc_records(torch, smi_line)
+    emit({"phase": "baselines_done", "seconds": round(time.time() - t_phase, 3)})
+
+
 def jellyfish_phase(torch, smi_line):
     """Phase 12: the jellyfish pipeline at full width: synthetic sims,
     force labels, the three surrogates (UNet2Dv2 / ForceUNet dim 64, mults (1,
@@ -1862,6 +2201,9 @@ def main() -> int:
     # -- 11-12. smoke training; the jellyfish pipeline ----------------------
     smoke_training_phase(torch, smi_line)
     jellyfish_phase(torch, smi_line)
+
+    # -- 13. the baselines (Burgers solver gradient, PID/SL/RL apps, MPC) ---
+    baselines_phase(torch, smi_line)
 
     # -- kernels line ---------------------------------------------------------
     kernels = []

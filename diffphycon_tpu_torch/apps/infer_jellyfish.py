@@ -15,8 +15,11 @@ that guidance cannot inflate the score by exploiting the nets that compute
 it. Writes ``results.json`` (appended) and ``pred_thetas_seed<seed>.npy``;
 ``--rescore_thetas`` scores saved schedules without sampling.
 
-``--inference_method MPC|MPC_LBFGS`` needs ``baselines/mpc_jellyfish.py``,
-which is not ported yet (ROADMAP.md queue 1, item 8) and raises.
+``--inference_method MPC`` runs the receding-horizon MPC baseline through
+the surrogate pipeline instead (``baselines/mpc_jellyfish.py``; no diffusion
+checkpoint needed) and appends its objective and walltime to the same
+``results.json``. ``MPC_LBFGS`` raises: optax's L-BFGS with its zoom line
+search is not ported (ROADMAP.md queue 1, MPC_LBFGS).
 ``--scan_chunks`` is accepted and has no effect: the sampler is a Python
 loop.
 
@@ -69,8 +72,8 @@ def build_parser():
     p.add_argument("--dim_mults", nargs="+", default=[1, 2, 4], type=int)
     p.add_argument("--bf16", default=False, type=eval)
     p.add_argument("--inference_method", default="DDPM", choices=["DDPM", "MPC", "MPC_LBFGS"],
-                   help="MPC: receding-horizon replanning through the surrogate pipeline "
-                        "(not ported yet)")
+                   help="MPC: receding-horizon replanning through the surrogate pipeline; "
+                        "MPC_LBFGS is not ported")
     p.add_argument("--num_iters", default=30, type=int, help="MPC replanning iterations")
     p.add_argument("--coef_grad", default=0.05, type=float, help="MPC step size")
     p.add_argument("--lamda", default=1000.0, type=float, help="MPC theta-smoothness weight")
@@ -102,6 +105,48 @@ def _diffusion_net(build, cfg, folder, milestone, use_ema, device):
     return net
 
 
+def run_mpc(args, cfg, device):
+    """Receding-horizon MPC (Adam; MPC_LBFGS raises, not ported) through the
+    surrogate pipeline, batch by batch; appends {"args", "metrics"} to results.json and returns the
+    metrics (the JAX app's row: method, objective, walltime, n)."""
+    import numpy as np
+    import torch
+
+    from diffphycon_tpu_torch.baselines.mpc_jellyfish import mpc_receding_horizon
+    from diffphycon_tpu_torch.benchmarks import jellyfish as bench
+    from diffphycon_tpu_torch.control.metrics import jellyfish_objective
+    from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
+
+    data = load_jellyfish_dataset(args.dataset_path, "test", n=args.n_test_samples,
+                                  only_vis_pressure=args.only_vis_pressure)
+    ppl = bench.SurrogatePipeline(cfg, *_surrogates(bench, cfg, args.surrogate_folder, device),
+                                  p_min=float(data["norm"]["p_min"]),
+                                  p_max=float(data["norm"]["p_max"]))
+    n = data["states"].shape[0]
+    bs = min(args.batch_size, n)
+    rows = []
+    t0 = time.time()
+    for i in range(0, n, bs):
+        s0, b0, th0 = (torch.as_tensor(data[k][i : i + bs, 0], device=device)
+                       for k in ("states", "bd", "thetas"))
+        thetas, _, forces = mpc_receding_horizon(
+            ppl, s0, b0, th0, frames=cfg.frames, num_iters=args.num_iters, lr=args.coef_grad,
+            lamda=args.lamda, coef_endcondition=args.coef_endcondition,
+            coef_clip=args.coef_clip, seed=args.seed + i,
+            optimizer="lbfgs" if args.inference_method == "MPC_LBFGS" else "adam")
+        rows.append(jellyfish_objective(forces, thetas[:, 1:] - thetas[:, :-1],
+                                        args.reg_ratio).cpu().numpy())
+        print(f"batch {i // bs}: J={rows[-1].mean():.4f}", flush=True)
+    agg = {"method": args.inference_method,
+           "objective": float(np.concatenate(rows).mean()),
+           "walltime_s": round(time.time() - t0, 2), "n": n}
+    os.makedirs(args.inference_result_path, exist_ok=True)
+    with open(os.path.join(args.inference_result_path, "results.json"), "a") as fh:
+        fh.write(json.dumps({"args": vars(args), "metrics": agg}) + "\n")
+    print("MPC objective =", agg["objective"], "walltime:", agg["walltime_s"], flush=True)
+    return agg
+
+
 def main(args):
     """Sample, score and write the results; returns the aggregate dict."""
     import numpy as np
@@ -112,10 +157,6 @@ def main(args):
     from diffphycon_tpu_torch.device import resolve_device
     from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
 
-    if args.inference_method in ("MPC", "MPC_LBFGS"):
-        raise NotImplementedError(
-            f"--inference_method {args.inference_method} needs baselines/mpc_jellyfish.py, "
-            "which is not ported yet (ROADMAP.md queue 1, item 8)")
     device = resolve_device(args.device)
     cfg = bench.JellyfishConfig(
         dim=args.dim, dim_mults=tuple(args.dim_mults), frames=args.frames,
@@ -126,6 +167,8 @@ def main(args):
         design_guidance=args.design_guidance,
         use_guidance_in_model_predictions=args.use_guidance_in_model_predictions,
         reg_ratio=args.reg_ratio, bf16=args.bf16)
+    if args.inference_method in ("MPC", "MPC_LBFGS"):
+        return run_mpc(args, cfg, device)
     data = load_jellyfish_dataset(args.dataset_path, "test", n=args.n_test_samples,
                                   only_vis_pressure=args.only_vis_pressure)
     p_min, p_max = float(data["norm"]["p_min"]), float(data["norm"]["p_max"])
@@ -180,9 +223,10 @@ def main(args):
             torch.cuda.synchronize(device)
         sample_s += time.perf_counter() - tic
         tic = time.perf_counter()
-        _, forces_cl = pipeline.rollout(s0, b0, pred_theta)
-        obj_cl = jellyfish_objective(forces_cl, pred_theta[:, 1:] - pred_theta[:, :-1],
-                                     args.reg_ratio)
+        with torch.no_grad():
+            _, forces_cl = pipeline.rollout(s0, b0, pred_theta)
+            obj_cl = jellyfish_objective(forces_cl, pred_theta[:, 1:] - pred_theta[:, :-1],
+                                         args.reg_ratio)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         rollout_s += time.perf_counter() - tic

@@ -490,11 +490,11 @@ class SurrogatePipeline:
         self.bd_updater = bd_updater
         self.p_min, self.p_max = p_min, p_max
 
-    @torch.no_grad()
     def step(self, state, mask_offsets, theta_delta=None):
         """state (B, H, W, ns); mask_offsets (B, H, W, 3); theta_delta (B,)
         or None. Returns (states_next, force_x), or force_x without a
-        delta."""
+        delta. Differentiable (MPC plans through it); scoring callers run
+        it under ``torch.no_grad()``."""
         pressure = state[..., -1:]
         if self.p_min is not None:
             pressure = _denorm_pressure(pressure, self.p_min, self.p_max)
@@ -504,7 +504,6 @@ class SurrogatePipeline:
         states_next = self.simulator(torch.cat([state, mask_offsets], dim=-1), theta_delta)
         return states_next, force
 
-    @torch.no_grad()
     def rollout(self, state_0, bd_0, thetas):
         """Closed loop over a theta schedule. state_0 (B, H, W, ns); bd_0 (B,
         H, W, 3); thetas (B, F). Returns (states (B, F, H, W, ns), forces

@@ -17,7 +17,8 @@ def seeded_init_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     LayerNorm gains (``.g``, ``.gamma``) at ones; embeddings N(0, 1), flax's
     init of the relative position table."""
     for m in net.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                          nn.ConvTranspose3d, nn.Linear)):
             fan_in = m.weight.shape[1] * m.weight[0, 0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)

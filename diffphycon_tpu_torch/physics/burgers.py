@@ -1,6 +1,7 @@
 """1D viscous Burgers equation: explicit finite-difference integrator.
 
-Port of ``diffphycon_tpu/physics/burgers.py`` (forward only in this slice).
+Port of ``diffphycon_tpu/physics/burgers.py``: the paired and the
+cross-product solve, differentiable with respect to u0 and f.
 
 Scheme: ``s`` interior points on (0, 1), dx = 1/(s+1), zero Dirichlet walls
 (a zero pad every step); explicit Euler
@@ -11,7 +12,8 @@ the last frame. u is recorded at the end of each frame and u0 is stacked in
 front: output (N, num_t + 1, s).
 
 On a GPU the 10^4 dependent steps are a loop of small elementwise launches;
-a fused kernel or a CUDA graph is later work.
+a fused kernel or a CUDA graph is later work. The gradient runs the same loop
+backwards, one launch per op per step.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 
 def _stencil_step(u, f_frame, dt, dx, visc):
@@ -32,12 +35,18 @@ def _stencil_step(u, f_frame, dt, dx, visc):
     return u + dt * (-0.5 * transport + diffusion + f_frame)
 
 
-@torch.no_grad()
 def burgers_solve(u0: torch.Tensor, f: torch.Tensor, visc: float = 0.01,
-                  T: float = 1.0, dt: float = 1e-4, num_t: int = 10) -> torch.Tensor:
+                  T: float = 1.0, dt: float = 1e-4, num_t: int = 10,
+                  checkpoint: bool = True) -> torch.Tensor:
     """Paired trajectories: sample i uses u0[i] (N, s) and f[i] (N, num_t, s).
 
-    Returns (N, num_t + 1, s) float32, u0 first, on u0's device."""
+    Returns (N, num_t + 1, s) float32, u0 first, on u0's device.
+
+    Differentiable in u0 and f. With ``checkpoint`` each forcing frame's
+    steps run inside one non-reentrant ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint(chunk)``), so a backward through 10^4 steps holds one
+    frame's activations at a time. When autograd records nothing (no input
+    requires grad, or grad mode is off) the frames run as a plain loop."""
     steps = math.ceil(T / dt)
     record = steps // num_t
     remainder = steps - record * num_t
@@ -45,17 +54,34 @@ def burgers_solve(u0: torch.Tensor, f: torch.Tensor, visc: float = 0.01,
     dx = 1.0 / (s + 1)
     u = u0.to(torch.float32)
     f = f.to(torch.float32)
+    remat = checkpoint and torch.is_grad_enabled() and (u.requires_grad or f.requires_grad)
+
+    def frame(u, f_k):
+        for _ in range(record):
+            u = _stencil_step(u, f_k, dt, dx, visc)
+        return u
+
     snaps = [u]
     for k in range(num_t):
         f_k = f[:, k, :]
-        for _ in range(record):
-            u = _stencil_step(u, f_k, dt, dx, visc)
+        u = _checkpoint(frame, u, f_k, use_reentrant=False) if remat else frame(u, f_k)
         snaps.append(u)
     if remainder:
         for _ in range(remainder):
             u = _stencil_step(u, f[:, -1, :], dt, dx, visc)
         snaps[-1] = u
     return torch.stack(snaps, dim=1)
+
+
+def burgers_solve_paired(u0: torch.Tensor, f: torch.Tensor, visc: float = 0.01,
+                         T: float = 1.0, dt: float = 1e-4, num_t: int = 10) -> torch.Tensor:
+    """Cross product: every u0 (Nu0, s) against every f (Nf, num_t, s), as
+    one batched solve over the Nu0 * Nf pairs. Returns (Nu0, Nf, num_t + 1,
+    s)."""
+    nu, nf = u0.shape[0], f.shape[0]
+    traj = burgers_solve(u0.repeat_interleave(nf, dim=0), f.repeat(nu, 1, 1), visc=visc,
+                         T=T, dt=dt, num_t=num_t)
+    return traj.reshape(nu, nf, *traj.shape[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ every signature of one Burgers UNet2D forward at batch 50 (``chip_smoke.py``
 phase 3's shapes, inputs from a CUDA generator seeded per signature) and
 prints per signature the tile plan and the first 16 hex digits of the
 SHA-256 of the output's bytes, so that two checkouts' lines show whether
-their convolutions are bit-equal.
+their convolutions are bit-equal. ``--solver`` times the Burgers solver's
+no-grad path alone: ``burgers_solve`` at batch 50 (10^4 steps of dt 1e-4)
+and ``evaluate_samples`` at batch 50 (two such solves and the metrics), 3
+synchronised calls each after a warm-up.
 
 ``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
 earlier version of the port, e.g. the parent commit unpacked with ``git
@@ -94,6 +97,34 @@ def conv_digests(torch) -> dict:
     return {"signatures": len(sigs), "digests": digests}
 
 
+def solver_times(torch, bench) -> dict:
+    """Seconds of 3 no-grad solves and 3 ``evaluate_samples`` calls at batch
+    50 (each synchronised, after one untimed call of each)."""
+    from diffphycon_tpu_torch.physics.burgers import burgers_solve, make_burgers_data
+
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+    u0, f = (torch.as_tensor(a, device="cuda") for a in make_burgers_data(50, seed=0))
+    with torch.no_grad():
+        u_target = burgers_solve(u0, f)
+    x = torch.zeros(50, cfg.pad_t, cfg.nx, 2, device="cuda")
+    x[:, : cfg.nt_total, :, 0] = u_target / bench.RESCALER
+    x[:, : cfg.nt_total - 1, :, 1] = f / bench.RESCALER
+    out = {}
+    for name, fn in (("solve_s", lambda: burgers_solve(u0, f)),
+                     ("evaluate_samples_s", lambda: bench.evaluate_samples(x, u_target, cfg))):
+        with torch.no_grad():
+            fn()
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - tic)
+        out[name] = ts
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
@@ -101,6 +132,8 @@ def main() -> int:
     ap.add_argument("--ddpm-only", action="store_true", help="time the guided DDPM steps alone")
     ap.add_argument("--conv-digests", action="store_true",
                     help="print K1's and K2's output digests at every signature instead")
+    ap.add_argument("--solver", action="store_true",
+                    help="time the no-grad Burgers solve and evaluate_samples instead")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -125,6 +158,9 @@ def main() -> int:
     out = {"root": str(root)}
     if args.conv_digests:
         print(json.dumps({**out, **conv_digests(torch)}), flush=True)
+        return 0
+    if args.solver:
+        print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)
         return 0
     cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
     net = bench.init_params(cfg, seed=0, device="cuda")

@@ -86,11 +86,12 @@ def synthetic_burgers(n: int, seed: int = 0, partial_control=None, dt: float = 1
     dev = resolve_device(device)
     u0, f = make_burgers_data(n, s=128, t=10, seed=seed, partial_control=partial_control)
     parts = []
-    for i in range(0, n, chunk):
-        parts.append(burgers_solve(
-            torch.from_numpy(u0[i : i + chunk]).to(dev),
-            torch.from_numpy(f[i : i + chunk]).to(dev),
-            visc=0.01, T=1.0, dt=dt, num_t=10).cpu().numpy())
+    with torch.no_grad():
+        for i in range(0, n, chunk):
+            parts.append(burgers_solve(
+                torch.from_numpy(u0[i : i + chunk]).to(dev),
+                torch.from_numpy(f[i : i + chunk]).to(dev),
+                visc=0.01, T=1.0, dt=dt, num_t=10).cpu().numpy())
     u = np.concatenate(parts, axis=0).astype(np.float32)
     if path is not None:
         os.makedirs(path.parent, exist_ok=True)

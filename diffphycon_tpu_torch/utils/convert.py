@@ -1,10 +1,14 @@
-"""Carry UNet2D, UNet3D, UNet2Dv2 and ForceUNet weights from the JAX
-package's parameter trees to the port.
+"""Carry UNet2D, UNet3D, UNet2Dv2, ForceUNet, Burgers operator and RL net
+weights from the JAX package's parameter trees to the port.
 
 The inverse of ``diffphycon_tpu/utils/torch_convert.py:21-253`` and
-``:262-365``:
+``:262-365``, and the same layouts for the baselines' nets:
 
 - flax conv kernel (kh, kw, in, out) -> torch weight (out, in, kh, kw);
+  1D (k, in, out) -> (out, in, k);
+- flax ``ConvTranspose`` kernel (kh, kw, in, out), which flax correlates
+  unflipped with the dilated input -> ``ConvTranspose2d`` weight (in, out,
+  kh, kw), flipped in both spatial dims (torch flips it back);
 - Dense kernel (in, out) -> Linear weight (out, in);
 - GroupNorm scale/bias -> weight/bias;
 - ChanLayerNorm g (C,) -> (1, C, 1, 1).
@@ -255,6 +259,95 @@ def load_flax_unet2dv2(module: torch.nn.Module, flax_params: Mapping) -> torch.n
 def load_flax_force_unet(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
     """Copy a JAX ``ForceUNet`` tree into the port's ``ForceUNet`` (strict)."""
     return _load_strict(module, flax_force_unet_to_state_dict(flax_params))
+
+
+# ---------------------------------------------------------------------------
+# the Burgers latent operator and the RL nets (baselines)
+# ---------------------------------------------------------------------------
+
+
+def _conv1d(tree, name, sd):
+    sd[f"{name}.weight"] = np.transpose(np.asarray(tree["kernel"]), (2, 1, 0))
+    sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+
+def _conv_transpose2d(tree, name, sd):
+    k = np.asarray(tree["kernel"])[::-1, ::-1]
+    sd[f"{name}.weight"] = np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))
+    sd[f"{name}.bias"] = np.asarray(tree["bias"])
+
+
+_CODER_CONVS = ("down0", "down1", "down2", "down3", "up0", "up1", "up2", "up3")
+
+
+def flax_burgers_operator_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``SurrogateOperator`` params {"f", "u", "trans"} -> the port's
+    ``SurrogateOperator`` state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for key, name in (("f", "net_f"), ("u", "net_u")):
+        p = params[key]["params"]
+        for layer in _CODER_CONVS:
+            _conv1d(p[layer], f"{name}.{layer}", sd)
+        _linear(p["down_fc"], f"{name}.down_fc", sd)
+    _conv1d(params["trans"]["params"]["transition1"], "net_trans.transition1", sd)
+    return sd
+
+
+def load_flax_burgers_operator(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``SurrogateOperator`` tree into the port's (strict)."""
+    return _load_strict(module, flax_burgers_operator_to_state_dict(params))
+
+
+def flax_mlp_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``GaussPolicyMLP`` / ``ValueMLP`` / ``QMLP`` tree (one ``MLP_0``
+    of ``Dense_i``) -> the port's state_dict (``mlp.layers.i``)."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(len(p["MLP_0"])):
+        _linear(p["MLP_0"][f"Dense_{i}"], f"mlp.layers.{i}", sd)
+    return sd
+
+
+def load_flax_mlp(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``GaussPolicyMLP`` / ``ValueMLP`` / ``QMLP`` tree into the
+    port's module of the same name (strict)."""
+    return _load_strict(module, flax_mlp_to_state_dict(params))
+
+
+def _conv_encoder(p, sd):
+    for i in range(3):
+        _conv(p["_ConvEncoder_0"][f"Conv_{i}"], f"encoder.convs.{i}", sd)
+
+
+def flax_conv_gauss_policy_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``ConvGaussPolicy`` tree -> the port's state_dict."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    _conv_encoder(p, sd)
+    for i in range(3):
+        _conv_transpose2d(p[f"ConvTranspose_{i}"], f"ups.{i}", sd)
+    _conv(p["Conv_0"], "head", sd)
+    return sd
+
+
+def load_flax_conv_gauss_policy(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``ConvGaussPolicy`` tree into the port's (strict)."""
+    return _load_strict(module, flax_conv_gauss_policy_to_state_dict(params))
+
+
+def flax_conv_q_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``ConvQ`` tree -> the port's state_dict."""
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+    _conv_encoder(p, sd)
+    _linear(p["Dense_0"], "fc", sd)
+    _linear(p["Dense_1"], "out", sd)
+    return sd
+
+
+def load_flax_conv_q(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Copy a JAX ``ConvQ`` tree into the port's (strict)."""
+    return _load_strict(module, flax_conv_q_to_state_dict(params))
 
 
 def _flatten(tree, prefix=""):

@@ -12,6 +12,14 @@ import torch
 
 import diffphycon_tpu_torch
 from diffphycon_tpu_torch import resolve_device
+from diffphycon_tpu_torch.apps import (
+    eval_pid_sl_burgers,
+    infer_jellyfish,
+    train_baselines_burgers,
+    train_burgers_operator,
+    train_sac_burgers,
+)
+from diffphycon_tpu_torch.baselines import rl
 from diffphycon_tpu_torch.benchmarks import burgers as bench
 from diffphycon_tpu_torch.benchmarks import jellyfish as jelly_bench
 from diffphycon_tpu_torch.benchmarks import smoke as smoke_bench
@@ -21,6 +29,7 @@ from diffphycon_tpu_torch.diffusion import (
     GaussianDiffusion,
     make_guidance_schedule,
 )
+from diffphycon_tpu_torch.nets.burgers_operator import SurrogateOperator
 from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
 from diffphycon_tpu_torch.training.surrogates import load_surrogate
 from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -40,7 +49,10 @@ def test_port_imports_no_jax_or_reference_package():
                 "nets.unet2dv2", "training.surrogates", "benchmarks.jellyfish",
                 "control.geometry", "apps.generate_jellyfish_forces",
                 "apps.train_surrogates_jellyfish", "apps.train_jellyfish",
-                "apps.infer_jellyfish"):
+                "apps.infer_jellyfish", "baselines.rl", "baselines.sl_burgers",
+                "baselines.pid_burgers", "baselines.mpc_jellyfish", "nets.burgers_operator",
+                "apps.train_burgers_operator", "apps.eval_pid_sl_burgers",
+                "apps.train_baselines_burgers", "apps.train_sac_burgers"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -81,7 +93,16 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                  lambda: jelly_bench.JellyfishDiffusion(jelly_cfg, None),
                  lambda: load_surrogate(str(tmp_path), "force", torch.nn.Linear(2, 2)),
                  lambda: compute_pressforce_from_mask(np.zeros((64, 64)),
-                                                      np.zeros((62, 62, 3)))):
+                                                      np.zeros((62, 62, 3))),
+                 # the baselines: the latent operator, a learner, the MPC entry
+                 lambda: SurrogateOperator(),
+                 lambda: rl.BehaviorCloning(4, 4, hidden_dim=8),
+                 lambda: rl.SAC(4, 4, hidden_dim=8),
+                 lambda: infer_jellyfish.main(infer_jellyfish.build_parser().parse_args(
+                     ["--inference_method", "MPC", "--dataset_path", str(tmp_path)])),
+                 *(lambda app=app: app.main(app.build_parser().parse_args([]))
+                   for app in (train_burgers_operator, eval_pid_sl_burgers,
+                               train_baselines_burgers, train_sac_burgers))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -6,8 +6,9 @@ builders, which fix the published widths), ``train_jellyfish`` for the states (E
 with gradient accumulation over the (states, bd, thetas) tuple) and thetas
 models (UNet3D dim 8, mults (1, 2), 4-frame windows), then
 ``infer_jellyfish`` (guided DDIM, 2 steps) with its closed-loop scoring,
-``results.json``, ``pred_thetas_seed*.npy`` and ``--rescore_thetas``; MPC
-raises and names its ROADMAP item."""
+``results.json``, ``pred_thetas_seed*.npy`` and ``--rescore_thetas``, then
+``--inference_method MPC`` (receding-horizon MPC through the surrogates);
+MPC_LBFGS raises and names its ROADMAP entry."""
 
 import json
 
@@ -113,5 +114,12 @@ def test_port_infer_jellyfish_main_tiny(trained):
     assert again["objective"] is None
     assert again["objective_closed_loop"] == pytest.approx(agg["objective_closed_loop"],
                                                            rel=1e-6)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        infer_jellyfish.main(_infer_args(root, "--inference_method", "MPC"))
+    # receding-horizon MPC through the surrogate pipeline (2 iterations per
+    # replan over the 4 frames): the JAX app's results.json row
+    mpc = infer_jellyfish.main(_infer_args(root, "--inference_method", "MPC",
+                                           "--num_iters", "2", "--lamda", "1.0"))
+    assert mpc["method"] == "MPC" and mpc["n"] == 2 and np.isfinite(mpc["objective"])
+    saved = json.loads((root / "res" / "results.json").read_text().splitlines()[-1])
+    assert saved["metrics"] == mpc and set(mpc) == {"method", "objective", "walltime_s", "n"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, MPC_LBFGS"):
+        infer_jellyfish.main(_infer_args(root, "--inference_method", "MPC_LBFGS"))
