@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``diffphycon_tpu_torch`` (never JAX) at full width on six paths:
+Drives ``diffphycon_tpu_torch`` (never JAX) at full width on seven paths:
 Burgers sampling (UNet2D dim 64, mults (1, 2, 4, 8), batch 50, input (50,
 16, 128, 2)), smoke indirect control (UNet3D dim 64, mults (1, 2, 4), batch
 8, input (8, 32, 64, 64, 6); 128^2 fluid solver), Burgers training (the
@@ -9,8 +9,9 @@ same UNet2D at batch 16), smoke training (the UNet3D at batch 16), the
 jellyfish benchmark (UNet3Ds (16, 20, 64, 64, 7) -> 4 and 1 channels;
 UNet2Dv2 / ForceUNet surrogates dim 64, mults (1, 2, 4, 8)) and the
 baselines (the Burgers solver's gradient, PID, SL, BC, BPPO, SAC at the
-apps' default widths; receding-horizon MPC through the jellyfish
-surrogates).
+apps' default widths; receding-horizon MPC with Adam and L-BFGS through the
+jellyfish surrogates) and the RL environments (the smoke env on the real
+128^2 solver, K4 in every sub-step; the jellyfish env on the surrogates).
 
 Burgers:
 
@@ -68,7 +69,8 @@ Smoke:
 Training:
 8. the same UNet2D at batch 16: gradient parity, the train app (fresh,
    resumed, prior) with exact launch counts, steps/s, the infer app from
-   the checkpoints.
+   the checkpoints, and ``--checkpoint_sweep`` over steps 10 and 20 of both
+   models (a row per checkpoint, its seconds; K1-K3, K5, K6 launched).
 
 The persistent kernel (``csrc/unet2d_persistent.cu``):
 9. K7 ``resblock_pair``, the counterpart of ``scripts/bench_midgrain_pallas.py``:
@@ -130,11 +132,32 @@ The baselines (no kernel of their own: elementwise solver steps, MLPs and
    iterations per step; objective, walltime, peak memory), and one
    replanning iteration at t = 0 (19 steps) timed alone, projected to the
    default run (30 iterations over the shrinking horizons), one at t = 15
-   (4 steps) profiled. Run alone (``chip_smoke.baselines_phase(torch, smi)``) it
-   builds the jellyfish surrogates it needs.
+   (4 steps) profiled; ``--inference_method MPC_LBFGS`` over MPC_LBFGS_FRAMES
+   frames and a replan at t = 0 of MPC_LBFGS_ITERS L-BFGS iterations, each
+   timed with its value-and-gradient evaluations, and its peak memory;
+   then one operator training step (loss, gradient) and one conv SAC update
+   at batch 64 (policy loss and gradient, critic losses and gradients) on
+   CUDA against the CPU, begun with cuDNN's TF32 switch at PyTorch's
+   default (JELLY_CPU_RTOL, JELLY_CPU_GRAD_RTOL). Run alone
+   (``chip_smoke.baselines_phase(torch, smi)``) it builds the jellyfish
+   surrogates it needs.
+
+The RL environments (``baselines/envs.py``; K4 is the smoke env's kernel):
+14. one ``SmokeRLEnv`` episode of RL_ENV_FRAMES control frames at batch 2 on
+   CUDA against the CPU (K4 against the plain CG, exactly 8 K4 launches a
+   frame; RL_ENV_RTOL); s per control frame at batch 1 and 4, K4's share
+   and the device's busy share of two profiled frames; ms per warm conv SAC
+   update at batch 64; ``apps/train_baselines_smoke.py`` for bc, bppo and
+   sac at the default widths with RL_SMOKE_CUT (K4 must launch once per
+   sub-step of every episode); on phase 12's surrogates, s per jellyfish
+   env step at batch 1 and 8, ms per warm MLP SAC update at batch 256 on
+   the 28,672-wide observation, ``apps/train_baselines_jellyfish.py`` for
+   bc, bppo and sac with RL_JELLY_CUT; the apps' default runs projected
+   from these times. Run alone: ``chip_smoke.rl_env_phase(torch, smi)``.
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
-phase-3 times; K4: per solve at batch 8; K7: sums over the five pair shapes;
+phase-3 times; K4: per solve at batch 8, with its phase-14 launches beside
+the smoke main path's; K7: sums over the five pair shapes;
 K8: per forward at batch 50), and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -182,6 +205,7 @@ K6_EXTRA = ((4, 4, 32, 64), (4, 16, 128, 64))
 HBM_RATE = 3.35e12   # H100 SXM HBM3 bytes/s
 B = 50
 TRAIN_B = 16  # the train app's default batch
+SWEEP = (10, 20)  # phase 8's --checkpoint_sweep: steps both models have checkpoints at
 DIM, MULTS = 64, (1, 2, 4, 8)
 HEADS, DIM_HEAD = 4, 32
 SMOKE_B = 8
@@ -238,6 +262,20 @@ BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
 BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
 BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
 BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
+MPC_LBFGS_FRAMES = 6  # the MPC_LBFGS app run's frames (default 20)
+MPC_LBFGS_ITERS = 2   # timed L-BFGS iterations of the replan at t = 0
+RL_SAC_B = 64         # train_baselines_smoke's default batch (the conv SAC)
+# phase 14 (RL envs and apps): the apps' default widths, counts cut. The
+# smoke app's sac runs one round (2 online episodes, 64 updates)
+RL_SMOKE_CUT = {"n_episodes": 1, "bc_steps": 20, "critic_steps": 20, "bppo_steps": 10,
+                "sac_steps": 64}
+RL_JELLY_CUT = {"bc_steps": 20, "critic_steps": 20, "bppo_steps": 10, "sac_steps": 80}
+RL_ENV_FRAMES = 3  # the smoke env's CUDA-against-CPU episode
+# that episode's observations, rewards and metrics: each of its 24 pressure
+# solves stops at max |residual| < 1e-6 on both sides, after iteration
+# counts that may differ by a few (summation order, CG_ITER_RTOL), as in
+# phase 6, where one solve agrees with the plain CG to KERNEL_RTOL
+RL_ENV_RTOL = 1e-4
 # the SL objective and its gradient on CUDA against the CPU (batch 32, dt
 # 1e-3, 1000 steps): both are float32 elementwise ops in one order, ~1e-7
 # relative a step; a wrong or missing term moves the objective by O(1) and
@@ -763,7 +801,8 @@ def smoke_main_path(torch, smi_line):
 def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM, mults=MULTS):
     """Phase 8: gradient parity at full width, the train app (fresh,
     resumed, prior), training steps/s, then the infer app from the two
-    checkpoints. per_forward: the kernel launches of one UNet2D forward."""
+    checkpoints and over a sweep of two. per_forward: the kernel launches
+    of one UNet2D forward."""
     from diffphycon_tpu_torch.apps import infer_burgers, train_burgers
     from diffphycon_tpu_torch.benchmarks import burgers as bench
     from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
@@ -826,7 +865,7 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
                       "smoke", "--seed", "0"]
     runs = [("joint", ["--train_num_steps", "30"], "burgers", 30, 30),
             ("joint resumed", ["--train_num_steps", "40", "--resume", "True"], "burgers", 10, 40),
-            ("prior", ["--train_num_steps", "10", "--is_model_w", "True"], "burgers_w", 10, 10)]
+            ("prior", ["--train_num_steps", "20", "--is_model_w", "True"], "burgers_w", 20, 20)]
     app = []
     for name, extra, sub, steps, final in runs:
         folder = os.path.join(models, sub, "smoke")
@@ -906,6 +945,32 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
           "seconds": round(time.time() - t0, 3)})
     if not finite:
         fail(f"non-finite metrics from the trained checkpoints: {entry}")
+
+    # 8e. --checkpoint_sweep over steps 10 and 20 of both models
+    t0 = time.time()
+    args = infer_burgers.build_parser().parse_args(width + [
+        "--model_root", models, "--exp_id", "smoke", "--checkpoint_sweep", *map(str, SWEEP),
+        "--synthetic_data", str(B), "--n_test_samples", str(B), "--batch_size", str(B),
+        "--eval_two_models", "True", "--wus", "1000", "--is_condition_u0", "True",
+        "--is_condition_uT", "True", "--using_ddim", "True", "--ddim_sampling_steps", "10",
+        "--data_root", data_root, "--save_file", os.path.join(work, "result_sweep.json")])
+    kb.reset_launch_counts()
+    rows = infer_burgers.main(args)
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    want = [f"ckpt={k},wu=1000.0,wf=0.0" for k in SWEEP]
+    emit({"phase": "checkpoint_sweep", "app": "diffphycon_tpu_torch/apps/infer_burgers.py",
+          "checkpoints": {"burgers/smoke": SWEEP, "burgers_w/smoke": SWEEP},
+          "sampler": "ddim 10 steps, eta 0, two models, wu=1000, batch 50", "rows": rows,
+          "s_per_checkpoint": [rows[k]["walltime_s"] for k in want if k in rows],
+          "launches": counts, "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if list(rows) != want or not all(math.isfinite(v) for r in rows.values()
+                                     for v in r.values()):
+        fail(f"checkpoint sweep: rows {list(rows)} (want {want}) or non-finite metrics")
+    if json.load(open(os.path.join(work, "result_sweep.json"))) != rows:
+        fail("checkpoint sweep: the save file differs from the returned rows")
+    if not all(counts[k] > 0 for k in SOURCES):
+        fail(f"checkpoint sweep: a kernel of K1-K3, K5, K6 was not launched: {counts}")
 
 
 def _res_pack(torch, gen, c):
@@ -1444,6 +1509,68 @@ def _jelly_cpu_check(torch, tbench):
     return rec, ok
 
 
+def _conv_nets_cpu_check(torch):
+    """One operator training step's loss and parameter gradient (batch 256,
+    s = s_ob = 128), and one conv SAC update at batch RL_SAC_B (64x64 field
+    observations): the policy loss and its gradient before the update, the
+    two critic losses of ``SAC.step`` (taken before any of its Adam steps)
+    and the critics' gradients it leaves; on CUDA against the CPU with the
+    same weights, batch and noise. cuDNN's TF32 switch is put back to
+    PyTorch's default (on) first, as in _jelly_cpu_check: the nets must
+    clear it for their forward and backward themselves."""
+    import copy
+
+    from diffphycon_tpu_torch.apps.train_burgers_operator import operator_loss
+    from diffphycon_tpu_torch.baselines.rl import SAC, ConvGaussPolicy, ConvQ
+    from diffphycon_tpu_torch.nets.burgers_operator import SurrogateOperator
+
+    g = torch.Generator().manual_seed(12)
+    op_in = [torch.randn(256, 128, generator=g) for _ in range(3)]
+    b = RL_SAC_B
+    s, s2 = (torch.rand(b, 64, 64, 4, generator=g) for _ in range(2))
+    a = torch.rand(b, 64, 64, 2, generator=g) * 2 - 1
+    r, mask = torch.randn(b, generator=g), torch.ones(b)
+    n1, n2 = (torch.randn(b, 64, 64, 2, generator=g) for _ in range(2))
+    op_cpu = SurrogateOperator(seed=0, device="cpu").train()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        torch.backends.cudnn.allow_tf32 = True
+        op = copy.deepcopy(op_cpu).to(dev)
+        loss = operator_loss(op, *(x.to(dev) for x in op_in))
+        loss.backward()
+        res = {"operator_loss": loss.item(),
+               "operator_grad": {k: p.grad.cpu() for k, p in op.named_parameters()}}
+        sac = SAC(64 * 64 * 4, 64 * 64 * 2, seed=0, batch_size=b,
+                  policy=ConvGaussPolicy(in_channels=4, action_channels=2),
+                  q_module=lambda: ConvQ(in_channels=6), action_shape=(64, 64, 2), device=dev)
+        sd, ad, rd, s2d, md, n1d, n2d = (x.to(dev) for x in (s, a, r, s2, mask, n1, n2))
+        an, logp = sac._sample_action(sd, n2d)
+        lp = (sac.log_alpha.detach().exp() * logp
+              - torch.minimum(sac.q1(sd, an), sac.q2(sd, an))).mean()
+        params = dict(sac.policy.named_parameters())
+        res["policy_loss"] = lp.item()
+        res["policy_grad"] = {k: v.cpu() for k, v in zip(
+            params, torch.autograd.grad(lp, list(params.values())))}
+        res["critic_loss"], _ = sac.step(sd, ad, rd, s2d, md, noise=(n1d, n2d))
+        res["critic_loss"] = float(res["critic_loss"])
+        res["critic_grad"] = {f"q{i}.{k}": p.grad.cpu() for i, q in ((1, sac.q1), (2, sac.q2))
+                              for k, p in q.named_parameters()}
+        out[dev] = res
+    rec, ok = {"tf32_switch_before": True, "operator_batch": 256, "sac_batch": b,
+               "loss_tol": JELLY_CPU_RTOL, "grad_tol": JELLY_CPU_GRAD_RTOL}, True
+    for name in ("operator", "policy", "critic"):
+        lc, lg = out["cpu"][f"{name}_loss"], out["cuda"][f"{name}_loss"]
+        gc, gg = out["cpu"][f"{name}_grad"], out["cuda"][f"{name}_grad"]
+        gmax = max(v.abs().max().item() for v in gc.values())
+        gerr = max((gg[k] - v).abs().max().item() for k, v in gc.items())
+        rec[name] = {"loss_cpu": lc, "loss_cuda": lg,
+                     "loss_rel_err": abs(lg - lc) / max(1.0, abs(lc)),
+                     "grad_max_abs_err": gerr, "grad_max": gmax}
+        ok = ok and (rec[name]["loss_rel_err"] <= JELLY_CPU_RTOL and math.isfinite(lg)
+                     and gerr <= JELLY_CPU_GRAD_RTOL * max(1.0, gmax))
+    return rec, ok
+
+
 def _busy(torch, fn):
     """One profiled call of fn: wall and device ms, the device's busy share
     (a lower bound: the profiler adds host time) and the top 5 kernels."""
@@ -1593,9 +1720,12 @@ def _mpc_records(torch, smi_line):
     """Phase 13, part 7: infer_jellyfish --inference_method MPC at batch 8 on
     phase 12's surrogates (replanning iterations cut to BASE_MPC_ITERS), then
     one replanning iteration at t = 0 (the full 19-step horizon) timed alone
-    and projected to the default run, and one at t = 15 profiled."""
+    and projected to the default run, and one at t = 15 profiled; then
+    --inference_method MPC_LBFGS over MPC_LBFGS_FRAMES frames and a replan
+    at t = 0 of MPC_LBFGS_ITERS timed L-BFGS iterations."""
     from diffphycon_tpu_torch.apps import infer_jellyfish
     from diffphycon_tpu_torch.apps.infer_jellyfish import _surrogates
+    from diffphycon_tpu_torch.baselines import lbfgs
     from diffphycon_tpu_torch.baselines.mpc_jellyfish import mpc_objective
     from diffphycon_tpu_torch.benchmarks import jellyfish as tbench
     from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
@@ -1661,6 +1791,50 @@ def _mpc_records(torch, smi_line):
           "projection": "30 iterations x sum of the shrinking horizons (190 pipeline "
                         "steps) at the t = 0 iteration's time per step of 19",
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+
+    # MPC_LBFGS: the app over MPC_LBFGS_FRAMES frames (one iteration per
+    # replan), then a replan at t = 0 (the full 19-step horizon) cut to
+    # MPC_LBFGS_ITERS iterations, each timed with its value-and-gradient
+    # evaluations (its own plus the line search's trials)
+    t0 = time.time()
+    out = os.path.join("build", "chip_smoke", "baselines", "mpc_lbfgs")
+    shutil.rmtree(out, ignore_errors=True)
+    tic = time.perf_counter()
+    agg = infer_jellyfish.main(infer_jellyfish.build_parser().parse_args(
+        ["--inference_method", "MPC_LBFGS", "--dataset_path", root, "--surrogate_folder", sur,
+         "--n_test_samples", str(JELLY_B), "--batch_size", str(JELLY_B),
+         "--frames", str(MPC_LBFGS_FRAMES), "--num_iters", "1",
+         "--inference_result_path", out]))
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - tic
+    row = json.loads(open(os.path.join(out, "results.json")).read().splitlines()[-1])
+    if not math.isfinite(agg["objective"]) or row["metrics"] != agg:
+        fail(f"infer_jellyfish MPC_LBFGS: {agg}, written {row['metrics']}")
+
+    def objective(p):
+        return mpc_objective(ppl, p, s0, b0, th0, realized, 0, th0, 1000.0, 0.0, 0.0, 0.15)
+
+    torch.cuda.reset_peak_memory_stats()
+    plan, state, iters = plan0.to("cuda"), lbfgs.init(plan0.to("cuda")), []
+    for _ in range(MPC_LBFGS_ITERS):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        value, grad = lbfgs.value_and_grad(objective, plan)
+        updates, state = lbfgs.update(grad, state, plan, value, objective, learning_rate=0.05)
+        plan = (plan + updates).clamp(0.2, 1.1)
+        torch.cuda.synchronize()
+        iters.append({"s": time.perf_counter() - tic, "objective": float(value),
+                      "evaluations": 1 + state.num_linesearch_steps,
+                      "step_size": float(state.stepsize)})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "baselines_mpc_lbfgs", "app": "diffphycon_tpu_torch/apps/infer_jellyfish.py",
+          "batch": JELLY_B, "app_frames": MPC_LBFGS_FRAMES, "app_num_iters": 1, "result": agg,
+          "app_s": app_s, "replan_t0_iterations": iters, "peak_memory_gb": peak,
+          "s_per_evaluation": sum(i["s"] for i in iters) / sum(i["evaluations"] for i in iters),
+          "adam_iteration_t0_median_s": iter_s,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not all(math.isfinite(i["objective"]) for i in iters) or not torch.isfinite(plan).all():
+        fail(f"L-BFGS replan at t = 0: {iters}")
 
 
 def baselines_phase(torch, smi_line):
@@ -1742,7 +1916,224 @@ def baselines_phase(torch, smi_line):
           "seconds": round(time.time() - t0, 3), "nvidia_smi": smi_line})
 
     _mpc_records(torch, smi_line)
+
+    t0 = time.time()
+    rec, ok = _conv_nets_cpu_check(torch)
+    emit({"phase": "baselines_conv_nets_cuda_vs_cpu", **rec,
+          "seconds": round(time.time() - t0, 3)})
+    if not ok:
+        fail(f"the operator or the conv SAC nets differ between CUDA and the CPU: {rec}")
     emit({"phase": "baselines_done", "seconds": round(time.time() - t_phase, 3)})
+
+
+def _smoke_env_cpu_check(torch):
+    """One SmokeRLEnv episode of RL_ENV_FRAMES control frames of 8 sub-steps
+    at batch 2 on CUDA (K4 in every sub-step) against the CPU (the plain
+    CG), from densities at the target bucket's mouth and on the same
+    actions: observations, rewards and metrics, and K4's launches."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.baselines.envs import SmokeRLEnv
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+
+    rng = np.random.default_rng(5)
+    acts = np.zeros((RL_ENV_FRAMES, 2, 64, 64, 2), np.float32)
+    acts[..., 1] = 0.4
+    acts = np.clip(acts + 0.5 * rng.normal(size=acts.shape), -1, 1).astype(np.float32)
+    d0 = np.zeros((2, 128, 128), np.float32)
+    d0[0, 104:116, 56:70] = 1.0
+    d0[1, 30:40, 40:50] = 1.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        env = SmokeRLEnv(frames=RL_ENV_FRAMES, w_energy=0.01, device=dev)
+        kcg.cg_pressure.launches = 0
+        tic = time.perf_counter()
+        obs, rew = [env.reset(2, np.random.default_rng(0), density0=d0)], []
+        for a in acts:
+            o, r, _ = env.step(a)
+            obs.append(o)
+            rew.append(r)
+        out[dev] = (torch.stack(obs).cpu(), torch.stack(rew).cpu(), env.metrics(),
+                    kcg.cg_pressure.launches, time.perf_counter() - tic)
+    (oc, rc, mc, _, sc), (og, rg, mg, launches, sg) = out["cpu"], out["cuda"]
+    obs_err, rew_err = (og - oc).abs().max().item(), (rg - rc).abs().max().item()
+    rec = {"batch": 2, "frames": RL_ENV_FRAMES, "sub_steps": 8, "k4_launches": launches,
+           "k4_launches_expected": RL_ENV_FRAMES * 8, "obs_max_abs_err": obs_err,
+           "obs_tol": RL_ENV_RTOL * max(1.0, oc.abs().max().item()),
+           "reward_max_abs_err": rew_err, "reward_max": rc.abs().max().item(),
+           "reward_tol": RL_ENV_RTOL * max(1.0, rc.abs().max().item()),
+           "metrics_cpu": mc, "metrics_cuda": mg, "cpu_seconds": sc, "cuda_seconds": sg}
+    ok = (obs_err <= rec["obs_tol"] and rew_err <= rec["reward_tol"]
+          and all(abs(mg[k] - mc[k]) <= RL_ENV_RTOL * max(1.0, abs(mc[k])) for k in mc)
+          and launches == RL_ENV_FRAMES * 8 and bool(torch.isfinite(og).all()))
+    return rec, ok
+
+
+def _median_s(torch, fn, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+    return sorted(times)[n // 2]
+
+
+def _sac_update_ms(torch, sac, obs_shape, act_shape):
+    """ms per warm ``SAC.update`` from a replay of 1024 random transitions:
+    2 untimed updates, then the median of 3 windows of 5."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.baselines.rl import RingReplay
+
+    rng = np.random.default_rng(2)
+    replay = RingReplay(1024, obs_shape, act_shape)
+    obs = rng.random((1024, *replay.state.shape[1:]), np.float32)
+    replay.push_batch(obs, rng.uniform(-1, 1, (1024, *replay.action.shape[1:])),
+                      rng.normal(size=1024), obs[::-1], np.ones(1024))
+    for _ in range(2):
+        sac.update(replay)
+    return 1e3 * _median_s(torch, lambda: [sac.update(replay) for _ in range(5)], 3) / 5
+
+
+def rl_env_phase(torch, smi_line):
+    """Phase 14: the smoke and jellyfish RL baselines at the apps' default
+    widths (the 128^2 solver with K4 in every sub-step, 64^2 observations,
+    MLPs 512 x 2, the conv SAC at batch 64; phase 12's surrogates, MLP SAC
+    at batch 256), counts cut: the smoke env on CUDA against the CPU, s per
+    control frame and env step, K4's share, SAC update times, both apps for
+    bc, bppo and sac (K4's launches counted over the smoke app runs), and
+    the apps' default runs projected from those times."""
+    import numpy as np
+
+    from diffphycon_tpu_torch.apps import train_baselines_jellyfish, train_baselines_smoke
+    from diffphycon_tpu_torch.baselines.envs import SmokeRLEnv
+    from diffphycon_tpu_torch.baselines.rl import SAC, ConvGaussPolicy, ConvQ
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    rec, ok = _smoke_env_cpu_check(torch)
+    emit({"phase": "rl_smoke_env_cuda_vs_cpu", **rec, "tol": RL_ENV_RTOL,
+          "seconds": round(time.time() - t_phase, 3)})
+    if not ok:
+        fail(f"SmokeRLEnv on CUDA (K4) differs from the CPU (plain CG): {rec}")
+
+    # s per control frame (8 sub-steps, 8 K4 solves) at batch 1 and 4, and
+    # K4's share of two profiled frames at batch 4
+    t0 = time.time()
+    env = SmokeRLEnv(device="cuda")
+    frame = {}
+    for b in (1, 4):
+        env.reset(b, np.random.default_rng(1))
+        a = torch.zeros(b, 64, 64, 2, device="cuda")
+        a[..., 1] = 0.4
+        env.step(a)  # warm-up
+        frame[b] = _median_s(torch, lambda a=a: env.step(a), 5)
+    wall_ms, dev_ms, rows = profile_window(torch, lambda: [env.step(a) for _ in range(2)])
+    k4_ms = sum(v for k, v in rows if "cg_cluster_kernel" in k)
+    sac = SAC(64 * 64 * 4, 64 * 64 * 2, seed=0, batch_size=RL_SAC_B,
+              policy=ConvGaussPolicy(in_channels=4, action_channels=2),
+              q_module=lambda: ConvQ(in_channels=6), action_shape=(64, 64, 2), device="cuda")
+    conv_sac_ms = _sac_update_ms(torch, sac, (64, 64, 4), (64, 64, 2))
+    del sac
+    emit({"phase": "rl_smoke_env_timing", "s_per_control_frame": {"batch_1": frame[1],
+                                                                  "batch_4": frame[4]},
+          "profile_2_frames_batch_4": {"wall_ms": wall_ms, "device_ms": dev_ms,
+                                       "busy_share": dev_ms / wall_ms, "k4_ms": k4_ms,
+                                       "k4_share_of_wall": k4_ms / wall_ms,
+                                       "top": [[k[:60], v] for k, v in rows[:6]]},
+          "conv_sac_update_ms_batch_64": conv_sac_ms, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if not k4_ms > 0:
+        fail("the profiled control frames show no K4 time")
+
+    # the smoke app for bc, bppo and sac, K4's launches counted over them
+    t0 = time.time()
+    work = os.path.join("build", "chip_smoke", "rl")
+    shutil.rmtree(work, ignore_errors=True)
+    cut = [a for k, v in RL_SMOKE_CUT.items() for a in (f"--{k}", str(v))]
+    smoke_rows = {}
+    kcg.cg_pressure.launches = 0
+    for method in ("bc", "bppo", "sac"):
+        tic = time.perf_counter()
+        row = train_baselines_smoke.main(train_baselines_smoke.build_parser().parse_args(
+            ["--method", method, "--save_file", os.path.join(work, "smoke.json")] + cut))
+        torch.cuda.synchronize()
+        smoke_rows[method] = {**row, "app_s": time.perf_counter() - tic,
+                              "ms_per_update": 1e3 * row["update_s"] / row["updates"]}
+    launches = kcg.cg_pressure.launches
+    rounds = -(-RL_SMOKE_CUT["sac_steps"] // (2 * 32))
+    episodes = 3 * (RL_SMOKE_CUT["n_episodes"] + 1) + 2 * rounds
+    emit({"phase": "rl_smoke_app", "app": "diffphycon_tpu_torch/apps/train_baselines_smoke.py",
+          "cut": RL_SMOKE_CUT, "rows": smoke_rows, "k4_launches": launches,
+          "k4_launches_expected": 256 * episodes, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if launches != 256 * episodes:
+        fail(f"K4 launched {launches} times over the smoke RL apps, expected {256 * episodes}")
+    if not all(math.isfinite(r[k]) for r in smoke_rows.values()
+               for k in ("J_target", "smoke_out", "J_energy")):
+        fail(f"non-finite smoke RL metrics: {smoke_rows}")
+
+    # the jellyfish app on phase 12's surrogates; s per env step at batch 1
+    # and 8, ms per MLP SAC update at batch 256 on the full observation
+    t0 = time.time()
+    root, sur = _jelly_surrogates(torch)
+    jargs = ["--dataset_path", root, "--surrogate_folder", sur]
+    jenv, cfg = train_baselines_jellyfish.build_env(
+        train_baselines_jellyfish.build_parser().parse_args(jargs), torch.device("cuda"))
+    test = load_jellyfish_dataset(root, "test", n=JELLY_B)
+    step = {}
+    for b in (1, JELLY_B):
+        jenv.reset(test["states"][:b, 0], test["bd"][:b, 0], test["thetas"][:b, 0])
+        act = torch.full((b, 1), 0.3, device="cuda")
+        jenv.step(act)  # warm-up
+        step[b] = _median_s(torch, lambda act=act: jenv.step(act), 5)
+    obs_dim = jenv.obs_dim(cfg.n_state)
+    sac = SAC(obs_dim, 1, 512, 2, seed=0, batch_size=256, device="cuda")
+    mlp_sac_ms = _sac_update_ms(torch, sac, obs_dim, 1)
+    del sac, jenv
+    cut = [a for k, v in RL_JELLY_CUT.items() for a in (f"--{k}", str(v))]
+    jelly_rows = {}
+    for method in ("bc", "bppo", "sac"):
+        tic = time.perf_counter()
+        row = train_baselines_jellyfish.main(train_baselines_jellyfish.build_parser().parse_args(
+            jargs + ["--method", method, "--save_file", os.path.join(work, "jelly.json")] + cut))
+        torch.cuda.synchronize()
+        jelly_rows[method] = {**row, "app_s": time.perf_counter() - tic,
+                              "ms_per_update": 1e3 * row["update_s"] / row["updates"]}
+    if not all(math.isfinite(r["J_jellyfish"]) for r in jelly_rows.values()):
+        fail(f"non-finite jellyfish RL metrics: {jelly_rows}")
+
+    # the apps' default runs projected from these times (their episode,
+    # step and update counts at the JAX apps' defaults)
+    f1, f4, j1, j8 = frame[1], frame[4], step[1], step[JELLY_B]
+    ms = {m: {k: r["ms_per_update"] / 1e3 for k, r in rows.items()}
+          for m, rows in (("smoke", smoke_rows), ("jelly", jelly_rows))}
+    smoke_env = 8 * 32 * f1 + 32 * f4  # 8 behavior episodes, the eval at n_test 4
+    jelly_env = 16 * 19 * j1 + 20 * j8  # 16 offline sims, the eval at n_test 8
+    projected = {
+        "smoke": {"bc": smoke_env + 1000 * ms["smoke"]["bc"],
+                  "bppo": smoke_env + 2100 * ms["smoke"]["bppo"],
+                  "sac": smoke_env + 8 * (2 * 32 * f1 + 64 * conv_sac_ms / 1e3)},
+        "jellyfish": {"bc": jelly_env + 2000 * ms["jelly"]["bc"],
+                      "bppo": jelly_env + 4200 * ms["jelly"]["bppo"],
+                      "sac": jelly_env + 25 * (4 * 20 * j1 + 80 * mlp_sac_ms / 1e3)}}
+    emit({"phase": "rl_jellyfish_app",
+          "app": "diffphycon_tpu_torch/apps/train_baselines_jellyfish.py", "cut": RL_JELLY_CUT,
+          "rows": jelly_rows, "s_per_env_step": {"batch_1": j1, f"batch_{JELLY_B}": j8},
+          "obs_dim": obs_dim, "mlp_sac_update_ms_batch_256": mlp_sac_ms,
+          "projected_default_run_s": projected,
+          "projection": "episodes x frames x s per control frame / env step at the apps' "
+                        "batch (behavior and online batch 1, eval n_test) + updates x ms per "
+                        "update (bc, bppo: the app run's mean over its learners; sac: the "
+                        "warm update); smoke sac 8 rounds of 2 episodes and 64 updates, "
+                        "jellyfish sac 25 rounds of 4 episodes and 80 updates",
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    emit({"phase": "rl_done", "seconds": round(time.time() - t_phase, 3)})
+    return launches
 
 
 def jellyfish_phase(torch, smi_line):
@@ -2205,6 +2596,9 @@ def main() -> int:
     # -- 13. the baselines (Burgers solver gradient, PID/SL/RL apps, MPC) ---
     baselines_phase(torch, smi_line)
 
+    # -- 14. the smoke and jellyfish RL environments and apps ----------------
+    rl_launches = rl_env_phase(torch, smi_line)
+
     # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
@@ -2220,7 +2614,7 @@ def main() -> int:
                                        "k5b_device_ms") if key in a}})
     for k, (route, src) in SMOKE_SOURCES.items():
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
-                        "launches": cg_launches, **cg_row})
+                        "launches": cg_launches, "rl_env_launches": rl_launches, **cg_row})
     for k, row in persistent.items():
         kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
                         "replaces": REPLACES[k], **row})
@@ -2239,7 +2633,8 @@ def main() -> int:
                   "cg_pressure's are per solve at batch 8 (no single PyTorch call "
                   "solves the system, so library_ms is null; cluster its CTAs per "
                   "element, us_per_iteration ms over the most iterations), launches "
-                  "those of the smoke main path; resblock_pair (K7): sums over its five "
+                  "those of the smoke main path, rl_env_launches those of phase 14's "
+                  "smoke RL app runs (one per SmokeRLEnv sub-step); resblock_pair (K7): sums over its five "
                   "shapes at batch 50, launches those of the phase-9 path (one "
                   "per shape), library_ms the pair from cuDNN convs and "
                   "F.group_norm (TF32 off), bound_ms with the convs at 3xTF32 (the fp32 "

@@ -14,8 +14,10 @@ package's UNet2D tree, see ``utils/convert.py``), from ``--init_seed N``
 ``<model_root>/burgers/<exp_id>`` and ``--checkpoint__model_w`` under
 ``<model_root>/burgers_w/<exp_id__model_w>`` (default: ``exp_id``), the EMA
 weights unless ``--use_ema False``. A checkpoint directory written by the
-JAX trainer (orbax) raises; ``--checkpoint_sweep`` is not ported yet
-(ROADMAP.md).
+JAX trainer (orbax) raises. ``--checkpoint_sweep K1 K2 ...`` evaluates each
+listed checkpoint in turn (the prior model at the same step under
+``--eval_two_models``), one row per checkpoint keyed
+``ckpt={k},wu={wu},wf={wf}``, and rewrites ``--save_file`` after every row.
 
 Example:
   python -m diffphycon_tpu_torch.apps.infer_burgers --init_seed 0 \\
@@ -125,7 +127,8 @@ def _load_net(bench, cfg, npz, seed, device, ckpt_folder, milestone, use_ema):
     if seed is not None:
         return bench.init_params(cfg, seed=seed, device=device)
     net = bench.build_unet(cfg, device)
-    net.load_state_dict(Trainer.load_params(ckpt_folder, milestone, use_ema=use_ema))
+    if milestone is not None:  # a sweep loads each of its checkpoints later
+        net.load_state_dict(Trainer.load_params(ckpt_folder, milestone, use_ema=use_ema))
     return net
 
 
@@ -135,9 +138,12 @@ def main(args):
 
     from diffphycon_tpu_torch.benchmarks import burgers as bench
     from diffphycon_tpu_torch.device import resolve_device
+    from diffphycon_tpu_torch.training.trainer import Trainer
 
-    if args.checkpoint_sweep:
-        raise NotImplementedError("--checkpoint_sweep is not ported yet (ROADMAP.md)")
+    sweep = args.checkpoint_sweep  # None: the one checkpoint (or weights) loaded below
+    if sweep and (args.params_npz or args.params_npz__model_w or args.init_seed is not None):
+        raise ValueError("--checkpoint_sweep reads the port's checkpoints; it takes no "
+                         "--params_npz / --init_seed")
     device = resolve_device(args.device)
     cfg = bench.BurgersConfig(
         dim=args.dim,
@@ -157,19 +163,18 @@ def main(args):
         recurrence_k=args.recurrence_k,
         bf16=args.bf16,
     )
-    net = _load_net(bench, cfg, args.params_npz, args.init_seed, device,
-                    os.path.join(args.model_root, "burgers", args.exp_id), args.checkpoint,
-                    args.use_ema)
+    folder = os.path.join(args.model_root, "burgers", args.exp_id)
+    folder_w = os.path.join(args.model_root, "burgers_w", args.exp_id__model_w or args.exp_id)
+    net = _load_net(bench, cfg, args.params_npz, args.init_seed, device, folder,
+                    None if sweep else args.checkpoint, args.use_ema)
     net_w = None
     if args.eval_two_models:
         cfg_w = dataclasses.replace(
             cfg, dim=args.dim__model_w or args.dim,
             dim_mults=tuple(args.dim_mults__model_w or args.dim_mults))
         seed_w = None if args.init_seed is None else args.init_seed + 1
-        net_w = _load_net(bench, cfg_w, args.params_npz__model_w, seed_w, device,
-                          os.path.join(args.model_root, "burgers_w",
-                                       args.exp_id__model_w or args.exp_id),
-                          args.checkpoint__model_w, args.use_ema)
+        net_w = _load_net(bench, cfg_w, args.params_npz__model_w, seed_w, device, folder_w,
+                          None if sweep else args.checkpoint__model_w, args.use_ema)
     gd = bench.build_diffusion(cfg, net, model_w=net_w, device=device)
 
     u_target_all = get_target(args, device)
@@ -178,45 +183,49 @@ def main(args):
         raise ValueError(f"n_test_samples={n} is not a multiple of batch_size={bs}")
 
     results = {}
-    for wu in args.wus:
-        for wf in args.wfs:
-            rows = []
-            t_start = time.time()
-            for i in range(n // bs):
-                tgt = torch.from_numpy(u_target_all[i * bs : (i + 1) * bs]).to(device)
-                guidance = bench.build_guidance(
-                    cfg, tgt, wu=wu, wf=wf, wreg=args.wreg,
-                    j_scheduler=args.J_scheduler, w_scheduler=args.w_scheduler,
-                    proj_guidance=args.proj_guidance)
-                cond_vals = {"u0": tgt[:, 0, :] / bench.RESCALER,
-                             "uT": tgt[:, 10, :] / bench.RESCALER}
-                gen = torch.Generator(device=device).manual_seed(i)
-                x = gd.sample(batch_size=bs, cond_vals=cond_vals, guidance=guidance,
-                              generator=gen)
-                rows.append(bench.evaluate_samples(x, tgt, cfg))
-            walltime = time.time() - t_start
+    for wu, wf, ck in ((wu, wf, ck) for wu in args.wus for wf in args.wfs
+                       for ck in (sweep or [None])):
+        if ck is not None:
+            net.load_state_dict(Trainer.load_params(folder, ck, use_ema=args.use_ema))
+            if net_w is not None:
+                net_w.load_state_dict(Trainer.load_params(folder_w, ck, use_ema=args.use_ema))
+        rows = []
+        t_start = time.time()
+        for i in range(n // bs):
+            tgt = torch.from_numpy(u_target_all[i * bs : (i + 1) * bs]).to(device)
+            guidance = bench.build_guidance(
+                cfg, tgt, wu=wu, wf=wf, wreg=args.wreg,
+                j_scheduler=args.J_scheduler, w_scheduler=args.w_scheduler,
+                proj_guidance=args.proj_guidance)
+            cond_vals = {"u0": tgt[:, 0, :] / bench.RESCALER,
+                         "uT": tgt[:, 10, :] / bench.RESCALER}
+            gen = torch.Generator(device=device).manual_seed(i)
+            x = gd.sample(batch_size=bs, cond_vals=cond_vals, guidance=guidance,
+                          generator=gen)
+            rows.append(bench.evaluate_samples(x, tgt, cfg))
+        walltime = time.time() - t_start
 
-            def cat(get):
-                return np.concatenate([get(r) for r in rows])
+        def cat(get):
+            return np.concatenate([get(r) for r in rows])
 
-            entry = {
-                "J_actual_mse": float(cat(lambda r: r.j_actual[0]).mean()),
-                "J_actual_mae": float(cat(lambda r: r.j_actual[2]).mean()),
-                "J_actual_nmse": float(cat(lambda r: r.j_actual[4]).mean()),
-                "J_actual_nmae": float(cat(lambda r: r.j_actual[5]).mean()),
-                "control_energy": float(cat(lambda r: r.control_energy).mean()),
-                "ddpm_mse": float(cat(lambda r: r.ddpm_mse).mean()),
-                "walltime_s": round(walltime, 3),
-                "n": n,
-            }
-            key_name = f"wu={wu},wf={wf}"
-            results[key_name] = entry
-            print(f"[{key_name}] J_actual(mse)={entry['J_actual_mse']:.6f} "
-                  f"energy={entry['control_energy']:.2f} "
-                  f"ddpm_mse={entry['ddpm_mse']:.6f} ({walltime:.1f}s)", flush=True)
-            os.makedirs(os.path.dirname(args.save_file) or ".", exist_ok=True)
-            with open(args.save_file, "w") as fh:
-                json.dump(results, fh, indent=2)
+        entry = {
+            "J_actual_mse": float(cat(lambda r: r.j_actual[0]).mean()),
+            "J_actual_mae": float(cat(lambda r: r.j_actual[2]).mean()),
+            "J_actual_nmse": float(cat(lambda r: r.j_actual[4]).mean()),
+            "J_actual_nmae": float(cat(lambda r: r.j_actual[5]).mean()),
+            "control_energy": float(cat(lambda r: r.control_energy).mean()),
+            "ddpm_mse": float(cat(lambda r: r.ddpm_mse).mean()),
+            "walltime_s": round(walltime, 3),
+            "n": n,
+        }
+        key_name = f"wu={wu},wf={wf}" if ck is None else f"ckpt={ck},wu={wu},wf={wf}"
+        results[key_name] = entry
+        print(f"[{key_name}] J_actual(mse)={entry['J_actual_mse']:.6f} "
+              f"energy={entry['control_energy']:.2f} "
+              f"ddpm_mse={entry['ddpm_mse']:.6f} ({walltime:.1f}s)", flush=True)
+        os.makedirs(os.path.dirname(args.save_file) or ".", exist_ok=True)
+        with open(args.save_file, "w") as fh:
+            json.dump(results, fh, indent=2)
     print("saved", args.save_file, flush=True)
     return results
 

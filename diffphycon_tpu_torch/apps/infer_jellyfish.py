@@ -18,8 +18,8 @@ it. Writes ``results.json`` (appended) and ``pred_thetas_seed<seed>.npy``;
 ``--inference_method MPC`` runs the receding-horizon MPC baseline through
 the surrogate pipeline instead (``baselines/mpc_jellyfish.py``; no diffusion
 checkpoint needed) and appends its objective and walltime to the same
-``results.json``. ``MPC_LBFGS`` raises: optax's L-BFGS with its zoom line
-search is not ported (ROADMAP.md queue 1, MPC_LBFGS).
+``results.json``; ``MPC_LBFGS`` replans with L-BFGS and its zoom line search
+(``baselines/lbfgs.py``) instead of Adam.
 ``--scan_chunks`` is accepted and has no effect: the sampler is a Python
 loop.
 
@@ -72,8 +72,8 @@ def build_parser():
     p.add_argument("--dim_mults", nargs="+", default=[1, 2, 4], type=int)
     p.add_argument("--bf16", default=False, type=eval)
     p.add_argument("--inference_method", default="DDPM", choices=["DDPM", "MPC", "MPC_LBFGS"],
-                   help="MPC: receding-horizon replanning through the surrogate pipeline; "
-                        "MPC_LBFGS is not ported")
+                   help="MPC / MPC_LBFGS: receding-horizon replanning through the surrogate "
+                        "pipeline with Adam / L-BFGS")
     p.add_argument("--num_iters", default=30, type=int, help="MPC replanning iterations")
     p.add_argument("--coef_grad", default=0.05, type=float, help="MPC step size")
     p.add_argument("--lamda", default=1000.0, type=float, help="MPC theta-smoothness weight")
@@ -106,9 +106,10 @@ def _diffusion_net(build, cfg, folder, milestone, use_ema, device):
 
 
 def run_mpc(args, cfg, device):
-    """Receding-horizon MPC (Adam; MPC_LBFGS raises, not ported) through the
-    surrogate pipeline, batch by batch; appends {"args", "metrics"} to results.json and returns the
-    metrics (the JAX app's row: method, objective, walltime, n)."""
+    """Receding-horizon MPC (Adam, or L-BFGS for MPC_LBFGS) through the
+    surrogate pipeline, batch by batch; appends {"args", "metrics"} to
+    results.json and returns the metrics (the JAX app's row: method,
+    objective, walltime, n)."""
     import numpy as np
     import torch
 

@@ -12,9 +12,8 @@ exactly zero to the objective and to its gradient. Here each replanning
 rollout runs only the live steps t .. num_t - 1, so the work shrinks with
 the horizon.
 
-Only ``optimizer="adam"`` is ported. The JAX package's "lbfgs" is optax's
-L-BFGS with its zoom line search (``optax/_src/linesearch.py``), which needs
-a port and a parity test of its own (ROADMAP.md queue 1, MPC_LBFGS).
+``optimizer="lbfgs"`` replans with ``baselines.lbfgs``, the port of
+optax's L-BFGS with its zoom line search that the JAX package runs.
 """
 
 from __future__ import annotations
@@ -23,6 +22,9 @@ import math
 from typing import Optional
 
 import torch
+
+from diffphycon_tpu_torch.baselines import lbfgs
+
 
 def mpc_plan(ppl, state_0, bd_0, theta_0, horizon: int = 20, lr: float = 1e-2,
              iters: int = 50, reg_ratio: float = 0.0, seed: int = 0,
@@ -103,19 +105,18 @@ def mpc_receding_horizon(ppl, state_0, bd_0, theta_0, frames: int = 20, num_iter
                          optimizer: str = "adam", seed: int = 0,
                          theta_plan0: Optional[torch.Tensor] = None):
     """Receding-horizon MPC through the surrogate pipeline: at every real
-    step t replan the schedule (a fresh Adam, ``num_iters`` iterations,
-    each Adam update times the cosine factor 0.5 (1 + cos(pi i / num_iters))
-    and the plan clipped to ``theta_clip``), execute its step t, and carry
-    the plan on. The first plan is ``theta_plan0`` (B, frames - 1), drawn
-    U[0.2, 0.9] from a generator of ``seed`` when None.
+    step t replan the schedule (``num_iters`` iterations from a fresh
+    optimizer state, the plan clipped to ``theta_clip`` after each update),
+    execute its step t, and carry the plan on. ``optimizer``: "adam" (each
+    update times the cosine factor 0.5 (1 + cos(pi i / num_iters))) or
+    "lbfgs" (L-BFGS with learning rate ``lr`` and its zoom line search, no
+    cosine factor; every line-search trial takes the objective and its
+    gradient through the live steps). The first plan is ``theta_plan0``
+    (B, frames - 1), drawn U[0.2, 0.9] from a generator of ``seed`` when
+    None.
 
     Returns (thetas (B, frames), states (B, frames, H, W, ns), forces
     (B, frames))."""
-    if optimizer != "adam":
-        raise NotImplementedError(
-            f"MPC with optimizer {optimizer!r} (--inference_method MPC_LBFGS) needs optax's "
-            "L-BFGS with its zoom line search, which is not ported yet "
-            "(ROADMAP.md queue 1, MPC_LBFGS)")
     b = state_0.shape[0]
     num_t = frames - 1
     dev = theta_0.device
@@ -128,19 +129,14 @@ def mpc_receding_horizon(ppl, state_0, bd_0, theta_0, frames: int = 20, num_iter
     thetas, states, forces = [theta_0], [state_0], []
     scales = [0.5 * (1 + math.cos(math.pi * i / num_iters)) for i in range(num_iters)]
     for t in range(num_t):
-        plan = plan.detach().requires_grad_(True)
-        opt = torch.optim.Adam([plan], lr=lr, betas=(0.9, 0.999), eps=1e-8)
-        for scale in scales:
-            # Adam's update is linear in its lr: lr * scale scales the update
-            for group in opt.param_groups:
-                group["lr"] = lr * scale
-            opt.zero_grad(set_to_none=True)
-            mpc_objective(ppl, plan, state, bd, theta, realized, t, theta_0, lamda,
-                          coef_endcondition, coef_clip, dtheta_clip).backward()
-            opt.step()
-            with torch.no_grad():
-                plan.clamp_(theta_clip[0], theta_clip[1])
-        plan = plan.detach()
+        def objective(p):
+            return mpc_objective(ppl, p, state, bd, theta, realized, t, theta_0, lamda,
+                                 coef_endcondition, coef_clip, dtheta_clip)
+
+        if optimizer == "lbfgs":
+            plan = _replan_lbfgs(objective, plan.detach(), num_iters, lr, theta_clip)
+        else:
+            plan = _replan_adam(objective, plan.detach(), scales, lr, theta_clip)
         with torch.no_grad():
             th_next = plan[:, t].clone()  # the next replan updates plan in place
             delta = th_next - theta
@@ -154,3 +150,27 @@ def mpc_receding_horizon(ppl, state_0, bd_0, theta_0, frames: int = 20, num_iter
     with torch.no_grad():
         forces.append(ppl.step(state, bd))
     return torch.stack(thetas, 1), torch.stack(states, 1), torch.stack(forces, 1)
+
+
+def _replan_adam(objective, plan, scales, lr, theta_clip):
+    plan = plan.requires_grad_(True)
+    opt = torch.optim.Adam([plan], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    for scale in scales:
+        # Adam's update is linear in its lr: lr * scale scales the update
+        for group in opt.param_groups:
+            group["lr"] = lr * scale
+        opt.zero_grad(set_to_none=True)
+        objective(plan).backward()
+        opt.step()
+        with torch.no_grad():
+            plan.clamp_(theta_clip[0], theta_clip[1])
+    return plan.detach()
+
+
+def _replan_lbfgs(objective, plan, num_iters, lr, theta_clip):
+    state = lbfgs.init(plan)
+    for _ in range(num_iters):
+        value, grad = lbfgs.value_and_grad(objective, plan)
+        updates, state = lbfgs.update(grad, state, plan, value, objective, learning_rate=lr)
+        plan = (plan + updates).clamp(theta_clip[0], theta_clip[1])
+    return plan

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffphycon_tpu_torch.device import resolve_device
+from diffphycon_tpu_torch.device import fp32_convs, resolve_device
 from diffphycon_tpu_torch.nets.init import seeded_init_
 
 CONST_EPS = 1e-10
@@ -126,6 +126,7 @@ class _ConvEncoder(nn.Module):
                                    zip(chans[:-1], chans[1:]))
 
     def forward(self, x):
+        fp32_convs()
         for conv in self.convs:
             x = F.relu(conv(_same_pad(x, 3, 2)))
         return x
@@ -151,6 +152,7 @@ class ConvGaussPolicy(nn.Module):
         self.head = nn.Conv2d(features, 2 * action_channels, 3, padding=1)
 
     def forward(self, s):
+        fp32_convs()
         h = self.encoder(s.permute(0, 3, 1, 2))
         for up in self.ups:
             n, m = 2 * h.shape[-2], 2 * h.shape[-1]
@@ -173,6 +175,7 @@ class ConvQ(nn.Module):
         self.out = nn.Linear(hidden_dim, 1)
 
     def forward(self, s, a):
+        fp32_convs()
         h = self.encoder(torch.cat([s, a], dim=-1).permute(0, 3, 1, 2))
         h = F.relu(self.fc(h.permute(0, 2, 3, 1).flatten(1)))
         return torch.tanh(self.out(h))
@@ -255,7 +258,8 @@ class RingReplay:
         self.state = np.zeros((capacity, *as_shape(state_dim)), np.float32)
         self.action = np.zeros((capacity, *as_shape(action_dim)), np.float32)
         self.reward = np.zeros((capacity,), np.float32)
-        self.next_state = np.zeros_like(self.state)
+        # np.zeros maps pages lazily; np.zeros_like would write (touch) all of them
+        self.next_state = np.zeros(self.state.shape, np.float32)
         self.mask = np.zeros((capacity,), np.float32)
         self.pos = 0
         self.size = 0

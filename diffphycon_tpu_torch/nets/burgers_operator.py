@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffphycon_tpu_torch.device import resolve_device
+from diffphycon_tpu_torch.device import fp32_convs, resolve_device
 from diffphycon_tpu_torch.nets.init import seeded_init_
 
 RESCALER = 6.4519
@@ -53,6 +53,7 @@ class _Coder(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 1, h) -> latent (B, 8 * h/4), channel-major."""
+        fp32_convs()
         a = self.act
         x = a(self.down0(x))
         x = a(self.down1(x))
@@ -62,6 +63,7 @@ class _Coder(nn.Module):
 
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
         """latent (B, 8 * h/4) -> (B, 1, h)."""
+        fp32_convs()
         a = self.act
         x = latent.reshape(latent.shape[0], 8, self.h // 4)
         x = a(self.up0(x))
@@ -92,6 +94,7 @@ class NetTrans(nn.Module):
         self.transition1 = nn.Conv1d(16, 8, 3, padding=1)
 
     def forward(self, latent_cat: torch.Tensor) -> torch.Tensor:
+        fp32_convs()
         return self.transition1(latent_cat)
 
 

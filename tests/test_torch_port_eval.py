@@ -1,6 +1,7 @@
 """The port's evaluation against the JAX package: ``evaluate_samples``
 (ddpm_mse, J_actual, J_diffused, control energy) on the same samples, and
-the port's ``apps/infer_burgers.py`` end to end at a tiny size.
+the port's ``apps/infer_burgers.py`` end to end at a tiny size, with
+seeded weights and then through ``--checkpoint_sweep``.
 
 Tolerance for the metrics: 1e-4 * max(1, max |jax|); the solver runs 10^4
 float32 steps on both sides and differs only in rounding (see
@@ -43,22 +44,34 @@ def test_port_evaluate_samples_metrics(observed):
 
 def test_port_app_main_tiny(tmp_path):
     save = tmp_path / "result.json"
-    args = infer_burgers.build_parser().parse_args([
-        "--init_seed", "0", "--device", "cpu", "--synthetic_data", "2",
-        "--n_test_samples", "2", "--batch_size", "2", "--eval_two_models", "True",
-        "--wus", "1000", "--is_condition_u0", "True", "--is_condition_uT", "True",
-        "--using_ddim", "True", "--ddim_sampling_steps", "3", "--dim", "8",
-        "--dim_mults", "1", "2", "--data_root", str(tmp_path), "--save_file", str(save)])
-    results = infer_burgers.main(args)
+    argv = ["--init_seed", "0", "--device", "cpu", "--synthetic_data", "2",
+            "--n_test_samples", "2", "--batch_size", "2", "--eval_two_models", "True",
+            "--wus", "1000", "--is_condition_u0", "True", "--is_condition_uT", "True",
+            "--using_ddim", "True", "--ddim_sampling_steps", "3", "--dim", "8",
+            "--dim_mults", "1", "2", "--data_root", str(tmp_path), "--save_file", str(save)]
+    results = infer_burgers.main(infer_burgers.build_parser().parse_args(argv))
     entry = results["wu=1000.0,wf=0.0"]
     assert set(entry) == {"J_actual_mse", "J_actual_mae", "J_actual_nmse",
                           "J_actual_nmae", "control_energy", "ddpm_mse",
                           "walltime_s", "n"}
     assert all(np.isfinite(v) for v in entry.values()) and entry["n"] == 2
     assert json.loads(save.read_text()) == results
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer_burgers.main(infer_burgers.build_parser().parse_args(
-            ["--device", "cpu", "--checkpoint_sweep", "1", "2"]))
+    # --checkpoint_sweep over a checkpoint holding the same seeded weights
+    # (as Trainer.save lays it out; argv[2:] drops --init_seed 0) gives the
+    # same row under a ckpt= key
+    for sub, seed in (("burgers", 0), ("burgers_w", 1)):
+        sd = tbench.init_params(tbench.BurgersConfig(dim=8, dim_mults=(1, 2)), seed=seed,
+                                device="cpu").state_dict()
+        ckpt = tmp_path / "models" / sub / "tiny" / "ckpt" / "7"
+        ckpt.mkdir(parents=True)
+        torch.save({"step": 7, "params": sd, "ema_params": sd}, ckpt / "checkpoint.pt")
+    swept = infer_burgers.main(infer_burgers.build_parser().parse_args(
+        argv[2:] + ["--checkpoint_sweep", "7", "--model_root", str(tmp_path / "models"),
+                      "--exp_id", "tiny"]))
+    assert list(swept) == ["ckpt=7,wu=1000.0,wf=0.0"] and json.loads(save.read_text()) == swept
+    row = dict(swept["ckpt=7,wu=1000.0,wf=0.0"])
+    assert row.pop("walltime_s") >= 0 and entry.pop("walltime_s") >= 0
+    assert row == entry
 
 
 def test_port_burgers_config_dim_muls_alias():

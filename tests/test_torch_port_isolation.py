@@ -16,10 +16,12 @@ from diffphycon_tpu_torch.apps import (
     eval_pid_sl_burgers,
     infer_jellyfish,
     train_baselines_burgers,
+    train_baselines_jellyfish,
+    train_baselines_smoke,
     train_burgers_operator,
     train_sac_burgers,
 )
-from diffphycon_tpu_torch.baselines import rl
+from diffphycon_tpu_torch.baselines import envs, rl
 from diffphycon_tpu_torch.benchmarks import burgers as bench
 from diffphycon_tpu_torch.benchmarks import jellyfish as jelly_bench
 from diffphycon_tpu_torch.benchmarks import smoke as smoke_bench
@@ -52,7 +54,9 @@ def test_port_imports_no_jax_or_reference_package():
                 "apps.infer_jellyfish", "baselines.rl", "baselines.sl_burgers",
                 "baselines.pid_burgers", "baselines.mpc_jellyfish", "nets.burgers_operator",
                 "apps.train_burgers_operator", "apps.eval_pid_sl_burgers",
-                "apps.train_baselines_burgers", "apps.train_sac_burgers"):
+                "apps.train_baselines_burgers", "apps.train_sac_burgers", "baselines.envs",
+                "baselines.lbfgs", "apps.train_baselines_smoke",
+                "apps.train_baselines_jellyfish"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -100,9 +104,13 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                  lambda: rl.SAC(4, 4, hidden_dim=8),
                  lambda: infer_jellyfish.main(infer_jellyfish.build_parser().parse_args(
                      ["--inference_method", "MPC", "--dataset_path", str(tmp_path)])),
+                 # the RL environments
+                 lambda: envs.SmokeRLEnv(),
+                 lambda: envs.JellyfishRLEnv(None),
                  *(lambda app=app: app.main(app.build_parser().parse_args([]))
                    for app in (train_burgers_operator, eval_pid_sl_burgers,
-                               train_baselines_burgers, train_sac_burgers))):
+                               train_baselines_burgers, train_sac_burgers,
+                               train_baselines_smoke, train_baselines_jellyfish))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -7,8 +7,8 @@ with gradient accumulation over the (states, bd, thetas) tuple) and thetas
 models (UNet3D dim 8, mults (1, 2), 4-frame windows), then
 ``infer_jellyfish`` (guided DDIM, 2 steps) with its closed-loop scoring,
 ``results.json``, ``pred_thetas_seed*.npy`` and ``--rescore_thetas``, then
-``--inference_method MPC`` (receding-horizon MPC through the surrogates);
-MPC_LBFGS raises and names its ROADMAP entry."""
+``--inference_method MPC`` and ``MPC_LBFGS`` (receding-horizon MPC through
+the surrogates with Adam and with L-BFGS)."""
 
 import json
 
@@ -121,5 +121,9 @@ def test_port_infer_jellyfish_main_tiny(trained):
     assert mpc["method"] == "MPC" and mpc["n"] == 2 and np.isfinite(mpc["objective"])
     saved = json.loads((root / "res" / "results.json").read_text().splitlines()[-1])
     assert saved["metrics"] == mpc and set(mpc) == {"method", "objective", "walltime_s", "n"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, MPC_LBFGS"):
-        infer_jellyfish.main(_infer_args(root, "--inference_method", "MPC_LBFGS"))
+    # the same with L-BFGS and its zoom line search (one iteration per replan)
+    lb = infer_jellyfish.main(_infer_args(root, "--inference_method", "MPC_LBFGS",
+                                          "--num_iters", "1", "--lamda", "1.0"))
+    assert lb["method"] == "MPC_LBFGS" and lb["n"] == 2 and np.isfinite(lb["objective"])
+    saved = json.loads((root / "res" / "results.json").read_text().splitlines()[-1])
+    assert saved["metrics"] == lb and saved["args"]["inference_method"] == "MPC_LBFGS"

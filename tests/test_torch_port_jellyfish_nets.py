@@ -17,6 +17,8 @@ import torch
 from torch import nn
 
 from diffphycon_tpu.nets import unet2dv2 as jnets
+from diffphycon_tpu_torch.baselines.rl import ConvGaussPolicy, ConvQ
+from diffphycon_tpu_torch.nets.burgers_operator import SurrogateOperator, transition
 from diffphycon_tpu_torch.nets.unet2d import UNet2D
 from diffphycon_tpu_torch.nets.unet2dv2 import ForceUNet, UNet2Dv2, WSConv2d
 from diffphycon_tpu_torch.nets.unet3d import UNet3D
@@ -105,6 +107,15 @@ def test_port_surrogate_files(tmp_path):
                             device="cpu")
 
 
+def _operator_case():
+    """The operator's latent step (``transition``: both coders' encoders and
+    decoders and the transition conv) over two frames of ``rollout``."""
+    op = SurrogateOperator(s=16, s_ob=16, device="cpu")
+    u, f = torch.from_numpy(rand(2, 16)), torch.from_numpy(rand(2, 2, 16, seed=1))
+    return op, lambda: (op(u, f), *transition(op.net_f, op.net_u, op.net_trans, u[:, None],
+                                              f[:, :1]))
+
+
 _TF32_CASES = {
     "unet3d_remat_all": lambda: (UNet3D(dim=8, dim_mults=(1, 2), channels=3, remat_all=True),
                                  (rand(1, 4, 8, 8, 3), np.array([3.0]))),
@@ -112,6 +123,10 @@ _TF32_CASES = {
                          (rand(2, 16, 16, 3), np.array([0.1, -0.2]))),
     "force_unet": lambda: (ForceUNet(channels=4, **SMALL), (rand(2, 16, 16, 4),)),
     "unet2d": lambda: (UNet2D(dim=8, dim_mults=(1, 2)), (rand(1, 16, 32, 2), np.array([5.0]))),
+    "surrogate_operator": _operator_case,
+    "conv_gauss_policy": lambda: (ConvGaussPolicy(3, 2, features=8), (rand(2, 16, 16, 3),)),
+    "conv_q": lambda: (ConvQ(5, 16, features=8, hidden_dim=16),
+                       (rand(2, 16, 16, 3), rand(2, 16, 16, 2, seed=1))),
 }
 
 
@@ -123,8 +138,9 @@ def test_port_conv_backward_runs_without_tf32(name):
     switch at PyTorch's default (on) every conv, recomputes included, and
     every conv weight gradient still sees it off."""
     net, inputs = _TF32_CASES[name]()
-    convs = [m for m in net.modules()
-             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))]
+    run = inputs if callable(inputs) else lambda: net(*(torch.from_numpy(a) for a in inputs))
+    convs = [m for m in net.modules() if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d,
+                                                        nn.ConvTranspose2d, nn.ConvTranspose3d))]
     runs, grads = [], []
     for m in convs:
         m.register_forward_pre_hook(lambda *_: runs.append(torch.backends.cudnn.allow_tf32))
@@ -132,7 +148,8 @@ def test_port_conv_backward_runs_without_tf32(name):
     prev = torch.backends.cudnn.allow_tf32
     try:
         torch.backends.cudnn.allow_tf32 = True
-        net(*(torch.from_numpy(a) for a in inputs)).square().sum().backward()
+        out = run()
+        sum(o.square().sum() for o in (out if isinstance(out, tuple) else (out,))).backward()
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert len(grads) == len(convs)

@@ -186,10 +186,3 @@ def test_port_mpc_plan_matches_jax_on_surrogates():
     assert_close(out[0], ref[0], 1e-4)
     assert_close(out[1], ref[1], 1e-4)
 
-
-def test_port_mpc_lbfgs_raises_and_names_roadmap():
-    _, tppl = _stub_pipelines()
-    s0, b0 = _inputs(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, MPC_LBFGS"):
-        tmpc.mpc_receding_horizon(tppl, _t(s0), _t(b0), torch.zeros(2), frames=3,
-                                  optimizer="lbfgs")
