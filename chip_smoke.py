@@ -155,6 +155,23 @@ The RL environments (``baselines/envs.py``; K4 is the smoke env's kernel):
    bc, bppo and sac with RL_JELLY_CUT; the apps' default runs projected
    from these times. Run alone: ``chip_smoke.rl_env_phase(torch, smi)``.
 
+The remaining modules (the last slice: no kernel of its own; K1-K3, K5, K6
+carry every UNet2D forward in it):
+15. at full width: 20 guided DDPM steps at batch 50 with
+   ``fuse_two_models`` (the prior forward on a second CUDA stream) in turns
+   with the two-call step from the same x_T and noises (outputs within
+   DDIM_RTOL, exact launch counts, steps/s and a 3-step profile of each);
+   three post-hoc-guidance DDPM steps (``guidance_u0=False``) through the
+   kernels against the plain forwards; the pred_x0 / pred_v losses at
+   batch 16 through the kernels against the plain forwards; a one-rank
+   NCCL group (``parallel.make_mesh``): the DDP trainer's first loss and
+   gradients against the plain trainer's (GRAD_RTOL), both timed per step
+   in turns, ``apps/train_burgers.py`` ``main()`` for DDP_APP_STEPS steps
+   under the group, and batch-sharded guided DDIM at batch 50 against
+   ``gd.sample``; a reference Trainer file round trip on CUDA; ``ks_solve``
+   at batch 32 on CUDA against the CPU (KS_RTOL), timed. Run alone:
+   ``chip_smoke.remaining_modules_phase`` (its docstring).
+
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8, with its phase-14 launches beside
 the smoke main path's; K7: sums over the five pair shapes;
@@ -2136,6 +2153,311 @@ def rl_env_phase(torch, smi_line):
     return launches
 
 
+FUSE_STEPS = 20      # phase 15: guided DDPM steps per timed run, fused and two-call
+POST_HOC_T = (500, 499, 498)  # phase 15: post-hoc-guidance DDPM steps
+DDP_APP_STEPS = 5    # phase 15: train_burgers steps under the one-rank NCCL group
+DDP_WINDOWS, DDP_WINDOW_STEPS = 3, 4  # phase 15: timed windows per turn, steps each
+KS_B = 32
+# KS over 400 ETDRK4 steps: a relative perturbation of 1e-7 in u0 grows to
+# 5e-7 of max |u| (measured on the CPU at batch 32), cuFFT and pocketfft
+# differ by summation order: 1e-4 leaves two orders of margin
+KS_RTOL = 1e-4
+
+
+def _ddpm_run(torch, gd, x, ts, cond_vals, guidance, noises):
+    """x after the DDPM steps ts with the given noises, and the seconds."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for t, noise in zip(ts, noises):
+        x = gd.ddpm_step(x, t, cond_vals, guidance, noise=noise)
+    torch.cuda.synchronize()
+    return x, time.perf_counter() - tic
+
+
+def remaining_modules_phase(torch, smi_line, per_forward):
+    """Phase 15: the modules of the last port slice at full width (UNet2D
+    dim 64, mults (1, 2, 4, 8)): fuse_two_models against the two-call step,
+    post-hoc guidance, the pred_x0 / pred_v losses, a one-rank NCCL
+    data-parallel trainer and train app, batch-sharded sampling, a reference
+    checkpoint round trip and the KS solver. per_forward: the kernel
+    launches of one UNet2D forward. Run alone:
+    ``chip_smoke.remaining_modules_phase(torch, smi, chip_smoke.expected_counts(
+    chip_smoke.main_path_calls(64, (1, 2, 4, 8), 50)))``."""
+    import torch.distributed as dist
+
+    from diffphycon_tpu_torch.apps import train_burgers
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.diffusion import GaussianDiffusion
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.parallel import make_mesh, sample_sharded
+    from diffphycon_tpu_torch.parallel.dryrun import free_port
+    from diffphycon_tpu_torch.physics import ks
+    from diffphycon_tpu_torch.training import data
+    from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from diffphycon_tpu_torch.utils.convert import load_reference_checkpoint_unet2d
+
+    work = os.path.join("build", "chip_smoke")
+    data_root = os.path.join(work, "data")
+    t_phase = time.time()
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+    net = bench.init_params(cfg, seed=0, device="cuda")
+    net_w = bench.init_params(cfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    u_target = torch.randn(B, 11, 128, generator=gen, device="cuda")
+    cond_vals = {"u0": u_target[:, 0, :] / bench.RESCALER,
+                 "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfg, u_target, wu=1000.0)
+
+    def step_counts(n_forwards):
+        return {k: n_forwards * v for k, v in per_forward.items()}
+
+    # 15a. fuse_two_models: the same x_T and noises through the two-call and
+    # the fused step, in turns (two-call, fused, fused, two-call)
+    t0 = time.time()
+    gd_two = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
+    gd_fused = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
+    gd_fused.fuse_two_models = True
+    ts = gd_two.sample_ts()[2:2 + FUSE_STEPS]
+    x_t = gd_two.sample_init(B, gen)
+    noises = [torch.randn(x_t.shape, generator=gen, device="cuda") for _ in ts]
+    with torch.no_grad():
+        for gd in (gd_two, gd_fused):  # warm-up
+            _ddpm_run(torch, gd, x_t, ts[:2], cond_vals, guidance, noises[:2])
+        runs = {"two_call": [], "fused": []}
+        outs = {}
+        for name in ("two_call", "fused", "fused", "two_call"):
+            gd = gd_fused if name == "fused" else gd_two
+            kb.reset_launch_counts()
+            outs[name], dt = _ddpm_run(torch, gd, x_t, ts, cond_vals, guidance, noises)
+            counts = kb.launch_counts()
+            runs[name].append(FUSE_STEPS / dt)
+            if counts != step_counts(2 * FUSE_STEPS):
+                fail(f"{name} guided DDPM: launches {counts} != "
+                     f"{step_counts(2 * FUSE_STEPS)} (two forwards a step)")
+        busy = {}
+        for name, gd in (("two_call", gd_two), ("fused", gd_fused)):
+            wall_ms, dev_ms, rows = profile_window(
+                torch, lambda: _ddpm_run(torch, gd, x_t, ts[:3], cond_vals, guidance,
+                                         noises[:3]))
+            busy[name] = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
+                          "busy_share": dev_ms / wall_ms}
+    err = (outs["fused"] - outs["two_call"]).abs().max().item()
+    tol = DDIM_RTOL * max(1.0, outs["two_call"].abs().max().item())
+    emit({"phase": "fuse_two_models", "batch": B, "steps": FUSE_STEPS,
+          "order": ["two_call", "fused", "fused", "two_call"],
+          "steps_per_sec": runs, "launches_per_step": step_counts(2),
+          "bit_equal": bool(torch.equal(outs["fused"], outs["two_call"])),
+          "max_abs_err": err, "tol": tol, "profile": busy, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if not err <= tol or not torch.isfinite(outs["fused"]).all():
+        fail(f"fused guided DDPM differs from the two-call step: {err} > {tol}")
+    del outs, noises
+
+    # 15b. post-hoc guidance (guidance_u0=False): kernel against plain
+    # forwards, the same noises for both DDPM passes of each step
+    t0 = time.time()
+    gd_post = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
+    gd_post_plain = bench.build_diffusion(cfg, net.forward_plain,
+                                          model_w=net_w.forward_plain, device="cuda")
+    x = torch.randn(x_t.shape, generator=gen, device="cuda")
+    noise_pairs = [(torch.randn(x.shape, generator=gen, device="cuda"),
+                    torch.randn(x.shape, generator=gen, device="cuda")) for _ in POST_HOC_T]
+    results = []
+    with torch.no_grad():
+        for gd in (gd_post, gd_post_plain):
+            gd.guidance_u0 = False
+            kb.reset_launch_counts()
+            y = x
+            for t, (n1, n2) in zip(POST_HOC_T, noise_pairs):
+                y = gd.ddpm_step(y, t, cond_vals, guidance, noise=n1, guided_noise=n2)
+            torch.cuda.synchronize()
+            results.append((y, kb.launch_counts()))
+    (y_k, counts), (y_p, _) = results
+    err = (y_k - y_p).abs().max().item()
+    tol = DDIM_RTOL * max(1.0, y_p.abs().max().item())
+    emit({"phase": "post_hoc_guidance", "batch": B, "steps": list(POST_HOC_T),
+          "max_abs_err": err, "tol": tol, "launches": counts,
+          "finite": bool(torch.isfinite(y_k).all()), "seconds": round(time.time() - t0, 3)})
+    if not err <= tol or not torch.isfinite(y_k).all():
+        fail(f"post-hoc guided DDPM: kernel forwards differ from plain: {err} > {tol}")
+    if counts != step_counts(2 * len(POST_HOC_T)):
+        fail(f"post-hoc guided DDPM: launches {counts} != {step_counts(2 * len(POST_HOC_T))}")
+    del gd_two, gd_fused, gd_post, gd_post_plain
+
+    # 15c. the pred_x0 / pred_v objectives at batch 16: kernel against plain
+    t0 = time.time()
+    u, f = data.synthetic_burgers(64, seed=0, cache_dir=os.path.join(data_root, "synthetic"),
+                                  device="cuda")
+    stacked = data.stack_burgers_uf(u, f, rescaler=bench.RESCALER)
+    xb = torch.from_numpy(stacked[:TRAIN_B]).cuda()
+    cond = bench.build_diffusion(cfg, net, device="cuda").cond
+    objectives = {}
+    for objective in ("pred_x0", "pred_v"):
+        gds = [GaussianDiffusion(m, sample_shape=(cfg.pad_t, cfg.nx, 2), objective=objective,
+                                 cond=cond, device="cuda")
+               for m in (net, net.forward_plain)]
+        t, noise = gds[0].draw_t_noise(xb, gen)
+        net.zero_grad(set_to_none=True)
+        kb.reset_launch_counts()
+        loss_k = gds[0].p_losses(xb, t, bench.derive_cond(xb), noise)
+        loss_k.backward()
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        grads_finite = all(torch.isfinite(p.grad).all() for p in net.parameters())
+        with torch.no_grad():
+            loss_p = gds[1].p_losses(xb, t, bench.derive_cond(xb), noise)
+        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        objectives[objective] = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+                                 "rel_err": rel, "grads_finite": grads_finite,
+                                 "launches": counts}
+        if not rel <= UNET_RTOL or not grads_finite:
+            fail(f"{objective} p_losses: kernels {loss_k.item()} vs plain {loss_p.item()} "
+                 f"(rel {rel} > {UNET_RTOL}) or non-finite gradients")
+        if counts != step_counts(1):
+            fail(f"{objective} p_losses: launches {counts} != {step_counts(1)}")
+    net.zero_grad(set_to_none=True)
+    emit({"phase": "objectives", "batch": TRAIN_B, "tol": UNET_RTOL, **objectives,
+          "seconds": round(time.time() - t0, 3)})
+
+    # 15d. data parallel: a one-rank NCCL group (one card), the DDP trainer's
+    # first step against the plain trainer's, both timed in turns, the train
+    # app under the group, then batch-sharded sampling
+    t0 = time.time()
+    mesh = make_mesh(device="cuda", rank=0, world_size=1, local_rank=0,
+                     init_method=f"tcp://localhost:{free_port()}")
+    try:
+        trainers = {}
+        for name in ("plain", "ddp"):
+            m = bench.init_params(cfg, seed=0, device="cuda").train()
+            trainers[name] = Trainer(
+                bench.build_diffusion(cfg, m, device="cuda"), m,
+                data.ArrayDataset(stacked).batches(TRAIN_B, seed=1), bench.derive_cond,
+                TrainerConfig(results_folder=os.path.join(work, f"ddp_{name}"), seed=3),
+                mesh=mesh if name == "ddp" else None, device=None if name == "ddp" else "cuda")
+        if trainers["ddp"].ddp is None:
+            fail("the one-rank NCCL mesh did not wrap the model in DistributedDataParallel")
+        first = {}
+        for name, tr in trainers.items():
+            kb.reset_launch_counts()
+            loss = tr.compute_grads(xb).item()
+            torch.cuda.synchronize()
+            first[name] = (loss, {n: p.grad.detach().clone()
+                                  for n, p in zip(tr.param_names, tr.params)},
+                           kb.launch_counts())
+        rel = {n: ((first["ddp"][1][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+               for n, g in first["plain"][1].items()}
+        worst = max(rel.values())
+        loss_rel = abs(first["ddp"][0] - first["plain"][0]) / abs(first["plain"][0])
+        bit_equal = all(torch.equal(first["ddp"][1][n], g) for n, g in first["plain"][1].items())
+        del first
+        for tr in trainers.values():
+            tr.apply_gradients()
+        timing = {"plain": [], "ddp": []}
+        for name in ("plain", "ddp", "ddp", "plain"):
+            tr = trainers[name]
+            tr.train_step(next(tr.batch_iter))  # warm-up
+            # the median of DDP_WINDOWS windows of DDP_WINDOW_STEPS steps
+            timing[name].append(1e3 / DDP_WINDOW_STEPS * _median_s(
+                torch, lambda: [tr.train_step(next(tr.batch_iter))
+                                for _ in range(DDP_WINDOW_STEPS)], DDP_WINDOWS))
+        del trainers
+        emit({"phase": "ddp_step", "world_size": mesh.world_size, "backend": dist.get_backend(),
+              "batch": TRAIN_B, "loss_rel_err": loss_rel, "max_rel_grad_err": worst,
+              "grads_bit_equal": bit_equal, "tol": GRAD_RTOL,
+              "order": ["plain", "ddp", "ddp", "plain"], "ms_per_step": timing,
+              "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+        if not (worst <= GRAD_RTOL and loss_rel <= GRAD_RTOL):
+            fail(f"the DDP step differs from the plain step: loss {loss_rel}, grads {worst}")
+
+        t0 = time.time()
+        folder = os.path.join(work, "trained_models", "burgers", "ddp")
+        shutil.rmtree(folder, ignore_errors=True)
+        args = train_burgers.build_parser().parse_args([
+            "--synthetic_data", "64", "--batch_size", str(TRAIN_B), "--train_num_steps",
+            str(DDP_APP_STEPS), "--checkpoint_interval", str(DDP_APP_STEPS),
+            "--is_condition_u0", "True", "--is_condition_uT", "True", "--data_root", data_root,
+            "--results_folder", folder, "--seed", "0"])
+        kb.reset_launch_counts()
+        trainer = train_burgers.main(args)
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        log = [json.loads(line) for line in open(os.path.join(folder, "train_log.jsonl"))]
+        emit({"phase": "ddp_train_app", "app": "diffphycon_tpu_torch/apps/train_burgers.py",
+              "steps": trainer.step, "ddp": trainer.ddp is not None, "launches": counts,
+              "log": log, "seconds": round(time.time() - t0, 3)})
+        if trainer.ddp is None or trainer.step != DDP_APP_STEPS:
+            fail(f"train app under the mesh: ddp {trainer.ddp is not None}, step {trainer.step}")
+        if counts != step_counts(DDP_APP_STEPS):
+            fail(f"train app under the mesh: launches {counts} != {step_counts(DDP_APP_STEPS)}")
+        if not log or not all(math.isfinite(r["loss"]) for r in log):
+            fail(f"train app under the mesh: non-finite or missing losses {log}")
+        del trainer
+
+        t0 = time.time()
+        cfg_ddim = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True,
+                                       using_ddim=True, ddim_sampling_steps=10)
+        gd = bench.build_diffusion(cfg_ddim, net, model_w=net_w, device="cuda")
+        with torch.no_grad():
+            kb.reset_launch_counts()
+            tic = time.perf_counter()
+            xs = sample_sharded(mesh, gd, B, cond_vals, guidance,
+                                torch.Generator(device="cuda").manual_seed(4))
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - tic
+            counts = kb.launch_counts()
+            ref = gd.sample(B, cond_vals, guidance, torch.Generator(device="cuda").manual_seed(4))
+        err = (xs - ref).abs().max().item()
+        tol = DDIM_RTOL * max(1.0, ref.abs().max().item())
+        emit({"phase": "sharded_sampling", "world_size": mesh.world_size, "batch": B,
+              "sampler": "ddim 10 steps, eta 0, two models, wu=1000", "max_abs_err": err,
+              "tol": tol, "seconds_sampling": sharded_s, "launches": counts,
+              "seconds": round(time.time() - t0, 3)})
+        if not err <= tol or not torch.isfinite(xs).all():
+            fail(f"sharded sampling differs from gd.sample: {err} > {tol}")
+        if counts != step_counts(2 * 10):
+            fail(f"sharded sampling: launches {counts} != {step_counts(20)}")
+    finally:
+        dist.destroy_process_group()
+
+    # 15e. a reference Trainer checkpoint written from the net and loaded on
+    # CUDA
+    t0 = time.time()
+    path = os.path.join(work, "reference_model.pt")
+    torch.save({"step": 1, "model": {f"model.{k}": v.cpu() for k, v in net_w.state_dict().items()},
+                "ema": {f"ema_model.model.{k}": v.cpu() for k, v in net.state_dict().items()},
+                "opt": {}, "scaler": None, "loss": 0.0}, path)
+    loaded = load_reference_checkpoint_unet2d(bench.build_unet(cfg, "cuda"), path)
+    x = torch.randn(B, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
+    tt = torch.linspace(0, 999, B, device="cuda")
+    with torch.no_grad():
+        same = torch.equal(loaded(x, tt), net(x, tt))
+    emit({"phase": "reference_checkpoint", "file_mb": os.path.getsize(path) / 1e6,
+          "forward_bit_equal": same, "seconds": round(time.time() - t0, 3)})
+    if not same:
+        fail("the reference checkpoint's EMA weights do not give the net's forward")
+    os.remove(path)
+
+    # 15f. the KS solver at batch 32: CUDA against the CPU, timed
+    t0 = time.time()
+    u0, f = (torch.from_numpy(a) for a in ks.make_ks_data(KS_B, seed=0))
+    ref = ks.ks_solve(u0, f)
+    ks.ks_solve(u0.cuda(), f.cuda())  # warm-up (cuFFT plans)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = ks.ks_solve(u0.cuda(), f.cuda())
+    torch.cuda.synchronize()
+    ks_s = time.perf_counter() - tic
+    err = (out.cpu() - ref).abs().max().item()
+    tol = KS_RTOL * max(1.0, ref.abs().max().item())
+    emit({"phase": "ks_solve", "batch": KS_B, "frames": 10, "substeps": 40,
+          "seconds_cuda": ks_s, "us_per_step": 1e6 * ks_s / 400, "max_abs_err": err,
+          "tol": tol, "finite": bool(torch.isfinite(out).all()), "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if not err <= tol or not torch.isfinite(out).all():
+        fail(f"ks_solve on CUDA differs from the CPU: {err} > {tol}")
+    emit({"phase": "remaining_modules_done", "seconds": round(time.time() - t_phase, 3)})
+
+
 def jellyfish_phase(torch, smi_line):
     """Phase 12: the jellyfish pipeline at full width: synthetic sims,
     force labels, the three surrogates (UNet2Dv2 / ForceUNet dim 64, mults (1,
@@ -2598,6 +2920,9 @@ def main() -> int:
 
     # -- 14. the smoke and jellyfish RL environments and apps ----------------
     rl_launches = rl_env_phase(torch, smi_line)
+
+    # -- 15. fuse_two_models, objectives, DDP, reference files, KS -----------
+    remaining_modules_phase(torch, smi_line, fwd_counts)
 
     # -- kernels line ---------------------------------------------------------
     kernels = []

@@ -4,7 +4,10 @@
 Port of ``apps/train_burgers.py`` (the reference's train_1d_burgers.py flag
 names), plus ``--device`` (default cuda; ``--cpu`` means ``--device cpu``).
 The UNet2D forward runs through the port's hand-written kernels; their
-backward is the VJP of the plain versions. Checkpoints are torch files under
+backward is the VJP of the plain versions. Under ``torchrun
+--nproc_per_node N`` it trains data-parallel, one GPU a rank, on global
+batches of ``--batch_size`` (``parallel.make_mesh``); run plainly it
+trains on one device. Checkpoints are torch files under
 ``<results_folder>/ckpt/<step>/`` (default results folder
 ``./trained_models/{burgers|burgers_w}/<exp_id>/``), which
 ``apps/infer_burgers.py --checkpoint`` reads.
@@ -16,6 +19,8 @@ Examples:
       --is_condition_u0 True --is_condition_uT True
   python -m diffphycon_tpu_torch.apps.train_burgers --synthetic_data 2048 \\
       --train_num_steps 2000
+  torchrun --nproc_per_node 4 -m diffphycon_tpu_torch.apps.train_burgers \\
+      --batch_size 64 --is_condition_u0 True --is_condition_uT True
 """
 
 from __future__ import annotations
@@ -79,11 +84,12 @@ def build_parser():
 def main(args):
     """Train; returns the Trainer (its ``step`` is the final step)."""
     from diffphycon_tpu_torch.benchmarks import burgers as bench
-    from diffphycon_tpu_torch.device import resolve_device
+    from diffphycon_tpu_torch.parallel import make_mesh
     from diffphycon_tpu_torch.training import data
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    device = resolve_device("cpu" if args.cpu else args.device)
+    mesh = make_mesh(device="cpu" if args.cpu else args.device)
+    device = mesh.device
     cfg = bench.BurgersConfig(
         dim=args.dim,
         dim_mults=tuple(args.dim_mults),
@@ -106,10 +112,11 @@ def main(args):
     )
 
     if args.synthetic_data > 0:
-        u, f = data.synthetic_burgers(
-            args.synthetic_data, seed=args.seed,
-            partial_control=args.synthetic_partial_control,
-            cache_dir=os.path.join(args.data_root, "synthetic"), device=device)
+        with mesh.main_first():  # rank 0 writes the cache the others read
+            u, f = data.synthetic_burgers(
+                args.synthetic_data, seed=args.seed,
+                partial_control=args.synthetic_partial_control,
+                cache_dir=os.path.join(args.data_root, "synthetic"), device=device)
     else:
         u, f = data.load_burgers_h5(
             os.path.join(args.data_root, args.dataset, "burgers_train.h5"), "train")
@@ -130,7 +137,7 @@ def main(args):
         seed=args.seed,
     )
     trainer = Trainer(gd, net, data.ArrayDataset(stacked).batches(args.batch_size, seed=args.seed),
-                      bench.derive_cond, tcfg, device=device)
+                      bench.derive_cond, tcfg, mesh=mesh)
     if args.resume:
         if trainer.resume():
             print(f"resumed from step {trainer.step}", flush=True)

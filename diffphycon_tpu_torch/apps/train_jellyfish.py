@@ -12,7 +12,9 @@ routes its loss to ``JellyfishDiffusion.loss``. ``--remat_all`` (default
 True) recomputes every UNet3D block in the backward, which carries the
 double backward and changes no number. Checkpoints are torch files under
 ``<results_folder>/ckpt/<step>/`` (default ``./trained_models/{jellyfish,
-jellyfish_w}/``), which ``apps/infer_jellyfish.py`` reads.
+jellyfish_w}/``), which ``apps/infer_jellyfish.py`` reads. Under ``torchrun
+--nproc_per_node N`` it trains data-parallel, one GPU a rank, on global
+batches of ``--batch_size``.
 
 Example:
   python -m diffphycon_tpu_torch.apps.train_jellyfish \\
@@ -68,7 +70,7 @@ class _GD:
     def draw_t_noise(self, batch, generator):
         return self.gd.draw(batch, generator, self.model_type)
 
-    def p_losses(self, batch, t, cond, noise):
+    def loss(self, batch, cond, t, noise):
         del cond
         return self.gd.loss(batch, t, noise, self.model_type)
 
@@ -93,16 +95,18 @@ def main(args):
     import torch
 
     from diffphycon_tpu_torch.benchmarks import jellyfish as bench
-    from diffphycon_tpu_torch.device import resolve_device
+    from diffphycon_tpu_torch.parallel import make_mesh
     from diffphycon_tpu_torch.training.data import load_jellyfish_dataset, synthetic_jellyfish
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device)
+    device = mesh.device
     if args.synthetic_data > 0:
         train_dir = os.path.join(args.dataset_path, "train_data")
-        if not os.path.exists(os.path.join(train_dir, "states")):
-            print(f"generating {args.synthetic_data} synthetic sims...", flush=True)
-            synthetic_jellyfish(args.synthetic_data, train_dir, seed=args.seed)
+        with mesh.main_first():  # rank 0 writes the sims the others read
+            if not os.path.exists(os.path.join(train_dir, "states")):
+                print(f"generating {args.synthetic_data} synthetic sims...", flush=True)
+                synthetic_jellyfish(args.synthetic_data, train_dir, seed=args.seed)
     cfg = bench.JellyfishConfig(dim=args.dim, dim_mults=tuple(args.dim_mults),
                                 frames=args.frames, cond_steps=args.cond_steps,
                                 only_vis_pressure=args.only_vis_pressure, bf16=args.bf16,
@@ -125,7 +129,7 @@ def main(args):
         lr_schedule="multistep", seed=args.seed)
     trainer = Trainer(_GD(gd, args.model_type), net,
                       window_batches(states, bd, thetas, args.batch_size, cfg.frames, args.seed),
-                      lambda b: None, tcfg, device=device)
+                      lambda b: None, tcfg, mesh=mesh)
     if args.resume:
         if trainer.resume():
             print(f"resumed from step {trainer.step}", flush=True)

@@ -10,7 +10,9 @@ pin of its channel 0. ``--remat_all`` (default True) recomputes every UNet3D
 block in the backward (``torch.utils.checkpoint``), a memory switch that
 leaves the numbers as they are. Checkpoints are torch files under
 ``<results_folder>/ckpt/<step>/`` (default ``./trained_models/{smoke,
-smoke_w}/``), which ``apps/infer_smoke.py`` reads.
+smoke_w}/``), which ``apps/infer_smoke.py`` reads. Under ``torchrun
+--nproc_per_node N`` it trains data-parallel, one GPU a rank, on global
+batches of ``--batch_size``.
 
 Examples:
   python -m diffphycon_tpu_torch.apps.train_smoke --dataset_path data/smoke
@@ -56,12 +58,13 @@ def main(args):
     import torch
 
     from diffphycon_tpu_torch.benchmarks import smoke as bench
-    from diffphycon_tpu_torch.device import resolve_device
     from diffphycon_tpu_torch.diffusion import smoke_derive_cond
+    from diffphycon_tpu_torch.parallel import make_mesh
     from diffphycon_tpu_torch.training.data import ArrayDataset, load_smoke_dataset
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    device = resolve_device("cpu" if args.cpu else args.device)
+    mesh = make_mesh(device="cpu" if args.cpu else args.device)
+    device = mesh.device
     cfg = bench.SmokeConfig(dim=args.dim, dim_mults=tuple(args.dim_mults), frames=args.frames,
                             image_size=args.image_size, is_w_model=args.is_w_model,
                             beta_schedule=args.beta_schedule, bf16=args.bf16,
@@ -85,7 +88,7 @@ def main(args):
         seed=args.seed,
     )
     trainer = Trainer(gd, net, ArrayDataset(data).batches(args.batch_size, seed=args.seed),
-                      smoke_derive_cond, tcfg, device=device)
+                      smoke_derive_cond, tcfg, mesh=mesh)
     if args.resume:
         if trainer.resume():
             print(f"resumed from step {trainer.step}", flush=True)

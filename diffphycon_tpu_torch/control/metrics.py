@@ -4,7 +4,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -20,11 +20,18 @@ def _observed_slice(a, partially_observed: Optional[str]):
     raise NotImplementedError(partially_observed)
 
 
-def mse_deviation(u1, u2, partially_observed=None):
-    """Per-sample MSE over (Nt, Nx); u1, u2: (B, Nt, Nx)."""
+def mse_deviation(u1, u2, partially_observed=None, report_all: bool = False):
+    """Per-sample MSE over (Nt, Nx); u1, u2: (B, Nt, Nx). With report_all,
+    (mse, mae, nmse, nmae), normalised by the mean of (u2 + 1e-5)^2 and of
+    |u2 + 1e-5| over the batch."""
     u1 = _observed_slice(u1, partially_observed)
     u2 = _observed_slice(u2, partially_observed)
-    return ((u1 - u2) ** 2).mean(dim=(-1, -2))
+    mse = ((u1 - u2) ** 2).mean(dim=(-1, -2))
+    if not report_all:
+        return mse
+    mae = (u1 - u2).abs().mean(dim=(-1, -2))
+    ep = 1e-5
+    return mse, mae, mse / ((u2 + ep) ** 2).mean(), mae / (u2 + ep).abs().mean()
 
 
 def _torch_median(a):
@@ -34,9 +41,13 @@ def _torch_median(a):
 
 def burgers_metric(u_target, f, partial_control: Optional[str] = "full",
                    report_all: bool = False, diffused_u=None, evaluate_u: bool = False,
-                   partially_observed: Optional[str] = None):
+                   partially_observed: Optional[str] = None,
+                   solver: Optional[Callable] = None):
     """J_actual (final-state deviation of the re-simulated trajectory) and
-    control energy. u_target: (B, Nt, Nx) unscaled; f: (B, Nt-1, Nx)."""
+    control energy. u_target: (B, Nt, Nx) unscaled; f: (B, Nt-1, Nx).
+    solver: fn(u0 (B, Nx), f) -> (B, Nt, Nx) re-simulating the control
+    (default the Burgers solver at visc 0.01, dt 1e-4), run without a
+    gradient."""
     if partial_control == "front_rear_quarter":
         nx = f.shape[-1]
         f = f.clone()
@@ -45,9 +56,11 @@ def burgers_metric(u_target, f, partial_control: Optional[str] = "full",
     if evaluate_u:
         u_controlled = diffused_u
     else:
-        with torch.no_grad():  # a score: no graph through the 10^4 steps
-            u_controlled = burgers_solve(u_target[:, 0, :], f, visc=0.01, T=1.0, dt=1e-4,
-                                         num_t=f.shape[1])
+        if solver is None:
+            def solver(u0, ff):
+                return burgers_solve(u0, ff, visc=0.01, T=1.0, dt=1e-4, num_t=ff.shape[1])
+        with torch.no_grad():  # a score: no graph through the solver
+            u_controlled = solver(u_target[:, 0, :], f)
 
     u_controlled = _observed_slice(u_controlled, partially_observed)
     u_tgt = _observed_slice(u_target, partially_observed)

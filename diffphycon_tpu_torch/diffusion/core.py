@@ -18,10 +18,15 @@ reweighting is deferred: guidance is taken at the x_start of the
 unreweighted joint eps, and ``scale * g + (gamma - 1) * eps_w`` is added
 after it.
 
-Only the pred_noise objective is ported (``loss_weight`` is all ones).
-Not ported yet: ``fuse_two_models``, the pred_x0/pred_v objectives,
-post-hoc guidance (``guidance_u0=False``) and ``CondSpec.transform``
-(jellyfish).
+The objectives pred_noise, pred_x0 and pred_v (with their ``loss_weight``
+1, snr and snr / (snr + 1)), post-hoc guidance (``guidance_u0=False``: the
+DDPM step redone with the guided noise), ``CondSpec.transform`` and
+``normalize`` / ``unnormalize`` are the JAX core's. ``fuse_two_models``
+runs the joint and prior forwards of a two-model step concurrently on two
+CUDA streams (JAX stacks both parameter sets into one vmapped forward); on
+the CPU they run one after the other, and the result is the two-call
+step's. JAX's ``scan_unroll`` is a ``lax.scan`` knob with no counterpart in
+a Python loop over steps, so it is absent.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import torch
 
 from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.diffusion.schedules import BETA_SCHEDULES
+
+OBJECTIVES = ("pred_noise", "pred_x0", "pred_v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +68,10 @@ class DiffusionConstants:
 
     @classmethod
     def create(cls, timesteps: int, beta_schedule: str = "cosine",
-               device=None) -> "DiffusionConstants":
+               objective: str = "pred_noise", device=None) -> "DiffusionConstants":
         """The buffers on ``device`` (default CUDA, see resolve_device);
-        ``loss_weight`` is pred_noise's, all ones."""
+        ``loss_weight`` is the objective's: 1 (pred_noise), snr (pred_x0) or
+        snr / (snr + 1) (pred_v)."""
         device = resolve_device(device)
         betas = np.asarray(BETA_SCHEDULES[beta_schedule](timesteps), np.float64)
         alphas = 1.0 - betas
@@ -71,6 +79,11 @@ class DiffusionConstants:
         acp = np.cumprod(alphas)
         acp_prev = np.concatenate([[1.0], acp[:-1]])
         posterior_variance = betas * (1.0 - acp_prev) / (1.0 - acp)
+        snr = acp / (1 - acp)
+        if objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {objective!r}; one of {OBJECTIVES}")
+        loss_weight = {"pred_noise": np.ones_like(snr), "pred_x0": snr,
+                       "pred_v": snr / (snr + 1)}[objective]
 
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32,
@@ -91,8 +104,12 @@ class DiffusionConstants:
                 np.log(np.clip(posterior_variance, 1e-20, None))),
             posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
             posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
-            loss_weight=f32(np.ones_like(betas)),
+            loss_weight=f32(loss_weight),
         )
+
+
+def _identity(x):
+    return x
 
 
 def _identity2(x, cond):
@@ -108,7 +125,9 @@ class CondSpec:
     """Conditioning as pure functions of (tensor, cond dict), as the JAX
     ``CondSpec``: pin overwrites the conditioned slices, w_zero_input /
     w_zero_output blank the state for the prior p(w) model, sampling_mask is
-    an extra per-step projection. Training: zero_target zeroes the noise
+    an extra per-step projection and transform, when given, fn(x_new,
+    x_start, cond, t) -> x_new, is applied after each sampling step's
+    posterior update (DDPM and DDIM). Training: zero_target zeroes the noise
     target at conditioned slices; loss_mask_pre / loss_mask_post (fn(model_out,
     target, cond)) replace model outputs by the target where no loss should
     flow, before and after the target is zeroed."""
@@ -120,6 +139,7 @@ class CondSpec:
     sampling_mask: Callable = _identity2
     loss_mask_pre: Callable = _keep_model_out
     loss_mask_post: Callable = _keep_model_out
+    transform: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,25 +158,37 @@ class GaussianDiffusion:
 
     model: fn(x, t) -> model output, t a (B,) float32 tensor (the joint or
     only model). model_w: the prior p(w) model for two-model sampling with
-    prior reweighting. Other arguments as in the JAX ``GaussianDiffusion``
-    (objective pred_noise, guidance applied on x_start). ``device`` defaults
-    to CUDA (see resolve_device).
+    prior reweighting. objective: 'pred_noise' | 'pred_x0' | 'pred_v'.
+    guidance_u0: guidance on x_start inside the prediction (True) or post-hoc
+    on the DDPM step's predicted noise (False; DDIM then takes none).
+    fuse_two_models: the two forwards of a two-model step run concurrently
+    (two CUDA streams). normalize / unnormalize: data <-> model space,
+    applied by :meth:`loss` and at the end of :meth:`sample`. self_condition
+    is recorded as the JAX core records it; no sampler feeds a
+    self-conditioning input, so a self-conditioned net zero-fills it. Other
+    arguments as in the JAX ``GaussianDiffusion``. ``device`` defaults to
+    CUDA (see resolve_device).
     """
 
     def __init__(self, model: Callable, *, sample_shape: tuple,
                  timesteps: int = 1000, sampling_timesteps: Optional[int] = None,
-                 beta_schedule: str = "cosine", ddim_sampling_eta: float = 0.0,
+                 beta_schedule: str = "cosine", objective: str = "pred_noise",
+                 ddim_sampling_eta: float = 0.0,
                  cond: CondSpec = CondSpec(), model_w: Optional[Callable] = None,
                  is_model_w: bool = False, prior_beta: float = 1.0,
                  normalize_beta: bool = False, combine_w_with_guidance: bool = False,
+                 fuse_two_models: bool = False, guidance_u0: bool = True,
                  clip_denoised: bool = True, recurrence: bool = False,
-                 recurrence_k: int = 1, device=None):
+                 recurrence_k: int = 1, self_condition: bool = False,
+                 normalize: Callable = _identity, unnormalize: Callable = _identity,
+                 device=None):
         self.model = model
         self.model_w = model_w
         self.sample_shape = tuple(sample_shape)
         self.device = resolve_device(device)
-        self.consts = DiffusionConstants.create(timesteps, beta_schedule,
+        self.consts = DiffusionConstants.create(timesteps, beta_schedule, objective,
                                                 device=self.device)
+        self.objective = objective
         self.num_timesteps = timesteps
         self.sampling_timesteps = sampling_timesteps or timesteps
         if self.sampling_timesteps > timesteps:
@@ -168,9 +200,15 @@ class GaussianDiffusion:
         self.prior_beta = prior_beta
         self.normalize_beta = normalize_beta
         self.combine_w_with_guidance = combine_w_with_guidance
+        self.fuse_two_models = fuse_two_models
+        self.guidance_u0 = guidance_u0
         self.clip_denoised = clip_denoised
         self.recurrence = recurrence
         self.recurrence_k = recurrence_k
+        self.self_condition = self_condition
+        self.normalize = normalize
+        self.unnormalize = unnormalize
+        self._side_streams: dict = {}
 
     # -- q / prediction helpers --------------------------------------------
 
@@ -214,6 +252,33 @@ class GaussianDiffusion:
 
     # -- model predictions --------------------------------------------------
 
+    def _side_stream(self, device) -> torch.cuda.Stream:
+        stream = self._side_streams.get(device)
+        if stream is None:
+            stream = self._side_streams[device] = torch.cuda.Stream(device)
+        return stream
+
+    def _both_forwards(self, x, x_w, tb):
+        """(model(x, tb), model_w(x_w, tb)). With fuse_two_models on CUDA the
+        prior forward runs on a side stream while the joint forward runs on
+        the current one; the side stream starts after the current stream's
+        work so far (x, x_w and tb are ready) and the current stream waits
+        for it before the outputs are combined. x, x_w and tb stay referenced
+        by the caller until after that join, so the allocator cannot hand
+        their memory to the joint forward while the side stream reads it;
+        the side's output is marked as used on the current stream."""
+        if not (self.fuse_two_models and x.is_cuda):
+            return self.model(x, tb), self.model_w(x_w, tb)
+        main = torch.cuda.current_stream(x.device)
+        side = self._side_stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out_w = self.model_w(x_w, tb)
+        out = self.model(x, tb)
+        main.wait_stream(side)
+        out_w.record_stream(main)
+        return out, out_w
+
     @torch.no_grad()
     def _raw_eps(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec):
         """(eps, eps_w): the model output, with two-model prior reweighting
@@ -222,8 +287,8 @@ class GaussianDiffusion:
         unreweighted and eps_w the embedded prior output."""
         tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         if self.model_w is not None:
-            out = self.model(x, tb)
-            out_w = self.model_w(self.cond.w_zero_input(x, cond_vals), tb)
+            x_w = self.cond.w_zero_input(x, cond_vals)
+            out, out_w = self._both_forwards(x, x_w, tb)
             out_w = self.cond.w_zero_output(out_w, cond_vals)
             if self.combine_w_with_guidance:
                 return out, out_w
@@ -236,24 +301,36 @@ class GaussianDiffusion:
             return self.cond.w_zero_output(out, cond_vals), None
         return self.model(x, tb), None
 
+    def _guidance_scale(self, guidance: GuidanceSpec, t: int):
+        return 1.0 if guidance.j_schedule is None else guidance.j_schedule[t]
+
     def model_predictions(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec,
                           clip_x_start: bool = False,
                           rederive_pred_noise: bool = False):
-        """(pred_noise, x_start), the guidance gradient at x_start folded into
-        the predicted noise."""
-        pred_noise, eps_w = self._raw_eps(x, t, cond_vals, guidance)
+        """(pred_noise, x_start). Under pred_noise the guidance gradient at
+        x_start is folded into the predicted noise (with guidance_u0, or
+        always in the combine_w_with_guidance ordering); pred_x0 and pred_v
+        take no guidance here, as in JAX."""
+        model_out, eps_w = self._raw_eps(x, t, cond_vals, guidance)
 
         def maybe_clip(v):
             return v.clamp(-1.0, 1.0) if clip_x_start else v
 
+        if self.objective == "pred_x0":
+            x_start = maybe_clip(model_out)
+            return self.predict_noise_from_start(x, t, x_start), x_start
+        if self.objective == "pred_v":
+            x_start = maybe_clip(self.predict_start_from_v(x, t, model_out))
+            return self.predict_noise_from_start(x, t, x_start), x_start
+        pred_noise = model_out
         x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
-        scale = 1.0 if guidance.j_schedule is None else guidance.j_schedule[t]
+        scale = self._guidance_scale(guidance, t)
         if eps_w is not None:
             # smoke ordering: grad_final = scale * g + (gamma - 1) * eps_w
             g = 0.0 if guidance.nabla_j is None else guidance.nabla_j(x_start) * scale
             pred_noise = pred_noise + (g + (self.prior_beta - 1.0) * eps_w)
             x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
-        elif guidance.nabla_j is not None:
+        elif self.guidance_u0 and guidance.nabla_j is not None:
             pred_noise = guidance.proj(pred_noise, guidance.nabla_j(x_start) * scale)
             x_start = maybe_clip(self.predict_start_from_noise(x, t, pred_noise))
         if clip_x_start and rederive_pred_noise:
@@ -265,15 +342,22 @@ class GaussianDiffusion:
     def p_losses(self, x_start, t, cond_vals: dict, noise):
         """Denoising loss of one batch, term for term the JAX ``p_losses``.
 
-        x_start: clean batch (B, *spatial, C); t: (B,) int64 timesteps;
-        noise: like x_start; cond_vals: the conditioning arrays derived from
-        x_start. Differentiable through ``self.model``."""
+        x_start: clean batch (B, *spatial, C) in model space; t: (B,) int64
+        timesteps; noise: like x_start; cond_vals: the conditioning arrays
+        derived from the data. The target is the noise (pred_noise), x_start
+        (pred_x0) or v (pred_v), each sample's loss weighted by loss_weight[t].
+        Differentiable through ``self.model``."""
         x = self.q_sample(x_start, t, noise)
         x = self.cond.pin(x, cond_vals)
         if self.is_model_w:
             x = self.cond.w_zero_input(x, cond_vals)
         model_out = self.model(x, t.to(torch.float32))
-        target = noise
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
         # the reference's masking order: the pre mask, then the target zeroed
         # at conditioned slices, then the post mask
         model_out = self.cond.loss_mask_pre(model_out, target, cond_vals)
@@ -288,10 +372,14 @@ class GaussianDiffusion:
                           device=x_start.device)
         return t, self._randn(x_start, generator)
 
-    def loss(self, x_start, cond_vals: dict, generator: torch.Generator):
-        """p_losses at t and noise drawn from ``generator``."""
-        t, noise = self.draw_t_noise(x_start, generator)
-        return self.p_losses(x_start, t, cond_vals, noise)
+    def loss(self, x_start, cond_vals: dict, generator: Optional[torch.Generator] = None,
+             *, t=None, noise=None):
+        """p_losses of ``normalize(x_start)`` (cond_vals derived from the
+        data as given), at t and noise drawn from ``generator`` unless both
+        are given."""
+        if t is None or noise is None:
+            t, noise = self.draw_t_noise(x_start, generator)
+        return self.p_losses(self.normalize(x_start), t, cond_vals, noise)
 
     # -- sampling -----------------------------------------------------------
 
@@ -303,29 +391,49 @@ class GaussianDiffusion:
                            dtype=x.dtype)
 
     def _p_sample_step(self, x, t: int, cond_vals, guidance, noise=None,
-                       generator=None):
-        """One ancestral step x_t -> x_{t-1}. The noise is ``noise`` when
-        given, else drawn from ``generator``; it is masked out at t = 0."""
-        _, x_start = self.model_predictions(x, t, cond_vals, guidance)
+                       generator=None, pred_noise=None):
+        """One ancestral step x_t -> x_{t-1}: (x_{t-1}, x_start, pred_noise).
+        With ``pred_noise`` given the model is not run and x_start comes from
+        it. The noise is ``noise`` when given, else drawn from ``generator``;
+        it is masked out at t = 0."""
+        if pred_noise is None:
+            pred_noise, x_start = self.model_predictions(x, t, cond_vals, guidance)
+        else:
+            x_start = self.predict_start_from_noise(x, t, pred_noise)
         if self.clip_denoised:
             x_start = x_start.clamp(-1.0, 1.0)
         mean, log_var = self.q_posterior(x_start, x, t)
         if noise is None:
             noise = self._randn(x, generator)
         noise = noise * float(t > 0)
-        return mean + torch.exp(0.5 * log_var) * noise
+        return mean + torch.exp(0.5 * log_var) * noise, x_start, pred_noise
 
     def _pin_all(self, x, cond_vals):
         return self.cond.sampling_mask(self.cond.pin(x, cond_vals), cond_vals)
 
+    def _transform(self, x_new, x_start, cond_vals, t: int):
+        if self.cond.transform is None:
+            return x_new
+        return self.cond.transform(x_new, x_start, cond_vals, t)
+
     def ddpm_step(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec,
-                  generator=None, noise=None):
+                  generator=None, noise=None, guided_noise=None):
         """One full DDPM denoise step at time t (pin, predict, guide,
-        posterior, recurrence)."""
+        posterior, transform, recurrence). Post-hoc guidance
+        (guidance_u0=False) redoes the step from the guided predicted noise
+        with a second noise, ``guided_noise`` when given, else drawn."""
         c = self.consts
         for _ in range(self.recurrence_k if self.recurrence else 1):
-            x_new = self._p_sample_step(self._pin_all(x, cond_vals), t, cond_vals,
-                                        guidance, noise=noise, generator=generator)
+            x = self._pin_all(x, cond_vals)
+            x_new, x_start, pred_noise = self._p_sample_step(
+                x, t, cond_vals, guidance, noise=noise, generator=generator)
+            if not self.guidance_u0 and guidance.nabla_j is not None:
+                pred_noise = guidance.proj(
+                    pred_noise, guidance.nabla_j(x_new) * self._guidance_scale(guidance, t))
+                x_new, x_start, _ = self._p_sample_step(
+                    x, t, cond_vals, guidance, noise=guided_noise, generator=generator,
+                    pred_noise=pred_noise)
+            x_new = self._transform(x_new, x_start, cond_vals, t)
             if self.recurrence:
                 # re-noise x_{t-1} -> x_t (Universal Guidance)
                 a_t, a_tm1 = c.alphas[t], c.alphas_prev[t]
@@ -336,26 +444,29 @@ class GaussianDiffusion:
 
     def ddim_step(self, x, t: int, tn: int, cond_vals: dict, guidance: GuidanceSpec,
                   generator=None, noise=None):
-        """One DDIM step t -> tn (tn < 0 returns x_start). With eta > 0 the
-        noise is ``noise`` when given, else drawn from ``generator``."""
+        """One DDIM step t -> tn (tn < 0 gives x_start), then the transform.
+        With eta > 0 the noise is ``noise`` when given, else drawn from
+        ``generator``."""
         c = self.consts
         x = self._pin_all(x, cond_vals)
         pred_noise, x_start = self.model_predictions(
             x, t, cond_vals, guidance, clip_x_start=self.clip_denoised,
             rederive_pred_noise=True)
         if tn < 0:
-            return x_start
+            return self._transform(x_start, x_start, cond_vals, t)
         alpha, alpha_next = c.alphas_cumprod[t], c.alphas_cumprod[tn]
         x_new = x_start * torch.sqrt(alpha_next)
         eta = self.ddim_sampling_eta
         if eta == 0:
-            return x_new + torch.sqrt(torch.clamp(1 - alpha_next, min=0.0)) * pred_noise
-        sigma = eta * torch.sqrt(torch.clamp(
-            (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
-        coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
-        if noise is None:
-            noise = self._randn(x, generator)
-        return x_new + coef * pred_noise + sigma * noise
+            x_new = x_new + torch.sqrt(torch.clamp(1 - alpha_next, min=0.0)) * pred_noise
+        else:
+            sigma = eta * torch.sqrt(torch.clamp(
+                (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
+            coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
+            if noise is None:
+                noise = self._randn(x, generator)
+            x_new = x_new + coef * pred_noise + sigma * noise
+        return self._transform(x_new, x_start, cond_vals, t)
 
     def sample_ts(self):
         """Step schedule: DDPM a list of t; DDIM a list of (t, t_next)."""
@@ -383,8 +494,9 @@ class GaussianDiffusion:
     def sample(self, batch_size: int = 16, cond_vals: Optional[dict] = None,
                guidance: GuidanceSpec = GuidanceSpec(),
                generator: Optional[torch.Generator] = None):
-        """Full DDPM or DDIM sampling from x_T ~ N(0, I)."""
+        """Full DDPM or DDIM sampling from x_T ~ N(0, I), unnormalized."""
         if generator is None:
             raise ValueError("sample needs an explicit torch.Generator")
         x = self.sample_init(batch_size, generator)
-        return self.sample_chunk(x, self.sample_ts(), cond_vals or {}, guidance, generator)
+        x = self.sample_chunk(x, self.sample_ts(), cond_vals or {}, guidance, generator)
+        return self.unnormalize(x)

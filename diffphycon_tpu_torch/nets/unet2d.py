@@ -56,21 +56,28 @@ def _conv_nchw(x, conv: nn.Conv2d):
 
 
 class UNet2D(nn.Module):
+    """``self_condition``: the input is ``x_self_cond`` (zeros when not
+    given) concatenated before x on the channel axis, so the init conv takes
+    2 * channels (JAX ``nets/unet2d.py:53-56``); the output keeps
+    ``out_dim or channels`` channels."""
+
     def __init__(self, dim: int = 64, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 2,
                  resnet_block_groups: int = 1, attn_dim_head: int = 32,
-                 attn_heads: int = 4, sinusoidal_pos_emb_theta: float = 10000.0):
+                 attn_heads: int = 4, sinusoidal_pos_emb_theta: float = 10000.0,
+                 self_condition: bool = False):
         super().__init__()
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.channels = channels
+        self.self_condition = self_condition
         self.groups = groups = resnet_block_groups
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
         heads, dh = attn_heads, attn_dim_head
 
-        self.init_conv = nn.Conv2d(channels, dim, 7, padding=3)
+        self.init_conv = nn.Conv2d(channels * (2 if self_condition else 1), dim, 7, padding=3)
         self.time_mlp = time_mlp(dim, time_dim, sinusoidal_pos_emb_theta)
 
         self.downs = nn.ModuleList()
@@ -141,15 +148,17 @@ class UNet2D(nn.Module):
 
     # -- forwards ----------------------------------------------------------
 
-    def forward(self, x, time):
+    def forward(self, x, time, x_self_cond=None):
         """Kernel-backed forward. x: (B, T, X, C) float32; time: (B,)."""
-        return self._forward(x, time, self._kernel_pack(), kmega.KERNEL_OPS)
+        return self._forward(self._input(x, x_self_cond), time, self._kernel_pack(),
+                             kmega.KERNEL_OPS)
 
-    def forward_plain(self, x, time):
+    def forward_plain(self, x, time, x_self_cond=None):
         """The same block sequence from the plain versions only."""
-        return self._forward(x, time, self.pack(), kmega.PLAIN_OPS)
+        return self._forward(self._input(x, x_self_cond), time, self.pack(),
+                             kmega.PLAIN_OPS)
 
-    def forward_mega(self, x, time):
+    def forward_mega(self, x, time, x_self_cond=None):
         """The forward with one K8 launch between the init conv and the final
         conv (time MLP, FiLM matmul and both convs in torch, as JAX runs them
         outside its kernel). Forward-only: raises when a gradient could reach
@@ -158,16 +167,20 @@ class UNet2D(nn.Module):
             kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
         packs = self._kernel_pack()
         film = self._film(time, packs)
-        x0 = _conv_nchw(self._check_input(x), self.init_conv)
+        x0 = _conv_nchw(self._input(x, x_self_cond), self.init_conv)
         plan = kmega.mega_plan(packs, x0.shape, self.groups, self.attn_heads,
                                self.attn_dim_head, x0.device)
         return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv)
 
-    @staticmethod
-    def _check_input(x):
+    def _input(self, x, x_self_cond):
+        """x, checked, with the self-conditioning channels in front."""
         if x.dim() != 4:
             raise ValueError(f"UNet2D expects (B, T, X, C), got {tuple(x.shape)}")
-        return x
+        if not self.self_condition:
+            return x
+        if x_self_cond is None:
+            x_self_cond = torch.zeros_like(x)
+        return torch.cat([x_self_cond, x], dim=-1)
 
     def _film(self, time, packs):
         """Every ResBlock's FiLM projection as one (B, sum of 2*Co) matmul."""
@@ -175,7 +188,7 @@ class UNet2D(nn.Module):
 
     def _forward(self, x, time, packs, ops):
         film = iter(torch.split(self._film(time, packs), packs["film_widths"], dim=1))
-        x = _conv_nchw(self._check_input(x), self.init_conv)
+        x = _conv_nchw(x, self.init_conv)
         x = kmega.unet2d_sequence(ops, x, film, packs, self.groups, self.attn_heads,
                                   self.attn_dim_head)
         return _conv_nchw(x, self.final_conv)

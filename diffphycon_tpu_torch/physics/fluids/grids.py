@@ -3,8 +3,7 @@
 Port of ``diffphycon_tpu/physics/fluids/grids.py``: fields are (B, H, W, C)
 with spatial dims in (y, x) order; staggered velocities are (B, H+1, W+1, 2)
 with channel 0 = x-component, 1 = y-component. Plain tensor slicing and
-padding, differentiable by construction. ``advect_staggered`` is not on the
-smoke path and is not ported yet (ROADMAP.md).
+padding, differentiable by construction.
 """
 
 from __future__ import annotations
@@ -108,3 +107,19 @@ def advect_centered(stag: torch.Tensor, field: torch.Tensor, dt: float = 1.0
     vel_yx = staggered_at_centers(stag).flip(-1)  # (x, y) -> (y, x)
     coords = _index_grid(h, w, field.device) - vel_yx * dt
     return resample_linear(field, coords)
+
+
+def advect_staggered(stag: torch.Tensor, field_stag: torch.Tensor, dt: float = 1.0
+                     ) -> torch.Tensor:
+    """Semi-Lagrangian advection of a staggered field by a staggered
+    velocity: each component is resampled at its own faces, displaced by the
+    velocity interpolated to those faces.
+
+    stag, field_stag: (B, H+1, W+1, 2) -> (B, H+1, W+1, 2)."""
+    _, hp, wp, _ = field_stag.shape
+    idx = _index_grid(hp, wp, field_stag.device)
+    comps = []
+    for comp in (0, 1):  # x, y
+        vel_faces = staggered_at_faces(stag, comp).flip(-1)  # (x, y) -> (y, x)
+        comps.append(resample_linear(field_stag[..., comp:comp + 1], idx - vel_faces * dt))
+    return torch.cat(comps, dim=-1)

@@ -1,7 +1,7 @@
 """Burgers, smoke and jellyfish data for the port (the Burgers synthetic
-generator, h5 layout, training stack and batch iterator; the smoke sim
-directories; the jellyfish sim files and their synthetic stand-in); port of
-those parts of ``diffphycon_tpu/training/data.py``. Everything here is
+generator, h5 layout, training stack, graph view and batch iterator; the
+smoke sim directories; the jellyfish sim files and their synthetic
+stand-in); port of ``diffphycon_tpu/training/data.py``. Everything here is
 numpy on the host, so it writes and reads the same arrays as the JAX
 package."""
 
@@ -35,6 +35,67 @@ def stack_burgers_uf(u: np.ndarray, f: np.ndarray, rescaler: float = 10.0,
     out[:, :nt_u, :, 0] = u
     out[:, : f.shape[1], :, 1] = f
     return out / rescaler
+
+
+def burgers_graph_edges(n_nodes: int = 128):
+    """1D chain graph over the spatial nodes: (edge_index (2, E) int64 with
+    the neighbour pairs [i, i+1], [i+1, i] interleaved per i, edge_attr (E,
+    1) float32 of -1/(n+1) on forward and +1/(n+1) on backward edges), as
+    the reference's torch-geometric Burgers dataset builds them."""
+    i = np.arange(n_nodes - 1)
+    edge_index = np.empty((2, 2 * (n_nodes - 1)), np.int64)
+    edge_index[:, 0::2] = np.stack([i, i + 1])
+    edge_index[:, 1::2] = np.stack([i + 1, i])
+    step = 1.0 / (n_nodes + 1)
+    edge_attr = np.where(edge_index[0] < edge_index[1], -step, step)
+    return edge_index, edge_attr[:, None].astype(np.float32)
+
+
+@dataclasses.dataclass
+class BurgersGraphDataset:
+    """Graph view of Burgers trajectories for operator-style training: one
+    item per (sim, effective time stamp), a dict of numpy arrays (the
+    reference's ``Data(x, y, f, edge_index, x_pos, x_bdd, edge_attr)``).
+    x is the ``input_steps``-long history per node, y the
+    ``output_steps``-long future, f the force (a per-step force takes the
+    window start's frame)."""
+
+    u: np.ndarray            # (N, T, nx)
+    f: np.ndarray            # (N, nx) or (N, T-1, nx)
+    input_steps: int = 1
+    output_steps: int = 10
+    time_interval: int = 1
+
+    def __post_init__(self):
+        t = self.u.shape[1]
+        ti = self.time_interval
+        self._cushion_in = max(self.input_steps * ti, 1)
+        cushion_out = max(self.output_steps * ti, 1)
+        self.time_stamps_effective = (t - self._cushion_in - cushion_out + ti) // ti
+        nx = self.u.shape[-1]
+        self.edge_index, self.edge_attr = burgers_graph_edges(nx)
+        self.x_pos = np.linspace(1, nx, nx, dtype=np.float32)[:, None] / (nx + 1)
+        self.x_bdd = np.ones((nx, 1), np.float32)
+        self.x_bdd[0] = self.x_bdd[-1] = 0.0
+
+    def __len__(self):
+        return self.time_stamps_effective * self.u.shape[0]
+
+    def get(self, idx: int) -> dict:
+        sim_id, time_id = divmod(idx, self.time_stamps_effective)
+        ti = self.time_interval
+        start = time_id * ti + self._cushion_in
+        traj = self.u[sim_id]
+        xs = np.stack([traj[start + j] for j in range(-self.input_steps * ti, 0, ti)], -1)
+        ys = np.stack([traj[start + j] for j in range(0, self.output_steps * ti, ti)], -1)
+        force = self.f[sim_id]
+        if force.ndim > 1:
+            force = force[min(time_id, force.shape[0] - 1)]
+        return {"x": xs[..., None].astype(np.float32),   # (nx, input_steps, 1)
+                "y": ys[..., None].astype(np.float32),   # (nx, output_steps, 1)
+                "f": force[:, None].astype(np.float32),  # (nx, 1)
+                "x_pos": self.x_pos, "x_bdd": self.x_bdd,
+                "edge_index": self.edge_index, "edge_attr": self.edge_attr}
 
 
 @dataclasses.dataclass
@@ -135,14 +196,31 @@ def load_smoke_dataset(root, split: str = "train", n=None, frames: int = 32,
                        rescale: bool = True) -> np.ndarray:
     """(N, T, H, W, 6) from <root>/train (the first ``frames`` frames,
     divided by RESCALER when ``rescale``) or <root>/test/control (all frames,
-    unscaled). Incomplete sim directories are skipped."""
+    unscaled). Incomplete sim directories are skipped. The arrays are read
+    by the native threaded loader (``utils/native_io.py``), each converted
+    to float32 as it is read, as the JAX loader reads them when its library
+    is built."""
+    from diffphycon_tpu_torch.utils.native_io import load_npy_batch, npy_info
+
     base = os.path.join(root, split) if split == "train" else os.path.join(
         root, "test", "control")
     sims = sorted(d for d in os.listdir(base)
                   if d.startswith("sim_") and _complete_sim(os.path.join(base, d)))
     if n is not None:
         sims = sims[:n]
-    states = np.stack([load_smoke_sim(os.path.join(base, s)) for s in sims])
+    if not sims:
+        raise FileNotFoundError(f"no complete sim directories under {base}")
+    arrays = {}
+    for f in SMOKE_ARRAYS:
+        paths = [os.path.join(base, s, f + ".npy") for s in sims]
+        arrays[f] = load_npy_batch(paths, npy_info(paths[0])[0])
+    d, s = arrays["Density"], arrays["Smoke"]  # (N, H, W, 1, T), (N, T, 8)
+    t, h = d.shape[-1], d.shape[1]
+    rate = s[:, :, 1] / s.sum(-1)
+    sp = np.broadcast_to(rate[:, :, None, None], (len(sims), t, h, h))
+    states = np.concatenate([np.transpose(arrays[f], (0, 4, 1, 2, 3))
+                             for f in ("Density", "Velocity", "Control")] + [sp[..., None]],
+                            axis=-1).astype(np.float32)
     if split == "train":
         states = states[:, :frames]
         if rescale:

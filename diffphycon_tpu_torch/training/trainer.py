@@ -1,13 +1,24 @@
 """Training harness: the optimizer step, the EMA, checkpoints, resume and a
 SIGTERM-safe loop.
 
-Port of ``diffphycon_tpu/training/trainer.py`` on one device. One optimizer
-step is: the loss (``GaussianDiffusion.p_losses`` at t and noise drawn from
-the trainer's ``torch.Generator``), backward, the global-norm clip, Adam at
-the scheduled learning rate, then the EMA. With ``gradient_accumulate_every
-= k`` the batch is cut into k micro-batches and the gradient is the mean of
-theirs (t and the noise are drawn for the whole batch first, so the result
-equals the full-batch gradient).
+Port of ``diffphycon_tpu/training/trainer.py``. One optimizer step is: the
+loss (``GaussianDiffusion.loss`` at t and noise drawn from the trainer's
+``torch.Generator``), backward, the global-norm clip, Adam at the scheduled
+learning rate, then the EMA. With ``gradient_accumulate_every = k`` the
+batch is cut into k micro-batches and the gradient is the mean of theirs (t
+and the noise are drawn for the whole batch first, so the result equals the
+full-batch gradient).
+
+Data parallel (``mesh=``, :mod:`diffphycon_tpu_torch.parallel`): the batch
+iterator yields the global batch of ``train_batch_size`` on every rank and
+each rank keeps its contiguous shard. Every rank draws t and the noise for
+the whole global batch from the same seeded generator and keeps its slice,
+so an N-rank step gives the one-rank full-batch step (JAX's psum over a
+sharded batch). The model runs inside ``DistributedDataParallel``, which
+averages the gradients; under accumulation every micro-batch but the last
+runs under ``no_sync()``. Clip, Adam and the EMA then run on every rank on
+the same averaged gradients. Rank 0 alone writes checkpoints and logs;
+``resume`` loads on every rank.
 
 Checkpoints are torch files ``<results_folder>/ckpt/<raw step>/checkpoint.pt``
 holding the step, the parameters, the EMA parameters, the optimizer state and
@@ -19,6 +30,7 @@ The newest 20 are kept, and every step that is a multiple of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -33,6 +45,7 @@ import torch
 
 from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.diffusion.core import GaussianDiffusion
+from diffphycon_tpu_torch.parallel.mesh import Mesh, shard_batch
 from diffphycon_tpu_torch.training.train_state import (
     EMAConfig,
     clip_by_global_norm_,
@@ -111,6 +124,21 @@ def _chunks(a, k: int):
     return a.chunk(k)
 
 
+class _Loss(torch.nn.Module):
+    """The loss of one (micro-)batch as a module holding the trained model,
+    so that ``DistributedDataParallel`` can wrap it: the diffusion calls the
+    model itself, and DDP only needs its forward to lead to the model's
+    parameters."""
+
+    def __init__(self, diffusion, model: torch.nn.Module):
+        super().__init__()
+        self.gd = diffusion
+        self.model = model
+
+    def forward(self, batch, t, cond, noise):
+        return self.gd.loss(batch, cond, t=t, noise=noise)
+
+
 def _to_device(batch, device):
     if isinstance(batch, tuple):
         return tuple(torch.as_tensor(x, device=device) for x in batch)
@@ -127,26 +155,42 @@ class Trainer:
     Args:
       diffusion: the GaussianDiffusion (its ``model`` must run ``model``), or
         any object with its two training methods, ``draw_t_noise(batch,
-        generator) -> (t, noise)`` and ``p_losses(batch, t, cond, noise)``,
+        generator) -> (t, noise)`` and ``loss(batch, cond, t=, noise=)``,
         where a batch or a noise may be a tuple of tensors (each split along
         dim 0 for gradient accumulation).
       model: the nn.Module whose parameters are trained.
-      batch_iter: iterator of numpy batches (B, *spatial, C), or of tuples of
-        them.
-      derive_cond: fn(batch tensor) -> cond_vals dict for p_losses.
+      batch_iter: iterator of numpy global batches (B, *spatial, C), or of
+        tuples of them (the same sequence on every rank).
+      derive_cond: fn(batch tensor) -> cond_vals dict for the loss.
       config: TrainerConfig.
       device: default CUDA (see resolve_device); the model moves there.
+      mesh: a ``parallel.Mesh`` for data parallelism (its device is the
+        trainer's; ``device`` must then be None or the same); None trains on
+        one device in this process.
     """
 
     def __init__(self, diffusion: GaussianDiffusion, model: torch.nn.Module,
                  batch_iter: Iterator[np.ndarray], derive_cond: Callable,
-                 config: TrainerConfig = TrainerConfig(), device=None):
+                 config: TrainerConfig = TrainerConfig(), device=None,
+                 mesh: Optional[Mesh] = None):
         self.gd = diffusion
         self.cfg = config
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.batch_iter = batch_iter
         self.derive_cond = derive_cond
+        self.loss_fn = _Loss(diffusion, self.model)
+        self.ddp = None
+        if mesh is not None and mesh.grouped:
+            # DDP's construction broadcasts rank 0's parameters and buffers
+            self.ddp = torch.nn.parallel.DistributedDataParallel(
+                self.loss_fn, device_ids=[self.device.index] if self.device.type == "cuda"
+                else None)
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -156,33 +200,47 @@ class Trainer:
         self.schedule = _schedule(config)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.results_folder = Path(config.results_folder)
-        self.results_folder.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.results_folder.mkdir(parents=True, exist_ok=True)
+
+    @property
+    def is_main(self) -> bool:
+        """This process writes checkpoints and logs (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.is_main
 
     # -- one optimizer step -------------------------------------------------
 
     def compute_grads(self, batch, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
         """Set every parameter's .grad to the (micro-batch mean) gradient of
         the loss of ``batch`` (a tensor, or a tuple of tensors for a
-        diffusion whose loss takes one, as the jellyfish loss does); returns
-        the mean loss (a device scalar). ``mark``, when given, is called with
-        "forward" after each micro-batch's loss and with "backward" after its
-        backward (a timer's hook; it changes no number)."""
+        diffusion whose loss takes one, as the jellyfish loss does), averaged
+        over the ranks under a mesh (each rank keeps its shard of the global
+        batch); returns this rank's mean loss (a device scalar). ``mark``,
+        when given, is called with "forward" after each micro-batch's loss
+        and with "backward" after its backward (a timer's hook; it changes no
+        number)."""
         accum = self.cfg.gradient_accumulate_every
+        world = 1 if self.mesh is None else self.mesh.world_size
         n = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
-        if n % accum:
-            raise ValueError(f"batch {n} is not a multiple of "
-                             f"gradient_accumulate_every={accum}")
+        if n % (accum * world):
+            raise ValueError(f"batch {n} is not a multiple of gradient_accumulate_every="
+                             f"{accum} x {world} ranks")
         t, noise = self.gd.draw_t_noise(batch, self.generator)
+        if world > 1:
+            batch, t, noise = shard_batch(self.mesh, (batch, t, noise))
         for p in self.params:
             p.grad = None
         total = torch.zeros((), device=self.device)
-        for xs, ts, ns in zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)):
-            loss = self.gd.p_losses(xs, ts, self.derive_cond(xs), ns) / accum
-            if mark:
-                mark("forward")
-            loss.backward()
-            if mark:
-                mark("backward")
+        micro = list(zip(_chunks(batch, accum), t.chunk(accum), _chunks(noise, accum)))
+        for i, (xs, ts, ns) in enumerate(micro):
+            no_sync = self.ddp is not None and i < accum - 1
+            with self.ddp.no_sync() if no_sync else contextlib.nullcontext():
+                loss = (self.ddp or self.loss_fn)(xs, ts, self.derive_cond(xs), ns) / accum
+                if mark:
+                    mark("forward")
+                loss.backward()
+                if mark:
+                    mark("backward")
             total = total + loss.detach()
         return total
 
@@ -209,14 +267,16 @@ class Trainer:
     def save(self, milestone: Optional[int] = None) -> Path:
         """Save {step, params, ema_params, opt_state, generator} under the
         raw step (``milestone`` is accepted for call-site compatibility and
-        ignored, as in the JAX trainer); then prune."""
+        ignored, as in the JAX trainer); then prune. Only rank 0 writes."""
         del milestone
+        out = self.ckpt_dir / str(self.step)
+        if not self.is_main:
+            return out
         payload = {"step": self.step,
                    "params": {n: p.detach().cpu() for n, p in zip(self.param_names, self.params)},
                    "ema_params": {n: e.cpu() for n, e in zip(self.param_names, self.ema)},
                    "opt_state": self.optimizer.state_dict(),
                    "generator": self.generator.get_state()}
-        out = self.ckpt_dir / str(self.step)
         tmp = self.ckpt_dir / f".tmp-{self.step}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
@@ -298,26 +358,38 @@ class Trainer:
             handler_installed = True
         except ValueError:
             pass  # not in the main thread; run unguarded
+        distributed = self.mesh is not None and self.mesh.world_size > 1
         try:
-            with open(log_path, "a") as logf:
+            with open(log_path, "a") if self.is_main else contextlib.nullcontext() as logf:
                 while self.step < cfg.train_num_steps and not stop["requested"]:
                     losses.append(self.train_step(next(self.batch_iter)))
                     step = self.step
+                    if distributed:  # every rank stops at the same step
+                        flag = torch.tensor(float(stop["requested"]), device=self.device)
+                        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX)
+                        stop["requested"] = bool(flag.item())
                     if step % cfg.log_every == 0 or step == cfg.train_num_steps:
-                        lval = float(torch.stack(losses).mean())
+                        mean = torch.stack(losses).mean()
                         losses.clear()
-                        rec = {"step": step, "loss": lval,
-                               "wall_s": round(time.time() - t0, 2)}
-                        logf.write(json.dumps(rec) + "\n")
-                        logf.flush()
-                        if progress:
-                            print(f"step {step}: loss {lval:.5f}", flush=True)
+                        if distributed:
+                            torch.distributed.all_reduce(mean)
+                            mean = mean / self.mesh.world_size
+                        if self.is_main:
+                            lval = float(mean)
+                            rec = {"step": step, "loss": lval,
+                                   "wall_s": round(time.time() - t0, 2)}
+                            logf.write(json.dumps(rec) + "\n")
+                            logf.flush()
+                            if progress:
+                                print(f"step {step}: loss {lval:.5f}", flush=True)
                     if step % cfg.save_and_sample_every == 0:
                         self.save()
             if stop["requested"]:
                 if self.step % cfg.save_and_sample_every != 0:
                     self.save()
-                print(f"SIGTERM: saved checkpoint at step {self.step}, exiting", flush=True)
+                if self.is_main:
+                    print(f"SIGTERM: saved checkpoint at step {self.step}, exiting",
+                          flush=True)
         finally:
             if handler_installed:
                 # a None previous handler was installed outside Python

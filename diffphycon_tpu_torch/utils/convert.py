@@ -375,3 +375,55 @@ def load_flax_npz(path) -> Dict:
                 node = node.setdefault(part, {})
             node[leaf] = z[key]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# reference Trainer checkpoint files: {step, model, opt, ema, scaler, loss},
+# 'model' the GaussianDiffusion state_dict with the UNet under 'model.',
+# 'ema' the EMA state_dict with the averaged UNet under 'ema_model.model.'.
+# The port's nets carry the reference's state_dict names, so reading one is
+# a prefix strip and a strict load_state_dict.
+# ---------------------------------------------------------------------------
+
+
+def _strip_prefix(sd: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: torch.as_tensor(v) for k, v in sd.items()
+            if k.startswith(prefix)}
+
+
+def extract_unet_state_dict(ckpt: Mapping, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The UNet's state_dict in a loaded reference Trainer checkpoint: the
+    EMA copy (``ema_model.model.``) when ``use_ema`` and the checkpoint has
+    a non-empty ``ema`` entry holding it, else the online weights
+    (``model.``); the diffusion's schedule buffers are dropped."""
+    if use_ema and ckpt.get("ema"):
+        sub = _strip_prefix(ckpt["ema"], "ema_model.model.")
+        if sub:
+            return sub
+    return _strip_prefix(ckpt["model"], "model.")
+
+
+def _load_reference(module: torch.nn.Module, path, use_ema: bool) -> torch.nn.Module:
+    # weights_only=False: a reference Trainer file pickles more than tensors,
+    # so this runs the pickle's code; read only files from a trusted source
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    module.load_state_dict(extract_unet_state_dict(ckpt, use_ema), strict=True)
+    return module
+
+
+def load_reference_checkpoint_unet2d(module: torch.nn.Module, path,
+                                     use_ema: bool = True) -> torch.nn.Module:
+    """Load a reference Burgers Trainer file (``cos10000-model-{k}.pt``)
+    into the port's ``UNet2D`` (strict: every key and shape must match);
+    returns the module. The file is unpickled with ``weights_only=False``,
+    which runs code stored in it: load only trusted files."""
+    return _load_reference(module, path, use_ema)
+
+
+def load_reference_checkpoint_unet3d(module: torch.nn.Module, path,
+                                     use_ema: bool = True) -> torch.nn.Module:
+    """Load a reference smoke / jellyfish Trainer file (the same dict
+    layout) into the port's ``UNet3D`` (strict); returns the module. The
+    file is unpickled with ``weights_only=False``, which runs code stored in
+    it: load only trusted files."""
+    return _load_reference(module, path, use_ema)

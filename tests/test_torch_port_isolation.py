@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX, flax or diffphycon_tpu module,
-and its entry points run on CUDA unless told otherwise."""
+"""The port stands alone: it imports no JAX, flax or diffphycon_tpu module
+(and no matplotlib at import: ``utils/viz.py`` imports it at its first
+plot, and the GPU machine lacks it), and its entry points run on CUDA
+unless told otherwise."""
 
 import pkgutil
 import subprocess
@@ -32,6 +34,7 @@ from diffphycon_tpu_torch.diffusion import (
     make_guidance_schedule,
 )
 from diffphycon_tpu_torch.nets.burgers_operator import SurrogateOperator
+from diffphycon_tpu_torch.parallel import make_mesh
 from diffphycon_tpu_torch.physics.fluids.smoke_env import SmokeSim
 from diffphycon_tpu_torch.training.surrogates import load_surrogate
 from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -56,14 +59,16 @@ def test_port_imports_no_jax_or_reference_package():
                 "apps.train_burgers_operator", "apps.eval_pid_sl_burgers",
                 "apps.train_baselines_burgers", "apps.train_sac_burgers", "baselines.envs",
                 "baselines.lbfgs", "apps.train_baselines_smoke",
-                "apps.train_baselines_jellyfish"):
+                "apps.train_baselines_jellyfish", "parallel.mesh", "parallel.dryrun",
+                "physics.ks", "utils.fluidformat", "utils.native_io", "utils.profiling",
+                "utils.viz"):
         assert f"diffphycon_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {['diffphycon_tpu_torch'] + names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'diffphycon_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'diffphycon_tpu', 'triton', 'matplotlib'))\n"
         "print(','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -106,6 +111,8 @@ def test_port_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                      ["--inference_method", "MPC", "--dataset_path", str(tmp_path)])),
                  # the RL environments
                  lambda: envs.SmokeRLEnv(),
+                 # data parallelism: the default mesh is a CUDA one
+                 lambda: make_mesh(),
                  lambda: envs.JellyfishRLEnv(None),
                  *(lambda app=app: app.main(app.build_parser().parse_args([]))
                    for app in (train_burgers_operator, eval_pid_sl_burgers,
