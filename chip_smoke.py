@@ -158,8 +158,9 @@ The RL environments (``baselines/envs.py``; K4 is the smoke env's kernel):
 The remaining modules (the last slice: no kernel of its own; K1-K3, K5, K6
 carry every UNet2D forward in it):
 15. at full width: 20 guided DDPM steps at batch 50 with
-   ``fuse_two_models`` (the prior forward on a second CUDA stream) in turns
-   with the two-call step from the same x_T and noises (outputs within
+   the two forwards on two CUDA streams (``core.two_forwards``, the port's
+   ``fuse_two_models``) in turns with the two-call step, its plain
+   version, from the same x_T and noises (outputs within
    DDIM_RTOL, exact launch counts, steps/s and a 3-step profile of each);
    three post-hoc-guidance DDPM steps (``guidance_u0=False``) through the
    kernels against the plain forwards; the pred_x0 / pred_v losses at
@@ -2176,18 +2177,21 @@ def _ddpm_run(torch, gd, x, ts, cond_vals, guidance, noises):
 
 def remaining_modules_phase(torch, smi_line, per_forward):
     """Phase 15: the modules of the last port slice at full width (UNet2D
-    dim 64, mults (1, 2, 4, 8)): fuse_two_models against the two-call step,
+    dim 64, mults (1, 2, 4, 8)): the two-stream step against the two-call step,
     post-hoc guidance, the pred_x0 / pred_v losses, a one-rank NCCL
     data-parallel trainer and train app, batch-sharded sampling, a reference
     checkpoint round trip and the KS solver. per_forward: the kernel
     launches of one UNet2D forward. Run alone:
     ``chip_smoke.remaining_modules_phase(torch, smi, chip_smoke.expected_counts(
     chip_smoke.main_path_calls(64, (1, 2, 4, 8), 50)))``."""
+    import contextlib
+    from unittest import mock
+
     import torch.distributed as dist
 
     from diffphycon_tpu_torch.apps import train_burgers
     from diffphycon_tpu_torch.benchmarks import burgers as bench
-    from diffphycon_tpu_torch.diffusion import GaussianDiffusion
+    from diffphycon_tpu_torch.diffusion import GaussianDiffusion, core
     from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
     from diffphycon_tpu_torch.parallel import make_mesh, sample_sharded
     from diffphycon_tpu_torch.parallel.dryrun import free_port
@@ -2211,34 +2215,44 @@ def remaining_modules_phase(torch, smi_line, per_forward):
     def step_counts(n_forwards):
         return {k: n_forwards * v for k, v in per_forward.items()}
 
-    # 15a. fuse_two_models: the same x_T and noises through the two-call and
-    # the fused step, in turns (two-call, fused, fused, two-call)
+    # 15a. the two forwards of a two-model step on two CUDA streams
+    # (core.two_forwards, the port's fuse_two_models) against its plain
+    # version, the forwards one after the other: the same x_T and noises, in
+    # turns (two-call, fused, fused, two-call)
     t0 = time.time()
-    gd_two = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
-    gd_fused = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
-    gd_fused.fuse_two_models = True
-    ts = gd_two.sample_ts()[2:2 + FUSE_STEPS]
-    x_t = gd_two.sample_init(B, gen)
+    gd = bench.build_diffusion(cfg, net, model_w=net_w, device="cuda")
+
+    def in_turn(model, x, model_w, x_w, tb):
+        return model(x, tb), model_w(x_w, tb)
+
+    def form(name):
+        return (mock.patch.object(core, "two_forwards", in_turn) if name == "two_call"
+                else contextlib.nullcontext())
+
+    ts = gd.sample_ts()[2:2 + FUSE_STEPS]
+    x_t = gd.sample_init(B, gen)
     noises = [torch.randn(x_t.shape, generator=gen, device="cuda") for _ in ts]
     with torch.no_grad():
-        for gd in (gd_two, gd_fused):  # warm-up
-            _ddpm_run(torch, gd, x_t, ts[:2], cond_vals, guidance, noises[:2])
+        for name in ("two_call", "fused"):  # warm-up
+            with form(name):
+                _ddpm_run(torch, gd, x_t, ts[:2], cond_vals, guidance, noises[:2])
         runs = {"two_call": [], "fused": []}
         outs = {}
         for name in ("two_call", "fused", "fused", "two_call"):
-            gd = gd_fused if name == "fused" else gd_two
             kb.reset_launch_counts()
-            outs[name], dt = _ddpm_run(torch, gd, x_t, ts, cond_vals, guidance, noises)
+            with form(name):
+                outs[name], dt = _ddpm_run(torch, gd, x_t, ts, cond_vals, guidance, noises)
             counts = kb.launch_counts()
             runs[name].append(FUSE_STEPS / dt)
             if counts != step_counts(2 * FUSE_STEPS):
                 fail(f"{name} guided DDPM: launches {counts} != "
                      f"{step_counts(2 * FUSE_STEPS)} (two forwards a step)")
         busy = {}
-        for name, gd in (("two_call", gd_two), ("fused", gd_fused)):
-            wall_ms, dev_ms, rows = profile_window(
-                torch, lambda: _ddpm_run(torch, gd, x_t, ts[:3], cond_vals, guidance,
-                                         noises[:3]))
+        for name in ("two_call", "fused"):
+            with form(name):
+                wall_ms, dev_ms, rows = profile_window(
+                    torch, lambda: _ddpm_run(torch, gd, x_t, ts[:3], cond_vals, guidance,
+                                             noises[:3]))
             busy[name] = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
                           "busy_share": dev_ms / wall_ms}
     err = (outs["fused"] - outs["two_call"]).abs().max().item()
@@ -2282,7 +2296,7 @@ def remaining_modules_phase(torch, smi_line, per_forward):
         fail(f"post-hoc guided DDPM: kernel forwards differ from plain: {err} > {tol}")
     if counts != step_counts(2 * len(POST_HOC_T)):
         fail(f"post-hoc guided DDPM: launches {counts} != {step_counts(2 * len(POST_HOC_T))}")
-    del gd_two, gd_fused, gd_post, gd_post_plain
+    del gd, gd_post, gd_post_plain
 
     # 15c. the pred_x0 / pred_v objectives at batch 16: kernel against plain
     t0 = time.time()

@@ -8,7 +8,7 @@ boundary channels (mask, offset_x, offset_y) and a theta plane. Only
 are recomputed from theta by the neural boundary updater (a UNet2Dv2).
 
 The sampler is a Python loop over denoise steps. Each step runs the joint
-and the prior UNet3D, the guidance gradient through the ForceUNet and the
+and the prior UNet3D (concurrently on CUDA, ``core.two_forwards``), the guidance gradient through the ForceUNet and the
 boundary updater (``torch.autograd.grad`` on detached leaves), the
 posterior update, the boundary updater, and the condition re-pinning (or,
 with ``cond_steps == 0``, repaint-style noisy conditioning).
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from diffphycon_tpu_torch.device import resolve_device
+from diffphycon_tpu_torch.diffusion import core
 from diffphycon_tpu_torch.diffusion.core import DiffusionConstants
 from diffphycon_tpu_torch.nets.init import seeded_init_
 from diffphycon_tpu_torch.nets.unet2dv2 import ForceUNet, UNet2Dv2
@@ -307,8 +308,8 @@ class JellyfishDiffusion:
         x_start from the unguided eps, and x's [state, theta] channels."""
         ns = self.cfg.n_state
         tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-        eps = self.joint_model(x, tb)
-        eps_w1 = self.thetas_model(torch.cat([cond.state_cond, x[..., ns:]], dim=-1), tb)
+        x_w = torch.cat([cond.state_cond, x[..., ns:]], dim=-1)
+        eps, eps_w1 = core.two_forwards(self.joint_model, x, self.thetas_model, x_w, tb)
         x4 = torch.cat([x[..., :ns], x[..., -1:]], dim=-1)
         x_start = self.predict_start_from_noise(x4, t, eps)
         eps_w = torch.cat([torch.zeros_like(x4[..., :ns]), eps_w1], dim=-1)

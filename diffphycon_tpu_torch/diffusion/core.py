@@ -21,12 +21,16 @@ after it.
 The objectives pred_noise, pred_x0 and pred_v (with their ``loss_weight``
 1, snr and snr / (snr + 1)), post-hoc guidance (``guidance_u0=False``: the
 DDPM step redone with the guided noise), ``CondSpec.transform`` and
-``normalize`` / ``unnormalize`` are the JAX core's. ``fuse_two_models``
-runs the joint and prior forwards of a two-model step concurrently on two
-CUDA streams (JAX stacks both parameter sets into one vmapped forward); on
-the CPU they run one after the other, and the result is the two-call
-step's. JAX's ``scan_unroll`` is a ``lax.scan`` knob with no counterpart in
-a Python loop over steps, so it is absent.
+``normalize`` / ``unnormalize`` are the JAX core's. JAX's
+``fuse_two_models`` option (both parameter sets stacked into one vmapped
+forward) has no flag here: on CUDA the joint and prior forwards of every
+two-model step run concurrently on two streams (:func:`two_forwards`),
+and on the CPU one after the other; the result is the two-call step's.
+JAX's ``scan_unroll`` is a ``lax.scan`` knob with no counterpart in a
+Python loop over steps, and JAX's core-level ``self_condition`` is stored
+and never read there; neither is an argument here. Self-conditioning
+lives in ``UNet2D(self_condition=True)``, and no sampler feeds it, so such
+a net zero-fills its self-conditioning input.
 """
 
 from __future__ import annotations
@@ -108,6 +112,34 @@ class DiffusionConstants:
         )
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def two_forwards(model: Callable, x, model_w: Callable, x_w, tb):
+    """(model(x, tb), model_w(x_w, tb)): the two forwards of a two-model
+    step. On CUDA the prior forward runs on a side stream while the joint
+    forward runs on the current one: the side stream starts after the
+    current stream's work so far (x, x_w and tb are ready), and the current
+    stream waits for it before returning. x, x_w and tb stay referenced by
+    the caller until after that join, so the allocator cannot hand their
+    memory to the joint forward while the side stream reads it; the side's
+    output is marked as used on the current stream. On the CPU the forwards
+    run one after the other."""
+    if not x.is_cuda:
+        return model(x, tb), model_w(x_w, tb)
+    main = torch.cuda.current_stream(x.device)
+    side = _SIDE_STREAMS.get(x.device)
+    if side is None:
+        side = _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out_w = model_w(x_w, tb)
+    out = model(x, tb)
+    main.wait_stream(side)
+    out_w.record_stream(main)
+    return out, out_w
+
+
 def _identity(x):
     return x
 
@@ -161,12 +193,9 @@ class GaussianDiffusion:
     prior reweighting. objective: 'pred_noise' | 'pred_x0' | 'pred_v'.
     guidance_u0: guidance on x_start inside the prediction (True) or post-hoc
     on the DDPM step's predicted noise (False; DDIM then takes none).
-    fuse_two_models: the two forwards of a two-model step run concurrently
-    (two CUDA streams). normalize / unnormalize: data <-> model space,
-    applied by :meth:`loss` and at the end of :meth:`sample`. self_condition
-    is recorded as the JAX core records it; no sampler feeds a
-    self-conditioning input, so a self-conditioned net zero-fills it. Other
-    arguments as in the JAX ``GaussianDiffusion``. ``device`` defaults to
+    normalize / unnormalize: data <-> model space, applied by :meth:`loss`
+    and at the end of :meth:`sample`. Other arguments as in the JAX
+    ``GaussianDiffusion``. ``device`` defaults to
     CUDA (see resolve_device).
     """
 
@@ -177,9 +206,9 @@ class GaussianDiffusion:
                  cond: CondSpec = CondSpec(), model_w: Optional[Callable] = None,
                  is_model_w: bool = False, prior_beta: float = 1.0,
                  normalize_beta: bool = False, combine_w_with_guidance: bool = False,
-                 fuse_two_models: bool = False, guidance_u0: bool = True,
+                 guidance_u0: bool = True,
                  clip_denoised: bool = True, recurrence: bool = False,
-                 recurrence_k: int = 1, self_condition: bool = False,
+                 recurrence_k: int = 1,
                  normalize: Callable = _identity, unnormalize: Callable = _identity,
                  device=None):
         self.model = model
@@ -200,15 +229,12 @@ class GaussianDiffusion:
         self.prior_beta = prior_beta
         self.normalize_beta = normalize_beta
         self.combine_w_with_guidance = combine_w_with_guidance
-        self.fuse_two_models = fuse_two_models
         self.guidance_u0 = guidance_u0
         self.clip_denoised = clip_denoised
         self.recurrence = recurrence
         self.recurrence_k = recurrence_k
-        self.self_condition = self_condition
         self.normalize = normalize
         self.unnormalize = unnormalize
-        self._side_streams: dict = {}
 
     # -- q / prediction helpers --------------------------------------------
 
@@ -252,33 +278,6 @@ class GaussianDiffusion:
 
     # -- model predictions --------------------------------------------------
 
-    def _side_stream(self, device) -> torch.cuda.Stream:
-        stream = self._side_streams.get(device)
-        if stream is None:
-            stream = self._side_streams[device] = torch.cuda.Stream(device)
-        return stream
-
-    def _both_forwards(self, x, x_w, tb):
-        """(model(x, tb), model_w(x_w, tb)). With fuse_two_models on CUDA the
-        prior forward runs on a side stream while the joint forward runs on
-        the current one; the side stream starts after the current stream's
-        work so far (x, x_w and tb are ready) and the current stream waits
-        for it before the outputs are combined. x, x_w and tb stay referenced
-        by the caller until after that join, so the allocator cannot hand
-        their memory to the joint forward while the side stream reads it;
-        the side's output is marked as used on the current stream."""
-        if not (self.fuse_two_models and x.is_cuda):
-            return self.model(x, tb), self.model_w(x_w, tb)
-        main = torch.cuda.current_stream(x.device)
-        side = self._side_stream(x.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out_w = self.model_w(x_w, tb)
-        out = self.model(x, tb)
-        main.wait_stream(side)
-        out_w.record_stream(main)
-        return out, out_w
-
     @torch.no_grad()
     def _raw_eps(self, x, t: int, cond_vals: dict, guidance: GuidanceSpec):
         """(eps, eps_w): the model output, with two-model prior reweighting
@@ -288,7 +287,7 @@ class GaussianDiffusion:
         tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         if self.model_w is not None:
             x_w = self.cond.w_zero_input(x, cond_vals)
-            out, out_w = self._both_forwards(x, x_w, tb)
+            out, out_w = two_forwards(self.model, x, self.model_w, x_w, tb)
             out_w = self.cond.w_zero_output(out_w, cond_vals)
             if self.combine_w_with_guidance:
                 return out, out_w

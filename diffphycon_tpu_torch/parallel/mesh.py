@@ -18,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -34,13 +34,16 @@ class Mesh:
     rank / world_size: this process and the number of processes;
     device: the rank's device; grouped: a process group is initialised
     (always when world_size > 1; with world_size 1 only when the caller
-    asked for one, so that a one-rank run can exercise the collectives)."""
+    asked for one, so that a one-rank run can exercise the collectives);
+    host_group: a gloo group for collectives on host tensors when the
+    default group is NCCL (None: the default group is gloo)."""
 
     rank: int
     world_size: int
     local_rank: int
     device: torch.device
     grouped: bool
+    host_group: Optional[Any] = None
 
     @property
     def is_main(self) -> bool:
@@ -49,6 +52,21 @@ class Mesh:
     def barrier(self) -> None:
         if self.grouped:
             dist.barrier()
+
+    def any_async(self, flag: bool) -> Callable[[], bool]:
+        """Start an OR of ``flag`` over the ranks on the host (gloo: no
+        device sync, nothing queued on the card); the returned callable
+        waits for it and gives the result."""
+        if not (self.grouped and self.world_size > 1):
+            return lambda: flag
+        t = torch.tensor([float(flag)])
+        work = dist.all_reduce(t, dist.ReduceOp.MAX, group=self.host_group, async_op=True)
+
+        def result() -> bool:
+            work.wait()
+            return bool(t.item())
+
+        return result
 
     @contextlib.contextmanager
     def main_first(self):
@@ -77,7 +95,9 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
     world of one. ``n_data``, when given, must equal the world size.
     ``n_model`` must be 1: the JAX mesh's ``model`` axis carries no sharding
     anywhere in the JAX package, so there is nothing to port behind it.
-    ``device``: "cuda" (default, pinned to ``cuda:local_rank``) or "cpu".
+    ``device``: "cuda" (default), "cuda:<index>" or "cpu". "cuda" is
+    pinned to ``cuda:local_rank``; an explicit index is kept, and raises if
+    it differs from a local rank that torchrun set or the caller gave.
     The process group is joined when the world has more than one process or
     ``init_method`` is given (e.g. ``tcp://localhost:29500``; default
     ``env://``, torchrun's MASTER_ADDR / MASTER_PORT); the backend is NCCL
@@ -90,6 +110,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
         world_size = dist.get_world_size() if world_size is None else world_size
     rank = _env_int("RANK", 0) if rank is None else rank
     world_size = _env_int("WORLD_SIZE", 1) if world_size is None else world_size
+    local_rank_given = local_rank is not None or "LOCAL_RANK" in os.environ
     local_rank = _env_int("LOCAL_RANK", rank) if local_rank is None else local_rank
     if n_data is not None and n_data != world_size:
         raise ValueError(f"n_data={n_data} but the world has {world_size} processes")
@@ -97,7 +118,11 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
         raise ValueError(f"rank {rank} outside a world of {world_size}")
     dev = resolve_device(device)
     if dev.type == "cuda":
-        dev = torch.device("cuda", local_rank)
+        if dev.index is None:
+            dev = torch.device("cuda", local_rank)
+        elif local_rank_given and dev.index != local_rank:
+            raise ValueError(f"device {dev} conflicts with local rank {local_rank}: one "
+                             "GPU a rank, cuda:LOCAL_RANK (pass device='cuda')")
         torch.cuda.set_device(dev)
     grouped = dist.is_available() and dist.is_initialized()
     if not grouped and (world_size > 1 or init_method is not None):
@@ -114,8 +139,11 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 rank=rank, world_size=world_size, **kwargs)
         grouped = True
+    host_group = None
+    if grouped and world_size > 1 and dist.get_backend() != "gloo":
+        host_group = dist.new_group(backend="gloo")
     return Mesh(rank=rank, world_size=world_size, local_rank=local_rank, device=dev,
-                grouped=grouped)
+                grouped=grouped, host_group=host_group)
 
 
 def shard_slice(mesh: Mesh, n: int) -> slice:

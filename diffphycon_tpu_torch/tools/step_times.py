@@ -18,7 +18,16 @@ SHA-256 of the output's bytes, so that two checkouts' lines show whether
 their convolutions are bit-equal. ``--solver`` times the Burgers solver's
 no-grad path alone: ``burgers_solve`` at batch 50 (10^4 steps of dt 1e-4)
 and ``evaluate_samples`` at batch 50 (two such solves and the metrics), 3
-synchronised calls each after a warm-up.
+synchronised calls each after a warm-up. ``--two-model`` times the three
+two-model samplers, each with its two forwards concurrent on two CUDA
+streams (``diffusion.core.two_forwards``) and one after the other, in
+turns (concurrent, in turn, in turn, concurrent, twice): guided DDPM at
+batch 50 (Burgers, two UNet2Ds), a guided DDIM step at batch 8 (smoke,
+two UNet3Ds at the app's widths) and a guided DDPM step at batch 8
+(jellyfish, the joint and thetas UNet3Ds at full width with the boundary
+updater and the force surrogate), all with seeded random weights; per run
+steps/s, the peak memory allocated and reserved, and the output's
+largest difference from the first in-turn run's (0: bit-equal).
 
 ``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
 earlier version of the port, e.g. the parent commit unpacked with ``git
@@ -125,6 +134,108 @@ def solver_times(torch, bench) -> dict:
     return out
 
 
+def two_model_times(torch) -> dict:
+    """Steps/s and peak memory of the three two-model samplers, concurrent
+    and in turn (see the module docstring)."""
+    import contextlib
+    from unittest import mock
+
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.benchmarks import jellyfish as jbench
+    from diffphycon_tpu_torch.benchmarks import smoke as sbench
+    from diffphycon_tpu_torch.diffusion import core
+
+    def in_turn(model, x, model_w, x_w, tb):
+        return model(x, tb), model_w(x_w, tb)
+
+    def form(name):
+        return (mock.patch.object(core, "two_forwards", in_turn) if name == "in_turn"
+                else contextlib.nullcontext())
+
+    def seeded(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def burgers():
+        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+        gd = bench.build_diffusion(cfg, bench.init_params(cfg, seed=0, device="cuda"),
+                                   model_w=bench.init_params(cfg, seed=1, device="cuda"),
+                                   device="cuda")
+        u_target = torch.randn(50, 11, 128, generator=seeded(0), device="cuda")
+        cond = {"u0": u_target[:, 0] / bench.RESCALER, "uT": u_target[:, 10] / bench.RESCALER}
+        guidance = bench.build_guidance(cfg, u_target, wu=1000.0)
+        x0, ts = gd.sample_init(50, seeded(1)), gd.sample_ts()
+        return 20, lambda n: gd.sample_chunk(x0, ts[:n], cond, guidance, seeded(2))
+
+    def smoke():
+        cfg = sbench.SmokeConfig()
+        gd = sbench.build_diffusion(
+            cfg, sbench.init_params(cfg, seed=0, device="cuda"),
+            model_w=sbench.init_params(sbench.SmokeConfig(is_w_model=True), seed=1,
+                                       device="cuda"), device="cuda")
+        guidance = sbench.build_guidance(cfg, device="cuda")
+        cond = {"init": torch.rand(8, 64, 64, generator=seeded(3), device="cuda")}
+        x0, ts = gd.sample_init(8, seeded(4)), gd.sample_ts()
+        return 5, lambda n: gd.sample_chunk(x0, ts[:n], cond, guidance, seeded(5))
+
+    def jellyfish():
+        cfg = jbench.JellyfishConfig()
+        gd = jbench.JellyfishDiffusion(
+            cfg, jbench.build_joint_unet(cfg, seed=1, device="cuda"),
+            thetas_model=jbench.build_thetas_unet(cfg, seed=2, device="cuda"),
+            bd_updater=jbench.build_bd_updater(cfg, seed=3, device="cuda"), device="cuda")
+        design_fn = jbench.make_force_design_fn(
+            cfg, jbench.build_force_unet(cfg, seed=4, device="cuda"), gd.bd_updater, -1.0, 1.0)
+        g, h = seeded(6), cfg.image_size
+        s0 = torch.rand(8, h, h, cfg.n_state, generator=g, device="cuda") * 2 - 1
+        b0 = torch.rand(8, h, h, 3, generator=g, device="cuda")
+        th0 = torch.rand(8, generator=g, device="cuda")
+        cond = gd._cond(s0, b0, th0)
+        x0, ts = gd.sample_init(s0, b0, th0, generator=g), gd.sample_ts()
+
+        def run(n):
+            x, gen = x0, seeded(7)
+            for t in ts[:n]:
+                x = gd.step(x, t, cond, design_fn, gen)
+            return x
+        return 5, run
+
+    out = {}
+    for name, build in (("burgers_ddpm_b50", burgers), ("smoke_ddim_b8", smoke),
+                        ("jellyfish_ddpm_b8", jellyfish)):
+        n, run = build()
+        with torch.no_grad():
+            for f in ("concurrent", "in_turn"):  # warm-up
+                with form(f):
+                    run(1)
+            rec = {"steps": n, "runs": []}
+            outs = []
+            for f in ("concurrent", "in_turn", "in_turn", "concurrent") * 2:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                with form(f):
+                    tic = time.perf_counter()
+                    x = run(n)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - tic
+                outs.append(x)
+                rec["runs"].append({
+                    "form": f, "steps_per_s": n / dt,
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                    "finite": bool(torch.isfinite(x).all())})
+            ref = outs[1]  # the first in-turn run
+            for r, x in zip(rec["runs"], outs):
+                r["equal_to_in_turn"] = bool(torch.equal(x, ref))
+                r["max_abs_diff_to_in_turn"] = (x - ref).abs().max().item()
+            rec["max_abs_in_turn"] = ref.abs().max().item()
+        out[name] = rec
+        print(json.dumps({name: rec}), flush=True)
+        del run, outs, ref, x
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
@@ -132,6 +243,8 @@ def main() -> int:
     ap.add_argument("--ddpm-only", action="store_true", help="time the guided DDPM steps alone")
     ap.add_argument("--conv-digests", action="store_true",
                     help="print K1's and K2's output digests at every signature instead")
+    ap.add_argument("--two-model", action="store_true",
+                    help="time the two-model samplers with concurrent and in-turn forwards")
     ap.add_argument("--solver", action="store_true",
                     help="time the no-grad Burgers solve and evaluate_samples instead")
     args = ap.parse_args()
@@ -158,6 +271,9 @@ def main() -> int:
     out = {"root": str(root)}
     if args.conv_digests:
         print(json.dumps({**out, **conv_digests(torch)}), flush=True)
+        return 0
+    if args.two_model:
+        print(json.dumps({**out, "two_model": two_model_times(torch)}), flush=True)
         return 0
     if args.solver:
         print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)

@@ -341,7 +341,9 @@ class Trainer:
     def train(self, progress: bool = True) -> int:
         """Run to ``train_num_steps``; returns the final step. On SIGTERM the
         step in flight finishes, a checkpoint is saved at the current raw
-        step and the loop returns; the previous handler is restored."""
+        step and the loop returns; the previous handler is restored. Under a
+        mesh of several ranks the ranks agree on the flag on the host, one
+        step late: all stop after the step that follows the first SIGTERM."""
         cfg = self.cfg
         log_path = self.results_folder / "train_log.jsonl"
         t0 = time.time()
@@ -359,15 +361,22 @@ class Trainer:
         except ValueError:
             pass  # not in the main thread; run unguarded
         distributed = self.mesh is not None and self.mesh.world_size > 1
+        stopping = False
+        vote = None  # the ranks' OR of their SIGTERM flags, started a step ago
         try:
             with open(log_path, "a") if self.is_main else contextlib.nullcontext() as logf:
-                while self.step < cfg.train_num_steps and not stop["requested"]:
+                while self.step < cfg.train_num_steps and not stopping:
                     losses.append(self.train_step(next(self.batch_iter)))
                     step = self.step
-                    if distributed:  # every rank stops at the same step
-                        flag = torch.tensor(float(stop["requested"]), device=self.device)
-                        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX)
-                        stop["requested"] = bool(flag.item())
+                    if not distributed:
+                        stopping = stop["requested"]
+                    else:
+                        # every rank stops at the same step: each reads the
+                        # OR of the flags of one step earlier, which the host
+                        # computed while this step ran (no device sync)
+                        if vote is not None:
+                            stopping = vote()
+                        vote = self.mesh.any_async(stop["requested"])
                     if step % cfg.log_every == 0 or step == cfg.train_num_steps:
                         mean = torch.stack(losses).mean()
                         losses.clear()
@@ -384,7 +393,9 @@ class Trainer:
                                 print(f"step {step}: loss {lval:.5f}", flush=True)
                     if step % cfg.save_and_sample_every == 0:
                         self.save()
-            if stop["requested"]:
+            if vote is not None:
+                stopping = vote() or stopping
+            if stopping:
                 if self.step % cfg.save_and_sample_every != 0:
                     self.save()
                 if self.is_main:

@@ -14,12 +14,13 @@ Tolerances (max |port - jax| <= rtol * max(1, max |jax|)):
   summation order only (~1e-6);
 - DDIM steps at the end of the schedule: 1e-4 (no 1/sqrt(alphas_cumprod)
   amplification there);
-- the fused two-model step against the two-call step: bit-equal on the CPU
-  (the forwards run one after the other);
+- the two-model step against the two calls made by hand: bit-equal on the
+  CPU (the forwards run one after the other);
 - metrics: 1e-6, elementwise float32.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from diffphycon_tpu.diffusion.core import GuidanceSpec as JaxGuidance
 from diffphycon_tpu.nets.unet2d import UNet2D as JaxUNet2D
 from diffphycon_tpu_torch.benchmarks import burgers as tbench
 from diffphycon_tpu_torch.control.metrics import burgers_metric, mse_deviation
+from diffphycon_tpu_torch.diffusion import core
 from diffphycon_tpu_torch.diffusion.core import DiffusionConstants, GaussianDiffusion, GuidanceSpec
 from diffphycon_tpu_torch.nets import UNet2D
 from diffphycon_tpu_torch.utils.convert import load_flax_unet2d
@@ -64,7 +66,8 @@ def nets():
 def _pair(nets, two_models=True, **cfg_kw):
     """(jax diffusion, guidance, cond, port diffusion, guidance, cond,
     params) for the Burgers config; attributes build_diffusion does not take
-    (objective, guidance_u0, fuse_two_models) are set on both after."""
+    (objective, guidance_u0) are set on both after, fuse_two_models on the
+    JAX one only (the port has no such flag)."""
     apply, params, ports, u_target = nets
     extra = {k: cfg_kw.pop(k) for k in ("objective", "guidance_u0", "fuse_two_models")
              if k in cfg_kw}
@@ -78,7 +81,8 @@ def _pair(nets, two_models=True, **cfg_kw):
         params = params[0]
     for k, v in extra.items():
         setattr(jgd, k, v)
-        setattr(tgd, k, v)
+        if k != "fuse_two_models":
+            setattr(tgd, k, v)
         if k == "objective":
             jgd.consts = JaxConsts.create(jcfg.timesteps, jcfg.beta_schedule, v)
             tgd.consts = DiffusionConstants.create(tcfg.timesteps, tcfg.beta_schedule, v,
@@ -179,12 +183,19 @@ def test_port_transform_in_ddim_last_steps(nets):
     assert_close(tgd.sample_chunk(_t(x), steps, tc, tg), ref, 1e-4)
 
 
+def _in_turn(model, x, model_w, x_w, tb):
+    return model(x, tb), model_w(x_w, tb)
+
+
 def test_port_fuse_two_models(nets):
+    """The port's form of JAX's fuse_two_models is its only two-model path
+    (``core.two_forwards``: two CUDA streams, on the CPU one forward after
+    the other): against the two calls made by hand and JAX's fused step."""
     jgd, jg, jc, tgd, tg, tc, params = _pair(nets, fuse_two_models=True)
-    _, _, _, tgd2, _, _, _ = _pair(nets)
     x, t = rand(2, 16, 128, 2, seed=8), 450
     fused, _ = tgd._raw_eps(_t(x), t, tc, tg)
-    two, _ = tgd2._raw_eps(_t(x), t, tc, tg)
+    with mock.patch.object(core, "two_forwards", _in_turn):
+        two, _ = tgd._raw_eps(_t(x), t, tc, tg)
     assert torch.equal(fused, two)
     ref, _ = jgd._raw_eps(params, jnp.asarray(x), t, jc, jg)
     assert_close(fused, ref, 1e-4)
@@ -193,7 +204,8 @@ def test_port_fuse_two_models(nets):
     k_samp = jax.random.split(jax.random.fold_in(key, t), 3)[0]
     noise = _t(jax.random.normal(k_samp, x.shape, jnp.float32))
     step = tgd.ddpm_step(_t(x), t, tc, tg, noise=noise)
-    assert torch.equal(step, tgd2.ddpm_step(_t(x), t, tc, tg, noise=noise))
+    with mock.patch.object(core, "two_forwards", _in_turn):
+        assert torch.equal(step, tgd.ddpm_step(_t(x), t, tc, tg, noise=noise))
     assert_close(step, ref_step, 1e-4)
 
 

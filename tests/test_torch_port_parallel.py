@@ -16,9 +16,15 @@ INIT_METHOD OUT``: ``rank_main``).
   half the batch).
 - ``dryrun_multichip(2)`` runs: a Burgers step, sharded two-model guided
   sampling and a UNet3D step on two ranks that agree on their weights.
-- A world of one needs no process group and is the plain path.
+- A SIGTERM that reaches one rank stops both after the same step, the one
+  that follows it (the ranks agree on the flag on the host, one step
+  late), and rank 0 saves a checkpoint there.
+- A world of one needs no process group and is the plain path; an explicit
+  CUDA index is kept unless it conflicts with torchrun's local rank.
 """
 
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -105,6 +111,17 @@ def sampling_case():
     return gd, u, guidance, cond
 
 
+def sigterm_batches(batch, raise_at=None):
+    """The batch, step after step; SIGTERM to this process while the
+    batch of step ``raise_at`` is fetched (that step is in flight)."""
+    step = 0
+    while True:
+        step += 1
+        if step == raise_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        yield batch
+
+
 def rank_main(rank: int, world: int, init_method: str, out: str) -> None:
     """One rank of the two-rank run (``two_ranks``); rank 0 saves to out."""
     torch.set_num_threads(1)
@@ -118,6 +135,13 @@ def rank_main(rank: int, world: int, init_method: str, out: str) -> None:
     trainer, batch = ebm_case(mesh)
     trainer.compute_grads(tuple(torch.as_tensor(b) for b in batch))
     result["grads_ebm"] = [p.grad.clone() for p in trainer.params]
+    trainer, batch = parallel_case(1, mesh)
+    trainer.cfg.train_num_steps = 6
+    trainer.batch_iter = sigterm_batches(batch, raise_at=3 if rank == 1 else None)
+    steps = [None] * world
+    dist.all_gather_object(steps, trainer.train(progress=False))
+    result["sigterm_steps"] = steps
+    result["sigterm_saved"] = Trainer.latest_milestone(str(trainer.results_folder))
     gd, u, guidance, cond = sampling_case()
     result["ddim"] = sample_sharded(mesh, gd, GLOBAL_BATCH, cond(u), guidance(u),
                                     torch.Generator().manual_seed(2))
@@ -178,6 +202,14 @@ def test_port_sharded_ddim_equals_unsharded(two_ranks):
     assert_close(two_ranks["ddim"], ref, 2e-3)
 
 
+def test_port_two_rank_sigterm_stops_every_rank_at_one_step(two_ranks):
+    """Rank 1 alone gets SIGTERM during step 3; both ranks stop after step 4
+    (rank 1's flag, ORed on the host while step 4 ran) and rank 0 saves
+    there, not at train_num_steps 6."""
+    assert two_ranks["sigterm_steps"] == [4, 4]
+    assert two_ranks["sigterm_saved"] == 4
+
+
 def test_port_dryrun_multichip_two_ranks():
     dryrun_multichip(2)
 
@@ -223,6 +255,31 @@ def test_port_make_mesh_rejects(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh()
+
+
+@pytest.mark.parametrize("device, local_rank, want", [
+    ("cuda:1", None, "cuda:1"),   # a plain run keeps the index it was given
+    ("cuda", "1", "cuda:1"),      # torchrun's LOCAL_RANK pins an unindexed request
+    ("cuda:1", "1", "cuda:1"),
+    ("cuda:0", "1", "conflicts"),
+])
+def test_port_make_mesh_cuda_index(monkeypatch, device, local_rank, want):
+    """CUDA faked on the CPU: the device make_mesh pins, in a world of one."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    if local_rank is not None:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    pinned = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", pinned.append)
+    if want == "conflicts":
+        with pytest.raises(ValueError, match="conflicts with local rank 1"):
+            make_mesh(device=device)
+        assert pinned == []
+        return
+    mesh = make_mesh(device=device)
+    assert (mesh.device, mesh.world_size, mesh.grouped) == (torch.device(want), 1, False)
+    assert pinned == [torch.device(want)]
 
 
 if __name__ == "__main__":
