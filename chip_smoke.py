@@ -99,8 +99,8 @@ Smoke training and jellyfish (no kernel of their own: cuDNN, TF32 off):
    ``apps/train_smoke.py`` ``main()`` for the joint (C=6, 3 steps, a
    checkpoint, resumed to 4) and the w model (C=2) at batch 16, then each
    timed with remat on and off through ``Trainer.train_step``: after each
-   switch a warm-up step, three one-step windows (ms per optimizer step,
-   their median; peak memory) and one step cut at the trainer's marks
+   switch a warm-up step, two one-step windows (ms per optimizer step,
+   the larger as their median; peak memory) and one step cut at the trainer's marks
    (forward, backward, update). A micro-batch that does not fit is halved
    by gradient accumulation (``--grad_accum``) and the reason printed;
 12. jellyfish at full width: synthetic sims (4 train, 8 test),
@@ -128,8 +128,9 @@ The baselines (no kernel of their own: elementwise solver steps, MLPs and
    ``apps/train_baselines_burgers.py`` for bc, bppo and sac (MLPs 512 x 2,
    BASE_RL_STEPS updates); ``apps/train_sac_burgers.py`` (2 episodes of 50
    updates at batch 1024); ``apps/infer_jellyfish.py --inference_method
-   MPC`` at batch 8 on phase 12's surrogates (BASE_MPC_ITERS replanning
-   iterations per step; objective, walltime, peak memory), and one
+   MPC`` at batch 8 on phase 12's surrogates over MPC_FRAMES frames
+   (BASE_MPC_ITERS replanning iterations per step; objective, walltime,
+   peak memory), and one
    replanning iteration at t = 0 (19 steps) timed alone, projected to the
    default run (30 iterations over the shrinking horizons), one at t = 15
    (4 steps) profiled; ``--inference_method MPC_LBFGS`` over MPC_LBFGS_FRAMES
@@ -172,6 +173,29 @@ carry every UNet2D forward in it):
    ``gd.sample``; a reference Trainer file round trip on CUDA; ``ks_solve``
    at batch 32 on CUDA against the CPU (KS_RTOL), timed. Run alone:
    ``chip_smoke.remaining_modules_phase`` (its docstring).
+
+bf16 weights (the Pallas kernels' ``weight_dtype=bfloat16``; every
+``*_bf16`` kernel is a bf16 variant in the same source as its fp32 one):
+16. ``bf16_phase``: the bf16 variants of K1, K2, K5 and K6 at every
+   signature of one UNet2D forward at batch 50 against their bf16 plain
+   versions (BF16_KERNEL_RTOL), two calls bit-equal, timed per event pair
+   and on the device (CUDA graph) beside the plain version, cuDNN's bf16
+   conv (K1, K2) and the bound at 989 TFLOP/s, and the distance to the
+   plain version on unrounded activations (K1, K2: at least
+   BF16_ROUNDING_MARGIN times the distance to the bf16 plain version, so
+   the kernel rounds; K5, K6: a record); the bf16 UNet2D's
+   kernel forward against its plain forward (BF16_UNET_RTOL), launch
+   counts (52/3/38/8/1, every K1, K2, K5 and K6 launch a bf16 one), its
+   distance from the fp32 forward above BF16_GUARD, both forwards timed in
+   turns; ``infer_burgers.main()`` with ``--bf16 True`` (two seeded models,
+   DDIM 50, batch 50); BF16_DDPM_STEPS guided DDPM steps at batch 50, fp32
+   and bf16 in turns (steps/s, busy share); one training step's loss and
+   gradients at batch 16 on CUDA against the CPU, ``train_burgers.main()``
+   with ``--bf16 True`` for BF16_TRAIN_STEPS steps (float32 checkpoints and
+   EMA), and ms per training step, bf16 and fp32 in turns. Run alone:
+   ``chip_smoke.bf16_phase(torch, F, smi, chip_smoke.main_path_calls(64,
+   (1, 2, 4, 8), 50))`` after ``_build.load_library()``, with
+   ``torch.backends.cudnn.allow_tf32 = False``.
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8, with its phase-14 launches beside
@@ -280,6 +304,7 @@ BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
 BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
 BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
 BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
+MPC_FRAMES = 10      # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
 MPC_LBFGS_FRAMES = 6  # the MPC_LBFGS app run's frames (default 20)
 MPC_LBFGS_ITERS = 2   # timed L-BFGS iterations of the replan at t = 0
 RL_SAC_B = 64         # train_baselines_smoke's default batch (the conv SAC)
@@ -369,9 +394,11 @@ def main_path_calls(dim, mults, batch, H=16, W=128):
     return calls
 
 
-def expected_counts(calls):
+def expected_counts(calls, bf16=False):
+    """The launch counters of one forward of ``calls``; ``bf16``: with
+    bfloat16 weights, every K1, K2, K5 and K6 launch is a bf16 variant's."""
     conv = [a for k, a, _ in calls if k == "conv2d_nhwc"]
-    return {
+    counts = {
         "conv2d_nhwc": len(conv),
         "conv2d_nhwc.dual": sum(a[4] > 0 for a in conv),
         "conv2d_nhwc.upsample": sum(a[7] for a in conv),
@@ -382,6 +409,9 @@ def expected_counts(calls):
         "resblock_pair": 0,  # the per-block forward launches no persistent kernel
         "unet2d_mega": 0,
     }
+    for k in BF16_KERNELS:
+        counts[f"{k}.bf16"] = counts[k] if bf16 else 0
+    return counts
 
 
 def timed(torch, fn, n=20, warm=3):
@@ -497,10 +527,16 @@ def attention_flops(kind, b_, n, c):
     return b_ * (proj + core + 10 * n * (2 * c + hidden))
 
 
-def kernel_case(torch, F, kb, gen, kind, args):
+def kernel_case(torch, F, kb, gen, kind, args, bf16=False):
     """(kernel fn, plain fn, library fn or None, flops, bytes, extra timings)
-    at one signature."""
+    at one signature. ``bf16``: the matmul weights rounded to bfloat16 (the
+    bf16 variants; weight bytes at 2 each), the library call cuDNN's bf16
+    conv on operands cast outside the timing, and extra["unrounded"] the
+    plain version on the float32 activation with the same weights (what a
+    kernel that forgot to round would give)."""
     dev = "cuda"
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    wsize = 2 if bf16 else 4
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + shift
@@ -512,16 +548,19 @@ def kernel_case(torch, F, kb, gen, kind, args):
         hidden = HEADS * DIM_HEAD
         x = rnd(b_, h, w, c, scale=2.0, shift=0.3)
         p = {"norm_g": rnd(c, scale=0.1, shift=1.0),
-             "wqkv": rnd(c, 3 * hidden, scale=c ** -0.5),
-             "wo": rnd(hidden, c, scale=hidden ** -0.5), "bo": rnd(c, scale=0.1)}
+             "wqkv": rnd(c, 3 * hidden, scale=c ** -0.5).to(wdt),
+             "wo": rnd(hidden, c, scale=hidden ** -0.5).to(wdt), "bo": rnd(c, scale=0.1)}
         linear = kind == "linear_attention_block"
         if linear:
             p["out_g"] = rnd(c, scale=0.1, shift=1.0)
         kern = ka.linear_attention_block if linear else ka.attention_block
         plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
         n = h * w
-        nbytes = 4 * (2 * x.numel() + c * 3 * hidden + hidden * c + 3 * c)
+        nbytes = 4 * (2 * x.numel() + 3 * c) + wsize * (c * 3 * hidden + hidden * c)
         extra = {}
+        if bf16:
+            p32 = {**p, "wqkv": p["wqkv"].float(), "wo": p["wo"].float()}
+            extra["unrounded"] = lambda: plain(x, p32)
         if linear:  # the stages apart: K5a, then the merge with K5b
             extra["k5a"], extra["k5b"] = ka.linear_attention_stages(x, p)
         else:  # yardstick of the core: SDPA on this block's q, k, v
@@ -536,40 +575,46 @@ def kernel_case(torch, F, kb, gen, kind, args):
         ci = ca + cb
         xa = rnd(b_, h, w, ca)
         xb = rnd(b_, h, w, cb) if cb else None
-        wt = rnd(k * k * ci, co, scale=1.0 / math.sqrt(k * k * ci))
+        wt = rnd(k * k * ci, co, scale=1.0 / math.sqrt(k * k * ci)).to(wdt)
         bias = rnd(co, scale=0.1)
-        # cuDNN on its NCHW layout (the transposes are made outside the
-        # timing; the concat and the upsample are timed)
+        # cuDNN on its NCHW layout (the transposes, and the bf16 casts, are
+        # made outside the timing; the concat and the upsample are timed)
         w_lib = wt.reshape(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
-        xa_l = xa.permute(0, 3, 1, 2).contiguous()
-        xb_l = xb.permute(0, 3, 1, 2).contiguous() if cb else None
+        xa_l = xa.permute(0, 3, 1, 2).contiguous().to(wdt)
+        xb_l = xb.permute(0, 3, 1, 2).contiguous().to(wdt) if cb else None
+        b_lib = bias.to(wdt)
 
         def library():
             x = xa_l if xb_l is None else torch.cat([xa_l, xb_l], dim=1)
             if up:
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
-            return F.conv2d(x, w_lib, bias, padding=k // 2)
+            return F.conv2d(x, w_lib, b_lib, padding=k // 2)
 
         ho, wo = (2 * h, 2 * w) if up else (h, w)
         flops = 2 * b_ * ho * wo * co * k * k * ci
-        nbytes = 4 * (xa.numel() + (xb.numel() if cb else 0) + wt.numel() + co
-                      + b_ * ho * wo * co)
+        nbytes = (4 * (xa.numel() + (xb.numel() if cb else 0) + co + b_ * ho * wo * co)
+                  + wsize * wt.numel())
+        extra = {"unrounded": lambda: kb.conv2d_nhwc_plain(xa, wt.float(), bias, x_b=xb, k=k,
+                                                           upsample=up)} if bf16 else {}
         return (lambda: kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
                 lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up),
-                library, flops, nbytes, {})
+                library, flops, nbytes, extra)
     if kind == "downsample_nhwc":
         b_, h, w, c, co = args
         x = rnd(b_, h, w, c)
-        wt = rnd(4 * c, co, scale=1.0 / math.sqrt(4 * c))
+        wt = rnd(4 * c, co, scale=1.0 / math.sqrt(4 * c)).to(wdt)
         bias = rnd(co, scale=0.1)
         w_lib = wt.reshape(2, 2, c, co).permute(3, 2, 0, 1).contiguous()
-        x_l = x.permute(0, 3, 1, 2).contiguous()
+        x_l = x.permute(0, 3, 1, 2).contiguous().to(wdt)
+        b_lib = bias.to(wdt)
         flops = 2 * b_ * (h // 2) * (w // 2) * co * 4 * c
-        nbytes = 4 * (x.numel() + wt.numel() + co + b_ * (h // 2) * (w // 2) * co)
+        nbytes = 4 * (x.numel() + co + b_ * (h // 2) * (w // 2) * co) + wsize * wt.numel()
+        extra = {"unrounded": lambda: kb.downsample_nhwc_plain(x, wt.float(), bias)
+                 } if bf16 else {}
         return (lambda: kb.downsample_nhwc(x, wt, bias),
                 lambda: kb.downsample_nhwc_plain(x, wt, bias),
-                lambda: F.conv2d(x_l, w_lib, bias, stride=2),
-                flops, nbytes, {})
+                lambda: F.conv2d(x_l, w_lib, b_lib, stride=2),
+                flops, nbytes, extra)
     b_, h, w, c, film = args
     x = rnd(b_, h, w, c, scale=2.0, shift=0.5)
     gamma = rnd(c, scale=0.5, shift=1.0)
@@ -1378,9 +1423,9 @@ def _step_timing(torch, trainer, batch_fn, warm, n_windows, n_steps):
 
 
 # phases 11-12: one warm-up step after each remat switch (the allocator grows
-# to the new setting's peak there), then three one-step windows and one
-# split step
-REMAT_TIMING = (1, 3, 1)
+# to the new setting's peak there), then two one-step windows (the larger
+# is the median) and one split step
+REMAT_TIMING = (1, 2, 1)
 
 
 def _timed_remat(torch, tr, batch_fn):
@@ -1758,7 +1803,8 @@ def _mpc_records(torch, smi_line):
     agg = infer_jellyfish.main(infer_jellyfish.build_parser().parse_args(
         ["--inference_method", "MPC", "--dataset_path", root, "--surrogate_folder", sur,
          "--n_test_samples", str(JELLY_B), "--batch_size", str(JELLY_B),
-         "--num_iters", str(BASE_MPC_ITERS), "--inference_result_path", out]))
+         "--frames", str(MPC_FRAMES), "--num_iters", str(BASE_MPC_ITERS),
+         "--inference_result_path", out]))
     torch.cuda.synchronize()
     app_s = time.perf_counter() - tic
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1800,7 +1846,8 @@ def _mpc_records(torch, smi_line):
     profile = _busy(torch, lambda: one_iteration(num_t - 4))
     horizons = sum(num_t - t for t in range(num_t))  # pipeline steps over all replans
     emit({"phase": "baselines_mpc", "app": "diffphycon_tpu_torch/apps/infer_jellyfish.py",
-          "batch": JELLY_B, "frames": cfg.frames, "num_iters": BASE_MPC_ITERS,
+          "batch": JELLY_B, "frames": cfg.frames, "app_frames": MPC_FRAMES,
+          "num_iters": BASE_MPC_ITERS,
           "result": agg, "app_s": app_s, "peak_memory_gb": peak,
           "replan_iteration_t0_s": times, "replan_iteration_t0_median_s": iter_s,
           "replan_iteration_t15_profile": profile,
@@ -2622,6 +2669,335 @@ def jellyfish_phase(torch, smi_line):
         fail(f"jellyfish on CUDA differs from the CPU: {rec}")
 
 
+# phase 16 (bf16 weights on the Burgers path, the Pallas kernels'
+# weight_dtype=bfloat16): the kernels with a bf16 variant
+BF16_KERNELS = ("conv2d_nhwc", "downsample_nhwc", "linear_attention_block", "attention_block")
+BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
+# a bf16 variant against its bf16 plain version on the same inputs: both
+# round the same operands to bf16 and sum exact products in fp32, so they
+# differ in summation order, and (K5, K6) where a ChanLN output summed in
+# another order lies an fp32 ulp apart and rounds to the neighbouring bf16
+# value; the CPU tests' per-block bound (tests/test_torch_port_bf16.py)
+BF16_KERNEL_RTOL = 2e-3
+# the bf16 UNet2D's kernel forward against its plain forward: the blocks'
+# rounding flips cascade through 17 ResBlocks (on the CPU a 1e-7 relative
+# change of the input moves the dim-8 bf16 net by 6.6e-3); the CPU tests'
+# whole-net bound
+BF16_UNET_RTOL = 1e-2
+# the bf16 forward differs from the fp32 forward by more than this, so a
+# silent fp32 path fails (the CPU tests' guard)
+BF16_GUARD = 1e-3
+# one training step at batch 16, CUDA (kernels) against the CPU (plain
+# versions): the loss and the parameter gradients (relative norm per
+# tensor), apart by the forwards' rounding flips; measured 1.2e-5 and
+# 2.0e-3 on an H100 80GB HBM3 at 700 W, so a 100x and a 10x margin
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_RTOL = 2e-2
+# K1 and K2 see the same activations as their plain versions (no flips:
+# 2e-7 to 4e-7 measured) and are 1.5e-3 to 2.1e-3 from the plain version on
+# unrounded activations; a kernel that rounded nothing would sit there, so
+# the bf16 variant must be 10x closer to its plain version than that
+BF16_ROUNDING_MARGIN = 10
+BF16_DDPM_STEPS = 20
+BF16_TRAIN_STEPS = 6
+
+
+def bf16_phase(torch, F, smi_line, calls):
+    """Phase 16: bf16 weights on the Burgers path (``BurgersConfig(bf16=True)``):
+    each bf16 variant (K1, K2, K5, K6) at every signature of one forward at
+    batch 50 against its bf16 plain version, bit-equal repeats, timed (event
+    pairs, device time from a CUDA graph, the plain version, cuDNN's bf16
+    conv for K1/K2, SDPA on K6's q, k, v) beside its bound at the bf16 rate;
+    the bf16 UNet2D's kernel forward against its plain forward with the
+    launch counts of one forward (every K1, K2, K5, K6 launch a bf16 one),
+    timed beside the fp32 forward in turns; ``apps/infer_burgers.py``
+    ``main()`` with ``--bf16 True`` (two seeded models, DDIM 50, batch 50);
+    guided DDPM at batch 50, bf16 and fp32 in turns; one training step's
+    loss and gradients on CUDA against the CPU, ``apps/train_burgers.py``
+    ``main()`` with ``--bf16 True`` (float32 checkpoints), and the training
+    step bf16 beside fp32 in turns. Returns the kernels line's bf16
+    records."""
+    from diffphycon_tpu_torch.apps import infer_burgers, train_burgers
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.training import data
+    from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.time()
+    work = os.path.join("build", "chip_smoke")
+    data_root = os.path.join(work, "data")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    # 16a. the bf16 variants at every signature of one forward
+    t0 = time.time()
+    per_fwd = {}
+    for k, a, _ in calls:
+        if k in BF16_KERNELS:
+            per_fwd[(k, a)] = per_fwd.get((k, a), 0) + 1
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms",
+            "max_abs_err")
+    agg = {k: dict.fromkeys(keys, 0.0) for k in BF16_KERNELS}
+    bad = []
+    with torch.no_grad():
+        for (kname, args), count in per_fwd.items():
+            kern, plain, library, flops, nbytes, extra = kernel_case(torch, F, kb, gen, kname,
+                                                                     args, bf16=True)
+            unrounded = extra.pop("unrounded")
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            tol = BF16_KERNEL_RTOL * scale
+            gap = (out - unrounded()).abs().max().item()
+            repeat_equal = torch.equal(out, kern())
+            ms, plain_ms = timed(torch, kern), timed(torch, plain)
+            lib_ms = None if library is None else timed(torch, library)
+            dev_ms, why = timed_graph(torch, kern)
+            extra_ms = {f"{key}_ms": timed(torch, fn) for key, fn in extra.items()}
+            b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+            tc = {}
+            if kname in TC_KERNELS:
+                plan = kb.tile_plan(*gemm_dims(kname, args))
+                tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits},
+                      "tflop_per_s": flops / ms / 1e9}
+            emit({"phase": "kernel_bf16", "kernel": kname, "args": list(args),
+                  "per_forward": count, "max_abs_err": err, "tol": tol,
+                  "rel_err": err / scale, "unrounded_gap": gap / scale,
+                  "repeat_bit_equal": repeat_equal, "ms": ms, "device_ms": dev_ms,
+                  **({"device_ms_error": why} if why else {}), "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_ms, **tc})
+            if not err <= tol:
+                bad.append((kname, args, err, tol))
+            if not repeat_equal:
+                bad.append((kname, args, "two calls are not bit-equal"))
+            if kname in TC_KERNELS and not gap >= BF16_ROUNDING_MARGIN * err:
+                bad.append((kname, args, f"{gap} from the unrounded plain version, {err} "
+                                         "from the bf16 one: the activations are not rounded"))
+            a = agg[kname]
+            for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bound_ms", b_ms),
+                           ("ops_ms", 1e3 * flops / BF16_PEAK),
+                           ("bytes_ms", 1e3 * nbytes / HBM_RATE)):
+                a[key] = None if v is None or a[key] is None else a[key] + count * v
+            a["max_abs_err"] = max(a["max_abs_err"], err)
+            del out, ref
+    emit({"phase": "kernels_bf16_checked", "signatures": len(per_fwd), "tol_rel": BF16_KERNEL_RTOL,
+          "seconds": round(time.time() - t0, 3)})
+    if bad:
+        fail(f"bf16 kernel mismatches: {bad}")
+    torch.cuda.empty_cache()
+
+    # 16b. the bf16 UNet2D: kernel forward against the plain forward, its
+    # launches, and beside the fp32 forward
+    t0 = time.time()
+    cfg16 = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True)
+    cfg32 = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+    nets = {"bf16": bench.init_params(cfg16, seed=0, device="cuda"),
+            "fp32": bench.init_params(cfg32, seed=0, device="cuda")}
+    x = torch.randn(B, cfg16.pad_t, cfg16.nx, 2, generator=gen, device="cuda")
+    t = torch.linspace(0, 999, B, device="cuda")
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = nets["bf16"](x, t)
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        ref = nets["bf16"].forward_plain(x, t)
+        out32 = nets["fp32"](x, t)
+        scale = max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item()
+        gap32 = (out - out32).abs().max().item() / max(1.0, out32.abs().max().item())
+        fwd_ms = {"bf16": [], "fp32": []}
+        for order in (("fp32", "bf16"), ("bf16", "fp32")):
+            for name in order:
+                fwd_ms[name].append(timed(torch, lambda: nets[name](x, t), n=10))
+    want = expected_counts(calls, bf16=True)
+    emit({"phase": "unet2d_bf16", "max_abs_err": err, "tol": BF16_UNET_RTOL * scale,
+          "rel_err": err / scale, "rel_gap_to_fp32": gap32, "guard": BF16_GUARD,
+          "launches_per_forward": counts, "expected": want, "forward_ms_in_turns": fwd_ms,
+          "finite": bool(torch.isfinite(out).all()), "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if not err <= BF16_UNET_RTOL * scale or not torch.isfinite(out).all():
+        fail(f"bf16 UNet2D kernel forward differs from its plain forward: {err / scale}")
+    if counts != want:
+        fail(f"bf16 launch counts per forward {counts} != expected {want}")
+    if not gap32 > BF16_GUARD:
+        fail(f"the bf16 forward is within {gap32} of the fp32 forward: not bf16")
+    del out, ref, out32
+
+    # 16c. the app's main path with --bf16 True
+    t0 = time.time()
+    app_args = infer_burgers.build_parser().parse_args([
+        "--init_seed", "0", "--synthetic_data", str(B), "--n_test_samples", str(B),
+        "--batch_size", str(B), "--eval_two_models", "True", "--wus", "1000",
+        "--is_condition_u0", "True", "--is_condition_uT", "True", "--bf16", "True",
+        "--using_ddim", "True", "--ddim_sampling_steps", "50", "--ddim_eta", "0",
+        "--data_root", data_root, "--save_file", os.path.join(work, "result_bf16.json")])
+    kb.reset_launch_counts()
+    entry = infer_burgers.main(app_args)["wu=1000.0,wf=0.0"]
+    torch.cuda.synchronize()
+    app_counts = kb.launch_counts()
+    finite = all(math.isfinite(v) for v in entry.values())
+    emit({"phase": "main_path_bf16", "app": "diffphycon_tpu_torch/apps/infer_burgers.py",
+          "sampler": "ddim 50 steps, eta 0, two models, wu=1000, batch 50, --bf16 True",
+          "result": entry, "launches": app_counts, "finite": finite,
+          "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail(f"non-finite bf16 main-path metrics: {entry}")
+    for k in BF16_KERNELS:
+        if not app_counts[f"{k}.bf16"] > 0 or app_counts[k] != app_counts[f"{k}.bf16"]:
+            fail(f"bf16 main path: {k} launched {app_counts[k]} times, "
+                 f"{app_counts[f'{k}.bf16']} of them bf16")
+    if not app_counts["group_norm_act"] > 0:
+        fail("bf16 main path: K3 was not launched")
+
+    # 16d. guided DDPM at batch 50, fp32 and bf16 in turns
+    t0 = time.time()
+    models_w = {"bf16": bench.init_params(cfg16, seed=1, device="cuda"),
+                "fp32": bench.init_params(cfg32, seed=1, device="cuda")}
+    u_target = torch.randn(B, 11, 128, generator=gen, device="cuda")
+    cond_vals = {"u0": u_target[:, 0, :] / bench.RESCALER,
+                 "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfg32, u_target, wu=1000.0)
+    gds = {name: bench.build_diffusion(cfg, nets[name], model_w=models_w[name], device="cuda")
+           for name, cfg in (("bf16", cfg16), ("fp32", cfg32))}
+    rates, ddpm_counts = {"bf16": [], "fp32": []}, None
+    for order in (("fp32", "bf16"), ("bf16", "fp32"), ("fp32", "bf16")):
+        for name in order:
+            gd = gds[name]
+            ts = gd.sample_ts()
+            xg = torch.Generator(device="cuda").manual_seed(1)
+            xt = gd.sample_chunk(gd.sample_init(B, xg), ts[:2], cond_vals, guidance, xg)
+            torch.cuda.synchronize()
+            if name == "bf16" and ddpm_counts is None:
+                kb.reset_launch_counts()
+            tic = time.perf_counter()
+            xt = gd.sample_chunk(xt, ts[2:2 + BF16_DDPM_STEPS], cond_vals, guidance, xg)
+            torch.cuda.synchronize()
+            rates[name].append(BF16_DDPM_STEPS / (time.perf_counter() - tic))
+            if name == "bf16" and ddpm_counts is None:
+                ddpm_counts = kb.launch_counts()
+            if not torch.isfinite(xt).all():
+                fail(f"non-finite samples in the {name} guided DDPM loop")
+    busy = {}
+    for name, gd in gds.items():
+        xg = torch.Generator(device="cuda").manual_seed(2)
+        ts = gd.sample_ts()
+        xt = gd.sample_init(B, xg)
+        wall_ms, dev_ms, _ = profile_window(
+            torch, lambda: gd.sample_chunk(xt, ts[:3], cond_vals, guidance, xg))
+        busy[name] = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
+                      "busy_share": dev_ms / wall_ms}
+    want_steps = {k: 2 * BF16_DDPM_STEPS * v for k, v in want.items()}
+    emit({"phase": "guided_ddpm_bf16", "batch": B, "steps_timed": BF16_DDPM_STEPS,
+          "guided_denoise_steps_per_sec_in_turns": rates, "profile": busy,
+          "launches_bf16_run": ddpm_counts, "expected": want_steps, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    if ddpm_counts != want_steps:
+        fail(f"bf16 guided DDPM launches {ddpm_counts} != {want_steps}")
+    del gds, models_w
+    torch.cuda.empty_cache()
+
+    # 16e. training at batch 16: one step on CUDA against the CPU, the train
+    # app with --bf16 True, then the step bf16 beside fp32 in turns
+    t0 = time.time()
+    u, f = data.synthetic_burgers(64, seed=0, cache_dir=os.path.join(data_root, "synthetic"),
+                                  device="cuda")
+    stacked = data.stack_burgers_uf(u, f, rescaler=bench.RESCALER)
+    xb = torch.from_numpy(stacked[:TRAIN_B])
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        net = bench.init_params(cfg16, seed=0, device=dev).train()
+        gd = bench.build_diffusion(cfg16, net, device=dev)
+        if dev == "cuda":
+            tn = gd.draw_t_noise(xb.to(dev), torch.Generator(device=dev).manual_seed(5))
+        t_, noise = (v.to(dev) for v in tn)
+        xd = xb.to(dev)
+        loss = gd.p_losses(xd, t_, bench.derive_cond(xd), noise)
+        loss.backward()
+        steps[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()})
+        del net, gd
+    loss_err = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    rel = {n: ((steps["cuda"][1][n] - g).norm() / g.norm()).item()
+           for n, g in steps["cpu"][1].items()}
+    zero = [n for n, g in steps["cuda"][1].items() if not g.abs().max() > 0]
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "train_bf16_cuda_vs_cpu", "batch": TRAIN_B, "loss_cuda": steps["cuda"][0],
+          "loss_cpu": steps["cpu"][0], "loss_rel_err": loss_err, "loss_tol": BF16_LOSS_RTOL,
+          "max_rel_grad_err": worst[0][1], "worst": worst, "grad_tol": BF16_GRAD_RTOL,
+          "grad_dtypes": sorted({str(g.dtype) for g in steps["cuda"][1].values()}),
+          "zero_grads": zero, "seconds": round(time.time() - t0, 3)})
+    if zero or not loss_err <= BF16_LOSS_RTOL or not worst[0][1] <= BF16_GRAD_RTOL:
+        fail(f"bf16 training step: CUDA against the CPU, loss {loss_err}, gradients {worst}, "
+             f"zero {zero[:5]}")
+    del steps
+
+    t0 = time.time()
+    folder = os.path.join(work, "trained_models_bf16")
+    shutil.rmtree(folder, ignore_errors=True)
+    args = train_burgers.build_parser().parse_args([
+        "--dim", str(DIM), "--dim_mults", *map(str, MULTS), "--device", "cuda", "--bf16", "True",
+        "--synthetic_data", "64", "--batch_size", str(TRAIN_B), "--train_num_steps",
+        str(BF16_TRAIN_STEPS), "--checkpoint_interval", str(BF16_TRAIN_STEPS),
+        "--is_condition_u0", "True", "--is_condition_uT", "True", "--data_root", data_root,
+        "--exp_id", "bf16", "--seed", "0", "--results_folder", folder])
+    kb.reset_launch_counts()
+    trainer = train_burgers.main(args)
+    torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    want = {k: BF16_TRAIN_STEPS * v for k, v in expected_counts(calls, bf16=True).items()}
+    log = [json.loads(line) for line in open(os.path.join(folder, "train_log.jsonl"))]
+    saved = {use_ema: Trainer.load_params(folder, BF16_TRAIN_STEPS, use_ema=use_ema)
+             for use_ema in (False, True)}
+    saved_dtypes = sorted({str(v.dtype) for d in saved.values() for v in d.values()})
+    emit({"phase": "train_app_bf16", "app": "diffphycon_tpu_torch/apps/train_burgers.py",
+          "steps": trainer.step, "launches": counts, "expected": want, "log": log,
+          "checkpoint_dtypes": saved_dtypes, "seconds": round(time.time() - t0, 3)})
+    if trainer.step != BF16_TRAIN_STEPS or counts != want:
+        fail(f"bf16 train app: step {trainer.step}, launches {counts} (want {want})")
+    if not log or not all(math.isfinite(r["loss"]) for r in log):
+        fail(f"bf16 train app: non-finite or missing losses {log}")
+    if saved_dtypes != ["torch.float32"]:
+        fail(f"bf16 train app: checkpoint params and EMA are {saved_dtypes}, not float32")
+    del trainer
+
+    t0 = time.time()
+    trainers = {}
+    for name, cfg in (("fp32", cfg32), ("bf16", cfg16)):
+        net = bench.init_params(cfg, seed=0, device="cuda").train()
+        trainers[name] = Trainer(
+            bench.build_diffusion(cfg, net, device="cuda"), net,
+            data.ArrayDataset(stacked).batches(TRAIN_B, seed=1), bench.derive_cond,
+            TrainerConfig(results_folder=os.path.join(work, f"train_timing_{name}")),
+            device="cuda")
+    step_ms = {"fp32": [], "bf16": []}
+    for order in (("fp32", "bf16"), ("bf16", "fp32")):
+        for name in order:
+            tr = trainers[name]
+            tm = _step_timing(torch, tr, lambda: torch.as_tensor(next(tr.batch_iter),
+                                                                 device="cuda"), 1, 2, 4)
+            step_ms[name].append(tm["ms_per_step"])
+            if not all(math.isfinite(v) for v in tm["losses"]):
+                fail(f"non-finite {name} training losses: {tm['losses']}")
+    emit({"phase": "train_timing_bf16", "batch": TRAIN_B, "ms_per_step_in_turns": step_ms,
+          "windows_steps": [2, 4], "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    del trainers, nets
+    torch.cuda.empty_cache()
+
+    emit({"phase": "bf16_done", "seconds": round(time.time() - t_phase, 3)})
+    records = []
+    for k in BF16_KERNELS:
+        a = agg[k]
+        records.append({
+            "name": f"{k}_bf16", "route": SOURCES[k][0], "source": SOURCES[k][1],
+            "replaces": REPLACES[k] + " under weight_dtype=bfloat16 (pack_unet2d_params :665)",
+            "launches": app_counts[f"{k}.bf16"], "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
+            "library_ms": a["library_ms"], "device_ms": a["device_ms"]})
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2938,6 +3314,9 @@ def main() -> int:
     # -- 15. fuse_two_models, objectives, DDP, reference files, KS -----------
     remaining_modules_phase(torch, smi_line, fwd_counts)
 
+    # -- 16. bf16 weights on the Burgers path ----------------------------------
+    bf16_records = bf16_phase(torch, F, smi_line, calls)
+
     # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
@@ -2957,6 +3336,7 @@ def main() -> int:
     for k, row in persistent.items():
         kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
                         "replaces": REPLACES[k], **row})
+    kernels += bf16_records
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
           "note": "K1-K3, K5 (linear_attention_block: K5a, the merge and K5b per "
                   "call) and K6 (attention_block: K6a, K6b and K6c per call): "
@@ -2983,7 +3363,12 @@ def main() -> int:
                   "forward_mega (2 per step), bound_ms at 3xTF32 (the fp32 bound "
                   "in the phase-10 record), device_ms from a CUDA graph of 10 launches, "
                   "library_ms null (no PyTorch call "
-                  "computes the net; phase 10 times the K1-K6 forward beside it)"})
+                  "computes the net; phase 10 times the K1-K6 forward beside it); "
+                  "*_bf16 (phase 16, the bf16 variants): sums over one bf16 UNet2D forward "
+                  "at batch 50, launches those of the --bf16 True main path, bound_ms at "
+                  "989 TFLOP/s (bf16) with the weights at 2 bytes, library_ms cuDNN's bf16 "
+                  "conv (K1, K2; null for K5, K6: SDPA on K6's q, k, v is in its phase-16 "
+                  "record), device_ms from CUDA graphs of 20 calls"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

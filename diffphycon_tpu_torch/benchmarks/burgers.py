@@ -78,11 +78,11 @@ class BurgersConfig:
 
 
 def _new_unet(cfg: BurgersConfig) -> UNet2D:
-    if cfg.bf16:
-        raise NotImplementedError("bf16 weights are not ported yet (ROADMAP.md); "
-                                  "the port runs fp32 (--bf16 False)")
+    """``bf16``: bfloat16 matmul weights in the kernel packs (the Pallas
+    forward's ``weight_dtype=bfloat16``), float32 parameters."""
     return UNet2D(dim=cfg.dim, out_dim=2, dim_mults=tuple(cfg.dim_mults), channels=2,
-                  resnet_block_groups=cfg.resnet_block_groups)
+                  resnet_block_groups=cfg.resnet_block_groups,
+                  weight_dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
 
 
 def build_unet(cfg: BurgersConfig, device=None) -> UNet2D:

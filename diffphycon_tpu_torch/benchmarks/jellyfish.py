@@ -81,8 +81,8 @@ def _place(net: torch.nn.Module, seed: Optional[int], device) -> torch.nn.Module
 
 def _unet3d(cfg: JellyfishConfig, out_dim: int) -> UNet3D:
     if cfg.bf16:
-        raise NotImplementedError("bf16 weights are not ported yet (ROADMAP.md); "
-                                  "the port runs fp32 (--bf16 False)")
+        raise NotImplementedError("bf16 (flax dtype=bf16) UNet3D is not ported yet (ROADMAP.md "
+                                  "queue 1, item 1 (i)); the port runs fp32 (--bf16 False)")
     return UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=cfg.joint_channels,
                   out_dim=out_dim, remat_all=cfg.remat_all)
 

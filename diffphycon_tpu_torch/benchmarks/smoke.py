@@ -57,8 +57,8 @@ def channels(cfg: SmokeConfig) -> int:
 
 def _new_unet(cfg: SmokeConfig) -> UNet3D:
     if cfg.bf16:
-        raise NotImplementedError("bf16 weights are not ported yet (ROADMAP.md); "
-                                  "the port runs fp32 (--bf16 False)")
+        raise NotImplementedError("bf16 (flax dtype=bf16) UNet3D is not ported yet (ROADMAP.md "
+                                  "queue 1, item 1 (i)); the port runs fp32 (--bf16 False)")
     return UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=channels(cfg),
                   out_dim=channels(cfg), resnet_groups=8, remat_all=cfg.remat_all)
 

@@ -15,7 +15,10 @@
 // activations (144 flops/byte), above the ridge of the tensor cores at the
 // 3xTF32 rate (495 / 3 TFLOP/s over 3.35 TB/s = 49 flops/byte). The design
 // keeps A (im2col) out of device memory and runs 3xTF32 wgmma products; see
-// igemm_tc.cuh.
+// igemm_tc.cuh. The bf16 variant (conv2d_nhwc_bf16, the Pallas kernels under
+// weight_dtype=bfloat16) runs bf16 wgmma products on the same gathers; at
+// the bf16 rate the ridge is 989 / 3.35 = 295 flops per byte, so the
+// 64-channel levels are bound by their fp32 activations' bytes.
 //
 // Weight layout (chosen once when weights are packed): w[k, co] with
 // k = (dy*K + dx) * (Ca + Cb) + c, i.e. the flax kernel (kh, kw, Ci, Co)
@@ -31,9 +34,9 @@
 // Co floats when splits > 1 (else unused). Ca, Cb, Co multiples of 4 and
 // every pointer 16-byte aligned (the wrapper checks). Returns
 // cudaGetLastError().
-extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
-                               const float* bias, float* out, float* ws, const int* dims,
-                               void* stream) {
+template <class TW>
+static int conv2d_nhwc(const float* xa, const float* xb, const TW* w, const float* bias,
+                       float* out, float* ws, const int* dims, void* stream) {
   const int B = dims[0], H = dims[1], W = dims[2], Ca = dims[3], Cb = dims[4], Co = dims[5];
   const int ks = dims[6];
   const auto g = igemm::make_conv_gather(xa, xb, H, W, Ca, Cb, ks, dims[7]);
@@ -41,4 +44,19 @@ extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
   const int K = ks * ks * (Ca + Cb);
   return (int)igemm_tc::launch(g, w, bias, out, ws, M, Co, K, dims[8], dims[9], dims[10],
                                dims[11], (cudaStream_t)stream);
+}
+
+extern "C" int conv2d_nhwc_f32(const float* xa, const float* xb, const float* w,
+                               const float* bias, float* out, float* ws, const int* dims,
+                               void* stream) {
+  return conv2d_nhwc(xa, xb, w, bias, out, ws, dims, stream);
+}
+
+// The bf16 variant: w (K, Co) bf16 (Co a multiple of 8), the activations
+// rounded to bf16 at the products (igemm_tc.cuh); the rest as
+// conv2d_nhwc_f32.
+extern "C" int conv2d_nhwc_bf16(const float* xa, const float* xb, const __nv_bfloat16* w,
+                                const float* bias, float* out, float* ws, const int* dims,
+                                void* stream) {
+  return conv2d_nhwc(xa, xb, w, bias, out, ws, dims, stream);
 }

@@ -49,6 +49,13 @@
 // by one thread in a fixed order, so two calls on the same inputs are
 // bit-equal. fp32 in and out, expf (not __expf).
 //
+// The bf16 variant (linear_attention_tc_bf16, the Pallas kernel under
+// weight_dtype=bfloat16) streams bf16 weight slices (half the bytes) and
+// runs the projection passes as mma.sync m16n8k16 bf16 products on operands
+// rounded to bf16 (cvt.rn), one per 16-deep step instead of six 3xTF32
+// ones; the context passes stay 3xTF32 on fp32 values, as Pallas computes
+// them in fp32.
+//
 // The bodies live in linear_attention_tc.cuh as device functions of a block
 // index: the kernels below call them for their own blockIdx, the persistent
 // kernel (unet2d_persistent.cu) for each work item of its stages.
@@ -76,10 +83,10 @@ namespace {
 
 using namespace la_tc;
 
-template <int kHpc>
+template <int kHpc, class TW>
 __global__ void __launch_bounds__(kThreads, 2)
     la_context_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                         const float* __restrict__ wqkv, float* __restrict__ part, int n, int C,
+                         const TW* __restrict__ wqkv, float* __restrict__ part, int n, int C,
                          int chunk) {
   extern __shared__ __align__(16) float smem[];
   la_context_body<kHpc>(x, g, wqkv, part, n, C, chunk, blockIdx.x, blockIdx.y, blockIdx.z,
@@ -91,13 +98,64 @@ __global__ void __launch_bounds__(kThreads)
   la_merge_body(part, ctx, S, blockIdx.x);
 }
 
+template <class TW>
 __global__ void __launch_bounds__(kThreads, 2)
     la_output_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                        const float* __restrict__ wqkv, const float* __restrict__ ctx,
-                        const float* __restrict__ wo, const float* __restrict__ bo,
+                        const TW* __restrict__ wqkv, const float* __restrict__ ctx,
+                        const TW* __restrict__ wo, const float* __restrict__ bo,
                         const float* __restrict__ og, float* __restrict__ out, int n, int C) {
   extern __shared__ __align__(16) float smem[];
   la_output_body(x, g, wqkv, ctx, wo, bo, og, out, n, C, blockIdx.x, blockIdx.y, smem);
+}
+
+template <class TW>
+int linear_attention_tc(const float* x, const float* g, const TW* wqkv, const TW* wo,
+                        const float* bo, const float* og, float* part, float* out,
+                        const int* dims, void* stream) {
+  const int B = dims[0], n = dims[1], C = dims[2], S = dims[3], chunk = dims[4],
+            groups = dims[5], stages = dims[6];
+  if (B <= 0 || B > 65535 || n <= 0 || C < 4 || C > kMaxC || C % (16 / sizeof(TW)) ||
+      chunk <= 0 || chunk % kRows || S != (n + chunk - 1) / chunk || S > 65535 ||
+      (groups != 1 && groups != 2) || stages < 1 || stages > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;  // > 48 KB of dynamic shared memory: once, for C up to kMaxC
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(la_context_tc_kernel<4, TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         context_smem_floats(kMaxC) * 4);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(la_context_tc_kernel<2, TW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             context_smem_floats(kMaxC) * 4);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(la_output_tc_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             output_smem_floats(kMaxC) * 4);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ctx = part + static_cast<size_t>(B) * S * kHidden * kPartStride;
+  if (stages & 1) {
+    const dim3 grid(S, B, groups);
+    if (groups == 1)
+      la_context_tc_kernel<4, TW><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
+          x, g, wqkv, part, n, C, chunk);
+    else
+      la_context_tc_kernel<2, TW><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
+          x, g, wqkv, part, n, C, chunk);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (stages & 2) {
+    la_merge_tc_kernel<<<B, kThreads, 0, st>>>(part, ctx, S);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    la_output_tc_kernel<TW><<<dim3((n + kRows - 1) / kRows, B), kThreads,
+                              output_smem_floats(C) * 4, st>>>(x, g, wqkv, ctx, wo, bo, og, out,
+                                                               n, C);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace
@@ -115,46 +173,16 @@ extern "C" int linear_attention_tc_f32(const float* x, const float* g, const flo
                                        const float* wo, const float* bo, const float* og,
                                        float* part, float* out, const int* dims,
                                        void* stream) {
-  const int B = dims[0], n = dims[1], C = dims[2], S = dims[3], chunk = dims[4],
-            groups = dims[5], stages = dims[6];
-  if (B <= 0 || B > 65535 || n <= 0 || C < 4 || C > kMaxC || C % 4 || chunk <= 0 ||
-      chunk % kRows || S != (n + chunk - 1) / chunk || S > 65535 || (groups != 1 && groups != 2) ||
-      stages < 1 || stages > 3)
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set = false;  // > 48 KB of dynamic shared memory: once, for C up to kMaxC
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(la_context_tc_kernel<4>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         context_smem_floats(kMaxC) * 4);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(la_context_tc_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             context_smem_floats(kMaxC) * 4);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(la_output_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             output_smem_floats(kMaxC) * 4);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ctx = part + static_cast<size_t>(B) * S * kHidden * kPartStride;
-  if (stages & 1) {
-    const dim3 grid(S, B, groups);
-    if (groups == 1)
-      la_context_tc_kernel<4><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(x, g, wqkv, part,
-                                                                                  n, C, chunk);
-    else
-      la_context_tc_kernel<2><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(x, g, wqkv, part,
-                                                                                  n, C, chunk);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (stages & 2) {
-    la_merge_tc_kernel<<<B, kThreads, 0, st>>>(part, ctx, S);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    la_output_tc_kernel<<<dim3((n + kRows - 1) / kRows, B), kThreads, output_smem_floats(C) * 4,
-                          st>>>(x, g, wqkv, ctx, wo, bo, og, out, n, C);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return 0;
+  return linear_attention_tc(x, g, wqkv, wo, bo, og, part, out, dims, stream);
+}
+
+// The bf16 variant: wqkv and wo bf16 (C a multiple of 8); the projection
+// passes (K5a's k and v, K5b's q and out-projection) run bf16 products on
+// operands rounded to bf16, the context passes (mma_smem) stay 3xTF32 on
+// fp32 values; the rest as linear_attention_tc_f32.
+extern "C" int linear_attention_tc_bf16(const float* x, const float* g,
+                                        const __nv_bfloat16* wqkv, const __nv_bfloat16* wo,
+                                        const float* bo, const float* og, float* part,
+                                        float* out, const int* dims, void* stream) {
+  return linear_attention_tc(x, g, wqkv, wo, bo, og, part, out, dims, stream);
 }

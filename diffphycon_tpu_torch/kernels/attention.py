@@ -40,6 +40,15 @@ K6 takes any token count: K6a projects tiles of 32 or 64 tokens
 out-projection, whose 32-deep slices are the heads, summed in head order.
 :func:`attention_tiled_emulated` is that arithmetic in plain PyTorch.
 
+bf16 weights: bfloat16 ``wqkv`` and ``wo`` select K5's and K6's bf16
+variants (``linear_attention_tc_bf16``, ``attention_bf16``): the projections
+(K5a's k/v and K5b's q and out-projection passes, K6a and K6c) run
+``mma.sync`` bf16 with their float32 operand rounded to bfloat16, as the
+Pallas ``_matmul`` does under ``weight_dtype=bfloat16``; the context and
+attention-core products (``mma_smem``) stay 3xTF32 on float32 values, as
+Pallas computes them in float32. The plain versions round the same operands
+(``unet2d_blocks.matmul_w``); ``bf16_launches`` counts the bf16 calls.
+
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
 wrapper raises; the backward is the VJP of the plain version (no backward
@@ -77,7 +86,7 @@ def _qkv(x, norm_g, wqkv, heads, dim_head):
     """ChanLN(x) @ wqkv as (b, n, 3, heads, dim_head)."""
     b, hs, ws, c = x.shape
     hn = _chan_ln(x, norm_g).reshape(b * hs * ws, c)
-    return (hn @ wqkv).reshape(b, hs * ws, 3, heads, dim_head)
+    return kb.matmul_w(hn, wqkv).reshape(b, hs * ws, 3, heads, dim_head)
 
 
 def _linear_plain(x, norm_g, wqkv, wo, bo, out_g, heads=KERNEL_HEADS,
@@ -88,7 +97,7 @@ def _linear_plain(x, norm_g, wqkv, wo, bo, out_g, heads=KERNEL_HEADS,
     k = torch.softmax(k.permute(0, 2, 3, 1).contiguous(), dim=-1)  # (b, h, d, n)
     context = torch.einsum("bhdn,bnhe->bhde", k, v)
     out = torch.einsum("bhde,bnhd->bnhe", context, q).reshape(b * hs * ws, heads * dim_head)
-    out = (out @ wo + bo).reshape(b, hs, ws, c)
+    out = (kb.matmul_w(out, wo) + bo).reshape(b, hs, ws, c)
     return x + _chan_ln(out, out_g)
 
 
@@ -98,7 +107,7 @@ def _full_plain(x, norm_g, wqkv, wo, bo, heads=KERNEL_HEADS, dim_head=KERNEL_DIM
     sim = torch.einsum("bihd,bjhd->bhij", q * dim_head ** -0.5, k)
     attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
     out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b * hs * ws, heads * dim_head)
-    return x + (out @ wo + bo).reshape(b, hs, ws, c)
+    return x + (kb.matmul_w(out, wo) + bo).reshape(b, hs, ws, c)
 
 
 def linear_attention_block_plain(x, p, heads: int = KERNEL_HEADS,
@@ -167,7 +176,7 @@ def linear_attention_chunked_emulated(x, p, chunk: int):
     ctx = ctx / total[..., None]
     q = torch.softmax(q, dim=-1) * KERNEL_DIM_HEAD ** -0.5
     out = torch.einsum("bhde,bnhd->bnhe", ctx, q).reshape(b * n, KERNEL_HEADS * KERNEL_DIM_HEAD)
-    out = (out @ wo + bo).reshape(b, hs, ws, c)
+    out = (kb.matmul_w(out, wo) + bo).reshape(b, hs, ws, c)
     return x + _chan_ln(out, out_g)
 
 
@@ -203,15 +212,17 @@ def _check_weights(name, tensors, shapes):
 
 
 def _linear_launch(x, norm_g, wqkv, wo, bo, out_g, stages=3, part=None):
-    kb._check_cuda("linear_attention_block", x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo,
-                   out_g=out_g)
+    kb._check_cuda("linear_attention_block", bf16=("wqkv", "wo"), x=x, norm_g=norm_g,
+                   wqkv=wqkv, wo=wo, bo=bo, out_g=out_g)
     ints, weights, part_floats = _linear_shapes(x.shape)
     _check_weights("linear_attention_block", (norm_g, wqkv, wo, bo, out_g), weights)
     kb._check_vec4("linear_attention_block", (), (x, norm_g, wqkv, wo, bo, out_g))
+    bf16 = kb.weight_is_bf16("linear_attention_block", wqkv, wo)
     out = torch.empty_like(x)
     if part is None:
         part = x.new_empty(part_floats)
-    err = _build.load_library().linear_attention_tc_f32(
+    lib = _build.load_library()
+    err = (lib.linear_attention_tc_bf16 if bf16 else lib.linear_attention_tc_f32)(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints + (stages,)),
         kb._stream(x))
@@ -222,6 +233,7 @@ def _linear_launch(x, norm_g, wqkv, wo, bo, out_g, stages=3, part=None):
 def _linear_block_launch(x, norm_g, wqkv, wo, bo, out_g):
     out = _linear_launch(x, norm_g, wqkv, wo, bo, out_g)
     linear_attention_block.launches += 1
+    linear_attention_block.bf16_launches += int(wqkv.dtype == torch.bfloat16)
     return out
 
 
@@ -267,9 +279,9 @@ def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):
         o = o * alpha[..., None] + torch.einsum("bhij,bjhd->bhid", e, v[:, k0:k0 + key_tile])
         m = m_new
     o = o / total[..., None]  # (b, h, n, d)
-    acc = o[:, 0] @ wo[:KERNEL_DIM_HEAD]
+    acc = kb.matmul_w(o[:, 0], wo[:KERNEL_DIM_HEAD])
     for h in range(1, KERNEL_HEADS):
-        acc = acc + o[:, h] @ wo[h * KERNEL_DIM_HEAD:(h + 1) * KERNEL_DIM_HEAD]
+        acc = acc + kb.matmul_w(o[:, h], wo[h * KERNEL_DIM_HEAD:(h + 1) * KERNEL_DIM_HEAD])
     return x + (acc + bo).reshape(b, hs, ws, c)
 
 
@@ -293,17 +305,21 @@ def _full_shapes(x_shape):
 
 
 def _full_launch(x, norm_g, wqkv, wo, bo):
-    kb._check_cuda("attention_block", x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo)
+    kb._check_cuda("attention_block", bf16=("wqkv", "wo"), x=x, norm_g=norm_g, wqkv=wqkv,
+                   wo=wo, bo=bo)
     ints, weights, scratch_floats = _full_shapes(x.shape)
     _check_weights("attention_block", (norm_g, wqkv, wo, bo), weights)
     kb._check_vec4("attention_block", (), (x, norm_g, wqkv, wo, bo))
+    bf16 = kb.weight_is_bf16("attention_block", wqkv, wo)
     out = torch.empty_like(x)
     scratch = x.new_empty(scratch_floats)
-    err = _build.load_library().attention_f32(
+    lib = _build.load_library()
+    err = (lib.attention_bf16 if bf16 else lib.attention_f32)(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), kb.int_array(ints), kb._stream(x))
     _build.check(err, "attention_block")
     attention_block.launches += 1
+    attention_block.bf16_launches += int(bf16)
     return out
 
 
@@ -327,5 +343,5 @@ def attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_
                              p["bo"])
 
 
-register_launch_counters(linear_attention_block, "launches")
-register_launch_counters(attention_block, "launches")
+register_launch_counters(linear_attention_block, "launches", "bf16_launches")
+register_launch_counters(attention_block, "launches", "bf16_launches")

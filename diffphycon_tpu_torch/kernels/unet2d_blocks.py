@@ -41,6 +41,14 @@ backward is plain PyTorch until backward kernels are written. ``resblock``
 is differentiable through the Functions of the K1 and K3 launches it makes.
 On a CPU tensor the plain version runs under ordinary autograd.
 
+bf16 weights (the Pallas kernels under ``weight_dtype=bfloat16``): a
+bfloat16 weight selects K1's and K2's bf16 variants (``conv2d_nhwc_bf16``,
+``downsample_nhwc_bf16``: bf16 ``wgmma`` with the float32 activation rounded
+to bfloat16 at the matmul and float32 sums), and their plain versions round
+the same operands (:func:`bf16_operands`). Activations, biases and norms stay
+float32, so K3 has no variant. ``bf16_launches`` counts the bf16 launches
+among ``launches``.
+
 Layouts: activations NHWC fp32, contiguous. Conv weights are packed once
 (see ``nets/unet2d.py``): a KxK conv as ``(K*K*Ci, Co)`` with row index
 ``(dy*K + dx)*Ci + c``; the downsample as ``(4*C, Co)`` with row index
@@ -73,7 +81,9 @@ _INT32_MAX = 2**31 - 1
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, **tensors) -> None:
+def _check_cuda(name: str, bf16=(), **tensors) -> None:
+    """Each tensor on one CUDA device, float32 (bfloat16 also for the keys
+    named in ``bf16``: the weights of the bf16 variants), contiguous."""
     # is_cuda and get_device(): reading t.device.type costs several times more
     # host time, on every launch
     dev = None
@@ -86,8 +96,9 @@ def _check_cuda(name: str, **tensors) -> None:
             dev = t.get_device()
         elif t.get_device() != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, others on cuda:{dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} has dtype {t.dtype}; the kernel takes float32")
+        if t.dtype != torch.float32 and not (t.dtype == torch.bfloat16 and key in bf16):
+            kinds = "float32 or bfloat16" if key in bf16 else "float32"
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}; the kernel takes {kinds}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.numel() > _INT32_MAX:
@@ -101,6 +112,39 @@ def _check_vec4(name: str, channels, tensors) -> None:
                          "of 4 for the kernel")
     if any(t is not None and t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: tensors must start 16-byte aligned")
+
+
+def weight_is_bf16(name: str, *ws) -> bool:
+    """Whether the weights ``ws`` select the bf16 variant of a kernel (all
+    bfloat16) or the 3xTF32 one (all float32). The bf16 variants move 8
+    weights per 16-byte load, so each weight row holds a multiple of 8."""
+    bf16 = ws[0].dtype == torch.bfloat16
+    if any((w.dtype == torch.bfloat16) != bf16 for w in ws[1:]):
+        raise TypeError(f"{name}: weights of mixed dtypes {[str(w.dtype) for w in ws]}")
+    if not bf16:
+        return False
+    if any(w.shape[-1] % 8 for w in ws):
+        raise ValueError(f"{name}: bfloat16 weights need rows of a multiple of 8, got "
+                         f"{[tuple(w.shape) for w in ws]}")
+    return True
+
+
+def bf16_operands(x, w):
+    """(x, w) as a matmul of the kernels takes them: a bfloat16 weight
+    rounds the float32 activation to bfloat16 (to nearest even, as
+    ``cvt.rn.bf16x2.f32``) and both go back to float32, where their product
+    is exact and sums in float32 (the Pallas ``_matmul`` with
+    ``weight_dtype=bfloat16``: ``x.astype(w.dtype)``, f32 accumulation); a
+    float32 weight leaves both as they are."""
+    if w.dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).float(), w.float()
+    return x, w
+
+
+def matmul_w(x, w):
+    """x @ w under :func:`bf16_operands`."""
+    x, w = bf16_operands(x, w)
+    return x @ w
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -288,8 +332,9 @@ def _conv_input(x_a, x_b, upsample):
 
 def conv2d_nhwc_plain(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     """Same-padded k x k conv as k*k shifted matmuls, the arithmetic of the
-    Pallas ``_conv2d`` (pallas_unet2d.py:61-95)."""
-    x = _conv_input(x_a, x_b, upsample)
+    Pallas ``_conv2d`` (pallas_unet2d.py:61-95); a bfloat16 weight takes
+    the input rounded to bfloat16 (:func:`bf16_operands`)."""
+    x, w = bf16_operands(_conv_input(x_a, x_b, upsample), w)
     B, H, W, ci = x.shape
     p = (k - 1) // 2
     xp = F.pad(x, (0, 0, p, k - 1 - p, p, k - 1 - p))
@@ -304,8 +349,9 @@ def conv2d_nhwc_plain(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
 
 
 def conv2d_nhwc(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
-    """K1. x_a: (B, H, W, Ca) [, x_b: (B, H, W, Cb)]; w: (k*k*(Ca+Cb), Co);
-    b: (Co,). With ``upsample`` the output is (B, 2H, 2W, Co)."""
+    """K1. x_a: (B, H, W, Ca) [, x_b: (B, H, W, Cb)]; w: (k*k*(Ca+Cb), Co),
+    float32 (3xTF32) or bfloat16 (the bf16 variant); b: (Co,). With
+    ``upsample`` the output is (B, 2H, 2W, Co)."""
     if not _dispatch("conv2d_nhwc", x_a):
         return conv2d_nhwc_plain(x_a, w, b, x_b=x_b, k=k, upsample=upsample)
     return with_plain_vjp(_conv2d_launch, conv2d_nhwc_plain, x_a, w, b, x_b, k=k,
@@ -340,13 +386,15 @@ def _conv2d_shapes(xa_shape, xb_shape, w_shape, b_shape, k, upsample):
 
 
 def _conv2d_launch(x_a, w, b, x_b, k, upsample):
-    _check_cuda("conv2d_nhwc", x_a=x_a, x_b=x_b, w=w, b=b)
+    _check_cuda("conv2d_nhwc", bf16=("w",), x_a=x_a, x_b=x_b, w=w, b=b)
     out_shape, gemm, ints = _conv2d_shapes(x_a.shape, None if x_b is None else x_b.shape,
                                            w.shape, b.shape, k, bool(upsample))
     _check_vec4("conv2d_nhwc", (), (x_a, x_b, w, b))
+    bf16 = weight_is_bf16("conv2d_nhwc", w)
     out = x_a.new_empty(out_shape)
     ws, args = _plan_args(x_a, gemm, ints)
-    err = _build.load_library().conv2d_nhwc_f32(
+    lib = _build.load_library()
+    err = (lib.conv2d_nhwc_bf16 if bf16 else lib.conv2d_nhwc_f32)(
         x_a.data_ptr(), x_b.data_ptr() if x_b is not None else None,
         w.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
         args, _stream(x_a))
@@ -354,10 +402,12 @@ def _conv2d_launch(x_a, w, b, x_b, k, upsample):
     conv2d_nhwc.launches += 1
     conv2d_nhwc.dual_launches += int(x_b is not None)
     conv2d_nhwc.upsample_launches += int(bool(upsample))
+    conv2d_nhwc.bf16_launches += int(bf16)
     return out
 
 
-register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_launches")
+register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_launches",
+                         "bf16_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +418,7 @@ register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_lau
 def downsample_nhwc_plain(x, w, b):
     """Space-to-depth in (p1 p2 c) order + one matmul
     (``_downsample_kernel``, pallas_unet2d.py:259-276)."""
+    x, w = bf16_operands(x, w)
     B, H, W, C = x.shape
     x6 = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
     out = x6.reshape(B * (H // 2) * (W // 2), 4 * C) @ w + b
@@ -375,7 +426,8 @@ def downsample_nhwc_plain(x, w, b):
 
 
 def downsample_nhwc(x, w, b):
-    """K2. x: (B, H, W, C) with even H, W; w: (4*C, Co); b: (Co,)."""
+    """K2. x: (B, H, W, C) with even H, W; w: (4*C, Co), float32 or
+    bfloat16 (the bf16 variant); b: (Co,)."""
     if not _dispatch("downsample_nhwc", x):
         return downsample_nhwc_plain(x, w, b)
     return with_plain_vjp(_downsample_launch, downsample_nhwc_plain, x, w, b)
@@ -399,20 +451,23 @@ def _downsample_shapes(x_shape, w_shape, b_shape):
 
 
 def _downsample_launch(x, w, b):
-    _check_cuda("downsample_nhwc", x=x, w=w, b=b)
+    _check_cuda("downsample_nhwc", bf16=("w",), x=x, w=w, b=b)
     out_shape, gemm, ints = _downsample_shapes(x.shape, w.shape, b.shape)
     _check_vec4("downsample_nhwc", (), (x, w, b))
+    bf16 = weight_is_bf16("downsample_nhwc", w)
     out = x.new_empty(out_shape)
     ws, args = _plan_args(x, gemm, ints)
-    err = _build.load_library().downsample_nhwc_f32(
+    lib = _build.load_library()
+    err = (lib.downsample_nhwc_bf16 if bf16 else lib.downsample_nhwc_f32)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, args, _stream(x))
     _build.check(err, "downsample_nhwc")
     downsample_nhwc.launches += 1
+    downsample_nhwc.bf16_launches += int(bf16)
     return out
 
 
-register_launch_counters(downsample_nhwc, "launches")
+register_launch_counters(downsample_nhwc, "launches", "bf16_launches")
 
 
 # ---------------------------------------------------------------------------

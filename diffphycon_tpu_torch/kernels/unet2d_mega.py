@@ -60,6 +60,10 @@ from diffphycon_tpu_torch.kernels import _build, register_launch_counters
 from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 
+# what K7 and K8 say of bfloat16 weights
+BF16_TODO = ("bfloat16 weights are not ported to the persistent kernel (K7/K8 take float32; "
+             "ROADMAP.md queue 1, item 1 (ii): bf16 K7/K8)")
+
 KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
               ka.attention_block)
 PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
@@ -414,6 +418,8 @@ def check_kernel_plan(plan: Plan) -> None:
         for t in weights:
             if t.device != plan.device:
                 raise ValueError(f"{name}: a weight is on {t.device}, the input on {plan.device}")
+            if t.dtype == torch.bfloat16:
+                raise TypeError(f"{name}: {BF16_TODO}")
             if t.dtype != torch.float32:
                 raise TypeError(f"{name}: a weight has dtype {t.dtype}; the kernel takes float32")
         kb._check_vec4(name, (), weights)

@@ -69,11 +69,13 @@ class LayerNorm(nn.Module):
         return chan_layer_norm(x, self.g)
 
 
-def conv_pack(conv: nn.Conv2d):
-    """Conv2d -> kernel layout (kh*kw*Ci, Co) with row (dy*kw + dx)*Ci + c."""
+def conv_pack(conv: nn.Conv2d, weight_dtype=torch.float32):
+    """Conv2d -> kernel layout (kh*kw*Ci, Co) with row (dy*kw + dx)*Ci + c,
+    the weight in ``weight_dtype`` (rounded to nearest even for bfloat16);
+    the bias stays float32."""
     co, ci, kh, kw = conv.weight.shape
     w = conv.weight.permute(2, 3, 1, 0).reshape(kh * kw * ci, co).contiguous()
-    return {"w": w, "b": conv.bias}
+    return {"w": w.to(weight_dtype), "b": conv.bias}
 
 
 class Block(nn.Module):
@@ -97,15 +99,18 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(dim_out, dim_out, groups)
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
-    def pack(self) -> dict:
-        """Kernel-layout weights of this block (see kernels.unet2d_blocks)."""
-        c1, c2 = conv_pack(self.block1.proj), conv_pack(self.block2.proj)
+    def pack(self, weight_dtype=torch.float32) -> dict:
+        """Kernel-layout weights of this block (see kernels.unet2d_blocks):
+        the conv weights in ``weight_dtype``, biases and GroupNorm affine
+        float32."""
+        c1 = conv_pack(self.block1.proj, weight_dtype)
+        c2 = conv_pack(self.block2.proj, weight_dtype)
         p = {"w1": c1["w"], "b1": c1["b"],
              "gs1": self.block1.norm.weight, "gb1": self.block1.norm.bias,
              "w2": c2["w"], "b2": c2["b"],
              "gs2": self.block2.norm.weight, "gb2": self.block2.norm.bias}
         if isinstance(self.res_conv, nn.Conv2d):
-            r = conv_pack(self.res_conv)
+            r = conv_pack(self.res_conv, weight_dtype)
             p["wr"], p["br"] = r["w"], r["b"]
         return p
 
@@ -145,9 +150,10 @@ class PreNorm(nn.Module):
         self.norm = LayerNorm(dim)
 
 
-def _w1x1(conv: nn.Conv2d):
-    """(out, in, 1, 1) conv weight -> (in, out) matmul weight."""
-    return conv.weight[:, :, 0, 0].t().contiguous()
+def _w1x1(conv: nn.Conv2d, weight_dtype=torch.float32):
+    """(out, in, 1, 1) conv weight -> (in, out) matmul weight in
+    ``weight_dtype``."""
+    return conv.weight[:, :, 0, 0].t().contiguous().to(weight_dtype)
 
 
 class Residual(nn.Module):
@@ -157,14 +163,15 @@ class Residual(nn.Module):
         super().__init__()
         self.fn = fn
 
-    def pack(self) -> dict:
+    def pack(self, weight_dtype=torch.float32) -> dict:
         """The Pallas ``_attn_p`` layout: norm_g, wqkv (C, 3*hidden) with
-        columns [q | k | v], wo (hidden, C), bo [, out_g]."""
+        columns [q | k | v], wo (hidden, C), bo [, out_g]; wqkv and wo in
+        ``weight_dtype``, the gains and the bias float32."""
         attn = self.fn.fn
         linear = isinstance(attn.to_out, nn.Sequential)
         out = attn.to_out[0] if linear else attn.to_out
-        p = {"norm_g": self.fn.norm.g.reshape(-1), "wqkv": _w1x1(attn.to_qkv),
-             "wo": _w1x1(out), "bo": out.bias}
+        p = {"norm_g": self.fn.norm.g.reshape(-1), "wqkv": _w1x1(attn.to_qkv, weight_dtype),
+             "wo": _w1x1(out, weight_dtype), "bo": out.bias}
         if linear:
             p["out_g"] = attn.to_out[1].g.reshape(-1)
         return p
@@ -206,12 +213,13 @@ class Downsample(nn.Sequential):
     def __init__(self, dim: int, dim_out: int):
         super().__init__(SpaceToDepth(), nn.Conv2d(dim * 4, dim_out, 1))
 
-    def pack(self) -> dict:
-        """(Co, 4C, 1, 1) with (c p1 p2) inputs -> (4C, Co) rows (p1 p2 c)."""
+    def pack(self, weight_dtype=torch.float32) -> dict:
+        """(Co, 4C, 1, 1) with (c p1 p2) inputs -> (4C, Co) rows (p1 p2 c),
+        in ``weight_dtype``."""
         conv = self[1]
         co, c4 = conv.weight.shape[:2]
         w = conv.weight.reshape(co, c4 // 4, 2, 2).permute(2, 3, 1, 0)
-        return {"w": w.reshape(c4, co).contiguous(), "b": conv.bias}
+        return {"w": w.reshape(c4, co).contiguous().to(weight_dtype), "b": conv.bias}
 
     def forward(self, x):
         p = self.pack()
@@ -226,8 +234,8 @@ class Upsample(nn.Sequential):
         super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
                          nn.Conv2d(dim, dim_out, 3, padding=1))
 
-    def pack(self) -> dict:
-        return conv_pack(self[1])
+    def pack(self, weight_dtype=torch.float32) -> dict:
+        return conv_pack(self[1], weight_dtype)
 
     def forward(self, x):
         p = self.pack()

@@ -47,11 +47,14 @@ from diffphycon_tpu_torch.nets.blocks import (
 )
 
 
-def _conv_nchw(x, conv: nn.Conv2d):
+def _conv_nchw(x, conv: nn.Conv2d, weight_dtype=torch.float32):
     """NHWC in and out through F.conv2d on the channels-last view, in full
-    fp32 forward and backward (see ``fp32_convs``)."""
+    fp32 forward and backward (see ``fp32_convs``). A bfloat16
+    ``weight_dtype`` rounds the weight to bfloat16 values and leaves the
+    input float32 (the Pallas forward's ``_conv_xla``, pallas_unet2d.py:755)."""
     fp32_convs()
-    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=conv.padding)
+    w = conv.weight if weight_dtype == torch.float32 else conv.weight.to(weight_dtype).float()
+    out = F.conv2d(x.permute(0, 3, 1, 2), w, conv.bias, padding=conv.padding)
     return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -59,14 +62,26 @@ class UNet2D(nn.Module):
     """``self_condition``: the input is ``x_self_cond`` (zeros when not
     given) concatenated before x on the channel axis, so the init conv takes
     2 * channels (JAX ``nets/unet2d.py:53-56``); the output keeps
-    ``out_dim or channels`` channels."""
+    ``out_dim or channels`` channels.
+
+    ``weight_dtype``: the dtype of the matmul weights in the kernel packs,
+    float32 or bfloat16 (the Pallas forward under
+    ``pack_unet2d_params(..., weight_dtype=jnp.bfloat16)``): every K1/K2
+    conv weight and the attention blocks' ``wqkv`` and ``wo`` are rounded to
+    bfloat16 (and run through the kernels' bf16 variants), the init and
+    final convs take bfloat16-rounded weights on a float32 input, and
+    everything else (biases, norms, FiLM, the time MLP, activations) stays
+    float32. Parameters are float32 either way."""
 
     def __init__(self, dim: int = 64, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 2,
                  resnet_block_groups: int = 1, attn_dim_head: int = 32,
                  attn_heads: int = 4, sinusoidal_pos_emb_theta: float = 10000.0,
-                 self_condition: bool = False):
+                 self_condition: bool = False, weight_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if weight_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"UNet2D: weight_dtype {weight_dtype}; float32 or bfloat16")
+        self.weight_dtype = weight_dtype
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.channels = channels
@@ -117,19 +132,21 @@ class UNet2D(nn.Module):
         return blocks + [self.final_res_block]
 
     def pack(self) -> dict:
-        """All kernel-layout weights, built from the current parameters."""
+        """All kernel-layout weights, built from the current parameters, the
+        matmul weights in ``weight_dtype``."""
+        wd = self.weight_dtype
         res = self.res_blocks()
-        packs = {"res": [b.pack() for b in res],
+        packs = {"res": [b.pack(wd) for b in res],
                  "film_w": torch.cat([b.mlp[1].weight for b in res], 0).t().contiguous(),
                  "film_b": torch.cat([b.mlp[1].bias for b in res], 0),
                  "film_widths": [b.mlp[1].out_features for b in res]}
-        packs["down"] = [lvl[3].pack() if isinstance(lvl[3], Downsample)
-                         else conv_pack(lvl[3]) for lvl in self.downs]
-        packs["up"] = [lvl[3].pack() if isinstance(lvl[3], Upsample)
-                       else conv_pack(lvl[3]) for lvl in self.ups]
-        packs["down_attn"] = [lvl[2].pack() for lvl in self.downs]
-        packs["up_attn"] = [lvl[2].pack() for lvl in self.ups]
-        packs["mid_attn"] = self.mid_attn.pack()
+        packs["down"] = [lvl[3].pack(wd) if isinstance(lvl[3], Downsample)
+                         else conv_pack(lvl[3], wd) for lvl in self.downs]
+        packs["up"] = [lvl[3].pack(wd) if isinstance(lvl[3], Upsample)
+                       else conv_pack(lvl[3], wd) for lvl in self.ups]
+        packs["down_attn"] = [lvl[2].pack(wd) for lvl in self.downs]
+        packs["up_attn"] = [lvl[2].pack(wd) for lvl in self.ups]
+        packs["mid_attn"] = self.mid_attn.pack(wd)
         return packs
 
     def _kernel_pack(self) -> dict:
@@ -162,7 +179,10 @@ class UNet2D(nn.Module):
         """The forward with one K8 launch between the init conv and the final
         conv (time MLP, FiLM matmul and both convs in torch, as JAX runs them
         outside its kernel). Forward-only: raises when a gradient could reach
-        the input or a parameter. A CPU input takes the plain versions."""
+        the input or a parameter. A CPU input takes the plain versions. K8
+        takes float32 weights only: a bfloat16 ``weight_dtype`` raises."""
+        if self.weight_dtype != torch.float32:
+            raise TypeError(f"UNet2D.forward_mega: {kmega.BF16_TODO}")
         if torch.is_grad_enabled():  # (walking the parameters costs ~1 ms of host time)
             kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
         packs = self._kernel_pack()
@@ -188,7 +208,7 @@ class UNet2D(nn.Module):
 
     def _forward(self, x, time, packs, ops):
         film = iter(torch.split(self._film(time, packs), packs["film_widths"], dim=1))
-        x = _conv_nchw(x, self.init_conv)
+        x = _conv_nchw(x, self.init_conv, self.weight_dtype)
         x = kmega.unet2d_sequence(ops, x, film, packs, self.groups, self.attn_heads,
                                   self.attn_dim_head)
-        return _conv_nchw(x, self.final_conv)
+        return _conv_nchw(x, self.final_conv, self.weight_dtype)

@@ -55,3 +55,22 @@ def test_port_checkpoint_sweep_rows_equal_single_checkpoint_runs(models, tmp_pat
         "ckpt=2,wu=1000.0,wf=0.0"]["J_actual_mse"]
     with pytest.raises(ValueError, match="checkpoint_sweep"):
         _infer(models, save, "--checkpoint_sweep", "1", "--init_seed", "0")
+
+
+def test_port_checkpoint_sweep_bf16_repacks_each_checkpoint(models, tmp_path):
+    """With ``--bf16 True`` the sweep loads each float32 checkpoint into the
+    bf16 nets and rebuilds their bf16 packs: the ``ckpt=2`` row equals a
+    ``--checkpoint 2`` run, the rows differ, and neither is the float32
+    row."""
+    rows = _infer(models, tmp_path / "sweep16.json", "--checkpoint_sweep", "1", "2",
+                  "--bf16", "True")
+    single = _infer(models, tmp_path / "single16.json", "--checkpoint", "2",
+                    "--checkpoint__model_w", "2", "--bf16", "True")["wu=1000.0,wf=0.0"]
+    fp32 = _infer(models, tmp_path / "single32.json", "--checkpoint", "2",
+                  "--checkpoint__model_w", "2")["wu=1000.0,wf=0.0"]
+    swept = dict(rows["ckpt=2,wu=1000.0,wf=0.0"])
+    for r in (swept, single, fp32):
+        r.pop("walltime_s")
+    assert swept == single
+    assert swept["J_actual_mse"] != rows["ckpt=1,wu=1000.0,wf=0.0"]["J_actual_mse"]
+    assert swept != fp32

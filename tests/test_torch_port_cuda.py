@@ -530,3 +530,147 @@ def test_port_group_norm_cluster_ragged_and_groups(cuda_device, shape, groups, f
         assert_close(gk, gp, RTOL)
     with pytest.raises(ValueError, match="multiple of 4 channels"):
         kb.group_norm_act(torch.randn(1, 2, 2, 12, device=cuda_device), gamma[:12], beta[:12], 2)
+
+
+# the bf16 variants against their bf16 plain versions: both round the same
+# operands to bf16 and sum exact products in fp32 (summation order, and for
+# K5 and K6 a ChanLN output that rounds to the neighbouring bf16 value);
+# the per-block bound of tests/test_torch_port_bf16.py
+BF16_RTOL = 2e-3
+
+
+def _bf16_attn(c, g, device, linear):
+    p = _attn_params(c, g, device, linear)
+    return {**p, "wqkv": p["wqkv"].to(torch.bfloat16), "wo": p["wo"].to(torch.bfloat16)}
+
+
+@pytest.mark.cuda
+def test_port_bf16_convs_match_plain_at_main_path_signatures(cuda_device):
+    """K1's and K2's bf16 variants (bf16 wgmma, the activation rounded at
+    the product) at every signature of the Burgers UNet2D forward at batch
+    50, each through its own tile plan, two calls bit-equal; every launch a
+    bf16 one."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    seen = set()
+    kb.reset_launch_counts()
+    for name, args, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), 50):
+        if name not in ("conv2d_nhwc", "downsample_nhwc") or (name, args) in seen:
+            continue
+        seen.add((name, args))
+        if name == "conv2d_nhwc":
+            b, h, w, ca, cb, co, k, up = args
+            xa, xb, wt, bias = _conv_case(g, cuda_device, b, h, w, ca, cb, co, k)
+            wt = wt.to(torch.bfloat16)
+            out = kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up)
+            assert_close(out, kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up),
+                         BF16_RTOL)
+            assert torch.equal(out, kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up))
+        else:
+            b, h, w, c, co = args
+            x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
+            wt = wt.to(torch.bfloat16)
+            assert_close(kb.downsample_nhwc(x, wt, bias), kb.downsample_nhwc_plain(x, wt, bias),
+                         BF16_RTOL)
+        torch.cuda.synchronize()
+    counts = kb.launch_counts()
+    assert len(seen) == 22
+    assert counts["conv2d_nhwc.bf16"] == counts["conv2d_nhwc"] > 0
+    assert counts["downsample_nhwc.bf16"] == counts["downsample_nhwc"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES)
+@pytest.mark.parametrize("splits", [1, 3])
+def test_port_bf16_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, bn, splits):
+    """The bf16 variant under every tile shape, with and without split-K:
+    M off every tile, K off the 32-deep slice (Ca = 4 with Cb = 8), k = 1,
+    an odd upsampled source, Co = 136 over two N tiles; and Co = 12 (not a
+    multiple of 8) raises."""
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    for args in [(3, 5, 7, 4, 8, 8, 3), (3, 5, 7, 4, 8, 16, 1), (2, 9, 15, 36, 0, 136, 3),
+                 (1, 3, 5, 8, 0, 24, 3, True), (2, 4, 4, 64, 32, 64, 1)]:
+        k, up = args[6], bool(args[7:] and args[7])
+        xa, xb, wt, bias = _conv_case(g, cuda_device, *args[:7])
+        wt = wt.to(torch.bfloat16)
+        assert_close(kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
+                     kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up), BF16_RTOL)
+    for b, h, w, c, co in [(3, 6, 10, 4, 8), (2, 10, 18, 20, 72)]:
+        x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
+        wt = wt.to(torch.bfloat16)
+        assert_close(kb.downsample_nhwc(x, wt, bias), kb.downsample_nhwc_plain(x, wt, bias),
+                     BF16_RTOL)
+    xa, _, wt, bias = _conv_case(g, cuda_device, 1, 4, 4, 8, 0, 12, 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kb.conv2d_nhwc(xa, wt.to(torch.bfloat16), bias)
+    with pytest.raises(TypeError, match="float32"):
+        kb.conv2d_nhwc(xa.to(torch.bfloat16), wt.to(torch.bfloat16), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False])
+def test_port_bf16_attention_kernels_match_plain(cuda_device, linear):
+    """K5's and K6's bf16 variants (bf16 projections, 3xTF32 context and
+    core) at every main-path site at batch 50 and on ragged shapes, two
+    calls bit-equal; the plain VJP reaches the fp32 weight through
+    .to(bfloat16)."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    kern = ka.linear_attention_block if linear else ka.attention_block
+    plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
+    sites = _main_path_sites("linear_attention_block" if linear else "attention_block")
+    kb.reset_launch_counts()
+    for b, h, w, c in sites + [(3, 5, 27, 64), (2, 9, 40, 96), (2, 1, 3, 512)]:
+        x = 2 * torch.randn(b, h, w, c, generator=g, device=cuda_device) + 0.3
+        p = _bf16_attn(c, g, cuda_device, linear)
+        out = kern(x, p)
+        assert_close(out, plain(x, p), BF16_RTOL)
+        assert torch.equal(out, kern(x, p))
+        torch.cuda.synchronize()
+    name = "linear_attention_block" if linear else "attention_block"
+    counts = kb.launch_counts()
+    assert counts[f"{name}.bf16"] == counts[name] > 0
+
+    x = torch.randn(2, 4, 8, 64, generator=g, device=cuda_device)
+    p32 = _attn_params(64, g, cuda_device, linear)
+    wg = p32["wqkv"].clone().requires_grad_(True)
+    wr = p32["wqkv"].clone().requires_grad_(True)
+    w = torch.randn(x.shape, generator=g, device=cuda_device)
+    p16 = {**p32, "wo": p32["wo"].to(torch.bfloat16)}
+    (kern(x, {**p16, "wqkv": wg.to(torch.bfloat16)}) * w).sum().backward()
+    (plain(x, {**p16, "wqkv": wr.to(torch.bfloat16)}) * w).sum().backward()
+    assert wg.grad.dtype == torch.float32
+    assert_close(wg.grad, wr.grad, BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_port_unet2d_bf16_forward_on_gpu(cuda_device):
+    """A dim-16 bf16 UNet2D: the kernel forward against the plain forward
+    (1e-2, the CPU tests' whole-net bound: rounding flips cascade), every
+    K1, K2, K5 and K6 launch a bf16 one, K3 unchanged; forward_mega and
+    K7 raise."""
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D
+
+    net = seeded_init_(UNet2D(dim=16, dim_mults=(1, 2, 4, 8), weight_dtype=torch.bfloat16),
+                       torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    x = torch.randn(4, 16, 128, 2, generator=g, device=cuda_device)
+    t = torch.tensor([3.0, 300.0, 700.0, 999.0], device=cuda_device)
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = net(x, t)
+        counts = kb.launch_counts()
+        assert_close(out, net.forward_plain(x, t), 1e-2)
+        with pytest.raises(TypeError, match="ROADMAP"):
+            net.forward_mega(x, t)
+        p = net.pack()["res"][0]  # a bf16 ResBlock of 16 channels
+        h, ss = torch.randn(4, 16, 128, 16, generator=g, device=cuda_device), x.new_zeros(4, 32)
+        with pytest.raises(TypeError, match="ROADMAP"):
+            kb.resblock_pair(h, ss, ss, p, p)
+    assert counts["conv2d_nhwc"] == counts["conv2d_nhwc.bf16"] == 52
+    assert counts["downsample_nhwc"] == counts["downsample_nhwc.bf16"] == 3
+    assert counts["linear_attention_block"] == counts["linear_attention_block.bf16"] == 8
+    assert counts["attention_block"] == counts["attention_block.bf16"] == 1
+    assert counts["group_norm_act"] == 38

@@ -81,5 +81,6 @@ def test_port_burgers_config_dim_muls_alias():
     assert cfg.dim_mults == (1, 2) and cfg.dim_muls is None
     assert dataclasses.replace(cfg, dim_mults=(1, 2, 4)).dim_mults == (1, 2, 4)
     assert tbench.BurgersConfig(dim_mults=(1, 2, 4), dim_muls=(1, 4)).dim_mults == (1, 4)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tbench.build_unet(tbench.BurgersConfig(bf16=True), "cpu")
+    net = tbench.build_unet(tbench.BurgersConfig(dim=8, dim_mults=(1, 2), bf16=True), "cpu")
+    assert net.weight_dtype == torch.bfloat16  # bf16 matmul weights in the kernel packs
+    assert all(p.dtype == torch.float32 for p in net.parameters())
