@@ -80,7 +80,10 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
    pair and two K1/K3 ``resblock`` calls, timed beside them (per event pair,
    and on the device alone from a CUDA graph) and beside the pair from
    cuDNN convs and ``F.group_norm`` (TF32 off); bound at 3xTF32 for the
-   convs, the fp32 bound beside it;
+   convs, the fp32 bound beside it; then K7's bf16 instantiation (bf16 conv
+   weights) on the same inputs: 5 launches, all bf16, against the bf16
+   plain pair and two bf16 K1/K3 ResBlocks (BF16_UNET_RTOL), bit-equal
+   repeats, timed beside them and a cuDNN bf16 pair, bound at 989 TFLOP/s;
 10. K8 ``UNet2D.forward_mega`` at full width (batch 50): against the plain
    and the K1-K6 forwards, exactly 1 K8 launch and nothing else per
    forward, two forwards bit-equal, one CTA per SM; the kernel against its
@@ -92,17 +95,26 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
    ``forward_plain`` timed in one call, two ``forward_mega`` calls profiled
    and the host time of its parts; 20 guided DDPM steps at batch 50 with
    both models through ``forward_mega`` (exactly 40 K8 launches) in turns
-   with 20 through K1-K6, and a profile of 3 of its steps.
+   with 20 through K1-K6, and a profile of 3 of its steps; then the same
+   net with bf16 weights (``BurgersConfig(bf16=True)``, the JAX mega
+   kernel's default packs): K8's bf16 instantiation, 1 launch per forward
+   (a bf16 one), against the bf16 plain and K1-K6 forwards and the kernel
+   against its plain version (BF16_UNET_RTOL), bit-equal repeats, timed per
+   event pair and on the device beside the bound at 989 TFLOP/s, and 20
+   guided DDPM steps through bf16 ``forward_mega`` (40 bf16 K8 launches) in
+   turns with bf16 K1-K6.
 
 Smoke training and jellyfish (no kernel of their own: cuDNN, TF32 off):
 11. smoke training at full width: 16 train sims from ``generate_smoke``,
    ``apps/train_smoke.py`` ``main()`` for the joint (C=6, 3 steps, a
    checkpoint, resumed to 4) and the w model (C=2) at batch 16, then each
-   timed with remat on and off through ``Trainer.train_step``: after each
-   switch a warm-up step, two one-step windows (ms per optimizer step,
-   the larger as their median; peak memory) and one step cut at the trainer's marks
-   (forward, backward, update). A micro-batch that does not fit is halved
-   by gradient accumulation (``--grad_accum``) and the reason printed;
+   timed through ``Trainer.train_step`` with remat off and (the w model)
+   on: after each switch a warm-up step, a one-step window (ms per
+   optimizer step; peak memory) and one step cut at the trainer's marks
+   (forward, backward, update); the joint model's step with remat on (the
+   app's default) is phase 17's fp32 turn. A micro-batch that does not fit
+   is halved by gradient accumulation (``--grad_accum``) and the reason
+   printed;
 12. jellyfish at full width: synthetic sims (4 train, 8 test),
    ``generate_jellyfish_forces``, ``train_surrogates_jellyfish`` for the
    force, simulator and boundary-updater nets (3 steps at batch 16),
@@ -131,7 +143,8 @@ The baselines (no kernel of their own: elementwise solver steps, MLPs and
    MPC`` at batch 8 on phase 12's surrogates over MPC_FRAMES frames
    (BASE_MPC_ITERS replanning iterations per step; objective, walltime,
    peak memory), and one
-   replanning iteration at t = 0 (19 steps) timed alone, projected to the
+   replanning iteration at t = 0 (19 steps) timed alone (MPC_TIMED_ITERS
+   times after a warm-up), projected to the
    default run (30 iterations over the shrinking horizons), one at t = 15
    (4 steps) profiled; ``--inference_method MPC_LBFGS`` over MPC_LBFGS_FRAMES
    frames and a replan at t = 0 of MPC_LBFGS_ITERS L-BFGS iterations, each
@@ -197,10 +210,22 @@ bf16 weights (the Pallas kernels' ``weight_dtype=bfloat16``; every
    (1, 2, 4, 8), 50))`` after ``_build.load_library()``, with
    ``torch.backends.cudnn.allow_tf32 = False``.
 
+The UNet3D in bf16 (flax ``dtype=bf16``, bench.py's deployment dtype for
+smoke and jellyfish; cuDNN bf16 convs, no kernel of its own; K4 in the
+smoke rollout):
+17. ``bf16_unet3d_phase`` (its docstring): the smoke and jellyfish joint
+   forwards at batch 8, the smoke and EBM training steps at batch 16 (the
+   train apps with ``--bf16 True``, float32 checkpoints; whether the bf16
+   EBM takes batch 16 as one micro-batch) and bench.py's two bf16 profiles,
+   each bf16 and fp32 in turns; a bf16 smoke step and EBM step on CUDA
+   against the CPU (BF16_3D_LOSS_RTOL, BF16_3D_GRAD_RTOL); ``infer_smoke``
+   and ``infer_jellyfish`` ``main()`` with ``--bf16 True``.
+
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8, with its phase-14 launches beside
 the smoke main path's; K7: sums over the five pair shapes;
-K8: per forward at batch 50), and ``{"ok": true, "device": {...}}`` as the
+K8: per forward at batch 50; the ``*_bf16`` records of K7 and K8 the same
+with bf16 weights), and ``{"ok": true, "device": {...}}`` as the
 last line.
 
 Any failed check exits non-zero before the last line. Run from the
@@ -284,6 +309,11 @@ REPLACES.update({
     "unet2d_mega": "diffphycon_tpu/research/pallas_unet2d_mega.py:283 (unet2d_mega_apply; "
                    "pallas_call :392)",
 })
+# the bf16 records of K7 and K8: the JAX kernels on their bf16 weight packs
+BF16_PACKS = {
+    "resblock_pair_bf16": " under weight_dtype=bfloat16 (pack_unet2d_params :665)",
+    "unet2d_mega_bf16": " on bf16 packs (pack_unet2d_mega, weight_dtype=bfloat16 by default :72)",
+}
 JELLY_TRAIN_SIMS, JELLY_TEST_SIMS, JELLY_B = 4, 8, 8
 JELLY_DDIM_STEPS = 3
 # CUDA against the CPU on one EBM loss, its parameter gradient and one guided
@@ -304,9 +334,10 @@ BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
 BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
 BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
 BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
-MPC_FRAMES = 10      # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
-MPC_LBFGS_FRAMES = 6  # the MPC_LBFGS app run's frames (default 20)
-MPC_LBFGS_ITERS = 2   # timed L-BFGS iterations of the replan at t = 0
+MPC_FRAMES = 6       # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
+MPC_LBFGS_FRAMES = 4  # the MPC_LBFGS app run's frames (default 20)
+MPC_LBFGS_ITERS = 1   # timed L-BFGS iterations of the replan at t = 0
+MPC_TIMED_ITERS = 2   # timed Adam replanning iterations at t = 0 (their larger is kept)
 RL_SAC_B = 64         # train_baselines_smoke's default batch (the conv SAC)
 # phase 14 (RL envs and apps): the apps' default widths, counts cut. The
 # smoke app's sac runs one round (2 online episodes, 64 updates)
@@ -407,7 +438,9 @@ def expected_counts(calls, bf16=False):
         "linear_attention_block": sum(k == "linear_attention_block" for k, _, _ in calls),
         "attention_block": sum(k == "attention_block" for k, _, _ in calls),
         "resblock_pair": 0,  # the per-block forward launches no persistent kernel
+        "resblock_pair.bf16": 0,
         "unet2d_mega": 0,
+        "unet2d_mega.bf16": 0,
     }
     for k in BF16_KERNELS:
         counts[f"{k}.bf16"] = counts[k] if bf16 else 0
@@ -963,17 +996,14 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
                       bench.derive_cond,
                       TrainerConfig(results_folder=os.path.join(work, "train_timing")),
                       device=device)
-    n_windows, n_steps = 4, 10
+    n_windows, n_steps = 2, 10
     tm = _step_timing(torch, trainer,
                       lambda: torch.as_tensor(next(trainer.batch_iter), device=device),
                       3, n_windows, n_steps)
     split = tm["split_ms"]
 
-    def two_steps():
-        for _ in range(2):
-            trainer.train_step(next(trainer.batch_iter))
-
-    wall_ms, dev_ms, rows = profile_window(torch, two_steps)
+    wall_ms, dev_ms, rows = profile_window(
+        torch, lambda: trainer.train_step(next(trainer.batch_iter)))
     total = sum(split.values())
     emit({"phase": "train_timing", "batch": TRAIN_B, "steps_timed": n_windows * n_steps,
           "window_ms_per_step": tm["window_ms_per_step"], "ms_per_step": tm["ms_per_step"],
@@ -981,7 +1011,7 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
           "window_spread": tm["window_spread"],
           "split_ms": split, "backward_share": split["backward"] / total,
           "peak_memory_gb": tm["peak_memory_gb"],
-          "profile": {"steps": 2, "wall_ms": wall_ms, "device_ms": dev_ms,
+          "profile": {"steps": 1, "wall_ms": wall_ms, "device_ms": dev_ms,
                       "busy_share": dev_ms / wall_ms,
                       "top": [[k[:60], v] for k, v in rows[:10]]},
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
@@ -1049,11 +1079,16 @@ def _res_pack(torch, gen, c):
 
 def _pair_library(torch, F, kb, x, ss_a, ss_b, p_a, p_b):
     """The pair from cuDNN convs (TF32 off) and F.group_norm on NCHW: the
-    library yardstick (weights and the input transposed outside the timing)."""
+    library yardstick (weights and the input transposed outside the timing).
+    bf16 conv weights: cuDNN's bf16 conv on the activation cast to bf16,
+    its output back to float32."""
     c = x.shape[-1]
 
     def nchw_w(w):
         return w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+
+    def conv(h, w, b):
+        return F.conv2d(h.to(w.dtype), w, b.to(w.dtype), padding=1).float()
 
     blocks = [(ss, p, nchw_w(p["w1"]), nchw_w(p["w2"])) for ss, p in ((ss_a, p_a), (ss_b, p_b))]
     x_l = x.permute(0, 3, 1, 2).contiguous()
@@ -1061,11 +1096,9 @@ def _pair_library(torch, F, kb, x, ss_a, ss_b, p_a, p_b):
     def run():
         h_in = x_l
         for ss, p, w1, w2 in blocks:
-            h = F.group_norm(F.conv2d(h_in, w1, p["b1"], padding=1), 1, p["gs1"], p["gb1"],
-                             eps=kb.GN_EPS)
+            h = F.group_norm(conv(h_in, w1, p["b1"]), 1, p["gs1"], p["gb1"], eps=kb.GN_EPS)
             h = F.silu(h * (ss[:, :c, None, None] + 1.0) + ss[:, c:, None, None])
-            h = F.group_norm(F.conv2d(h, w2, p["b2"], padding=1), 1, p["gs2"], p["gb2"],
-                             eps=kb.GN_EPS)
+            h = F.group_norm(conv(h, w2, p["b2"]), 1, p["gs2"], p["gb2"], eps=kb.GN_EPS)
             h_in = F.silu(h) + h_in
         return h_in
 
@@ -1074,7 +1107,9 @@ def _pair_library(torch, F, kb, x, ss_a, ss_b, p_a, p_b):
 
 def resblock_pair_phase(torch, F, smi_line):
     """Phase 9: K7 at the pair shapes, against the plain pair and two
-    K1/K3 ResBlocks."""
+    K1/K3 ResBlocks; then K7's bf16 instantiation on the same inputs with
+    bf16 conv weights (:func:`_pair_bf16`). Returns the kernels line's K7
+    records, fp32 and bf16."""
     from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 
     t0 = time.time()
@@ -1146,12 +1181,85 @@ def resblock_pair_phase(torch, F, smi_line):
     agg["device_ms"] = None if None in dev else sum(dev)
     agg["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) \
         else "bytes"
+    return {"resblock_pair": agg, "resblock_pair_bf16": _pair_bf16(torch, F, kb, cases,
+                                                                   smi_line)}
+
+
+def _bf16_pair_pack(torch, p):
+    return {k: v.to(torch.bfloat16) if k in ("w1", "w2") else v for k, v in p.items()}
+
+
+def _pair_bf16(torch, F, kb, cases, smi_line):
+    """Phase 9, bf16: K7 with bf16 conv weights (its bf16 instantiation) at
+    the five pair shapes, each launched once with the counters reset (5 K7
+    launches, all bf16, nothing else), against the bf16 plain pair
+    (BF16_UNET_RTOL: rounding flips cascade through two GroupNorms) and two
+    bf16 K1/K3 ResBlocks, bit-equal repeats; timed beside them and the pair
+    from cuDNN bf16 convs; bound at the bf16 rate."""
+    t0 = time.time()
+    cases = [(x, ss_a, ss_b, _bf16_pair_pack(torch, p_a), _bf16_pair_pack(torch, p_b))
+             for x, ss_a, ss_b, p_a, p_b in cases]
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        outs = [kb.resblock_pair(*case) for case in cases]
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        want = {k: 0 for k in counts}
+        want["resblock_pair"] = want["resblock_pair.bf16"] = len(PAIR_SHAPES)
+        rows, bad = [], []
+        for (h, w, c), case, out in zip(PAIR_SHAPES, cases, outs):
+            x, ss_a, ss_b, p_a, p_b = case
+            plain = kb.resblock_pair_plain(*case)
+            two = kb.resblock(kb.resblock(x, ss_a, p_a), ss_b, p_b)
+            scale = max(1.0, plain.abs().max().item())
+            err = (out - plain).abs().max().item()
+            err_two = (out - two).abs().max().item()
+            repeat_equal = torch.equal(out, kb.resblock_pair(*case))
+            ms = timed(torch, lambda: kb.resblock_pair(*case), n=10)
+            two_ms = timed(torch, lambda: kb.resblock(kb.resblock(x, ss_a, p_a), ss_b, p_b),
+                           n=10)
+            plain_ms = timed(torch, lambda: kb.resblock_pair_plain(*case), n=5)
+            lib_ms = timed(torch, _pair_library(torch, F, kb, *case), n=10)
+            device_ms, _ = timed_graph(torch, lambda: kb.resblock_pair(*case), n=10)
+            m = B * h * w
+            conv_flops, other_flops = 4 * 2 * m * c * 9 * c, 4 * 16 * m * c
+            nbytes = 4 * (2 * m * c + 2 * 6 * c + 2 * 2 * B * c) + 2 * 2 * 9 * c * c * 2
+            ops_ms = 1e3 * (conv_flops / BF16_PEAK + other_flops / FP32_PEAK)
+            bytes_ms = 1e3 * nbytes / HBM_RATE
+            row = {"shape": [B, h, w, c], "max_abs_err": err, "rel_err": err / scale,
+                   "rel_err_vs_two_resblocks": err_two / scale, "tol_rel": BF16_UNET_RTOL,
+                   "repeat_bit_equal": repeat_equal, "ms": ms, "device_ms": device_ms,
+                   "two_resblock_ms": two_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            rows.append(row)
+            emit({"phase": "resblock_pair_bf16", **row})
+            if not (err <= BF16_UNET_RTOL * scale and err_two <= BF16_UNET_RTOL * scale
+                    and repeat_equal):
+                bad.append(row)
+            del plain, two
+    emit({"phase": "resblock_pair_bf16_checked", "launches": counts, "expected": want,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if bad:
+        fail(f"bf16 K7 differs from the bf16 plain pair or from two ResBlocks: {bad}")
+    if counts != want:
+        fail(f"bf16 K7 path launches {counts} != {want}")
+    agg = {"launches": counts["resblock_pair.bf16"],
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "two_resblock_ms"):
+        agg[key] = sum(r[key] for r in rows)
+    dev = [r["device_ms"] for r in rows]
+    agg["device_ms"] = None if None in dev else sum(dev)
+    agg["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) \
+        else "bytes"
     return agg
 
 
 def unet2d_mega_phase(torch, smi_line, bench, cfg):
     """Phase 10: K8 through UNet2D.forward_mega at full width, its checks,
-    timings and 20 guided DDPM steps through it."""
+    timings and 20 guided DDPM steps through it; then K8's bf16
+    instantiation (:func:`_mega_bf16`). Returns the kernels line's K8
+    records, fp32 and bf16."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
@@ -1357,16 +1465,152 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
         fail("non-finite samples in the guided DDPM loop through forward_mega")
     if mega_counts != want_steps:
         fail(f"launches of 20 guided steps through forward_mega {mega_counts} != {want_steps}")
-    return {"launches": mega_counts["unet2d_mega"], "max_abs_err": k_err, "ms": k_ms,
+    del gds, net, net_w
+    torch.cuda.empty_cache()
+    return {"unet2d_mega": {"launches": mega_counts["unet2d_mega"], "max_abs_err": k_err,
+                            "ms": k_ms, "plain_ms": k_plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None, "device_ms": k_device_ms},
+            "unet2d_mega_bf16": _mega_bf16(torch, smi_line, bench)}
+
+
+def _mega_bf16(torch, smi_line, bench):
+    """Phase 10, bf16: ``BurgersConfig(bf16=True)`` nets (bf16 packs, the
+    JAX mega kernel's default) through ``forward_mega`` at batch 50: exactly
+    1 K8 launch per forward, a bf16 one, and nothing else; within
+    BF16_UNET_RTOL of the bf16 plain forward and of the bf16 K1-K6 forward;
+    two forwards bit-equal; the kernel against its plain version (the bf16
+    plain replay) on the same inputs; timed per event pair and on the device
+    (CUDA graph) beside the bound at the bf16 rate (the weights at their
+    stored sizes); forward_mega and the K1-K6 forward in turns; then 20
+    guided DDPM steps with both models through bf16 forward_mega (exactly
+    40 K8 launches, all bf16) in turns with 20 through bf16 K1-K6."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+    from diffphycon_tpu_torch.kernels import unet2d_mega as kmega
+    from diffphycon_tpu_torch.nets import unet2d as tunet
+
+    t0 = time.time()
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True)
+    net = bench.init_params(cfg, seed=0, device="cuda")
+    net_w = bench.init_params(cfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    x = torch.randn(B, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
+    t = torch.linspace(0, 999, B, device="cuda")
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = net.forward_mega(x, t)
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        want = {k: 0 for k in counts}
+        want["unet2d_mega"] = want["unet2d_mega.bf16"] = 1
+        bit_equal = torch.equal(out, net.forward_mega(x, t))
+        ref_plain = net.forward_plain(x, t)
+        ref_k = net(x, t)
+        scale = max(1.0, ref_plain.abs().max().item())
+        err_plain = (out - ref_plain).abs().max().item()
+        err_k = (out - ref_k).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        del ref_plain, ref_k
+
+        packs = net._kernel_pack()
+        film = net._film(t, packs)
+        x0 = tunet._conv_nchw(x, net.init_conv, torch.bfloat16)
+        plan = kmega.mega_plan(packs, x0.shape, net.groups, HEADS, DIM_HEAD, x0.device)
+        k_out = kmega.unet2d_mega(x0, film, packs, plan)
+        k_ref = kmega.unet2d_mega_plain(x0, film, packs, plan)
+        k_scale = max(1.0, k_ref.abs().max().item())
+        k_err = (k_out - k_ref).abs().max().item()
+        with FlopCounterMode(display=False) as counter:
+            kmega.unet2d_mega_plain(x0, film, packs, plan)
+        weights = {id(st.ptrs[k]): st.ptrs[k] for st in plan.stages for k in st.ptrs
+                   if isinstance(st.ptrs[k], torch.Tensor)}
+        nbytes = (sum(w.numel() * w.element_size() for w in weights.values())
+                  + 4 * (x0.numel() + film.numel() + k_out.numel()))
+        flops = counter.get_total_flops()
+        b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+        del k_out, k_ref
+        k_ms = timed(torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
+        k_plain_ms = timed(torch, lambda: kmega.unet2d_mega_plain(x0, film, packs, plan), n=3)
+        k_device_ms, k_device_err = timed_graph(
+            torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
+        fwd_ms = {"forward_mega": [], "forward_k1_k6": []}
+        for name in ("forward_mega", "forward_k1_k6", "forward_k1_k6", "forward_mega"):
+            fn = net.forward_mega if name == "forward_mega" else net
+            fwd_ms[name].append(timed(torch, lambda: fn(x, t), n=5))
+    emit({"phase": "unet2d_mega_bf16", "batch": B, "weight_dtype": str(plan.weight_dtype),
+          "stages": plan.counts(), "barriers": plan.barriers(),
+          "launches_per_forward": counts, "expected": want,
+          "rel_err_vs_plain_forward": err_plain / scale,
+          "rel_err_vs_kernel_forward": err_k / scale, "tol_rel": BF16_UNET_RTOL,
+          "bit_equal_repeat": bit_equal, "finite": finite, "kernel_max_abs_err": k_err,
+          "kernel_rel_err": k_err / k_scale, "kernel_ms": k_ms, "kernel_device_ms": k_device_ms,
+          **({"kernel_device_ms_error": k_device_err} if k_device_err else {}),
+          "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "forward_ms_in_turns": fwd_ms,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not (err_plain <= BF16_UNET_RTOL * scale and err_k <= BF16_UNET_RTOL * scale and finite):
+        fail(f"bf16 forward_mega differs: {err_plain / scale} (plain), {err_k / scale} (K1-K6)")
+    if not k_err <= BF16_UNET_RTOL * k_scale:
+        fail(f"bf16 K8 differs from its plain version: {k_err / k_scale}")
+    if counts != want:
+        fail(f"launches per bf16 forward_mega {counts} != {want}")
+    if not bit_equal:
+        fail("two bf16 K8 forwards are not bit-equal")
+
+    # 20 guided DDPM steps at batch 50 through bf16 forward_mega, in turns
+    # with bf16 K1-K6
+    t0 = time.time()
+    u_target = torch.randn(B, 11, 128, generator=gen, device="cuda")
+    cond_vals = {"u0": u_target[:, 0, :] / bench.RESCALER,
+                 "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfg, u_target, wu=1000.0)
+    gds = {"k1_k6": bench.build_diffusion(cfg, net, model_w=net_w, device="cuda"),
+           "mega": bench.build_diffusion(cfg, net.forward_mega, model_w=net_w.forward_mega,
+                                         device="cuda")}
+    ts = gds["mega"].sample_ts()
+    n_steps = 20
+    rates, mega_counts, xs_ = {"k1_k6": [], "mega": []}, None, {}
+    for name in ("k1_k6", "mega", "mega", "k1_k6"):
+        gd = gds[name]
+        xg = torch.Generator(device="cuda").manual_seed(1)
+        xt = gd.sample_chunk(gd.sample_init(B, xg), ts[:2], cond_vals, guidance, xg)
+        torch.cuda.synchronize()
+        if name == "mega" and mega_counts is None:
+            kb.reset_launch_counts()
+        tic = time.perf_counter()
+        xt = gd.sample_chunk(xt, ts[2:2 + n_steps], cond_vals, guidance, xg)
+        torch.cuda.synchronize()
+        rates[name].append(n_steps / (time.perf_counter() - tic))
+        if name == "mega" and mega_counts is None:
+            mega_counts = kb.launch_counts()
+        xs_.setdefault(name, xt)
+    want_steps = {k: 0 for k in mega_counts}
+    want_steps["unet2d_mega"] = want_steps["unet2d_mega.bf16"] = 2 * n_steps
+    finite = bool(torch.isfinite(xs_["mega"]).all())
+    emit({"phase": "guided_ddpm_mega_bf16", "batch": B, "steps_timed": n_steps,
+          "order": "k1_k6, mega, mega, k1_k6", "guided_denoise_steps_per_sec": rates,
+          "launches": mega_counts, "expected": want_steps, "finite": finite,
+          "rel_gap_vs_k1_k6_after_22_steps": ((xs_["mega"] - xs_["k1_k6"]).abs().max()
+                                              / xs_["k1_k6"].abs().max().clamp(min=1.0)).item(),
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail("non-finite samples in the guided DDPM loop through bf16 forward_mega")
+    if mega_counts != want_steps:
+        fail(f"launches of 20 bf16 guided steps through forward_mega {mega_counts} != "
+             f"{want_steps}")
+    del gds, net, net_w
+    torch.cuda.empty_cache()
+    return {"launches": mega_counts["unet2d_mega.bf16"], "max_abs_err": k_err, "ms": k_ms,
             "plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "device_ms": k_device_ms}
 
 
-def _fit(torch, run, batch):
+def _fit(torch, run, batch, accum=1):
     """run(accum): a training run at ``batch`` with gradient accumulation
-    1, 2, 4, ..., the first whose micro-batch fits in device memory (the
-    apps' --grad_accum); returns (result, accum, why or None)."""
-    accum, why = 1, None
+    ``accum``, 2 * accum, ..., the first whose micro-batch fits in device
+    memory (the apps' --grad_accum); returns (result, accum, why or None)."""
+    why = None
     while True:
         try:
             return run(accum), accum, why
@@ -1423,23 +1667,24 @@ def _step_timing(torch, trainer, batch_fn, warm, n_windows, n_steps):
 
 
 # phases 11-12: one warm-up step after each remat switch (the allocator grows
-# to the new setting's peak there), then two one-step windows (the larger
-# is the median) and one split step
-REMAT_TIMING = (1, 2, 1)
+# to the new setting's peak there), then a one-step window and one split step
+REMAT_TIMING = (1, 1, 1)
 
 
-def _timed_remat(torch, tr, batch_fn):
+def _timed_remat(torch, tr, batch_fn, settings=(True, False)):
     """{"remat_on"|"remat_off": _step_timing of trainer ``tr`` with its
-    UNet3D's remat_all switched, at the accumulation that fits}."""
+    UNet3D's remat_all switched to each of ``settings``, at the
+    accumulation that fits, trying the app's first (remat off takes more
+    memory than the app's remat on)}."""
     timing = {}
-    for remat_all in (True, False):
+    for remat_all in settings:
         tr.model.remat_all = remat_all
 
         def run(accum):
             tr.cfg.gradient_accumulate_every = accum
             return _step_timing(torch, tr, batch_fn, *REMAT_TIMING)
 
-        tm, accum, why = _fit(torch, run, TRAIN_B)
+        tm, accum, why = _fit(torch, run, TRAIN_B, accum=tr.cfg.gradient_accumulate_every)
         timing[f"remat_{'on' if remat_all else 'off'}"] = {
             "grad_accum": accum, "why_accum": why, **tm}
         if not all(math.isfinite(v) for v in tm["losses"]):
@@ -1504,9 +1749,13 @@ def smoke_training_phase(torch, smi_line):
 
     t0 = time.time()
     timing = {}
-    for name, tr in (("joint", runs["joint resumed"]), ("w", runs["w"])):
+    # the joint model with remat on (the app's default) is timed in phase 17,
+    # in turns with its bf16 step
+    for name, tr, settings in (("joint", runs["joint resumed"], (False,)),
+                               ("w", runs["w"], (True, False))):
         timing[name] = _timed_remat(
-            torch, tr, lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"))
+            torch, tr, lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"),
+            settings)
     emit({"phase": "smoke_train_timing", "channels": {"joint": 6, "w": 2},
           "input": [TRAIN_B, 32, 64, 64], "warm_windows_steps": REMAT_TIMING, "timing": timing,
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
@@ -1834,13 +2083,13 @@ def _mpc_records(torch, smi_line):
 
     one_iteration()  # warm-up
     times = []
-    for _ in range(3):
+    for _ in range(MPC_TIMED_ITERS):
         torch.cuda.synchronize()
         tic = time.perf_counter()
         one_iteration()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - tic)
-    iter_s = sorted(times)[1]
+    iter_s = sorted(times)[MPC_TIMED_ITERS // 2]
     # profiled at a 4-step horizon (t = 15): the same ops per step, and the
     # profiler's bookkeeping grows with the event count
     profile = _busy(torch, lambda: one_iteration(num_t - 4))
@@ -2204,7 +2453,7 @@ def rl_env_phase(torch, smi_line):
 FUSE_STEPS = 20      # phase 15: guided DDPM steps per timed run, fused and two-call
 POST_HOC_T = (500, 499, 498)  # phase 15: post-hoc-guidance DDPM steps
 DDP_APP_STEPS = 5    # phase 15: train_burgers steps under the one-rank NCCL group
-DDP_WINDOWS, DDP_WINDOW_STEPS = 3, 4  # phase 15: timed windows per turn, steps each
+DDP_WINDOWS, DDP_WINDOW_STEPS = 2, 4  # phase 15: timed windows per turn, steps each
 KS_B = 32
 # KS over 400 ETDRK4 steps: a relative perturbation of 1e-7 in u0 grows to
 # 5e-7 of max |u| (measured on the CPU at batch 32), cuFFT and pocketfft
@@ -2593,8 +2842,11 @@ def jellyfish_phase(torch, smi_line):
         trained[model_type] = {
             "batch": TRAIN_B, "app_grad_accum": accum, "why_accum": why, "app_steps": 2,
             "app_losses": app_losses, "remat_all_default": True,
+            # the EBM with remat on (the default) is timed in phase 17, in turns
+            # with its bf16 step
             "timing": _timed_remat(torch, tr, lambda: tuple(
-                torch.as_tensor(a, device="cuda") for a in next(batches)))}
+                torch.as_tensor(a, device="cuda") for a in next(batches)),
+                (False,) if model_type == "states" else (True, False))}
         del tr
         torch.cuda.empty_cache()
     emit({"phase": "jellyfish_train", "app": "diffphycon_tpu_torch/apps/train_jellyfish.py",
@@ -2975,12 +3227,12 @@ def bf16_phase(torch, F, smi_line, calls):
         for name in order:
             tr = trainers[name]
             tm = _step_timing(torch, tr, lambda: torch.as_tensor(next(tr.batch_iter),
-                                                                 device="cuda"), 1, 2, 4)
+                                                                 device="cuda"), 1, 1, 2)
             step_ms[name].append(tm["ms_per_step"])
             if not all(math.isfinite(v) for v in tm["losses"]):
                 fail(f"non-finite {name} training losses: {tm['losses']}")
     emit({"phase": "train_timing_bf16", "batch": TRAIN_B, "ms_per_step_in_turns": step_ms,
-          "windows_steps": [2, 4], "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+          "windows_steps": [1, 2], "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
     del trainers, nets
     torch.cuda.empty_cache()
 
@@ -2996,6 +3248,359 @@ def bf16_phase(torch, F, smi_line, calls):
             "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
             "library_ms": a["library_ms"], "device_ms": a["device_ms"]})
     return records
+
+
+# phase 17 (the UNet3D in bf16: the JAX ``UNet3D(dtype=bfloat16)``, flax's
+# compute dtype, which bench.py deploys for smoke and jellyfish)
+# one bf16 training step on CUDA against the same step on the CPU: both in
+# bf16, they differ where a sum in another order rounds to the neighbouring
+# bf16 value, as the port against JAX does on the CPU
+# (tests/test_torch_port_bf16_unet3d.py: LOSS_RTOL 2e-2 of the loss); the
+# whole parameter gradient within BF16_3D_GRAD_RTOL in relative L2 norm
+BF16_3D_LOSS_RTOL = 2e-2
+BF16_3D_GRAD_RTOL = 5e-2
+# the CPU check's nets: phase 12's CUDA-against-CPU size, at batch 16
+BF16_3D_CPU = dict(dim=16, dim_mults=(1, 2, 4), frames=8, image_size=32)
+BF16_3D_SMOKE_DDIM = 2   # infer_smoke --bf16 True: DDIM steps (calibration off)
+BENCH_SMOKE_B, BENCH_JELLY_B = 4, 1  # bench.py's bf16 profiles' batches
+BENCH_STEPS = 2  # steps timed per turn in the bench profiles
+
+
+def _dtype_turns(torch, fns, n=3, warm=1, peak=True):
+    """{name: [ms, ms]} of fns["fp32"] and fns["bf16"] timed in turns
+    (fp32, bf16, bf16, fp32), and ({name: peak GB} of one call each, or
+    {} without ``peak``)."""
+    ms = {"fp32": [], "bf16": []}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        ms[name].append(timed(torch, fns[name], n=n, warm=warm))
+    peaks = {}
+    for name, fn in fns.items() if peak else ():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+    return ms, peaks
+
+
+def _train_turns(torch, trainers, batch_fns):
+    """ms per optimizer step (one step per turn, fp32, bf16, bf16, fp32,
+    synchronised) and the peak GB of each dtype's steps."""
+    ms, peak = {"fp32": [], "bf16": []}, {"fp32": 0.0, "bf16": 0.0}
+    for name in ("fp32", "bf16", "bf16", "fp32"):
+        tr = trainers[name]
+        batch = batch_fns[name]()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        loss = tr.train_step(batch)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - tic))
+        peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 1e9)
+        if not math.isfinite(float(loss)):
+            fail(f"non-finite {name} training loss {loss}")
+    return ms, peak
+
+
+def _bf16_3d_cpu_check(torch):
+    """One smoke p_losses step and one EBM step (double backward) of bf16
+    UNet3Ds at BF16_3D_CPU and batch 16, on CUDA against the CPU with the
+    same weights and draws: the losses, and the whole parameter gradient in
+    relative L2 norm (float32 gradients, none missing)."""
+    import copy
+
+    from diffphycon_tpu_torch.benchmarks import jellyfish as jbench
+    from diffphycon_tpu_torch.benchmarks import smoke as sbench
+    from diffphycon_tpu_torch.diffusion import smoke_derive_cond
+
+    g = torch.Generator().manual_seed(17)
+    b, f, h = TRAIN_B, BF16_3D_CPU["frames"], BF16_3D_CPU["image_size"]
+    scfg = sbench.SmokeConfig(bf16=True, **BF16_3D_CPU)
+    jcfg = jbench.JellyfishConfig(bf16=True, **BF16_3D_CPU)
+    x = 0.5 * torch.randn(b, f, h, h, 6, generator=g)
+    ts = torch.randint(0, 1000, (b,), generator=g)
+    noise = torch.randn(x.shape, generator=g)
+    state0 = torch.rand(b, f, h, h, 3, generator=g) * 2 - 1
+    bd0 = torch.randn(b, f, h, h, 3, generator=g)
+    thetas0 = torch.randn(b, f, generator=g)
+    tj = torch.randint(0, 1000, (b,), generator=g)
+    noise_j = torch.randn(state0.shape, generator=g)
+    nets_cpu = {"smoke": sbench.init_params(scfg, seed=0, device="cpu").train(),
+                "ebm": jbench.build_joint_unet(jcfg, seed=1, device="cpu").train()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        res = {}
+        for name, net0 in nets_cpu.items():
+            net = copy.deepcopy(net0).to(dev)
+            tic = time.perf_counter()
+            if name == "smoke":
+                gd = sbench.build_diffusion(scfg, net, device=dev)
+                xd = x.to(dev)
+                loss = gd.p_losses(xd, ts.to(dev), smoke_derive_cond(xd), noise.to(dev))
+            else:
+                gd = jbench.JellyfishDiffusion(jcfg, net, device=dev)
+                loss = gd.p_losses_states(*(a.to(dev) for a in (state0, bd0, thetas0, tj,
+                                                                noise_j)))
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            grads = [p.grad for p in net.parameters()]
+            res[name] = (loss.item(), grads, time.perf_counter() - tic)
+        out[dev] = res
+    rec, ok = {"batch": b, **BF16_3D_CPU, "loss_tol": BF16_3D_LOSS_RTOL,
+               "grad_tol": BF16_3D_GRAD_RTOL}, True
+    for name in nets_cpu:
+        (lc, gc, sc), (lg, gg, sg) = out["cpu"][name], out["cuda"][name]
+        complete = all(a is not None and c is not None and a.dtype == torch.float32
+                       for a, c in zip(gg, gc))
+        if complete:
+            vc = torch.cat([v.reshape(-1) for v in gc])
+            vg = torch.cat([v.reshape(-1).cpu() for v in gg])
+            grad_err = ((vg - vc).norm() / vc.norm()).item()
+        else:
+            grad_err = math.inf
+        rec[name] = {"loss_cpu": lc, "loss_cuda": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
+                     "grad_rel_l2_err": grad_err, "grads_fp32_complete": complete,
+                     "cpu_seconds": sc, "cuda_seconds": sg}
+        ok = ok and (rec[name]["loss_rel_err"] <= BF16_3D_LOSS_RTOL and math.isfinite(lg)
+                     and grad_err <= BF16_3D_GRAD_RTOL)
+    return rec, ok
+
+
+def bf16_unet3d_phase(torch, smi_line):
+    """Phase 17: the smoke and jellyfish UNet3Ds in bf16 (``SmokeConfig`` /
+    ``JellyfishConfig(bf16=True)``: flax ``dtype=bf16`` on float32
+    parameters; no kernel of their own, cuDNN bf16 convs). 17a: the smoke
+    (8, 32, 64, 64, 6) and jellyfish joint (8, 20, 64, 64, 7) forwards, bf16
+    and fp32 from the same weights in turns, their peak memory and the bf16
+    output's distance from fp32 (above BF16_GUARD); 17b: ``train_smoke`` and
+    ``train_jellyfish --model_type states`` (the EBM) at batch 16, one step
+    each with ``--bf16 True`` (float32 checkpoints) and with fp32 (the EBM
+    at the micro-batch phase 12 found), then one step of each in turns, ms
+    and peak GB, and whether the bf16 EBM step takes batch 16 as one
+    micro-batch; 17c: one smoke step and one EBM step of bf16 nets on CUDA
+    against the CPU (:func:`_bf16_3d_cpu_check`); 17d: ``infer_smoke.main()``
+    (two seeded bf16 UNet3Ds, batch 8, DDIM BF16_3D_SMOKE_DDIM, K4 in the
+    evaluation rollout: exactly 255 launches) and ``infer_jellyfish.main()``
+    (phase 12's checkpoints and surrogates, guided DDIM JELLY_DDIM_STEPS at
+    batch 8) with ``--bf16 True``; 17e: bench.py's own bf16 profiles as
+    records, the smoke two-model guided DDIM step at batch 4 and the
+    jellyfish guided DDPM step at batch 1, bf16 and fp32 in turns. Needs
+    the files of phases 7, 11 and 12 under build/chip_smoke (run it after
+    them, as main does)."""
+    from diffphycon_tpu_torch.apps import infer_jellyfish, infer_smoke, train_jellyfish
+    from diffphycon_tpu_torch.apps import train_smoke
+    from diffphycon_tpu_torch.benchmarks import jellyfish as jbench
+    from diffphycon_tpu_torch.benchmarks import smoke as sbench
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
+    from diffphycon_tpu_torch.training.data import load_jellyfish_dataset
+    from diffphycon_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.time()
+    work = os.path.join("build", "chip_smoke")
+    out_dir = os.path.join(work, "bf16_unet3d")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    jelly_root = os.path.join(work, "jellyfish", "data")
+    smoke_train = os.path.join(work, "smoke_train_data")
+    smoke_test = os.path.join(work, "smoke_data")
+    for path in (jelly_root, smoke_train, smoke_test):
+        if not os.path.isdir(path):
+            fail(f"phase 17 needs {path}: run it after phases 7, 11 and 12")
+
+    # 17a. forwards at batch 8, bf16 and fp32 in turns
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    fwd = {}
+    for name, make, shape in (
+            ("smoke", lambda bf: sbench.init_params(sbench.SmokeConfig(bf16=bf), seed=0,
+                                                    device="cuda"), (SMOKE_B, 32, 64, 64, 6)),
+            ("jellyfish_joint", lambda bf: jbench.build_joint_unet(
+                jbench.JellyfishConfig(bf16=bf), seed=0, device="cuda"),
+             (JELLY_B, 20, 64, 64, 7))):
+        nets = {"fp32": make(False), "bf16": make(True)}
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        t = torch.full((shape[0],), 500.0, device="cuda")
+        with torch.no_grad():
+            o32, o16 = nets["fp32"](x, t), nets["bf16"](x, t)
+            gap = ((o16.float() - o32).abs().max() / o32.abs().max().clamp(min=1.0)).item()
+            ms, peak = _dtype_turns(torch, {k: (lambda n=n: n(x, t)) for k, n in nets.items()})
+        fwd[name] = {"input": list(shape), "forward_ms_in_turns": ms, "peak_memory_gb": peak,
+                     "out_dtype": str(o16.dtype), "rel_gap_to_fp32": gap,
+                     "finite": bool(torch.isfinite(o16).all())}
+        if not (o16.dtype == torch.bfloat16 and gap > BF16_GUARD and fwd[name]["finite"]):
+            fail(f"bf16 {name} UNet3D: {fwd[name]}")
+        del nets, o32, o16, x
+        torch.cuda.empty_cache()
+    emit({"phase": "unet3d_bf16_forward", "models": fwd, "guard": BF16_GUARD,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+
+    # 17b. the train apps at batch 16: one step each, --bf16 True and fp32,
+    # then steps in turns
+    t0 = time.time()
+    trainers, app_rec = {}, {}
+    for model in ("smoke", "ebm"):
+        trainers[model] = {}
+        for name in ("fp32", "bf16"):
+            folder = os.path.join(out_dir, f"{model}_{name}")
+
+            def run(accum, folder=folder, name=name, model=model):
+                shutil.rmtree(folder, ignore_errors=True)
+                common = ["--batch_size", str(TRAIN_B), "--grad_accum", str(accum),
+                          "--train_num_steps", "1", "--checkpoint_interval", "1",
+                          "--bf16", str(name == "bf16"), "--results_folder", folder]
+                if model == "smoke":
+                    return train_smoke.main(train_smoke.build_parser().parse_args(
+                        ["--dataset_path", smoke_train] + common))
+                return train_jellyfish.main(train_jellyfish.build_parser().parse_args(
+                    ["--dataset_path", jelly_root, "--model_type", "states"] + common))
+
+            # the fp32 EBM starts at the micro-batch of 8 phase 12 needed
+            first = 2 if (model, name) == ("ebm", "fp32") else 1
+            tr, accum, why = _fit(torch, run, TRAIN_B, accum=first)
+            torch.cuda.synchronize()
+            saved = {use_ema: Trainer.load_params(folder, 1, use_ema=use_ema)
+                     for use_ema in (False, True)}
+            dtypes = sorted({str(v.dtype) for d in saved.values() for v in d.values()})
+            app_rec[f"{model}_{name}"] = {"grad_accum": accum, "why_accum": why,
+                                          "net_dtype": str(tr.model.dtype),
+                                          "checkpoint_dtypes": dtypes, "step": tr.step}
+            if tr.step != 1 or dtypes != ["torch.float32"] or not all(
+                    p.dtype == torch.float32 for p in tr.params + tr.ema):
+                fail(f"{model} train app ({name}): {app_rec[f'{model}_{name}']}")
+            trainers[model][name] = tr
+        if model == "smoke":
+            batch_fns = {k: (lambda tr=tr: torch.as_tensor(next(tr.batch_iter), device="cuda"))
+                         for k, tr in trainers[model].items()}
+        else:
+            data = load_jellyfish_dataset(jelly_root, "train")
+            windows = train_jellyfish.window_batches(data["states"], data["bd"], data["thetas"],
+                                                     TRAIN_B, 20, seed=3)
+            batch_fns = dict.fromkeys(("fp32", "bf16"), lambda: tuple(
+                torch.as_tensor(a, device="cuda") for a in next(windows)))
+        ms, peak = _train_turns(torch, trainers[model], batch_fns)
+        app_rec[f"{model}_ms_per_step_in_turns"] = ms
+        app_rec[f"{model}_peak_memory_gb"] = peak
+        del trainers[model]
+        torch.cuda.empty_cache()
+    ebm_fits = app_rec["ebm_bf16"]["grad_accum"] == 1
+    emit({"phase": "unet3d_bf16_train", "batch": TRAIN_B,
+          "apps": ["diffphycon_tpu_torch/apps/train_smoke.py",
+                   "diffphycon_tpu_torch/apps/train_jellyfish.py --model_type states"],
+          "runs": app_rec, "ebm_bf16_batch16_one_micro_batch": ebm_fits,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+
+    # 17c. CUDA against the CPU, bf16 on both
+    t0 = time.time()
+    rec, ok = _bf16_3d_cpu_check(torch)
+    emit({"phase": "unet3d_bf16_cuda_vs_cpu", **rec, "seconds": round(time.time() - t0, 3)})
+    if not ok:
+        fail(f"bf16 UNet3D steps on CUDA differ from the CPU: {rec}")
+
+    # 17d. the inference apps with --bf16 True
+    t0 = time.time()
+    kcg.cg_pressure.launches = 0
+    agg = infer_smoke.main(infer_smoke.build_parser().parse_args([
+        "--dataset_path", smoke_test, "--init_seed", "0", "--batch_size", str(SMOKE_B),
+        "--n_test_samples", str(SMOKE_B), "--ddim_sampling_steps", str(BF16_3D_SMOKE_DDIM),
+        "--ddim_eta", "1.0", "--calibrate", "False", "--bf16", "True",
+        "--inference_result_path", os.path.join(out_dir, "smoke_results")]))
+    torch.cuda.synchronize()
+    cg_launches = kcg.cg_pressure.launches
+    smoke_s = time.time() - t0
+    jf = os.path.join(work, "jellyfish")
+    tic = time.time()
+    jagg = infer_jellyfish.main(infer_jellyfish.build_parser().parse_args([
+        "--dataset_path", jelly_root, "--n_test_samples", str(JELLY_B),
+        "--batch_size", str(JELLY_B), "--joint_folder", os.path.join(jf, "jellyfish"),
+        "--w_folder", os.path.join(jf, "jellyfish_w"), "--diffusion_joint_checkpoint", "2",
+        "--diffusion_w_checkpoint", "2", "--surrogate_folder", os.path.join(jf, "surrogates"),
+        "--sampling_timesteps", str(JELLY_DDIM_STEPS), "--bf16", "True",
+        "--inference_result_path", os.path.join(out_dir, "jellyfish_results")]))
+    torch.cuda.synchronize()
+    jelly_s = time.time() - tic
+    finite = (all(math.isfinite(v) for v in agg.values())
+              and all(math.isfinite(jagg[k]) for k in ("objective", "objective_closed_loop",
+                                                        "theta_mae_vs_gt")))
+    emit({"phase": "infer_bf16", "apps": ["diffphycon_tpu_torch/apps/infer_smoke.py",
+                                          "diffphycon_tpu_torch/apps/infer_jellyfish.py"],
+          "smoke": {"result": agg, "cg_launches": cg_launches, "cg_launches_expected": 255,
+                    "sampler": f"ddim {BF16_3D_SMOKE_DDIM} steps, eta 1, two bf16 UNet3Ds, "
+                               f"batch {SMOKE_B}, calibration off", "seconds": smoke_s},
+          "jellyfish": {"result": jagg, "sampler": f"guided ddim {JELLY_DDIM_STEPS} steps, "
+                        f"batch {JELLY_B}, bf16 joint + thetas UNet3D (phase 12's fp32 "
+                        "checkpoints)", "seconds": jelly_s},
+          "finite": finite, "seconds": round(time.time() - t0, 3)})
+    if not finite:
+        fail(f"non-finite bf16 inference metrics: {agg} {jagg}")
+    if cg_launches != 255:
+        fail(f"K4 launched {cg_launches} times in the bf16 smoke evaluation, expected 255")
+
+    # 17e. bench.py's bf16 profiles (records), bf16 and fp32 in turns
+    t0 = time.time()
+    profiles = {}
+    gds, runs = {}, {}
+    for name in ("fp32", "bf16"):
+        cfg = sbench.SmokeConfig(bf16=name == "bf16", ddim_sampling_steps=100)
+        cfg_w = sbench.SmokeConfig(bf16=name == "bf16", ddim_sampling_steps=100,
+                                   is_w_model=True)
+        gds[name] = sbench.build_diffusion(
+            cfg, sbench.init_params(cfg, seed=0, device="cuda"),
+            model_w=sbench.init_params(cfg_w, seed=1, device="cuda"), device="cuda")
+        guidance = sbench.build_guidance(cfg, device="cuda")
+        cond = {"init": torch.randn(BENCH_SMOKE_B, 64, 64, generator=gen, device="cuda")}
+
+        def run(gd=gds[name], guidance=guidance, cond=cond):
+            xg = torch.Generator(device="cuda").manual_seed(5)
+            ts = gd.sample_ts()
+            x = gd.sample_chunk(gd.sample_init(BENCH_SMOKE_B, xg), ts[:BENCH_STEPS], cond,
+                                guidance, xg)
+            if not torch.isfinite(x).all():
+                fail("non-finite samples in the smoke bench profile")
+
+        runs[name] = run
+    ms, _ = _dtype_turns(torch, runs, n=1, warm=1, peak=False)
+    profiles["smoke_two_model_ddim"] = {
+        "bench": "bench.py:202-233 (bench_smoke, bf16=True)", "batch": BENCH_SMOKE_B,
+        "steps_per_turn": BENCH_STEPS,
+        "steps_per_sec_in_turns": {k: [1e3 * BENCH_STEPS / v for v in vs]
+                                   for k, vs in ms.items()}}
+    del gds, runs
+    torch.cuda.empty_cache()
+    runs = {}
+    test = load_jellyfish_dataset(jelly_root, "test", n=BENCH_JELLY_B)
+    s0, b0, th0 = (torch.as_tensor(test[k][:, 0], device="cuda")
+                   for k in ("states", "bd", "thetas"))
+    for name in ("fp32", "bf16"):
+        cfg = jbench.JellyfishConfig(bf16=name == "bf16", sampling_timesteps=1000)
+        net_bd = jbench.build_bd_updater(cfg, seed=2, device="cuda")
+        gd = jbench.JellyfishDiffusion(
+            cfg, jbench.build_joint_unet(cfg, seed=0, device="cuda"),
+            thetas_model=jbench.build_thetas_unet(cfg, seed=1, device="cuda"),
+            bd_updater=net_bd, device="cuda")
+        design_fn = jbench.make_force_design_fn(
+            cfg, jbench.build_force_unet(cfg, seed=3, device="cuda"), net_bd, -1.0, 1.0)
+
+        def run(gd=gd, design_fn=design_fn):
+            xg = torch.Generator(device="cuda").manual_seed(6)
+            cond = gd._cond(s0, b0, th0)
+            x = gd.sample_init(s0, b0, th0, generator=xg)
+            for ts_i in gd.sample_ts()[:BENCH_STEPS]:
+                x = gd.step(x, ts_i, cond, design_fn, xg)
+            if not torch.isfinite(x).all():
+                fail("non-finite samples in the jellyfish bench profile")
+
+        runs[name] = run
+    ms, _ = _dtype_turns(torch, runs, n=1, warm=1, peak=False)
+    profiles["jellyfish_guided_ddpm"] = {
+        "bench": "bench.py:236-279 (bench_jellyfish, bf16=True)", "batch": BENCH_JELLY_B,
+        "steps_per_turn": BENCH_STEPS,
+        "steps_per_sec_in_turns": {k: [1e3 * BENCH_STEPS / v for v in vs]
+                                   for k, vs in ms.items()}}
+    del runs
+    torch.cuda.empty_cache()
+    emit({"phase": "bench_profiles_bf16", "profiles": profiles, "nvidia_smi": smi_line,
+          "seconds": round(time.time() - t0, 3)})
+    emit({"phase": "bf16_unet3d_done", "seconds": round(time.time() - t_phase, 3)})
 
 
 def main() -> int:
@@ -3295,10 +3900,10 @@ def main() -> int:
     burgers_training_phase(torch, smi_line, fwd_counts)
     torch.cuda.empty_cache()
 
-    # -- 9-10. the persistent kernel: K7, then K8 ---------------------------
-    persistent = {"resblock_pair": resblock_pair_phase(torch, F, smi_line)}
+    # -- 9-10. the persistent kernel: K7, then K8 (fp32 and bf16 weights) ----
+    persistent = resblock_pair_phase(torch, F, smi_line)
     torch.cuda.empty_cache()
-    persistent["unet2d_mega"] = unet2d_mega_phase(torch, smi_line, bench, cfg)
+    persistent.update(unet2d_mega_phase(torch, smi_line, bench, cfg))
     torch.cuda.empty_cache()
 
     # -- 11-12. smoke training; the jellyfish pipeline ----------------------
@@ -3317,6 +3922,9 @@ def main() -> int:
     # -- 16. bf16 weights on the Burgers path ----------------------------------
     bf16_records = bf16_phase(torch, F, smi_line, calls)
 
+    # -- 17. the smoke and jellyfish UNet3Ds in bf16 ------------------------------
+    bf16_unet3d_phase(torch, smi_line)
+
     # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
@@ -3334,8 +3942,10 @@ def main() -> int:
         kernels.append({"name": k, "route": route, "source": src, "replaces": REPLACES[k],
                         "launches": cg_launches, "rl_env_launches": rl_launches, **cg_row})
     for k, row in persistent.items():
+        base = k.removesuffix("_bf16")
+        replaces = REPLACES[base] + BF16_PACKS.get(k, "")
         kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
-                        "replaces": REPLACES[k], **row})
+                        "replaces": replaces, **row})
     kernels += bf16_records
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
           "note": "K1-K3, K5 (linear_attention_block: K5a, the merge and K5b per "
@@ -3364,6 +3974,10 @@ def main() -> int:
                   "in the phase-10 record), device_ms from a CUDA graph of 10 launches, "
                   "library_ms null (no PyTorch call "
                   "computes the net; phase 10 times the K1-K6 forward beside it); "
+                  "resblock_pair_bf16 / unet2d_mega_bf16 (phases 9-10, bf16 weights, the "
+                  "kernel's bf16 instantiation): the same sums and launches, bound_ms at "
+                  "989 TFLOP/s (bf16) with the weights at 2 bytes, library_ms for K7 the "
+                  "pair from cuDNN bf16 convs; "
                   "*_bf16 (phase 16, the bf16 variants): sums over one bf16 UNet2D forward "
                   "at batch 50, launches those of the --bf16 True main path, bound_ms at "
                   "989 TFLOP/s (bf16) with the weights at 2 bytes, library_ms cuDNN's bf16 "

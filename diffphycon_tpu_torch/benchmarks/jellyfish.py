@@ -80,11 +80,11 @@ def _place(net: torch.nn.Module, seed: Optional[int], device) -> torch.nn.Module
 
 
 def _unet3d(cfg: JellyfishConfig, out_dim: int) -> UNet3D:
-    if cfg.bf16:
-        raise NotImplementedError("bf16 (flax dtype=bf16) UNet3D is not ported yet (ROADMAP.md "
-                                  "queue 1, item 1 (i)); the port runs fp32 (--bf16 False)")
+    """``bf16``: the UNet3D computes in bfloat16 (flax ``dtype=bf16``) on
+    float32 parameters; the surrogates stay float32, as in JAX."""
     return UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=cfg.joint_channels,
-                  out_dim=out_dim, remat_all=cfg.remat_all)
+                  out_dim=out_dim, remat_all=cfg.remat_all,
+                  dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
 
 
 def build_joint_unet(cfg: JellyfishConfig, seed=None, device=None) -> UNet3D:
@@ -134,11 +134,13 @@ def _pin_frames(x, value, f0: int, f1: int):
     return x * (1 - m) + value * m
 
 
-def _ex(a: torch.Tensor, t):
-    """a[t] shaped for a (B, F, H, W, C) tensor (t (B,) or an int)."""
+def _ex(a: torch.Tensor, t, ndim: int = 5):
+    """a[t] shaped for an ndim tensor, (B, F, H, W, C) by default (t (B,) or
+    an int). An int t gives a (1,) * ndim tensor, which, like JAX's float32
+    coefficients, promotes a bfloat16 model output to float32."""
     if isinstance(t, int):
-        return a[t]
-    return a[t].reshape(-1, 1, 1, 1, 1)
+        return a[t].reshape((1,) * ndim)
+    return a[t].reshape((-1,) + (1,) * (ndim - 1))
 
 
 @dataclasses.dataclass
@@ -177,7 +179,9 @@ class JellyfishDiffusion:
 
     def q_sample(self, x0, t, noise):
         c = self.consts
-        return _ex(c.sqrt_alphas_cumprod, t) * x0 + _ex(c.sqrt_one_minus_alphas_cumprod, t) * noise
+        nd = x0.ndim
+        return (_ex(c.sqrt_alphas_cumprod, t, nd) * x0
+                + _ex(c.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
 
     def p_losses_states(self, state0, bd0, thetas0, t, noise):
         """EBM loss of the joint (states) model: the energy -sum(model(x)^2)

@@ -56,11 +56,11 @@ def channels(cfg: SmokeConfig) -> int:
 
 
 def _new_unet(cfg: SmokeConfig) -> UNet3D:
-    if cfg.bf16:
-        raise NotImplementedError("bf16 (flax dtype=bf16) UNet3D is not ported yet (ROADMAP.md "
-                                  "queue 1, item 1 (i)); the port runs fp32 (--bf16 False)")
+    """``bf16``: the UNet3D computes in bfloat16 (flax ``dtype=bf16``) on
+    float32 parameters."""
     return UNet3D(dim=cfg.dim, dim_mults=tuple(cfg.dim_mults), channels=channels(cfg),
-                  out_dim=channels(cfg), resnet_groups=8, remat_all=cfg.remat_all)
+                  out_dim=channels(cfg), resnet_groups=8, remat_all=cfg.remat_all,
+                  dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
 
 
 def build_unet(cfg: SmokeConfig, device=None) -> UNet3D:

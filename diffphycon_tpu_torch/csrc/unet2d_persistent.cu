@@ -61,6 +61,22 @@
 // Grid: one 256-thread CTA per SM (two warpgroups: igemm_tc's 128-row
 // tile), with the largest stage's shared memory (K5b at 512 channels,
 // 220 KB; the 128 x 128 conv tile takes 193 KB).
+//
+// bf16 weights (unet2d_persistent_bf16): the kernel is a template on the
+// matmul weights' type TW, instantiated twice, so the float instance
+// carries no branch on it and no register for it. With TW = __nv_bfloat16
+// every matmul runs the bf16 variant of the body it stands for, as the
+// Pallas mega kernel does on its bf16 packs (research/pallas_unet2d_mega.py
+// _mm :113-114, the wide conv :93-94, the downsample :224-225): the conv
+// and downsample stages igemm_tc_tile<G, 128, BN, bf16> (wgmma .bf16 with the
+// fp32 activation rounded to bf16 at the product, fp32 sums), K5's
+// projections and K6's qkv and out-projections gemm_tile<MT, bf16>
+// (mma.sync .bf16). GroupNorm, the channel norms, the softmaxes, K5's
+// context and K6's core stay fp32 (3xTF32 where they use the tensor
+// cores); biases, gains and the FiLM vector stay fp32. The host plan
+// (kernels/unet2d_mega.py: check_kernel_plan) holds every matmul weight of
+// a plan to one type, with rows of a multiple of 8 for bf16. Bound:
+// max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), the weights at 2 bytes.
 #include <cooperative_groups.h>
 
 #include "attention.cuh"
@@ -210,47 +226,50 @@ __device__ __forceinline__ void reduce_tile(const float* ws, const float* bias, 
 // Unsplit, a tile goes straight to the output with its bias; split, each
 // split writes its partial (a.p[SCR]: splits x M x co) and the last split
 // of the tile to finish adds them in split order, then the bias.
-template <class G, int BN>
+template <class TW, class G, int BN>
 __device__ __forceinline__ void conv_tiles(const G& g, const StageArgs& a, int M, int K,
                                            unsigned char* smem, int* flag) {
   const int N = a.co, splits = a.splits, per = a.per;
   const int mt = (M + kBM - 1) / kBM, tiles = mt * ((N + BN - 1) / BN);
+  const TW* w = reinterpret_cast<const TW*>(a.p[W]);
   for (int t = blockIdx.x; t < tiles * splits; t += gridDim.x) {
     const int z = t / tiles, tile = t - z * tiles;
     const int bx = tile % mt, by = tile / mt;
     if (splits == 1) {
-      igemm_tc::igemm_tc_tile<G, kBM, BN>(g, a.p[W], a.p[BIAS], a.p[OUT], M, N, K, per, bx, by,
-                                          0, smem);
+      igemm_tc::igemm_tc_tile<G, kBM, BN, TW>(g, w, a.p[BIAS], a.p[OUT], M, N, K, per, bx, by,
+                                              0, smem);
       continue;
     }
-    igemm_tc::igemm_tc_tile<G, kBM, BN>(g, a.p[W], nullptr, a.p[SCR], M, N, K, per, bx, by, z,
-                                        smem);
+    igemm_tc::igemm_tc_tile<G, kBM, BN, TW>(g, w, nullptr, a.p[SCR], M, N, K, per, bx, by, z,
+                                            smem);
     if (last_arrival(reinterpret_cast<int*>(a.p[CNT]) + tile, splits, flag))
       reduce_tile<BN>(a.p[SCR], a.p[BIAS], a.p[OUT], M, N, splits, bx * kBM, by * BN);
     __syncthreads();  // flag is rewritten by the next tile
   }
 }
 
-template <class G>
+template <class TW, class G>
 __device__ __forceinline__ void conv_stage(const G& g, const StageArgs& a, int M, int K,
                                            unsigned char* smem, int* flag) {
   if (a.bn == 128)
-    conv_tiles<G, 128>(g, a, M, K, smem, flag);
+    conv_tiles<TW, G, 128>(g, a, M, K, smem, flag);
   else
-    conv_tiles<G, 64>(g, a, M, K, smem, flag);
+    conv_tiles<TW, G, 64>(g, a, M, K, smem, flag);
 }
 
 // The stages that run wgmma are inlined into the kernel: a wgmma pipeline in
 // a called function is serialized (ptxas C7510). The others are functions
 // of their own, so that their registers do not add to the conv tile's.
+template <class TW>
 __device__ __forceinline__ void stage_conv(const StageArgs& a, unsigned char* smem, int* flag) {
   const auto g = igemm::make_conv_gather(a.p[X], a.p[X2], a.H, a.W, a.ca, a.cb, a.ks, a.up);
-  conv_stage(g, a, a.B * a.H * a.W, a.ks * a.ks * (a.ca + a.cb), smem, flag);
+  conv_stage<TW>(g, a, a.B * a.H * a.W, a.ks * a.ks * (a.ca + a.cb), smem, flag);
 }
 
+template <class TW>
 __device__ __forceinline__ void stage_down(const StageArgs& a, unsigned char* smem, int* flag) {
   const auto g = igemm::make_down_gather(a.p[X], a.H, a.W, a.ca);
-  conv_stage(g, a, a.B * (a.H / 2) * (a.W / 2), 4 * a.ca, smem, flag);
+  conv_stage<TW>(g, a, a.B * (a.H / 2) * (a.W / 2), 4 * a.ca, smem, flag);
 }
 
 // Element e of GroupNorm row (b, g) lies at pixel e / Cg, channel
@@ -399,14 +418,16 @@ __device__ __noinline__ void stage_gn_apply(const StageArgs& a, float* smem) {
 
 // K5a per (chunk s, sample b, head group hg), s fastest; the last chunk of
 // a sample to finish merges the sample's partials into its context.
+template <class TW>
 __device__ __noinline__ void stage_la_context(const StageArgs& a, float* smem, int* flag) {
   const int n = a.H * a.W, S = a.S, hg = a.hg;
+  const TW* wqkv = reinterpret_cast<const TW*>(a.p[AUX]);
   for (int it = blockIdx.x; it < S * a.B * hg; it += gridDim.x) {
     const int s = it % S, b = (it / S) % a.B, h = it / (S * a.B);
     if (hg == 1)
-      la_context_body<4>(a.p[X], a.p[W], a.p[AUX], a.p[SCR], n, a.co, a.chunk, s, b, 0, S, smem);
+      la_context_body<4, TW>(a.p[X], a.p[W], wqkv, a.p[SCR], n, a.co, a.chunk, s, b, 0, S, smem);
     else
-      la_context_body<2>(a.p[X], a.p[W], a.p[AUX], a.p[SCR], n, a.co, a.chunk, s, b, h, S, smem);
+      la_context_body<2, TW>(a.p[X], a.p[W], wqkv, a.p[SCR], n, a.co, a.chunk, s, b, h, S, smem);
     if (last_arrival(reinterpret_cast<int*>(a.p[CNT]) + b, S * hg, flag))
       la_merge_body(a.p[SCR], a.p[OUT], S, b);
     __syncthreads();  // flag and the body's shared memory are rewritten next
@@ -414,30 +435,35 @@ __device__ __noinline__ void stage_la_context(const StageArgs& a, float* smem, i
 }
 
 // K5b per (64-token tile, sample), tile fastest.
+template <class TW>
 __device__ __noinline__ void stage_la_output(const StageArgs& a, float* smem) {
   const int n = a.H * a.W, tiles = (n + kRows - 1) / kRows;
+  const TW* wqkv = reinterpret_cast<const TW*>(a.p[AUX]);
+  const TW* wo = reinterpret_cast<const TW*>(a.p[X2]);
   for (int it = blockIdx.x; it < a.B * tiles; it += gridDim.x) {
-    la_output_body(a.p[X], a.p[W], a.p[AUX], a.p[SCR], a.p[X2], a.p[BIAS], a.p[RES], a.p[OUT], n,
-                   a.co, it % tiles, it / tiles, smem);
+    la_output_body<TW>(a.p[X], a.p[W], wqkv, a.p[SCR], wo, a.p[BIAS], a.p[RES], a.p[OUT], n,
+                       a.co, it % tiles, it / tiles, smem);
     __syncthreads();
   }
 }
 
 // K6a per (token tile, pass), tile fastest; tiles of a.tr tokens across samples.
-template <int TR>
+template <int TR, class TW>
 __device__ __forceinline__ void att_qkv_tiles(const StageArgs& a, float* smem) {
   const int T = a.B * a.H * a.W, tiles = (T + TR - 1) / TR;
+  const TW* wqkv = reinterpret_cast<const TW*>(a.p[AUX]);
   for (int it = blockIdx.x; it < 3 * tiles; it += gridDim.x) {
-    attn_qkv_body<TR>(a.p[X], a.p[W], a.p[AUX], a.p[OUT], T, a.co, it % tiles, it / tiles, smem);
+    attn_qkv_body<TR, TW>(a.p[X], a.p[W], wqkv, a.p[OUT], T, a.co, it % tiles, it / tiles, smem);
     __syncthreads();
   }
 }
 
+template <class TW>
 __device__ __noinline__ void stage_att_qkv(const StageArgs& a, float* smem) {
   if (a.tr == 32)
-    att_qkv_tiles<32>(a, smem);
+    att_qkv_tiles<32, TW>(a, smem);
   else
-    att_qkv_tiles<64>(a, smem);
+    att_qkv_tiles<64, TW>(a, smem);
 }
 
 // K6b per (64 queries, head, sample), queries fastest: the block's two
@@ -455,23 +481,27 @@ __device__ __noinline__ void stage_att_core(const StageArgs& a, float* smem) {
 }
 
 // K6c per (token tile, 128 output channels), tile fastest.
-template <int TR>
+template <int TR, class TW>
 __device__ __forceinline__ void att_out_tiles(const StageArgs& a, float* smem) {
   const int T = a.B * a.H * a.W, tiles = (T + TR - 1) / TR;
+  const TW* wo = reinterpret_cast<const TW*>(a.p[X2]);
   for (int it = blockIdx.x; it < tiles * ((a.co + kCols - 1) / kCols); it += gridDim.x) {
-    attn_out_body<TR>(a.p[SCR], a.p[X2], a.p[BIAS], a.p[X], a.p[OUT], T, a.co, it % tiles,
-                      it / tiles, smem);
+    attn_out_body<TR, TW>(a.p[SCR], wo, a.p[BIAS], a.p[X], a.p[OUT], T, a.co, it % tiles,
+                          it / tiles, smem);
     __syncthreads();
   }
 }
 
+template <class TW>
 __device__ __noinline__ void stage_att_out(const StageArgs& a, float* smem) {
   if (a.tr == 32)
-    att_out_tiles<32>(a, smem);
+    att_out_tiles<32, TW>(a, smem);
   else
-    att_out_tiles<64>(a, smem);
+    att_out_tiles<64, TW>(a, smem);
 }
 
+// TW: the matmul weights' type, float (3xTF32) or __nv_bfloat16.
+template <class TW>
 __global__ void __launch_bounds__(kThreads, 1)
     persistent_kernel(const Stage* __restrict__ stages, int n_stages, Bases bases,
                       int n_counters) {
@@ -520,15 +550,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     const int op = a.op, sync = a.sync;
     switch (op) {
-      case kConv: stage_conv(a, smem_raw, &flag); break;
-      case kDown: stage_down(a, smem_raw, &flag); break;
+      case kConv: stage_conv<TW>(a, smem_raw, &flag); break;
+      case kDown: stage_down<TW>(a, smem_raw, &flag); break;
       case kGnStats: stage_gn_stats(a, smem); break;
       case kGnApply: stage_gn_apply(a, smem); break;
-      case kLaContext: stage_la_context(a, smem, &flag); break;
-      case kLaOutput: stage_la_output(a, smem); break;
-      case kAttQkv: stage_att_qkv(a, smem); break;
+      case kLaContext: stage_la_context<TW>(a, smem, &flag); break;
+      case kLaOutput: stage_la_output<TW>(a, smem); break;
+      case kAttQkv: stage_att_qkv<TW>(a, smem); break;
       case kAttCore: stage_att_core(a, smem); break;
-      case kAttOut: stage_att_out(a, smem); break;
+      case kAttOut: stage_att_out<TW>(a, smem); break;
       default: break;
     }
     __syncthreads();  // a and the stage's shared memory are rewritten next
@@ -539,23 +569,30 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // The cooperative grid on the current device: one block per SM as the
-// occupancy calculator finds it at this kernel's shared memory, worked out
-// once per device.
+// occupancy calculator finds it at the kernel's shared memory, worked out
+// once per device for both instantiations together (the host plans one
+// grid, whichever the plan's weight type).
 cudaError_t grid_size(int* blocks) {
   static int grid_dev = -1, grid_blocks = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev != grid_dev) {
-    e = cudaFuncSetAttribute(persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kStageSmemBytes);
-    if (e != cudaSuccess) return e;
     int sms = 0, per_sm = 0;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, persistent_kernel, kThreads,
-                                                      kStageSmemBytes);
-    if (e != cudaSuccess) return e;
+    const void* kernels[] = {reinterpret_cast<const void*>(persistent_kernel<float>),
+                             reinterpret_cast<const void*>(persistent_kernel<__nv_bfloat16>)};
+    for (int i = 0; i < 2; ++i) {
+      e = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStageSmemBytes);
+      if (e != cudaSuccess) return e;
+      int n = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernels[i], kThreads,
+                                                        kStageSmemBytes);
+      if (e != cudaSuccess) return e;
+      per_sm = (i == 0 || n < per_sm) ? n : per_sm;
+    }
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     grid_dev = dev;
     grid_blocks = per_sm * sms;
@@ -564,10 +601,29 @@ cudaError_t grid_size(int* blocks) {
   return cudaSuccess;
 }
 
+template <class TW>
+int launch(const void* stages, int n_stages, const long long* bases, int n_counters,
+           int* grid_out, void* stream) {
+  if (n_stages <= 0 || bases == nullptr || bases[0] != 0 || n_counters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Bases b;
+  for (int k = 0; k < kBases; ++k) b.b[k] = bases[k];
+  int blocks = 0;
+  cudaError_t e = grid_size(&blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Stage* st = static_cast<const Stage*>(stages);
+  void* args[] = {&st, &n_stages, &b, &n_counters};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(persistent_kernel<TW>), dim3(blocks),
+                                  dim3(kThreads), args, kStageSmemBytes,
+                                  static_cast<cudaStream_t>(stream));
+  if (grid_out != nullptr) *grid_out = blocks;
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
-// The number of blocks unet2d_persistent_f32 launches on the current device
-// (the host plans its tiles for it).
+// The number of blocks unet2d_persistent_f32 (and _bf16) launches on the
+// current device (the host plans its tiles for it).
 extern "C" int unet2d_persistent_grid(int* blocks) { return static_cast<int>(grid_size(blocks)); }
 
 // stages: n_stages Stage records in device memory; bases: kBases host int64
@@ -579,20 +635,13 @@ extern "C" int unet2d_persistent_grid(int* blocks) { return static_cast<int>(gri
 // smaller).
 extern "C" int unet2d_persistent_f32(const void* stages, int n_stages, const long long* bases,
                                      int n_counters, int* grid_out, void* stream) {
-  if (n_stages <= 0 || bases == nullptr || bases[0] != 0 || n_counters < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Bases b;
-  for (int k = 0; k < kBases; ++k) b.b[k] = bases[k];
-  int blocks = 0;
-  cudaError_t e = grid_size(&blocks);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const Stage* st = static_cast<const Stage*>(stages);
-  void* args[] = {&st, &n_stages, &b, &n_counters};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(persistent_kernel), dim3(blocks),
-                                  dim3(kThreads), args, kStageSmemBytes,
-                                  static_cast<cudaStream_t>(stream));
-  if (grid_out != nullptr) *grid_out = blocks;
-  return static_cast<int>(e);
+  return launch<float>(stages, n_stages, bases, n_counters, grid_out, stream);
+}
+
+// The same with every matmul weight of the stage table bf16.
+extern "C" int unet2d_persistent_bf16(const void* stages, int n_stages, const long long* bases,
+                                      int n_counters, int* grid_out, void* stream) {
+  return launch<__nv_bfloat16>(stages, n_stages, bases, n_counters, grid_out, stream);
 }
 
 #ifdef MEGA_PHASE_CLOCKS

@@ -240,9 +240,12 @@ class GaussianDiffusion:
 
     @staticmethod
     def _ex(a: torch.Tensor, t, ndim: int):
-        """a[t] shaped to broadcast against an ndim tensor (t int or (B,))."""
+        """a[t] shaped to broadcast against an ndim tensor (t int or (B,)).
+        An int t gives a (1,) * ndim tensor, not a 0-dim one: like JAX's
+        float32 coefficients it promotes a bfloat16 model output to float32
+        (a 0-dim float32 tensor would not)."""
         if isinstance(t, int):
-            return a[t]
+            return a[t].reshape((1,) * ndim)
         return a[t].reshape((-1,) + (1,) * (ndim - 1))
 
     def q_sample(self, x_start, t, noise):

@@ -663,10 +663,11 @@ def resblock_pair(x, ss_a, ss_b, p_a, p_b, groups: int = 1):
         return resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups)
     from diffphycon_tpu_torch.kernels import unet2d_mega  # it imports this module
 
-    out = unet2d_mega.resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups)
+    out, wdt = unet2d_mega.resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups)
     resblock_pair.launches += 1
+    resblock_pair.bf16_launches += int(wdt == torch.bfloat16)
     return out
 
 
-register_launch_counters(resblock_pair, "launches")
+register_launch_counters(resblock_pair, "launches", "bf16_launches")
 

@@ -39,10 +39,17 @@ The plan holds each stage's choices: K1's, K5's and K6's host plans with
 the persistent grid (:func:`grid_blocks`: one 256-thread CTA per SM; a CPU
 plan takes ``SM_COUNT``) in place of the card's SMs.
 
-The kernel takes float32 weights, channel counts (and channels per
-GroupNorm group) that are multiples of 4, 4 heads of 32 and at most 512
-channels in the attention blocks; the plan raises otherwise. It is
-forward-only, as the Pallas call (no VJP).
+The kernel takes float32 or bfloat16 matmul weights, one type per plan
+(``Plan.weight_dtype``: the launch picks the kernel's float or bf16
+instantiation, ``unet2d_persistent_f32`` / ``_bf16``), channel counts (and
+channels per GroupNorm group) that are multiples of 4, bf16 weight rows of
+a multiple of 8, 4 heads of 32 and at most 512 channels in the attention
+blocks; the plan raises otherwise. With bf16 packs (``UNet2D(weight_dtype=
+torch.bfloat16)``, bit-equal to ``pack_unet2d_mega(..., weight_dtype=
+bf16)``) every matmul rounds its float32 activation to bf16 and sums in
+float32, as the Pallas mega kernel and the plain replay (the bf16 plain
+ops) do; biases, norms, softmaxes and the attention cores stay float32.
+It is forward-only, as the Pallas call (no VJP).
 """
 
 from __future__ import annotations
@@ -59,10 +66,6 @@ import torch
 from diffphycon_tpu_torch.kernels import _build, register_launch_counters
 from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
-
-# what K7 and K8 say of bfloat16 weights
-BF16_TODO = ("bfloat16 weights are not ported to the persistent kernel (K7/K8 take float32; "
-             "ROADMAP.md queue 1, item 1 (ii): bf16 K7/K8)")
 
 KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
               ka.attention_block)
@@ -129,6 +132,10 @@ def chunking(rows: int, L: int):
 # ---------------------------------------------------------------------------
 
 CONV, DOWN, GN_STATS, GN_APPLY, LA_CONTEXT, LA_OUTPUT, ATT_QKV, ATT_CORE, ATT_OUT = range(9)
+# the slots that hold a matmul weight, by op: float32 or bfloat16 (one type
+# per plan); every other tensor slot (biases, gains, norms) is float32
+MATMUL_SLOTS = {CONV: ("w",), DOWN: ("w",), LA_CONTEXT: ("aux",), LA_OUTPUT: ("aux", "x2"),
+                ATT_QKV: ("aux",), ATT_OUT: ("x2",)}
 OP_NAMES = ("conv", "down", "gn_stats", "gn_apply", "la_context", "la_output", "att_qkv",
             "att_core", "att_out")
 INTS = ("op", "sync", "B", "H", "W", "ca", "cb", "co", "ks", "up", "groups", "chunk", "S",
@@ -204,6 +211,15 @@ class Plan:
     heads: int = ka.KERNEL_HEADS
     dim_head: int = ka.KERNEL_DIM_HEAD
     device_table: Optional[torch.Tensor] = None
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        """The matmul weights' dtype (float32 when the plan holds none);
+        :func:`check_kernel_plan` holds a plan for CUDA to one."""
+        for st in self.stages:
+            for slot in MATMUL_SLOTS.get(st.op, ()):
+                return st.ptrs[slot].dtype
+        return torch.float32
 
     def counts(self) -> dict:
         """Stages per op name."""
@@ -406,22 +422,36 @@ def _geometry(x: _Val) -> dict:
 
 def check_kernel_plan(plan: Plan) -> None:
     """Hold a recorded plan to what the persistent kernel takes, or raise:
-    float32 weights on the plan's device, 16-byte aligned; 3x3 or 1x1 convs
-    and downsamples of even sizes whose weights fit their channels; channel
-    counts, and channels per GroupNorm group, multiples of 4; 4 heads of 32
-    and 4 to 512 channels in the attention stages; no buffer of more than
-    2^31-1 elements. A plan for CUDA is checked when it is recorded."""
+    weights on the plan's device, 16-byte aligned; the matmul weights
+    (``MATMUL_SLOTS``) all float32 or all bfloat16 (one instantiation per
+    launch; bf16 rows of a multiple of 8), every other weight float32; 3x3
+    or 1x1 convs and downsamples of even sizes whose weights fit their
+    channels; channel counts, and channels per GroupNorm group, multiples
+    of 4; 4 heads of 32 and 4 to 512 channels in the attention stages; no
+    buffer of more than 2^31-1 elements. A plan for CUDA is checked when it
+    is recorded."""
+    wdt = plan.weight_dtype
+    if wdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unet2d_mega: matmul weights of dtype {wdt}; the kernel takes float32 "
+                        "or bfloat16")
     for st in plan.stages:
         name = f"unet2d_mega {OP_NAMES[st.op]}"
         i = st.ints
         weights = [t for t in st.ptrs.values() if isinstance(t, torch.Tensor)]
-        for t in weights:
+        matmul = MATMUL_SLOTS.get(st.op, ())
+        for slot, t in st.ptrs.items():
+            if not isinstance(t, torch.Tensor):
+                continue
             if t.device != plan.device:
                 raise ValueError(f"{name}: a weight is on {t.device}, the input on {plan.device}")
-            if t.dtype == torch.bfloat16:
-                raise TypeError(f"{name}: {BF16_TODO}")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name}: a weight has dtype {t.dtype}; the kernel takes float32")
+            want = wdt if slot in matmul else torch.float32
+            if t.dtype != want:
+                raise TypeError(f"{name}: {slot} has dtype {t.dtype}, the plan's "
+                                f"{'matmul weights' if slot in matmul else 'biases and norms'} "
+                                f"{want} (no mixed float32 / bfloat16 plans)")
+            if slot in matmul and wdt == torch.bfloat16 and t.shape[-1] % 8:
+                raise ValueError(f"{name}: bfloat16 weights need rows of a multiple of 8, "
+                                 f"got {tuple(t.shape)}")
         kb._check_vec4(name, (), weights)
         for v in st.writes:
             if int(np.prod(v.shape)) > kb._INT32_MAX:
@@ -497,9 +527,11 @@ def _launch(plan: Plan, inputs, out) -> int:
     bases = [0, ws.data_ptr(), *(t.data_ptr() for t in inputs), out.data_ptr()]
     bases += [0] * (_N_BASES - len(bases))
     grid = ctypes.c_int(0)
-    err = _build.load_library().unet2d_persistent_f32(
-        plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
-        plan.n_counters, ctypes.byref(grid), kb._stream(out))
+    lib = _build.load_library()
+    fn = (lib.unet2d_persistent_bf16 if plan.weight_dtype == torch.bfloat16
+          else lib.unet2d_persistent_f32)
+    err = fn(plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
+             plan.n_counters, ctypes.byref(grid), kb._stream(out))
     _build.check(err, "unet2d_persistent")
     return grid.value
 
@@ -572,10 +604,11 @@ def unet2d_mega(x0, film, packs, plan: Plan):
     out = torch.empty(plan.out_shape, device=x0.device, dtype=torch.float32)
     unet2d_mega.grid = _launch(plan, (x0, film), out)  # blocks of the last launch
     unet2d_mega.launches += 1
+    unet2d_mega.bf16_launches += int(plan.weight_dtype == torch.bfloat16)
     return out
 
 
-register_launch_counters(unet2d_mega, "launches")
+register_launch_counters(unet2d_mega, "launches", "bf16_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +630,8 @@ def _pair_plan(x_shape, ss_strides, groups, p_a, p_b, device) -> Plan:
 
 def resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups: int):
     """One K7 launch on CUDA tensors (called by ``unet2d_blocks.resblock_pair``
-    after its channel check)."""
+    after its channel check); returns (out, the plan's weight dtype). bf16
+    conv weights select the bf16 instantiation."""
     _forward_only("resblock_pair", x, ss_a, ss_b, *p_a.values(), *p_b.values())
     kb._check_cuda("resblock_pair", x=x)
     strides = (ss_a.stride(0), ss_b.stride(0))
@@ -612,4 +646,4 @@ def resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups: int):
     _check_inputs("resblock_pair", plan, (x, ss_a, ss_b))
     out = torch.empty(plan.out_shape, device=x.device, dtype=torch.float32)
     _launch(plan, (x, ss_a, ss_b), out)
-    return out
+    return out, plan.weight_dtype

@@ -179,18 +179,19 @@ class UNet2D(nn.Module):
         """The forward with one K8 launch between the init conv and the final
         conv (time MLP, FiLM matmul and both convs in torch, as JAX runs them
         outside its kernel). Forward-only: raises when a gradient could reach
-        the input or a parameter. A CPU input takes the plain versions. K8
-        takes float32 weights only: a bfloat16 ``weight_dtype`` raises."""
-        if self.weight_dtype != torch.float32:
-            raise TypeError(f"UNet2D.forward_mega: {kmega.BF16_TODO}")
+        the input or a parameter. A CPU input takes the plain versions. A
+        bfloat16 ``weight_dtype`` runs K8's bf16 instantiation on the bf16
+        packs (and the init and final convs on bf16-rounded weights, as
+        :meth:`forward`)."""
         if torch.is_grad_enabled():  # (walking the parameters costs ~1 ms of host time)
             kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
         packs = self._kernel_pack()
         film = self._film(time, packs)
-        x0 = _conv_nchw(self._input(x, x_self_cond), self.init_conv)
+        x0 = _conv_nchw(self._input(x, x_self_cond), self.init_conv, self.weight_dtype)
         plan = kmega.mega_plan(packs, x0.shape, self.groups, self.attn_heads,
                                self.attn_dim_head, x0.device)
-        return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv)
+        return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv,
+                          self.weight_dtype)
 
     def _input(self, x, x_self_cond):
         """x, checked, with the self-conditioning channels in front."""

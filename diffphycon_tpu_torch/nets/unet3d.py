@@ -16,6 +16,21 @@ einsums were XLA ops in the JAX package (no Pallas kernel), so here they
 are cuDNN convolutions and torch matmuls, in full float32 (TF32 off,
 forward and backward: ``device.fp32_convs``).
 
+``dtype`` is the JAX net's ``UNet3D(dtype=...)``, flax's compute dtype, and
+bfloat16 follows flax's rules layer by layer (explicit casts, not
+``torch.autocast``, whose per-op policy differs). Parameters stay float32.
+Every conv and linear casts its input, weight and bias to ``dtype`` and
+returns ``dtype`` (:class:`Conv3d`, :class:`Conv2d`, :class:`Linear`);
+GroupNorm reduces and applies its float32 affine in float32 and rounds once
+(flax ``GroupNorm(dtype=...)``); the channel LayerNorm takes its mean and
+variance in float32 from the input, rounds them to the input's dtype, and
+its float32 gain promotes the output to float32 (``ChanLayerNorm3D``); the
+upsample's float32 bias promotes its output to float32
+(``SpatialUpsample``); the temporal attention's rotary angles are float32,
+so q and k, the logits, the softmax and ``attn @ v`` run in float32 there,
+while the spatial attentions run in ``dtype`` throughout. The net's output
+is in ``dtype``.
+
 ``remat`` and ``remat_all`` are the JAX net's memory switches (its
 ``nn.remat``): when a gradient is being recorded, ``remat`` recomputes the
 attentions in the backward instead of storing their activations, and
@@ -35,9 +50,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from diffphycon_tpu_torch.device import fp32_convs
-from diffphycon_tpu_torch.nets.blocks import time_mlp
+from diffphycon_tpu_torch.nets.blocks import SinusoidalPosEmb
 
 GN_EPS = 1e-5
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def t5_relative_position_buckets(n: int, num_buckets: int = 32,
@@ -74,17 +90,92 @@ def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return x * torch.cos(angles) + rot * torch.sin(angles)
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d computing in ``dtype`` (flax ``nn.Conv(dtype=...)``): input,
+    weight and bias cast to it, the output in it."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``dtype``, as :class:`Conv3d`."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``GroupNorm(dtype=...)``: statistics, normalisation and the
+    float32 affine in float32, the result rounded once to ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class Upsample(nn.ConvTranspose3d):
+    """ConvTranspose3d (1, 4, 4) stride (1, 2, 2) pad (0, 1, 1), the
+    transposed conv in ``dtype``, then ``+ bias`` in float32: the JAX
+    ``SpatialUpsample`` adds its float32 bias parameter after the conv, which
+    promotes a bfloat16 result to float32."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, dim, (1, 4, 4), (1, 2, 2), (0, 1, 1))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.conv_transpose3d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        return y + self.bias.reshape(1, -1, 1, 1, 1)
+
+
 class LayerNorm(nn.Module):
     """Channel LayerNorm (dim 1 of (B, C, F, H, W)), gain ``gamma`` stored
-    (1, C, 1, 1, 1), biased variance, eps 1e-5."""
+    (1, C, 1, 1, 1), biased variance, eps 1e-5 in every dtype (the JAX
+    ``ChanLayerNorm3D``). The mean and variance are float32 reductions of
+    the input rounded to its dtype (``jnp.mean`` / ``jnp.var`` of a
+    bfloat16 array); the float32 gain makes the output float32."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(1, dim, 1, 1, 1))
 
     def forward(self, x):
-        mean = x.mean(dim=1, keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=1, keepdim=True)
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=1, keepdim=True)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
         return (x - mean) * torch.rsqrt(var + 1e-5) * self.gamma
 
 
@@ -107,16 +198,26 @@ class Residual(nn.Module):
         return x + self.fn(x, **kw)
 
 
+def _rotary(x, ang):
+    """Rotary embedding on the first ang.shape[-1] features of x; float32
+    angles make a bfloat16 x float32, as ``apply_rotary`` in JAX."""
+    rot = ang.shape[-1]
+    head = apply_rotary(x[..., :rot], ang)
+    return head if rot == x.shape[-1] else torch.cat([head, x[..., rot:].to(head.dtype)], -1)
+
+
 class Attention(nn.Module):
     """Softmax attention over the token axis of (N, n, C) tokens, with
-    optional rotary embedding and an additive (heads, n, n) bias."""
+    optional rotary embedding and an additive (heads, n, n) bias; the
+    projections compute in ``dtype``."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, rotary: bool = False):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, rotary: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.dim_head, self.rotary = heads, dim_head, rotary
         hidden = heads * dim_head
-        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
-        self.to_out = nn.Linear(hidden, dim, bias=False)
+        self.to_qkv = Linear(dim, hidden * 3, bias=False, dtype=dtype)
+        self.to_out = Linear(hidden, dim, bias=False, dtype=dtype)
 
     def forward(self, tok, pos_bias=None):
         n_seq, n, _ = tok.shape
@@ -124,14 +225,14 @@ class Attention(nn.Module):
         q, k, v = self.to_qkv(tok).reshape(n_seq, n, 3, h, d).permute(2, 0, 3, 1, 4)
         q = q * d ** -0.5
         if self.rotary:
-            rot = min(32, d)
-            ang = torch.as_tensor(rotary_angles(n, rot), dtype=tok.dtype, device=tok.device)
-            q = torch.cat([apply_rotary(q[..., :rot], ang), q[..., rot:]], dim=-1)
-            k = torch.cat([apply_rotary(k[..., :rot], ang), k[..., rot:]], dim=-1)
+            ang = torch.as_tensor(rotary_angles(n, min(32, d)), dtype=torch.float32,
+                                  device=tok.device)
+            q, k = _rotary(q, ang), _rotary(k, ang)
         sim = q @ k.transpose(-1, -2)
         if pos_bias is not None:
             sim = sim + pos_bias
-        out = torch.softmax(sim, dim=-1) @ v  # (N, h, n, d)
+        attn = torch.softmax(sim, dim=-1)
+        out = attn @ v.to(attn.dtype)  # (N, h, n, d)
         return self.to_out(out.transpose(1, 2).reshape(n_seq, n, h * d))
 
 
@@ -167,12 +268,13 @@ class SpatialLinearAttention(nn.Module):
     """Per-frame linear attention: q softmaxed over the head dim, k over
     tokens; 1x1 Conv2d projections."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False, dtype=dtype)
+        self.to_out = Conv2d(hidden, dim, 1, dtype=dtype)
 
     def forward(self, x):
         b, c, f, hs, ws = x.shape
@@ -189,10 +291,11 @@ class SpatialLinearAttention(nn.Module):
 class Block(nn.Module):
     """Conv3x3x3 -> GroupNorm -> FiLM -> SiLU."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int = 8):
+    def __init__(self, dim: int, dim_out: int, groups: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Conv3d(dim, dim_out, 3, padding=1)
-        self.norm = nn.GroupNorm(groups, dim_out, eps=GN_EPS)
+        self.proj = Conv3d(dim, dim_out, 3, padding=1, dtype=dtype)
+        self.norm = GroupNorm(groups, dim_out, eps=GN_EPS, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
         x = self.norm(self.proj(x))
@@ -204,13 +307,14 @@ class Block(nn.Module):
 
 class ResnetBlock(nn.Module):
     def __init__(self, dim: int, dim_out: int, time_emb_dim: Optional[int] = None,
-                 groups: int = 8):
+                 groups: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+        self.mlp = (nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2, dtype=dtype))
                     if time_emb_dim is not None else None)
-        self.block1 = Block(dim, dim_out, groups)
-        self.block2 = Block(dim_out, dim_out, groups)
-        self.res_conv = nn.Conv3d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
+        self.block1 = Block(dim, dim_out, groups, dtype)
+        self.block2 = Block(dim_out, dim_out, groups, dtype)
+        self.res_conv = (Conv3d(dim, dim_out, 1, dtype=dtype) if dim != dim_out
+                         else nn.Identity())
 
     def forward(self, x, time_emb=None):
         scale_shift = None
@@ -234,19 +338,33 @@ class RelativePositionBias(nn.Module):
         return self.relative_attention_bias(buckets).permute(2, 0, 1)  # (heads, n, n)
 
 
-def _temporal_attn(dim, heads, dim_head):
-    return Residual(PreNorm(dim, TemporalTokens(Attention(dim, heads, dim_head, rotary=True))))
+def _temporal_attn(dim, heads, dim_head, dtype):
+    return Residual(PreNorm(dim, TemporalTokens(
+        Attention(dim, heads, dim_head, rotary=True, dtype=dtype))))
+
+
+def time_mlp(dim: int, time_dim: int, dtype: torch.dtype = torch.float32) -> nn.Sequential:
+    """sinusoidal (float32) -> Linear -> GELU (exact) -> Linear, the linears
+    in ``dtype`` (the JAX ``TimeMLP(dtype=...)``); keys time_mlp.1 / .3."""
+    return nn.Sequential(SinusoidalPosEmb(dim), Linear(dim, time_dim, dtype=dtype),
+                         nn.GELU(approximate="none"), Linear(time_dim, time_dim, dtype=dtype))
 
 
 class UNet3D(nn.Module):
-    """Video U-Net; forward(x (B, F, H, W, C), time (B,)) -> (B, F, H, W, out)."""
+    """Video U-Net; forward(x (B, F, H, W, C), time (B,)) -> (B, F, H, W, out)
+    in ``dtype`` (float32 or bfloat16, the compute dtype; parameters are
+    float32 either way)."""
 
     def __init__(self, dim: int = 64, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4), channels: int = 6,
                  attn_heads: int = 4, attn_dim_head: int = 32,
                  init_kernel_size: int = 7, use_sparse_linear_attn: bool = True,
-                 resnet_groups: int = 8, remat: bool = True, remat_all: bool = False):
+                 resnet_groups: int = 8, remat: bool = True, remat_all: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"UNet3D: dtype {dtype}; float32 or bfloat16")
+        self.dtype = dt = dtype
         self.channels = channels
         self.remat, self.remat_all = remat, remat_all
         heads, dh, groups = attn_heads, attn_dim_head, resnet_groups
@@ -255,44 +373,44 @@ class UNet3D(nn.Module):
         in_out = list(zip(dims[:-1], dims[1:]))
 
         self.time_rel_pos_bias = RelativePositionBias(heads, 32, 32)
-        self.init_conv = nn.Conv3d(channels, dim, init_kernel_size,
-                                   padding=init_kernel_size // 2)
-        self.init_temporal_attn = _temporal_attn(dim, heads, dh)
-        self.time_mlp = time_mlp(dim, time_dim)
+        self.init_conv = Conv3d(channels, dim, init_kernel_size,
+                                padding=init_kernel_size // 2, dtype=dt)
+        self.init_temporal_attn = _temporal_attn(dim, heads, dh, dt)
+        self.time_mlp = time_mlp(dim, time_dim, dt)
 
         def spatial_linear(d):
-            return (Residual(PreNorm(d, SpatialLinearAttention(d, heads, dh)))
+            return (Residual(PreNorm(d, SpatialLinearAttention(d, heads, dh, dt)))
                     if use_sparse_linear_attn else nn.Identity())
 
         self.downs = nn.ModuleList()
         for i, (d_in, d_out) in enumerate(in_out):
             last = i == len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlock(d_in, d_out, time_dim, groups),
-                ResnetBlock(d_out, d_out, time_dim, groups),
+                ResnetBlock(d_in, d_out, time_dim, groups, dt),
+                ResnetBlock(d_out, d_out, time_dim, groups, dt),
                 spatial_linear(d_out),
-                _temporal_attn(d_out, heads, dh),
-                nn.Identity() if last else nn.Conv3d(d_out, d_out, (1, 4, 4), (1, 2, 2),
-                                                     (0, 1, 1)),
+                _temporal_attn(d_out, heads, dh, dt),
+                nn.Identity() if last else Conv3d(d_out, d_out, (1, 4, 4), (1, 2, 2),
+                                                  (0, 1, 1), dtype=dt),
             ]))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, time_dim, groups)
-        self.mid_spatial_attn = Residual(PreNorm(mid, SpatialTokens(Attention(mid, heads, dh))))
-        self.mid_temporal_attn = _temporal_attn(mid, heads, dh)
-        self.mid_block2 = ResnetBlock(mid, mid, time_dim, groups)
+        self.mid_block1 = ResnetBlock(mid, mid, time_dim, groups, dt)
+        self.mid_spatial_attn = Residual(PreNorm(mid, SpatialTokens(
+            Attention(mid, heads, dh, dtype=dt))))
+        self.mid_temporal_attn = _temporal_attn(mid, heads, dh, dt)
+        self.mid_block2 = ResnetBlock(mid, mid, time_dim, groups, dt)
         self.ups = nn.ModuleList()
         for i, (d_in, d_out) in enumerate(reversed(in_out)):
             last = i == len(in_out) - 1
             self.ups.append(nn.ModuleList([
-                ResnetBlock(d_out * 2, d_in, time_dim, groups),
-                ResnetBlock(d_in, d_in, time_dim, groups),
+                ResnetBlock(d_out * 2, d_in, time_dim, groups, dt),
+                ResnetBlock(d_in, d_in, time_dim, groups, dt),
                 spatial_linear(d_in),
-                _temporal_attn(d_in, heads, dh),
-                nn.Identity() if last else nn.ConvTranspose3d(d_in, d_in, (1, 4, 4),
-                                                              (1, 2, 2), (0, 1, 1)),
+                _temporal_attn(d_in, heads, dh, dt),
+                nn.Identity() if last else Upsample(d_in, dt),
             ]))
-        self.final_conv = nn.Sequential(ResnetBlock(dim * 2, dim, None, groups),
-                                        nn.Conv3d(dim, out_dim or channels, 1))
+        self.final_conv = nn.Sequential(ResnetBlock(dim * 2, dim, None, groups, dt),
+                                        Conv3d(dim, out_dim or channels, 1, dtype=dt))
 
     def forward(self, x, time):
         if x.dim() != 5:

@@ -13,7 +13,9 @@ full-width Burgers UNet2D (dim 64, mults (1, 2, 4, 8), seeded weights) at
 batch 50 (``--batch``), on the inputs ``UNet2D.forward_mega`` gives it.
 
 With ``--pairs`` it does the same for K7 (``resblock_pair``) at
-``chip_smoke.py``'s five pair shapes.
+``chip_smoke.py``'s five pair shapes. With ``--bf16`` the weights are
+bf16 (``BurgersConfig(bf16=True)``; K7's conv weights rounded to bf16), so
+the kernel's bf16 instantiation runs.
 
 Prints JSON lines: the launch's time (median of 5 event pairs) and the
 card; per op class (conv, conv with split-K, down, GroupNorm statistics and
@@ -24,7 +26,7 @@ time; the ten stages with the most work clocks. The stamps add a store per
 stage and CTA; the build with them is timed beside the plain one.
 
 Run from the repository root:
-``python3 -m diffphycon_tpu_torch.tools.mega_stage_clocks [--batch B] [--pairs]``.
+``python3 -m diffphycon_tpu_torch.tools.mega_stage_clocks [--batch B] [--pairs] [--bf16]``.
 """
 
 import argparse
@@ -56,7 +58,8 @@ def op_class(stage) -> str:
 
 def build() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(_build.build(("MEGA_PHASE_CLOCKS",))))
-    dll.unet2d_persistent_f32.argtypes = _build.SIGNATURES["unet2d_persistent_f32"]
+    for name in ("unet2d_persistent_f32", "unet2d_persistent_bf16"):
+        getattr(dll, name).argtypes = _build.SIGNATURES[name]
     dll.unet2d_persistent_grid.argtypes = _build.SIGNATURES["unet2d_persistent_grid"]
     dll.mega_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return dll
@@ -76,8 +79,11 @@ def stage_clocks(torch, cs, dll, grid, plan, inputs, kernel_call, label):
     bases = [0, ws.data_ptr(), *(t.data_ptr() for t in inputs), out.data_ptr()]
     bases += [0] * (8 - len(bases))
 
+    fn = (dll.unet2d_persistent_bf16 if plan.weight_dtype == torch.bfloat16
+          else dll.unet2d_persistent_f32)
+
     def launch():
-        err = dll.unet2d_persistent_f32(
+        err = fn(
             table.data_ptr(), n, (ctypes.c_int64 * 8)(*bases), plan.n_counters, None,
             torch.cuda.current_stream().cuda_stream)
         _build.check(err, "unet2d_persistent (clocks build)")
@@ -95,7 +101,8 @@ def stage_clocks(torch, cs, dll, grid, plan, inputs, kernel_call, label):
     total = float((st[n - 1, :, 2] - st[0, :, 0]).mean())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"tool": "mega_stage_clocks", **label, "grid": grid, "stages": n,
+    print(json.dumps({"tool": "mega_stage_clocks", **label,
+                      "weight_dtype": str(plan.weight_dtype), "grid": grid, "stages": n,
                       "barriers": plan.barriers(), "launch_ms_clocks_build": ms,
                       "launch_ms_plain_build": plain_ms, "bit_equal_to_plain_build": bit_equal,
                       "launch_clocks": total, "nvidia_smi": smi}), flush=True)
@@ -127,6 +134,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=50)
     ap.add_argument("--pairs", action="store_true",
                     help="K7 at chip_smoke.py's five pair shapes instead of K8")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 weights: the kernel's bf16 instantiation")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("mega_stage_clocks: needs an NVIDIA GPU", file=sys.stderr)
@@ -146,18 +155,20 @@ def main() -> int:
                 x = torch.randn(B, h, w, c, generator=gen, device="cuda")
                 ss = [0.5 * torch.randn(B, 2 * c, generator=gen, device="cuda") for _ in "ab"]
                 p = [cs._res_pack(torch, gen, c) for _ in "ab"]
+                if args.bf16:
+                    p = [cs._bf16_pair_pack(torch, q) for q in p]
                 plan = km._pair_plan(tuple(x.shape), (2 * c, 2 * c), 1, *p, x.device)
                 stage_clocks(torch, cs, dll, grid.value, plan, (x, *ss),
-                             lambda: km.resblock_pair_launch(x, *ss, *p, 1),
+                             lambda: km.resblock_pair_launch(x, *ss, *p, 1)[0],
                              {"kernel": "resblock_pair", "shape": [B, h, w, c]})
             return 0
-        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16)
         net = bench.init_params(cfg, seed=0, device="cuda")
         x = torch.randn(B, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
         t = torch.linspace(0, 999, B, device="cuda")
         packs = net._kernel_pack()
         film = net._film(t, packs)
-        x0 = tunet._conv_nchw(x, net.init_conv)
+        x0 = tunet._conv_nchw(x, net.init_conv, net.weight_dtype)
         plan = km.mega_plan(packs, x0.shape, net.groups, cs.HEADS, cs.DIM_HEAD, x0.device,
                             grid=grid.value)
         stage_clocks(torch, cs, dll, grid.value, plan, (x0, film),

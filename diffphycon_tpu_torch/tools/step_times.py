@@ -28,6 +28,11 @@ two UNet3Ds at the app's widths) and a guided DDPM step at batch 8
 updater and the force surrogate), all with seeded random weights; per run
 steps/s, the peak memory allocated and reserved, and the output's
 largest difference from the first in-turn run's (0: bit-equal).
+``--bf16`` builds every net of the run with bf16 (``BurgersConfig``,
+``SmokeConfig`` and ``JellyfishConfig(bf16=True)``: bf16 weights in the
+UNet2D's kernel packs, the UNet3Ds computing in bf16 as flax ``dtype=bf16``;
+the jellyfish surrogates stay float32), so the bf16 samplers and training
+step read the same way as the fp32 ones.
 
 ``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
 earlier version of the port, e.g. the parent commit unpacked with ``git
@@ -134,9 +139,9 @@ def solver_times(torch, bench) -> dict:
     return out
 
 
-def two_model_times(torch) -> dict:
+def two_model_times(torch, bf16: bool = False) -> dict:
     """Steps/s and peak memory of the three two-model samplers, concurrent
-    and in turn (see the module docstring)."""
+    and in turn (see the module docstring); ``bf16``: the nets in bf16."""
     import contextlib
     from unittest import mock
 
@@ -156,7 +161,7 @@ def two_model_times(torch) -> dict:
         return torch.Generator(device="cuda").manual_seed(seed)
 
     def burgers():
-        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=bf16)
         gd = bench.build_diffusion(cfg, bench.init_params(cfg, seed=0, device="cuda"),
                                    model_w=bench.init_params(cfg, seed=1, device="cuda"),
                                    device="cuda")
@@ -167,10 +172,10 @@ def two_model_times(torch) -> dict:
         return 20, lambda n: gd.sample_chunk(x0, ts[:n], cond, guidance, seeded(2))
 
     def smoke():
-        cfg = sbench.SmokeConfig()
+        cfg = sbench.SmokeConfig(bf16=bf16)
         gd = sbench.build_diffusion(
             cfg, sbench.init_params(cfg, seed=0, device="cuda"),
-            model_w=sbench.init_params(sbench.SmokeConfig(is_w_model=True), seed=1,
+            model_w=sbench.init_params(sbench.SmokeConfig(is_w_model=True, bf16=bf16), seed=1,
                                        device="cuda"), device="cuda")
         guidance = sbench.build_guidance(cfg, device="cuda")
         cond = {"init": torch.rand(8, 64, 64, generator=seeded(3), device="cuda")}
@@ -178,7 +183,7 @@ def two_model_times(torch) -> dict:
         return 5, lambda n: gd.sample_chunk(x0, ts[:n], cond, guidance, seeded(5))
 
     def jellyfish():
-        cfg = jbench.JellyfishConfig()
+        cfg = jbench.JellyfishConfig(bf16=bf16)
         gd = jbench.JellyfishDiffusion(
             cfg, jbench.build_joint_unet(cfg, seed=1, device="cuda"),
             thetas_model=jbench.build_thetas_unet(cfg, seed=2, device="cuda"),
@@ -247,6 +252,8 @@ def main() -> int:
                     help="time the two-model samplers with concurrent and in-turn forwards")
     ap.add_argument("--solver", action="store_true",
                     help="time the no-grad Burgers solve and evaluate_samples instead")
+    ap.add_argument("--bf16", action="store_true",
+                    help="every net in bf16 (bf16 UNet2D packs, bf16 UNet3Ds)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -268,17 +275,17 @@ def main() -> int:
     if not Path(ka.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {ka.__file__}, not the port under {root}")
     _build.load_library()
-    out = {"root": str(root)}
+    out = {"root": str(root), "bf16": args.bf16}
     if args.conv_digests:
         print(json.dumps({**out, **conv_digests(torch)}), flush=True)
         return 0
     if args.two_model:
-        print(json.dumps({**out, "two_model": two_model_times(torch)}), flush=True)
+        print(json.dumps({**out, "two_model": two_model_times(torch, args.bf16)}), flush=True)
         return 0
     if args.solver:
         print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)
         return 0
-    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16)
     net = bench.init_params(cfg, seed=0, device="cuda")
     if not args.ddpm_only:
         u, f = data.synthetic_burgers(64, seed=0, cache_dir="build/step_times/data",

@@ -72,6 +72,7 @@ from diffphycon_tpu_torch.benchmarks import jellyfish as tjelly
 from diffphycon_tpu_torch.benchmarks import smoke as tsmoke
 from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+from diffphycon_tpu_torch.nets.init import seeded_init_
 from diffphycon_tpu_torch.nets.unet2d import UNet2D
 from diffphycon_tpu_torch.utils.convert import load_flax_unet2d
 from torch_port_helpers import assert_close, flax_tree, rand
@@ -339,15 +340,24 @@ def test_bf16_ddim_steps_match_jax_on_pallas_bf16():
 
 
 def test_bf16_refused_where_not_ported():
-    """The UNet3D builders (smoke, jellyfish: flax dtype=bf16, the next
-    slice) and K7/K8 (forward_mega; the plan check on the card) raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsmoke.init_params(tsmoke.SmokeConfig(bf16=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjelly.build_joint_unet(tjelly.JellyfishConfig(bf16=True), device="cpu")
-    net = UNet2D(dim=8, dim_mults=(1, 2), weight_dtype=BF16)
-    with pytest.raises(TypeError, match="ROADMAP"), torch.no_grad():
-        net.forward_mega(_t(rand(1, 8, 32, 2)), torch.tensor([5.0]))
+    """Nothing refuses bf16 any more: the smoke and jellyfish builders give a
+    UNet3D that computes in bfloat16 (flax ``dtype=bf16``) on float32
+    parameters, and ``forward_mega`` (K8's plain replay on the CPU) takes
+    bf16 packs and equals the bf16 ``forward``."""
+    nets = [tsmoke.init_params(tsmoke.SmokeConfig(bf16=True, dim=8, dim_mults=(1, 2)),
+                               device="cpu"),
+            tjelly.build_joint_unet(tjelly.JellyfishConfig(bf16=True, dim=8, dim_mults=(1, 2)),
+                                    device="cpu"),
+            tjelly.build_thetas_unet(tjelly.JellyfishConfig(bf16=True, dim=8,
+                                                            dim_mults=(1, 2)), device="cpu")]
+    for net in nets:
+        assert net.dtype == BF16 and net.init_conv.compute_dtype == BF16
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+    net = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2), weight_dtype=BF16),
+                       torch.Generator().manual_seed(0))
+    x, t = _t(rand(1, 8, 32, 2)), torch.tensor([5.0])
+    with torch.no_grad():
+        torch.testing.assert_close(net.forward_mega(x, t), net(x, t), rtol=0, atol=0)
 
 
 def test_bf16_weight_checks():

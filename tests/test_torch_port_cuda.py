@@ -648,8 +648,8 @@ def test_port_bf16_attention_kernels_match_plain(cuda_device, linear):
 def test_port_unet2d_bf16_forward_on_gpu(cuda_device):
     """A dim-16 bf16 UNet2D: the kernel forward against the plain forward
     (1e-2, the CPU tests' whole-net bound: rounding flips cascade), every
-    K1, K2, K5 and K6 launch a bf16 one, K3 unchanged; forward_mega and
-    K7 raise."""
+    K1, K2, K5 and K6 launch a bf16 one, K3 unchanged; forward_mega (K8)
+    and K7 run their bf16 instantiation on the bf16 packs."""
     from diffphycon_tpu_torch.nets.init import seeded_init_
     from diffphycon_tpu_torch.nets.unet2d import UNet2D
 
@@ -662,15 +662,76 @@ def test_port_unet2d_bf16_forward_on_gpu(cuda_device):
         kb.reset_launch_counts()
         out = net(x, t)
         counts = kb.launch_counts()
-        assert_close(out, net.forward_plain(x, t), 1e-2)
-        with pytest.raises(TypeError, match="ROADMAP"):
-            net.forward_mega(x, t)
+        plain = net.forward_plain(x, t)
+        assert_close(out, plain, 1e-2)
+        kb.reset_launch_counts()
+        assert_close(net.forward_mega(x, t), plain, 1e-2)
+        mega_counts = kb.launch_counts()
         p = net.pack()["res"][0]  # a bf16 ResBlock of 16 channels
         h, ss = torch.randn(4, 16, 128, 16, generator=g, device=cuda_device), x.new_zeros(4, 32)
-        with pytest.raises(TypeError, match="ROADMAP"):
-            kb.resblock_pair(h, ss, ss, p, p)
+        assert_close(kb.resblock_pair(h, ss, ss, p, p), kb.resblock_pair_plain(h, ss, ss, p, p),
+                     1e-2)
     assert counts["conv2d_nhwc"] == counts["conv2d_nhwc.bf16"] == 52
     assert counts["downsample_nhwc"] == counts["downsample_nhwc.bf16"] == 3
     assert counts["linear_attention_block"] == counts["linear_attention_block.bf16"] == 8
     assert counts["attention_block"] == counts["attention_block.bf16"] == 1
     assert counts["group_norm_act"] == 38
+    assert mega_counts["unet2d_mega"] == mega_counts["unet2d_mega.bf16"] == 1
+    assert sum(mega_counts.values()) == 2, mega_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((3, 16, 128, 64), 1), ((2, 4, 32, 256), 2)])
+def test_port_resblock_pair_bf16_kernel_matches_plain_on_gpu(cuda_device, shape, groups):
+    """K7's bf16 instantiation (bf16 conv weights) against the bf16 plain
+    pair (1e-2: a rounding flip of one activation moves a term by 2^-8, and
+    GroupNorm carries it on), bit-equal repeats, counted as a bf16 launch;
+    a pair of mixed weight dtypes raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    b, c = shape[0], shape[-1]
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    ss_a = 0.5 * torch.randn(b, 2 * c, generator=g, device=cuda_device)
+    ss_b = 0.5 * torch.randn(b, 2 * c, generator=g, device=cuda_device)
+    p_a, p_b = (_res_pack(c, g, cuda_device) for _ in range(2))
+    for p in (p_a, p_b):
+        p["w1"], p["w2"] = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = kb.resblock_pair(x, ss_a, ss_b, p_a, p_b, groups=groups)
+        counts = kb.launch_counts()
+        assert counts["resblock_pair"] == counts["resblock_pair.bf16"] == 1, counts
+        assert_close(out, kb.resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups), 1e-2)
+        assert torch.equal(out, kb.resblock_pair(x, ss_a, ss_b, p_a, p_b, groups=groups))
+        with pytest.raises(TypeError, match="mixed"):
+            kb.resblock_pair(x, ss_a, ss_b, p_a, {**p_b, "w2": p_b["w2"].float()}, groups=groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,mults,shape", [(8, (1, 2, 4, 8), (3, 16, 128, 2)),
+                                             (16, (1, 2), (2, 16, 128, 2))])
+def test_port_unet2d_mega_bf16_kernel_matches_plain_on_gpu(cuda_device, dim, mults, shape):
+    """K8's bf16 instantiation: the kernel against its plain version (the
+    bf16 plain replay) on the inputs forward_mega gives it (1e-2), one
+    launch counted as bf16, bit-equal repeats; the 32- and 512-token
+    bottlenecks."""
+    from diffphycon_tpu_torch.kernels import unet2d_mega as km
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D, _conv_nchw
+
+    net = seeded_init_(UNet2D(dim=dim, dim_mults=mults, weight_dtype=torch.bfloat16),
+                       torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    x = torch.randn(*shape, generator=g, device=cuda_device)
+    t = torch.linspace(0, 999, shape[0], device=cuda_device)
+    with torch.no_grad():
+        packs = net._kernel_pack()
+        film = net._film(t, packs)
+        x0 = _conv_nchw(x, net.init_conv, torch.bfloat16)
+        plan = km.mega_plan(packs, x0.shape, net.groups, 4, 32, x0.device)
+        assert plan.weight_dtype == torch.bfloat16
+        kb.reset_launch_counts()
+        out = km.unet2d_mega(x0, film, packs, plan)
+        counts = kb.launch_counts()
+        assert counts["unet2d_mega"] == counts["unet2d_mega.bf16"] == 1, counts
+        assert_close(out, km.unet2d_mega_plain(x0, film, packs, plan), 1e-2)
+        assert torch.equal(out, km.unet2d_mega(x0, film, packs, plan))
