@@ -3009,8 +3009,9 @@ def bf16_phase(torch, F, smi_line, calls):
             b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
             tc = {}
             if kname in TC_KERNELS:
-                plan = kb.tile_plan(*gemm_dims(kname, args))
-                tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits},
+                plan = kb.tile_plan(*gemm_dims(kname, args), True)
+                tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,
+                                    "per": plan.per},
                       "tflop_per_s": flops / ms / 1e9}
             emit({"phase": "kernel_bf16", "kernel": kname, "args": list(args),
                   "per_forward": count, "max_abs_err": err, "tol": tol,

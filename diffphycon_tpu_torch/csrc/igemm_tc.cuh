@@ -56,8 +56,10 @@
 // - Epilogue: bias and 16-byte NHWC stores; one lane-pair shuffle turns the
 //   accumulator's 2-column pieces into 4-column vectors.
 //
-// The bf16 variant (TW = __nv_bfloat16: conv2d_nhwc_bf16,
-// downsample_nhwc_bf16) computes what the Pallas kernels compute under
+// The bf16 variant (TW = __nv_bfloat16: the persistent kernel's bf16
+// instantiation, unet2d_persistent.cu; K1's and K2's bf16 entries,
+// conv2d_nhwc_bf16 and downsample_nhwc_bf16, run igemm_bf16.cuh, a body
+// designed for bf16) computes what the Pallas kernels compute under
 // weight_dtype=bfloat16: the weight is bf16 and the fp32 activation is
 // rounded to bf16 (cvt.rn, to nearest even) at the matmul, fp32 sums. Bound:
 // the larger of flops / 989 TFLOP/s and bytes / 3.35 TB/s; at the bf16 rate

@@ -75,17 +75,18 @@ def _nvcc() -> str:
                        "(nvcc on PATH or under /usr/local/cuda/bin)")
 
 
-def build(defines: tuple[str, ...] = ()) -> Path:
+def build(defines: tuple[str, ...] = (), only: tuple[str, ...] = ()) -> Path:
     """Compile the kernels if this source hash has no library yet; return
     the library path. ``defines`` (macro names passed as ``-D``) build a
-    variant into a directory of its own, for diagnostic tools."""
-    out_dir = BUILD_ROOT / "-".join((source_hash(), *defines))
+    variant into a directory of its own, for diagnostic tools; ``only``
+    (``.cu`` file names) builds that variant from those sources alone."""
+    out_dir = BUILD_ROOT / "-".join((source_hash(), *defines, *only))
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    cus, _ = _sources()
+    cus = [cu for cu in _sources()[0] if not only or cu.name in only]
     tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT))
     try:
         procs = []

@@ -17,12 +17,14 @@ Pallas kernel (pallas_unet2d.py)  Port
 ===============================  ==========================================
 
 K1 = csrc/conv2d_nhwc.cu, K2 = csrc/downsample_nhwc.cu (CUDA C++, sm_90a, on
-the 3xTF32 tensor-core core csrc/igemm_tc.cuh), K3 = csrc/group_norm_act.cu
+the 3xTF32 tensor-core core csrc/igemm_tc.cuh; their bf16 variants on the
+bf16 core csrc/igemm_bf16.cuh), K3 = csrc/group_norm_act.cu
 (one thread-block cluster per GroupNorm row), K7 = csrc/unet2d_persistent.cu
 (its stage tables in ``kernels/unet2d_mega.py``).
 
 K1 and K2 take a tile plan per GEMM shape from the host (:func:`tile_plan`:
-tile size and split-K count), K3 its cluster size (:func:`gn_cluster_plan`).
+tile size and split-K count, keyed on the weight's dtype), K3 its cluster
+size (:func:`gn_cluster_plan`).
 :func:`tf32_split` is K1/K2's TF32 rounding in plain PyTorch, and
 :func:`group_norm_cluster_emulated` K3's statistics merge, for the tests.
 
@@ -44,7 +46,8 @@ On a CPU tensor the plain version runs under ordinary autograd.
 bf16 weights (the Pallas kernels under ``weight_dtype=bfloat16``): a
 bfloat16 weight selects K1's and K2's bf16 variants (``conv2d_nhwc_bf16``,
 ``downsample_nhwc_bf16``: bf16 ``wgmma`` with the float32 activation rounded
-to bfloat16 at the matmul and float32 sums), and their plain versions round
+to bfloat16 at the matmul and float32 sums, on their own tile plan,
+``tile_plan(..., bf16=True)``), and their plain versions round
 the same operands (:func:`bf16_operands`). Activations, biases and norms stay
 float32, so K3 has no variant. ``bf16_launches`` counts the bf16 launches
 among ``launches``.
@@ -196,11 +199,13 @@ def with_plain_vjp(launch, plain, *inputs, **kw):
 
 
 # ---------------------------------------------------------------------------
-# K1 and K2's tensor-core core (csrc/igemm_tc.cuh): tile plan, TF32 split
+# K1 and K2's tensor-core cores (csrc/igemm_tc.cuh, csrc/igemm_bf16.cuh): tile plan,
+# TF32 split
 # ---------------------------------------------------------------------------
 
 SM_COUNT = 132              # SMs of an H100 SXM: one wave of one CTA each
 TC_BK = 32                  # K per ring stage (igemm_tc.cuh: BK)
+TC_BK_BF16 = 64             # K per ring stage of the bf16 core (igemm_bf16.cuh: BK)
 MIN_SLICES_PER_SPLIT = 4    # ring stages of K each split walks at least
 # (BM, BN) -> (us per ring slice, us per CTA besides its slices, CTAs per
 # SM), and us per million split-K partial floats: the `fit` line of
@@ -209,13 +214,18 @@ MIN_SLICES_PER_SPLIT = 4    # ring stages of K each split walks at least
 TC_TILES = {(128, 128): (2.27, 1.94, 1), (128, 64): (1.57, 1.43, 1),
             (64, 64): (1.59, 1.79, 2)}
 SPLIT_US_PER_MFLOAT = 1.82
+# the same for the bf16 core (64-deep stages, device times): the mean of
+# two `fit` lines of `sweep_igemm_tc --bf16` (NVIDIA H100 80GB HBM3, 700 W)
+TC_TILES_BF16 = {(128, 256): (0.75, 8.87, 1), (128, 128): (0.64, 5.18, 1),
+                 (128, 64): (0.59, 3.27, 1), (64, 64): (0.64, 3.03, 2)}
+SPLIT_US_PER_MFLOAT_BF16 = 0.84
 
 
 class TilePlan(NamedTuple):
     bm: int
     bn: int
     splits: int  # split-K count (blockIdx.z)
-    per: int     # TC_BK-slices of K per split; the last split may take fewer
+    per: int     # ring stages of K per split; the last split may take fewer
 
     def ctas(self, m: int, n: int) -> int:
         return math.ceil(m / self.bm) * math.ceil(n / self.bn) * self.splits
@@ -225,14 +235,14 @@ class TilePlan(NamedTuple):
         return self.splits * m * n if self.splits > 1 else 0
 
 
-def plan_candidates(n: int, k: int, tiles=None):
+def plan_candidates(n: int, k: int, tiles=None, bk: int = TC_BK):
     """Every plan :func:`tile_plan` weighs for a GEMM of n columns and depth
-    k, each once: every tile of `tiles` (TC_TILES by default; 128 columns
-    only when n > 64) with every split count that keeps
-    MIN_SLICES_PER_SPLIT slices of K per split."""
-    slices = math.ceil(k / TC_BK)
+    k in stages of `bk`, each once: every tile of `tiles` (TC_TILES by
+    default; BN columns only when n > BN / 2) with every split count that
+    keeps MIN_SLICES_PER_SPLIT stages of K per split."""
+    slices = math.ceil(k / bk)
     for bm, bn in TC_TILES if tiles is None else tiles:
-        if bn > 64 and n <= 64:
+        if bn > 64 and n <= bn // 2:
             continue
         seen = set()
         for want in range(1, max(1, slices // MIN_SLICES_PER_SPLIT) + 1):
@@ -250,31 +260,39 @@ def plan_waves(plan: TilePlan, m: int, n: int, tiles=None, sms: int = SM_COUNT) 
 
 
 def pick_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None,
-              sms: int = SM_COUNT) -> TilePlan:
+              sms: int = SM_COUNT, bk: int = TC_BK, fill_first: bool = True) -> TilePlan:
     """The plan of :func:`tile_plan` under the costs `tiles` (as TC_TILES)
     and `split_us` (as SPLIT_US_PER_MFLOAT), the module's by default, for
     a card of `sms` SMs (the persistent kernel passes its grid and its
-    128-row tiles, one CTA per SM)."""
+    128-row tiles, one CTA per SM) and stages of `bk`; ``fill_first``:
+    plans of at least `sms` CTAs before the others, else the modelled time
+    alone."""
     tiles = TC_TILES if tiles is None else tiles
     split_us = SPLIT_US_PER_MFLOAT if split_us is None else split_us
     best = None
-    for plan in plan_candidates(n, k, tiles):
+    for plan in plan_candidates(n, k, tiles, bk):
         slice_us, cta_us, _ = tiles[plan.bm, plan.bn]
         us = plan_waves(plan, m, n, tiles, sms) * (plan.per * slice_us + cta_us)
         us += split_us * plan.workspace_floats(m, n) / 1e6
-        key = (plan.ctas(m, n) < sms, us)  # a full wave first, then the time
+        key = (fill_first and plan.ctas(m, n) < sms, us)  # a full wave first, then the time
         if best is None or key < best[0]:
             best = (key, plan)
     return best[1]
 
 
 @functools.lru_cache(maxsize=None)
-def tile_plan(m: int, n: int, k: int) -> TilePlan:
+def tile_plan(m: int, n: int, k: int, bf16: bool = False) -> TilePlan:
     """Tile and split-K of one (m, n, k) GEMM of K1 or K2, among
-    :func:`plan_candidates`: the plans that fill one wave of SM_COUNT CTAs
-    come first, and among them the one whose modelled time is least: waves
-    * (slices per split * us per slice + us per CTA) plus the split-K
-    pass."""
+    :func:`plan_candidates`, by the modelled time: waves * (stages per
+    split * us per stage + us per CTA) plus the split-K pass. 3xTF32: the
+    plans that fill one wave of SM_COUNT CTAs come first. ``bf16`` (the
+    bf16 variants): the bf16 core's costs and 64-deep stages, and the
+    modelled time alone (over the batch-50 forward its picks took 1.983 ms
+    of device time against 1.978 for the fastest plan of each GEMM, and
+    2.153 with the full wave first: ``sweep_igemm_tc --bf16``)."""
+    if bf16:
+        return pick_plan(m, n, k, TC_TILES_BF16, SPLIT_US_PER_MFLOAT_BF16, bk=TC_BK_BF16,
+                         fill_first=False)
     return pick_plan(m, n, k)
 
 
@@ -307,11 +325,11 @@ def int_array(ints: tuple) -> int:
     return found[0]
 
 
-def _plan_args(x, gemm, shape_ints):
+def _plan_args(x, gemm, shape_ints, bf16):
     """(split-K workspace or None, address of the kernel's int arguments:
     its shape ints, then the plan) of one K1 or K2 launch of GEMM (m, n, k)
-    on float32 input x."""
-    plan = tile_plan(*gemm)
+    on float32 input x (``bf16``: the bf16 variant's plan)."""
+    plan = tile_plan(*gemm, bf16)
     ws = None
     if plan.splits > 1:
         ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]))
@@ -392,7 +410,7 @@ def _conv2d_launch(x_a, w, b, x_b, k, upsample):
     _check_vec4("conv2d_nhwc", (), (x_a, x_b, w, b))
     bf16 = weight_is_bf16("conv2d_nhwc", w)
     out = x_a.new_empty(out_shape)
-    ws, args = _plan_args(x_a, gemm, ints)
+    ws, args = _plan_args(x_a, gemm, ints, bf16)
     lib = _build.load_library()
     err = (lib.conv2d_nhwc_bf16 if bf16 else lib.conv2d_nhwc_f32)(
         x_a.data_ptr(), x_b.data_ptr() if x_b is not None else None,
@@ -456,7 +474,7 @@ def _downsample_launch(x, w, b):
     _check_vec4("downsample_nhwc", (), (x, w, b))
     bf16 = weight_is_bf16("downsample_nhwc", w)
     out = x.new_empty(out_shape)
-    ws, args = _plan_args(x, gemm, ints)
+    ws, args = _plan_args(x, gemm, ints, bf16)
     lib = _build.load_library()
     err = (lib.downsample_nhwc_bf16 if bf16 else lib.downsample_nhwc_f32)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),

@@ -11,14 +11,21 @@ phase 3 times it (the host's time up to the launch, then the device's);
 ``stream_ms``, 40 calls back to back between two events, per call (the
 device's time once the host keeps ahead). A call slower than SLOW_MS per
 event pair (cuDNN's slow algorithm picks) is timed per event pair only. Then
-a line with the host time of
-two stream lookups (``torch.cuda.current_stream().cuda_stream`` and the raw
-handle) and the per-forward sums.
+a line with the host time of two stream lookups
+(``torch.cuda.current_stream().cuda_stream`` and the raw handle), the
+per-forward sums, and ``forward_order_host_us``: the host's time for one
+forward's K1/K2 wrapper calls made in the forward's order, each call with
+inputs and a weight of its own as in the net (4 such forwards enqueued with
+no synchronisation, the median of 15 batches). Repeating one signature
+reuses whatever the wrapper caches per call (the bf16 core's tensor maps);
+the forward's order shows what is left of that over a forward.
 
-``--root DIR`` imports ``diffphycon_tpu_torch`` from another checkout (an
-earlier version of the port), so one run on the card can time both; the
-inputs and the timing come from this checkout's ``chip_smoke.py``. Run:
-``python3 diffphycon_tpu_torch/tools/wrapper_host_time.py [--root DIR]``.
+``--bf16`` times the bf16 variants (bf16 weights, beside cuDNN's bf16 conv
+on operands cast outside the timing). ``--root DIR`` imports
+``diffphycon_tpu_torch`` from another checkout (an earlier version of the
+port), so one run on the card can time both; the inputs and the timing come
+from this checkout's ``chip_smoke.py``. Run:
+``python3 diffphycon_tpu_torch/tools/wrapper_host_time.py [--root DIR] [--bf16]``.
 """
 
 import argparse
@@ -51,6 +58,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose diffphycon_tpu_torch is timed")
+    ap.add_argument("--bf16", action="store_true", help="the bf16 variants (bf16 weights)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -66,15 +74,17 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    calls = [(name, sig) for name, sig, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B)
+             if name in cs.TC_KERNELS]
     per_fwd = {}
-    for name, sig, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B):
-        if name in cs.TC_KERNELS:
-            per_fwd[(name, sig)] = per_fwd.get((name, sig), 0) + 1
+    for call in calls:
+        per_fwd[call] = per_fwd.get(call, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = {}
     with torch.no_grad():
         for (name, sig), count in per_fwd.items():
-            kern, _, library, _, _, _ = cs.kernel_case(torch, F, kb, gen, name, sig)
+            kern, _, library, _, _, _ = cs.kernel_case(torch, F, kb, gen, name, sig,
+                                                       bf16=args.bf16)
             row = {"kernel": name, "args": list(sig), "per_forward": count}
             for key, fn in (("", kern), ("library_", library)):
                 row[key + "event_ms"] = cs.timed(torch, fn)
@@ -87,12 +97,21 @@ def main() -> int:
                 if key.endswith(("_us", "_ms")) and v is not None:
                     total[key] = total.get(key, 0.0) + count * v
             print(json.dumps(row), flush=True)
+        fwd = [cs.kernel_case(torch, F, kb, gen, name, sig, bf16=args.bf16)[0]
+               for name, sig in calls]
+
+        def forward():
+            for fn in fwd:
+                fn()
+
+        forward_us = host_us(torch, forward, calls=4)
     x = torch.empty(4, device="cuda")
     print(json.dumps({
-        "root": args.root, "device": torch.cuda.get_device_name(0),
+        "root": args.root, "bf16": args.bf16, "device": torch.cuda.get_device_name(0),
         "current_stream_us": host_us(torch, lambda: torch.cuda.current_stream(x.device).cuda_stream),
         "raw_stream_us": host_us(torch, lambda: torch._C._cuda_getCurrentRawStream(x.get_device())),
-        "per_forward": total}), flush=True)
+        "per_forward": total, "forward_order_calls": len(calls),
+        "forward_order_host_us": forward_us}), flush=True)
     return 0
 
 

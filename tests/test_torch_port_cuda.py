@@ -92,8 +92,8 @@ def test_port_tc_convs_match_plain_at_main_path_signatures(cuda_device):
 
 
 def _forced_plan(bm, bn, splits):
-    def plan(m, n, k):
-        slices = math.ceil(k / kb.TC_BK)
+    def plan(m, n, k, bf16=False):
+        slices = math.ceil(k / (kb.TC_BK_BF16 if bf16 else kb.TC_BK))
         per = math.ceil(slices / splits)
         return kb.TilePlan(bm, bn, math.ceil(slices / per), per)
     return plan
@@ -579,23 +579,28 @@ def test_port_bf16_convs_match_plain_at_main_path_signatures(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bm,bn", kb.TC_TILES)
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES_BF16)
 @pytest.mark.parametrize("splits", [1, 3])
 def test_port_bf16_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, bn, splits):
-    """The bf16 variant under every tile shape, with and without split-K:
-    M off every tile, K off the 32-deep slice (Ca = 4 with Cb = 8), k = 1,
-    an odd upsampled source, Co = 136 over two N tiles; and Co = 12 (not a
-    multiple of 8) raises."""
+    """The bf16 core (csrc/igemm_bf16.cuh) under every tile shape of its
+    plan, with and without split-K. Through the gather: M off every tile, K
+    off the 64-deep stage (Ca = 4 with Cb = 8: K = 108; Ca = 36 with Cb = 4:
+    K = 360 over 6 stages), k = 1, an odd upsampled source, Co = 136 over
+    two N tiles. Through TMA boxes (64-channel blocks): tiles of whole
+    images past the batch, with two sources, upsampled (4 parity classes)
+    and not, and K2 at stride 2. And Co = 12 (not a multiple of 8) raises."""
     monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
     g = torch.Generator(device=cuda_device).manual_seed(18)
     for args in [(3, 5, 7, 4, 8, 8, 3), (3, 5, 7, 4, 8, 16, 1), (2, 9, 15, 36, 0, 136, 3),
-                 (1, 3, 5, 8, 0, 24, 3, True), (2, 4, 4, 64, 32, 64, 1)]:
+                 (1, 3, 5, 8, 0, 24, 3, True), (2, 4, 4, 64, 32, 64, 1),
+                 (2, 5, 7, 36, 4, 24, 3), (3, 2, 8, 64, 64, 136, 3),
+                 (3, 2, 4, 64, 64, 24, 3, True), (3, 4, 8, 128, 0, 64, 1, True)]:
         k, up = args[6], bool(args[7:] and args[7])
         xa, xb, wt, bias = _conv_case(g, cuda_device, *args[:7])
         wt = wt.to(torch.bfloat16)
         assert_close(kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
                      kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up), BF16_RTOL)
-    for b, h, w, c, co in [(3, 6, 10, 4, 8), (2, 10, 18, 20, 72)]:
+    for b, h, w, c, co in [(3, 6, 10, 4, 8), (2, 10, 18, 20, 72), (3, 4, 8, 64, 72)]:
         x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
         wt = wt.to(torch.bfloat16)
         assert_close(kb.downsample_nhwc(x, wt, bias), kb.downsample_nhwc_plain(x, wt, bias),
@@ -605,6 +610,48 @@ def test_port_bf16_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, 
         kb.conv2d_nhwc(xa, wt.to(torch.bfloat16), bias)
     with pytest.raises(TypeError, match="float32"):
         kb.conv2d_nhwc(xa.to(torch.bfloat16), wt.to(torch.bfloat16), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [None, (128, 128, 1)])
+def test_port_bf16_conv_chain_error_at_the_deepest_k(cuda_device, monkeypatch, forced):
+    """At K = 6912 (the skip-concat conv of the 2 x 16 level, batch 8) the
+    bf16 core's one chain of products per split stays within 1e-5 relative
+    of a float64 conv of the same bf16-rounded operands, under the module's
+    plan and as one chain of all 108 stages (one 128 x 128 tile per output
+    tile, no split)."""
+    if forced is not None:
+        monkeypatch.setattr(kb, "tile_plan", _forced_plan(*forced))
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    xa, xb, w, b = _conv_case(g, cuda_device, 8, 2, 16, 512, 256, 512, 3)
+    w = w.to(torch.bfloat16)
+    ref = kb.conv2d_nhwc_plain(xa.to(torch.bfloat16).double(), w.double(), b.double(),
+                               x_b=xb.to(torch.bfloat16).double())
+    scale = max(1.0, ref.abs().max().item())
+    assert (kb.conv2d_nhwc(xa, w, b, x_b=xb).double() - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES_BF16)
+def test_port_bf16_core_one_tile_reads_the_weight_mn_major(cuda_device, monkeypatch, bm, bn):
+    """One output tile of the bf16 core over one 64-deep stage (a 1x1 conv:
+    M = BM, K = 64, Co = BN): wgmma reads the weight slice as stored,
+    MN-major (imm-trans-b = 1), through desc_mn's leading byte offset (64-
+    column atoms) and stride byte offset (8-row k groups); a wrong offset
+    reads other rows or columns. Against the plain bf16 product to fp32
+    summation order (64 exact products each: 1e-5), and bit-equal with the
+    weight a view 16 bytes into a larger tensor."""
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, 1))
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    xa, _, wt, bias = _conv_case(g, cuda_device, 1, bm // 16, 16, 64, 0, bn, 1)
+    wt = wt.to(torch.bfloat16)
+    out = kb.conv2d_nhwc(xa, wt, bias, k=1)
+    assert_close(out, kb.conv2d_nhwc_plain(xa, wt, bias, k=1), 1e-5)
+    store = torch.zeros(wt.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    view = store[8:].view(wt.shape)
+    view.copy_(wt)
+    assert view.storage_offset() == 8 and view.data_ptr() % 16 == 0
+    assert torch.equal(kb.conv2d_nhwc(xa, view, bias, k=1), out)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,15 @@
   (interpret mode) within the kernels' tolerance at K up to 6912: the
   design's error budget fits ``chip_smoke.py``'s KERNEL_RTOL (1e-4).
 - ``tile_plan`` covers K exactly and fills one wave of the card at every
-  K1/K2 shape of the Burgers UNet2D at batch 50 (sampling) and 16 (training).
+  K1/K2 shape of the Burgers UNet2D at batch 50 (sampling) and 16
+  (training), for the 3xTF32 core and for the bf16 core
+  (``csrc/igemm_bf16.cuh``, ``tile_plan(..., bf16=True)``); the 3xTF32
+  plans and the persistent kernel's tiles are those of before the bf16 plan.
+
+- The bf16 core's sums (one float32 chain of exact bf16 products per split,
+  the splits added in order), emulated on bf16-rounded operands over the
+  same gathers, agree with the Pallas convs under bf16 weights within 1e-5
+  at K up to 6912.
 
 The kernels themselves run only on an NVIDIA GPU: ``test_torch_port_cuda.py``.
 """
@@ -114,6 +122,61 @@ def test_port_3xtf32_downsample_emulation_matches_pallas():
     assert_close(out.reshape(2, 2, 8, 64), ref, RTOL)
 
 
+BF16_CHAIN_RTOL = 1e-5  # the bf16 core's aim at K = 6912 (csrc/igemm_bf16.cuh, point 4)
+
+
+def _bf16_chains(a, w, splits):
+    """a @ w as the bf16 core (csrc/igemm_bf16.cuh) sums it: a rounded to
+    bf16 (nearest even) against the bf16 weight, exact products, each
+    split's 64-deep stages summed in float32 as one chain, the splits'
+    partials added in split order."""
+    a, w = kb.bf16_operands(a, w)
+    stages = math.ceil(a.shape[1] / kb.TC_BK_BF16)
+    per = math.ceil(stages / splits)
+    out = None
+    for z in range(math.ceil(stages / per)):
+        lo, hi = z * per * kb.TC_BK_BF16, (z + 1) * per * kb.TC_BK_BF16
+        part = a[:, lo:hi] @ w[lo:hi]
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("ca,cb,k,up", [(768, 0, 3, False),   # K = 6912
+                                        (512, 256, 3, False),  # the skip concat, K = 6912
+                                        (512, 256, 1, False),  # _matmul_bias_kernel
+                                        (512, 0, 3, True)])    # _upsample_kernel, K = 4608
+def test_port_bf16_conv_emulation_matches_pallas(ca, cb, k, up, splits):
+    """The bf16 core's chains (one per split of 64-deep stages, no rounded
+    add between stages) against the Pallas conv kernels under bf16 weights
+    (interpret mode) at K up to 6912, within BF16_CHAIN_RTOL: the two differ
+    in the order of float32 sums alone."""
+    co = 16
+    xa, xb = rand(2, 2, 8, ca, seed=1), rand(2, 2, 8, cb, seed=2) if cb else None
+    w = rand(k * k, ca + cb, co, seed=3) / np.float32(np.sqrt(k * k * (ca + cb)))
+    b = 0.1 * rand(co, seed=4)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    wj = wb if k == 3 else wb[0]
+    p = {"w": jnp.asarray(wj.float().numpy(), dtype=jnp.bfloat16), "b": jnp.asarray(b)}
+    xin = jnp.asarray(xa) if xb is None else pu.concat_channels(jnp.asarray(xa), jnp.asarray(xb))
+    ref = pu.upsample(xin, p) if up else pu.conv(xin, p, k, k)
+    a, (B, H, W) = _conv_gather(torch.from_numpy(xa), None if xb is None else torch.from_numpy(xb),
+                                k, up)
+    out = _bf16_chains(a, wb.reshape(-1, co), splits) + torch.from_numpy(b)
+    assert_close(out.reshape(B, H, W, co), ref, BF16_CHAIN_RTOL)
+
+
+def test_port_bf16_downsample_emulation_matches_pallas():
+    x = rand(2, 4, 16, 128)
+    w, b = rand(4, 128, 64, seed=1) / np.float32(np.sqrt(512)), 0.1 * rand(64, seed=2)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    p = {"w": jnp.asarray(wb.float().numpy(), dtype=jnp.bfloat16), "b": jnp.asarray(b)}
+    ref = pu.downsample(jnp.asarray(x), p)
+    x6 = torch.from_numpy(x).reshape(2, 2, 2, 8, 2, 128).permute(0, 1, 3, 2, 4, 5)
+    out = _bf16_chains(x6.reshape(32, 512), wb.reshape(512, 64), 1) + torch.from_numpy(b)
+    assert_close(out.reshape(2, 2, 8, 64), ref, BF16_CHAIN_RTOL)
+
+
 def _gemm_shapes(batch):
     """(m, n, k) of every K1 and K2 signature of the Burgers UNet2D."""
     return sorted({chip_smoke.gemm_dims(name, args)
@@ -121,14 +184,19 @@ def _gemm_shapes(batch):
                    if name in chip_smoke.TC_KERNELS})
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("batch", [50, 16])
-def test_port_tile_plan_covers_k_and_fills_a_wave(batch):
+def test_port_tile_plan_covers_k_and_fills_a_wave(batch, bf16):
+    """The 3xTF32 core's plans (32-deep slices, TC_TILES) and the bf16
+    core's (64-deep stages, TC_TILES_BF16): the splits cover K once, and
+    the CTAs fill a wave wherever the splits allow it."""
+    tiles, bk = (kb.TC_TILES_BF16, kb.TC_BK_BF16) if bf16 else (kb.TC_TILES, kb.TC_BK)
     shapes = _gemm_shapes(batch)
     assert len(shapes) >= 15
     for m, n, k in shapes:
-        plan = kb.tile_plan(m, n, k)
-        assert (plan.bm, plan.bn) in kb.TC_TILES, (m, n, k, plan)
-        slices = math.ceil(k / kb.TC_BK)
+        plan = kb.tile_plan(m, n, k, bf16)
+        assert (plan.bm, plan.bn) in tiles, (m, n, k, plan)
+        slices = math.ceil(k / bk)
         # split z walks K slices [z * per, min((z + 1) * per, slices)): all
         # non-empty, disjoint, together exactly [0, K)
         ranges = [(z * plan.per, min((z + 1) * plan.per, slices)) for z in range(plan.splits)]
@@ -137,12 +205,43 @@ def test_port_tile_plan_covers_k_and_fills_a_wave(batch):
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
         assert plan.splits == 1 or plan.per >= kb.MIN_SLICES_PER_SPLIT
         most = plan.ctas(m, n) // plan.splits * max(1, slices // kb.MIN_SLICES_PER_SPLIT)
-        assert plan.ctas(m, n) >= kb.SM_COUNT or most < kb.SM_COUNT, (m, n, k, plan)
-        assert plan.bn == 64 or n > 64
+        # a wave: 3xTF32, one CTA per SM; bf16 (picked by the modelled time
+        # alone), three quarters of the tile's CTA slots
+        wave = 0.75 * kb.SM_COUNT * tiles[plan.bm, plan.bn][2] if bf16 else kb.SM_COUNT
+        assert plan.ctas(m, n) >= wave or most < wave, (m, n, k, plan)
+        assert plan.bn == 64 or n > plan.bn // 2
         want_ws = plan.splits * m * n if plan.splits > 1 else 0
         assert plan.workspace_floats(m, n) == want_ws
-    # the 2 x 16 level needs split-K to fill the card
-    assert kb.tile_plan(batch * 32, 512, 4608).splits > 1
+    if not bf16:  # the 2 x 16 level needs split-K to fill the card
+        assert kb.tile_plan(batch * 32, 512, 4608).splits > 1
+
+
+# the 3xTF32 plans at every K1/K2 GEMM of the batch-50 forward, as they were
+# before the bf16 core had a plan of its own: (m, n, k) -> (bm, bn, splits,
+# per)
+FP32_PLANS_B50 = {
+    (1600, 256, 512): (64, 64, 2, 8), (1600, 256, 2304): (128, 128, 9, 8),
+    (1600, 512, 768): (128, 128, 5, 5), (1600, 512, 2304): (128, 128, 5, 15),
+    (1600, 512, 4608): (128, 128, 5, 29), (1600, 512, 6912): (128, 128, 5, 44),
+    (6400, 128, 256): (64, 64, 1, 8), (6400, 128, 1152): (128, 128, 5, 8),
+    (6400, 256, 384): (128, 128, 2, 6), (6400, 256, 2304): (128, 128, 5, 15),
+    (6400, 256, 3456): (128, 128, 5, 22), (6400, 256, 4608): (128, 128, 5, 29),
+    (25600, 64, 256): (128, 64, 1, 8), (25600, 64, 576): (128, 64, 1, 18),
+    (25600, 128, 192): (128, 128, 1, 6), (25600, 128, 1152): (128, 128, 3, 12),
+    (25600, 128, 1728): (128, 128, 3, 18), (25600, 128, 2304): (128, 128, 3, 24),
+    (102400, 64, 128): (128, 64, 1, 4), (102400, 64, 576): (128, 64, 1, 18),
+    (102400, 64, 1152): (128, 64, 1, 36)}
+
+
+def test_port_fp32_plans_and_mega_tiles_unchanged_by_the_bf16_plan():
+    """The bf16 plan is keyed apart: the 3xTF32 K1/K2 plans and the
+    persistent kernel's tiles (MEGA_TILES, from TC_TILES) stay as they were."""
+    from diffphycon_tpu_torch.kernels import unet2d_mega as km
+
+    assert {s: tuple(kb.tile_plan(*s)) for s in _gemm_shapes(50)} == FP32_PLANS_B50
+    assert all(kb.tile_plan(*s, False) == kb.tile_plan(*s) for s in FP32_PLANS_B50)
+    assert km.MEGA_TILES == {(128, 128): (2.27, 1.94, 1), (128, 64): (1.57, 1.43, 1)}
+    assert any(kb.tile_plan(*s, True) != kb.tile_plan(*s) for s in FP32_PLANS_B50)
 
 
 def test_port_tile_plan_balances_waves():
