@@ -2954,6 +2954,22 @@ BF16_DDPM_STEPS = 20
 BF16_TRAIN_STEPS = 6
 
 
+def attention_plan_bf16(ka, kname, args):
+    """The host plan of K5's or K6's bf16 variant at one site: K5a's chunks
+    and head groups, K5b's and K6's tiles over the flattened (B n) tokens,
+    and each stage's CTAs."""
+    b, h, w, c = args
+    tiles = -(-b * h * w // 64)
+    if kname == "attention_block":
+        return {"tile_rows": ka.attn_tile_rows(b, h * w, bf16=True), "k6a_ctas": 3 * tiles,
+                "k6c_ctas": tiles * -(-c // 128)}
+    _, _, _, n_chunks, chunk, groups = ka._linear_shapes((b, h, w, c), True)[0]
+    tr, ctas = ka.la_output_plan(b, h * w, c)
+    return {"chunk": chunk, "S": n_chunks, "head_groups": groups,
+            "k5a_ctas": b * n_chunks * groups, "k5b_tile_rows": tr,
+            "k5b_tiles": -(-b * h * w // tr), "k5b_ctas": ctas}
+
+
 def bf16_phase(torch, F, smi_line, calls):
     """Phase 16: bf16 weights on the Burgers path (``BurgersConfig(bf16=True)``):
     each bf16 variant (K1, K2, K5, K6) at every signature of one forward at
@@ -2971,6 +2987,7 @@ def bf16_phase(torch, F, smi_line, calls):
     records."""
     from diffphycon_tpu_torch.apps import infer_burgers, train_burgers
     from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.kernels import attention as ka
     from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
     from diffphycon_tpu_torch.training import data
     from diffphycon_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -3008,6 +3025,10 @@ def bf16_phase(torch, F, smi_line, calls):
             extra_ms = {f"{key}_ms": timed(torch, fn) for key, fn in extra.items()}
             b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
             tc = {}
+            if kname in ("linear_attention_block", "attention_block"):
+                tc = {"plan": attention_plan_bf16(ka, kname, args)}
+                for key in ("k5a", "k5b") if kname == "linear_attention_block" else ():
+                    tc[f"{key}_device_ms"] = timed_graph(torch, extra[key])[0]
             if kname in TC_KERNELS:
                 plan = kb.tile_plan(*gemm_dims(kname, args), True)
                 tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,

@@ -99,10 +99,9 @@
 #include <stdint.h>
 #include <string.h>
 
-#include <mutex>
 #include <type_traits>
-#include <unordered_map>
 
+#include "hopper_tma.cuh"  // mbarriers, TMA copies, desc_mn, the tensor-map cache
 #include "igemm_tc.cuh"  // cp.async, swizzle, bf16x2_rn, wgmma fences, split-K reduce
 
 namespace igemm_bf16 {
@@ -113,8 +112,15 @@ using igemm_tc::cp_async_commit;
 using igemm_tc::cp_async_wait;
 using igemm_tc::smem_u32;
 using igemm_tc::swz;
+using hopper_tma::desc_mn;
+using hopper_tma::mbar_expect_tx;
+using hopper_tma::mbar_init;
+using hopper_tma::mbar_wait;
+using hopper_tma::tensor_map;
+using hopper_tma::tma_2d;
+using hopper_tma::tma_4d;
 
-constexpr int BK = 64;  // k per ring stage
+constexpr int BK = hopper_tma::kAtomK;  // k per ring stage: one 64-row atom of the weight
 
 #ifdef IGEMM_BF16_CLOCKS
 // a diagnostic build: clock64() at the phases of each stage of block (0, 0,
@@ -165,51 +171,6 @@ struct Geom {
   int up, mc;        // nearest-2x upsample; its tile rows per class (B gh gw rounded to BM)
   int H, W;          // output size
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int x,
-                                       int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
-      : "memory");
-}
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c,
-                                       int x, int y, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y), "r"(b)
-      : "memory");
-}
-
-// Descriptor of a (16 k, BN) bf16 slice of the weight tile, MN-major in the
-// 128-byte swizzle: 8-row k groups 1024 bytes apart (stride byte offset),
-// 64-column atoms BK * 128 bytes apart (leading byte offset).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((BK * 128) >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
 
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
@@ -557,83 +518,6 @@ struct Source {
   bool up;             // the conv reads the nearest-2x upsampled source
 };
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The key of one tensor map: every field it is encoded from (zero-filled
-// past `rank`, so that equal maps compare and hash equal as bytes).
-struct MapKey {
-  const void* addr;
-  int dtype, rank;
-  cuuint64_t dims[5], strides[4];
-  cuuint32_t box[5], estr[5];
-  bool operator==(const MapKey& o) const { return memcmp(this, &o, sizeof(MapKey)) == 0; }
-};
-static_assert(sizeof(MapKey) % 8 == 0, "MapKey is hashed as 8-byte words");
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    uint64_t h = 1469598103934665603ull, word;  // FNV-1a over the key's words
-    for (size_t i = 0; i < sizeof(MapKey); i += 8) {
-      memcpy(&word, reinterpret_cast<const unsigned char*>(&k) + i, 8);
-      h = (h ^ word) * 1099511628211ull;
-    }
-    return static_cast<size_t>(h ^ (h >> 29));
-  }
-};
-
-// Past this many maps the cache starts over. One bf16 UNet2D forward at
-// batch 50 needs ~160 (a weight map for each of its 55 launches, up to two
-// activation maps each), and the allocator hands weights and activations the
-// same addresses call after call, so a full cache means addresses that come
-// and go (new nets, casts made anew each step).
-constexpr size_t MAX_MAPS = 16384;
-
-// One tiled tensor map of `rank` dims (innermost first), 128-byte swizzle,
-// zeros out of bounds; encoded once per (address, shape, box) and cached.
-static inline cudaError_t tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int rank,
-                                     const void* addr, const cuuint64_t* dims,
-                                     const cuuint64_t* strides, const cuuint32_t* box,
-                                     const cuuint32_t* estr) {
-  static std::mutex mu;
-  static EncodeTiled encode = nullptr;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  MapKey key;
-  memset(&key, 0, sizeof(key));
-  key.addr = addr;
-  key.dtype = static_cast<int>(dtype);
-  key.rank = rank;
-  for (int i = 0; i < rank; ++i) {
-    key.dims[i] = dims[i];
-    key.box[i] = box[i];
-    key.estr[i] = estr[i];
-    if (i + 1 < rank) key.strides[i] = strides[i];
-  }
-  std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *out = hit->second;
-    return cudaSuccess;
-  }
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  if (encode(out, dtype, rank, const_cast<void*>(addr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  if (cache.size() >= MAX_MAPS) cache.clear();
-  cache.emplace(key, *out);
-  return cudaSuccess;
-}
-
 // The 4-D map (channels, columns, rows, images) of one NHWC source whose
 // boxes are 32 channels x bw x bh x bb pixels, at traversal stride `scale`
 // in the columns and rows.
@@ -705,11 +589,7 @@ inline cudaError_t launch(const G& g, const Source& a, const __nv_bfloat16* w, c
     return cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
-  const cuuint64_t wstride[1] = {2ull * N};
-  const cuuint32_t wbox[2] = {64, BK}, one[5] = {1, 1, 1, 1, 1};
-  cudaError_t e = tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, wdims, wstride,
-                             wbox, one);
+  cudaError_t e = hopper_tma::weight_map(&maps.w, w, K, N, N);
   if (e != cudaSuccess) return e;
   // boxes: bm grid pixels (output pixels, or with up source pixels of one
   // parity class) that are part of one row, whole rows of one image, or

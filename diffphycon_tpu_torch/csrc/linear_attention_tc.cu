@@ -50,11 +50,13 @@
 // bit-equal. fp32 in and out, expf (not __expf).
 //
 // The bf16 variant (linear_attention_tc_bf16, the Pallas kernel under
-// weight_dtype=bfloat16) streams bf16 weight slices (half the bytes) and
-// runs the projection passes as mma.sync m16n8k16 bf16 products on operands
-// rounded to bf16 (cvt.rn), one per 16-deep step instead of six 3xTF32
-// ones; the context passes stay 3xTF32 on fp32 values, as Pallas computes
-// them in fp32.
+// weight_dtype=bfloat16) runs the bodies of attention_bf16.cuh, designed
+// for Hopper's bf16 tensor cores (that header says how and why): K5a on
+// resident TMA weight stages and wgmma, the same merge, and K5b over tiles
+// of the flattened (B n) tokens, one launch each. Its host plan differs in
+// two points (kernels/attention.py): two heads per K5a CTA wherever C > 256
+// (la_head_groups(..., bf16=True)), so that the resident k | v columns take
+// at most 128 KB; and K5b's tile rows and CTAs (la_output_plan).
 //
 // The bodies live in linear_attention_tc.cuh as device functions of a block
 // index: the kernels below call them for their own blockIdx, the persistent
@@ -78,15 +80,16 @@ extern "C" int la_stamps_read(long long* host, int n) {
 }
 #endif
 #include "linear_attention_tc.cuh"
+#include "attention_bf16.cuh"
 
 namespace {
 
 using namespace la_tc;
 
-template <int kHpc, class TW>
+template <int kHpc>
 __global__ void __launch_bounds__(kThreads, 2)
     la_context_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                         const TW* __restrict__ wqkv, float* __restrict__ part, int n, int C,
+                         const float* __restrict__ wqkv, float* __restrict__ part, int n, int C,
                          int chunk) {
   extern __shared__ __align__(16) float smem[];
   la_context_body<kHpc>(x, g, wqkv, part, n, C, chunk, blockIdx.x, blockIdx.y, blockIdx.z,
@@ -98,37 +101,35 @@ __global__ void __launch_bounds__(kThreads)
   la_merge_body(part, ctx, S, blockIdx.x);
 }
 
-template <class TW>
 __global__ void __launch_bounds__(kThreads, 2)
     la_output_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                        const TW* __restrict__ wqkv, const float* __restrict__ ctx,
-                        const TW* __restrict__ wo, const float* __restrict__ bo,
+                        const float* __restrict__ wqkv, const float* __restrict__ ctx,
+                        const float* __restrict__ wo, const float* __restrict__ bo,
                         const float* __restrict__ og, float* __restrict__ out, int n, int C) {
   extern __shared__ __align__(16) float smem[];
   la_output_body(x, g, wqkv, ctx, wo, bo, og, out, n, C, blockIdx.x, blockIdx.y, smem);
 }
 
-template <class TW>
-int linear_attention_tc(const float* x, const float* g, const TW* wqkv, const TW* wo,
+int linear_attention_tc(const float* x, const float* g, const float* wqkv, const float* wo,
                         const float* bo, const float* og, float* part, float* out,
                         const int* dims, void* stream) {
   const int B = dims[0], n = dims[1], C = dims[2], S = dims[3], chunk = dims[4],
             groups = dims[5], stages = dims[6];
-  if (B <= 0 || B > 65535 || n <= 0 || C < 4 || C > kMaxC || C % (16 / sizeof(TW)) ||
+  if (B <= 0 || B > 65535 || n <= 0 || C < 4 || C > kMaxC || C % 4 ||
       chunk <= 0 || chunk % kRows || S != (n + chunk - 1) / chunk || S > 65535 ||
       (groups != 1 && groups != 2) || stages < 1 || stages > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_set = false;  // > 48 KB of dynamic shared memory: once, for C up to kMaxC
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(la_context_tc_kernel<4, TW>,
+    cudaError_t e = cudaFuncSetAttribute(la_context_tc_kernel<4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          context_smem_floats(kMaxC) * 4);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(la_context_tc_kernel<2, TW>,
+    e = cudaFuncSetAttribute(la_context_tc_kernel<2>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              context_smem_floats(kMaxC) * 4);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(la_output_tc_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(la_output_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              output_smem_floats(kMaxC) * 4);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
@@ -138,10 +139,10 @@ int linear_attention_tc(const float* x, const float* g, const TW* wqkv, const TW
   if (stages & 1) {
     const dim3 grid(S, B, groups);
     if (groups == 1)
-      la_context_tc_kernel<4, TW><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
+      la_context_tc_kernel<4><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
           x, g, wqkv, part, n, C, chunk);
     else
-      la_context_tc_kernel<2, TW><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
+      la_context_tc_kernel<2><<<grid, kThreads, context_smem_floats(C) * 4, st>>>(
           x, g, wqkv, part, n, C, chunk);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -150,10 +151,136 @@ int linear_attention_tc(const float* x, const float* g, const TW* wqkv, const TW
     la_merge_tc_kernel<<<B, kThreads, 0, st>>>(part, ctx, S);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    la_output_tc_kernel<TW><<<dim3((n + kRows - 1) / kRows, B), kThreads,
-                              output_smem_floats(C) * 4, st>>>(x, g, wqkv, ctx, wo, bo, og, out,
-                                                               n, C);
+    la_output_tc_kernel<<<dim3((n + kRows - 1) / kRows, B), kThreads, output_smem_floats(C) * 4,
+                          st>>>(x, g, wqkv, ctx, wo, bo, og, out, n, C);
     return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
+}
+
+// two blocks an SM where their shared memory allows (J = 4: C <= 128)
+template <int kHpc, int J>
+__global__ void __launch_bounds__(attn_bf16::kThreads, J == 4 ? 2 : 1)
+    la_context_bf16_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                           const __grid_constant__ CUtensorMap wmap, float* __restrict__ part,
+                           int n, int C, int chunk) {
+  extern __shared__ __align__(1024) unsigned char smem_bf16[];
+  attn_bf16::context_body<kHpc, J>(x, g, &wmap, part, n, C, chunk, blockIdx.x, blockIdx.y,
+                                   blockIdx.z, gridDim.x, smem_bf16);
+}
+
+// kMulti: several tiles a CTA (the host's plan: one CTA an SM); else one
+// tile a CTA
+template <int NB, bool kMulti>
+__global__ void __launch_bounds__(attn_bf16::kThreads, 1)
+    la_output_bf16_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                          const __grid_constant__ attn_bf16::OutMaps maps,
+                          const float* __restrict__ ctx, const float* __restrict__ bo,
+                          const float* __restrict__ og, float* __restrict__ out, int n, int T,
+                          int C, int tr) {
+  extern __shared__ __align__(1024) unsigned char smem_bf16[];
+  // this CTA's share of the tr-token tiles: contiguous, balanced
+  const long long tiles = (T + tr - 1) / tr;
+  const int begin = static_cast<int>(blockIdx.x * tiles / gridDim.x);
+  const int end = static_cast<int>((blockIdx.x + 1) * tiles / gridDim.x);
+  attn_bf16::output_body<NB, 4 * NB, kMulti>(x, g, maps, ctx, bo, og, out, n, T, C, tr, begin,
+                                             end, smem_bf16);
+}
+
+// Set the kernel's dynamic shared memory limit to the most a block may take,
+// once per instantiation (each instantiation asks for its own size at launch).
+template <class K>
+cudaError_t smem_limit(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              attn_bf16::kMaxSmem);
+}
+
+template <int kHpc, int NB>
+cudaError_t launch_context_bf16(const float* x, const float* g, const CUtensorMap& wmap,
+                                float* part, int B, int n, int C, int S, int chunk, int groups,
+                                cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = smem_limit(la_context_bf16_kernel<kHpc, 4 * NB>);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  la_context_bf16_kernel<kHpc, 4 * NB>
+      <<<dim3(S, B, groups), attn_bf16::kThreads, attn_bf16::context_smem_bytes(kHpc, C), st>>>(
+          x, g, wmap, part, n, C, chunk);
+  return cudaGetLastError();
+}
+
+template <int NB, bool kMulti>
+cudaError_t launch_output_variant(const float* x, const float* g,
+                                  const attn_bf16::OutMaps& maps, const float* ctx,
+                                  const float* bo, const float* og, float* out, int B, int n,
+                                  int C, int tr, int ctas, cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = smem_limit(la_output_bf16_kernel<NB, kMulti>);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  la_output_bf16_kernel<NB, kMulti>
+      <<<ctas, attn_bf16::kThreads, attn_bf16::output_smem_bytes(C, kMulti), st>>>(
+          x, g, maps, ctx, bo, og, out, n, B * n, C, tr);
+  return cudaGetLastError();
+}
+
+// ctas below the tile count (C <= 128 only): the kMulti variant
+template <int NB>
+cudaError_t launch_output_bf16(const float* x, const float* g, const attn_bf16::OutMaps& maps,
+                               const float* ctx, const float* bo, const float* og, float* out,
+                               int B, int n, int C, int tr, int ctas, cudaStream_t st) {
+  const long long tiles = (static_cast<long long>(B) * n + tr - 1) / tr;
+  if constexpr (NB == 1) {
+    if (ctas < tiles)
+      return launch_output_variant<1, true>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st);
+  } else if (ctas != tiles) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_output_variant<NB, false>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st);
+}
+
+int linear_attention_bf16(const float* x, const float* g, const __nv_bfloat16* wqkv,
+                          const __nv_bfloat16* wo, const float* bo, const float* og, float* part,
+                          float* out, const int* dims, void* stream) {
+  const int B = dims[0], n = dims[1], C = dims[2], S = dims[3], chunk = dims[4],
+            groups = dims[5], stages = dims[6], ctas = dims[7], tr = dims[8];
+  const long long tiles = (static_cast<long long>(B) * n + tr - 1) / tr;
+  if (B <= 0 || B > 65535 || n <= 0 || C < 8 || C > kMaxC || C % 8 || chunk <= 0 ||
+      chunk % kRows || S != (n + chunk - 1) / chunk || S > 65535 ||
+      (groups != 1 && groups != 2) || (groups == 1 && C > 256) || stages < 1 || stages > 3 ||
+      (tr != 32 && tr != 64) || ctas < 1 || ctas > tiles || ctas > 65535 * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  attn_bf16::OutMaps maps;
+  cudaError_t e = hopper_tma::weight_map(&maps.wqkv, wqkv, C, kQKV, kQKV);
+  if (e == cudaSuccess) e = hopper_tma::weight_map(&maps.wo, wo, kHidden, C, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* ctx = part + static_cast<size_t>(B) * S * kHidden * kPartStride;
+  const int nb = (C + 127) / 128;
+  if (stages & 1) {
+    if (groups == 1)
+      e = nb == 1 ? launch_context_bf16<4, 1>(x, g, maps.wqkv, part, B, n, C, S, chunk, 1, st)
+                  : launch_context_bf16<4, 2>(x, g, maps.wqkv, part, B, n, C, S, chunk, 1, st);
+    else
+      e = nb == 1   ? launch_context_bf16<2, 1>(x, g, maps.wqkv, part, B, n, C, S, chunk, 2, st)
+          : nb == 2 ? launch_context_bf16<2, 2>(x, g, maps.wqkv, part, B, n, C, S, chunk, 2, st)
+          : nb == 3 ? launch_context_bf16<2, 3>(x, g, maps.wqkv, part, B, n, C, S, chunk, 2, st)
+                    : launch_context_bf16<2, 4>(x, g, maps.wqkv, part, B, n, C, S, chunk, 2, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (stages & 2) {
+    la_merge_tc_kernel<<<B, kThreads, 0, st>>>(part, ctx, S);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = nb == 1   ? launch_output_bf16<1>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st)
+        : nb == 2 ? launch_output_bf16<2>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st)
+        : nb == 3 ? launch_output_bf16<3>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st)
+                  : launch_output_bf16<4>(x, g, maps, ctx, bo, og, out, B, n, C, tr, ctas, st);
+    return static_cast<int>(e);
   }
   return 0;
 }
@@ -176,13 +303,16 @@ extern "C" int linear_attention_tc_f32(const float* x, const float* g, const flo
   return linear_attention_tc(x, g, wqkv, wo, bo, og, part, out, dims, stream);
 }
 
-// The bf16 variant: wqkv and wo bf16 (C a multiple of 8); the projection
-// passes (K5a's k and v, K5b's q and out-projection) run bf16 products on
-// operands rounded to bf16, the context passes (mma_smem) stay 3xTF32 on
-// fp32 values; the rest as linear_attention_tc_f32.
+// The bf16 variant: wqkv and wo bf16, C a multiple of 8, head groups 2
+// wherever C > 256 (attention_bf16.cuh's bodies); dims[7]: K5b's CTAs, 1 ..
+// ceil(B n / tr), each over a contiguous share of the tiles of the
+// flattened tokens (fewer CTAs than tiles, C <= 128 only: the several-tiles
+// variant);
+// dims[8]: tr, K5b's tokens per tile, 64 or 32; the rest as
+// linear_attention_tc_f32.
 extern "C" int linear_attention_tc_bf16(const float* x, const float* g,
                                         const __nv_bfloat16* wqkv, const __nv_bfloat16* wo,
                                         const float* bo, const float* og, float* part,
                                         float* out, const int* dims, void* stream) {
-  return linear_attention_tc(x, g, wqkv, wo, bo, og, part, out, dims, stream);
+  return linear_attention_bf16(x, g, wqkv, wo, bo, og, part, out, dims, stream);
 }

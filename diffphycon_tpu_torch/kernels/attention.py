@@ -41,13 +41,18 @@ out-projection, whose 32-deep slices are the heads, summed in head order.
 :func:`attention_tiled_emulated` is that arithmetic in plain PyTorch.
 
 bf16 weights: bfloat16 ``wqkv`` and ``wo`` select K5's and K6's bf16
-variants (``linear_attention_tc_bf16``, ``attention_bf16``): the projections
-(K5a's k/v and K5b's q and out-projection passes, K6a and K6c) run
-``mma.sync`` bf16 with their float32 operand rounded to bfloat16, as the
+variants (``linear_attention_tc_bf16``, ``attention_bf16``;
+``csrc/attention_bf16.cuh``): the projections (K5a's k | v, K5b's q and
+out-projection, K6a and K6c) run ``wgmma`` bf16 on the float32 operand
+rounded to bfloat16 once into shared memory, with the weights by TMA, as the
 Pallas ``_matmul`` does under ``weight_dtype=bfloat16``; the context and
-attention-core products (``mma_smem``) stay 3xTF32 on float32 values, as
-Pallas computes them in float32. The plain versions round the same operands
-(``unet2d_blocks.matmul_w``); ``bf16_launches`` counts the bf16 calls.
+attention-core products stay 3xTF32 on float32 values, as Pallas computes
+them in float32. K5b, K6a and K6c tile the flattened (B n) tokens 64 (K5b: or 32) at a
+time (:func:`attn_tile_rows` with ``bf16``; K5b's tiles and CTAs
+:func:`la_output_plan`); K5a takes two heads a CTA wherever C > 256
+(:func:`la_head_groups` with ``bf16``). The plain versions
+round the same operands (``unet2d_blocks.matmul_w``); ``bf16_launches``
+counts the bf16 calls.
 
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
@@ -141,14 +146,32 @@ def la_chunk_plan(B: int, n: int, sms: int = kb.SM_COUNT):
     return LA_CHUNKS[-1], math.ceil(n / LA_CHUNKS[-1])
 
 
-def la_head_groups(B: int, S: int, sms: int = kb.SM_COUNT) -> int:
+def la_head_groups(B: int, S: int, sms: int = kb.SM_COUNT, *, C: int = 0,
+                   bf16: bool = False) -> int:
     """CTAs per (sample, chunk) of K5a: 2 (two heads each, one 128-column
     k|v pass per tile) where even twice B * S CTAs leave some of `sms` SMs
     idle, else 1 (all four heads, a k pass and a v pass per tile). Where the
     CTAs already share SMs, the split mostly repeats the x tile's copy and
     ChanLN (``tools/sweep_la_head_groups.py`` times both choices at every
-    site)."""
-    return 2 if 2 * B * S <= sms else 1
+    site). The bf16 variant (``bf16``) keeps its k and v columns resident in
+    shared memory, C x 64 per head in bf16, so it takes 2 also wherever
+    C > 256."""
+    return 2 if 2 * B * S <= sms or (bf16 and C > 256) else 1
+
+
+@functools.lru_cache(maxsize=None)
+def la_output_plan(B: int, n: int, C: int, sms: int = kb.SM_COUNT):
+    """(tokens per tile, CTAs) of the bf16 K5b over the B n flattened
+    tokens. Tiles of 64 tokens, or of 32 where twice as many 32-token tiles
+    still fit one wave (more SMs share the x tile's loads and stores; the
+    wgmma rows past 32 are zero). Where the tiles outnumber the SMs and C <=
+    128, one CTA an SM, each over a contiguous share of the tiles (fewer CTAs
+    than tiles select the kernel's several-tiles variant: a sample's context
+    tiles built once for several tiles, the next x tile copied while one
+    finishes); else one CTA a tile."""
+    tr = 32 if 2 * -(-B * n // LA_TILE) <= sms else LA_TILE
+    tiles = -(-B * n // tr)
+    return tr, (sms if C <= 128 and tiles > sms else tiles)
 
 
 def linear_attention_chunked_emulated(x, p, chunk: int):
@@ -181,11 +204,11 @@ def linear_attention_chunked_emulated(x, p, chunk: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _linear_shapes(x_shape):
-    """The checks of one K5 call that depend on x's shape alone, once per
-    shape: (the kernel's ints (B, n, C, S, chunk, head groups), the
-    weights' shapes, floats of its scratch: the chunks' partials, then the
-    merged contexts)."""
+def _linear_shapes(x_shape, bf16=False):
+    """The checks of one K5 call that depend on x's shape (and the weights'
+    dtype) alone, once per shape: (the kernel's ints (B, n, C, S, chunk,
+    head groups), the weights' shapes, floats of its scratch: the chunks'
+    partials, then the merged contexts)."""
     if len(x_shape) != 4:
         raise ValueError(f"linear_attention_block: x must be NHWC, got {tuple(x_shape)}")
     B, H, W, C = x_shape
@@ -199,7 +222,7 @@ def _linear_shapes(x_shape):
     chunk, S = la_chunk_plan(B, n)
     weights = ((C,), (C, 3 * hidden), (hidden, C), (C,), (C,))
     scratch = B * S * hidden * LA_PART + B * hidden * KERNEL_DIM_HEAD
-    return (B, n, C, S, chunk, la_head_groups(B, S)), weights, scratch
+    return (B, n, C, S, chunk, la_head_groups(B, S, C=C, bf16=bf16)), weights, scratch
 
 
 _WEIGHT_NAMES = ("norm_g", "wqkv", "wo", "bo", "out_g")
@@ -214,18 +237,19 @@ def _check_weights(name, tensors, shapes):
 def _linear_launch(x, norm_g, wqkv, wo, bo, out_g, stages=3, part=None):
     kb._check_cuda("linear_attention_block", bf16=("wqkv", "wo"), x=x, norm_g=norm_g,
                    wqkv=wqkv, wo=wo, bo=bo, out_g=out_g)
-    ints, weights, part_floats = _linear_shapes(x.shape)
+    bf16 = kb.weight_is_bf16("linear_attention_block", wqkv, wo)
+    ints, weights, part_floats = _linear_shapes(x.shape, bf16)
     _check_weights("linear_attention_block", (norm_g, wqkv, wo, bo, out_g), weights)
     kb._check_vec4("linear_attention_block", (), (x, norm_g, wqkv, wo, bo, out_g))
-    bf16 = kb.weight_is_bf16("linear_attention_block", wqkv, wo)
     out = torch.empty_like(x)
     if part is None:
         part = x.new_empty(part_floats)
     lib = _build.load_library()
+    out_plan = la_output_plan(ints[0], ints[1], ints[2]) if bf16 else (0, 0)
     err = (lib.linear_attention_tc_bf16 if bf16 else lib.linear_attention_tc_f32)(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints + (stages,)),
-        kb._stream(x))
+        out_g.data_ptr(), part.data_ptr(), out.data_ptr(),
+        kb.int_array(ints + (stages, out_plan[1], out_plan[0])), kb._stream(x))
     _build.check(err, "linear_attention_block")
     return out
 
@@ -249,10 +273,14 @@ def linear_attention_stages(x, p):
             functools.partial(_linear_launch, *args, stages=2, part=part))
 
 
-def attn_tile_rows(B: int, n: int, sms: int = kb.SM_COUNT) -> int:
+def attn_tile_rows(B: int, n: int, sms: int = kb.SM_COUNT, bf16: bool = False) -> int:
     """Tokens per K6a/K6c tile: 64, or 32 where 64-token tiles would give
     K6a's three passes fewer than one CTA per SM of `sms` (a 32-token CTA
-    fits twice on an SM at C = 512, a 64-token one once)."""
+    fits twice on an SM at C = 512, a 64-token one once). The bf16 variant
+    (``bf16``) always takes 64: its wgmma products are 64 rows, so a
+    32-token tile would leave half of each idle."""
+    if bf16:
+        return 64
     return 64 if 3 * math.ceil(B * n / 64) >= sms else 32
 
 
@@ -260,8 +288,10 @@ def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):
     """The full block as K6 computes it, in plain PyTorch: per (sample,
     head) the softmax taken online over tiles of `key_tile` keys (running
     max, rescaled running sum and output), then the out-projection as the
-    four heads' partials o_h wo[32 h : 32 h + 32] summed in head order, the
-    bias and the residual (fp32 products, not K6's 3xTF32). For the tests."""
+    four heads' partials o_h wo[32 h : 32 h + 32] summed in head order (a
+    bfloat16 ``wo``: one product over all 128 channels, as the bf16 K6c's one
+    wgmma chain), the bias and the residual (fp32 products, not K6's
+    3xTF32). For the tests."""
     norm_g, wqkv, wo, bo = p["norm_g"], p["wqkv"], p["wo"], p["bo"]
     b, hs, ws, c = x.shape
     n = hs * ws
@@ -279,6 +309,9 @@ def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):
         o = o * alpha[..., None] + torch.einsum("bhij,bjhd->bhid", e, v[:, k0:k0 + key_tile])
         m = m_new
     o = o / total[..., None]  # (b, h, n, d)
+    if wo.dtype == torch.bfloat16:  # the bf16 K6c: one chain over all 128 channels
+        acc = kb.matmul_w(o.permute(0, 2, 1, 3).reshape(b, n, KERNEL_HEADS * KERNEL_DIM_HEAD), wo)
+        return x + (acc + bo).reshape(b, hs, ws, c)
     acc = kb.matmul_w(o[:, 0], wo[:KERNEL_DIM_HEAD])
     for h in range(1, KERNEL_HEADS):
         acc = acc + kb.matmul_w(o[:, h], wo[h * KERNEL_DIM_HEAD:(h + 1) * KERNEL_DIM_HEAD])
@@ -286,9 +319,9 @@ def attention_tiled_emulated(x, p, key_tile: int = ATTN_KEY_TILE):
 
 
 @functools.lru_cache(maxsize=None)
-def _full_shapes(x_shape):
-    """The checks of one K6 call that depend on x's shape alone, once per
-    shape: (the kernel's ints (B, n, C, tile rows), the weights' shapes,
+def _full_shapes(x_shape, bf16=False):
+    """The checks of one K6 call that depend on x's shape (and the weights'
+    dtype) alone, once per shape: (the kernel's ints (B, n, C, tile rows), the weights' shapes,
     floats of its scratch: qkv, then the attention output)."""
     if len(x_shape) != 4:
         raise ValueError(f"attention_block: x must be NHWC, got {tuple(x_shape)}")
@@ -301,16 +334,16 @@ def _full_shapes(x_shape):
     if not 1 <= B <= 65535 or n < 1 or B * n * 4 * hidden > kb._INT32_MAX:
         raise ValueError(f"attention_block: x {tuple(x_shape)} is too large")
     weights = ((C,), (C, 3 * hidden), (hidden, C), (C,))
-    return (B, n, C, attn_tile_rows(B, n)), weights, B * n * 4 * hidden
+    return (B, n, C, attn_tile_rows(B, n, bf16=bf16)), weights, B * n * 4 * hidden
 
 
 def _full_launch(x, norm_g, wqkv, wo, bo):
     kb._check_cuda("attention_block", bf16=("wqkv", "wo"), x=x, norm_g=norm_g, wqkv=wqkv,
                    wo=wo, bo=bo)
-    ints, weights, scratch_floats = _full_shapes(x.shape)
+    bf16 = kb.weight_is_bf16("attention_block", wqkv, wo)
+    ints, weights, scratch_floats = _full_shapes(x.shape, bf16)
     _check_weights("attention_block", (norm_g, wqkv, wo, bo), weights)
     kb._check_vec4("attention_block", (), (x, norm_g, wqkv, wo, bo))
-    bf16 = kb.weight_is_bf16("attention_block", wqkv, wo)
     out = torch.empty_like(x)
     scratch = x.new_empty(scratch_floats)
     lib = _build.load_library()

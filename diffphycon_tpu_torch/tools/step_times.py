@@ -5,7 +5,9 @@ checkouts in turns on one card.
 Prints one JSON line: the Burgers training step at batch 16 (ms per step
 in 4 windows of 10 steps after 3 warm-up steps, as ``chip_smoke.py`` phase
 8 times it), guided DDPM steps/s at batch 50 with two seeded UNet2Ds and
-guidance (3 windows of 20 steps after 3 warm-up steps), K6 at the Burgers
+guidance (3 windows of 20 steps after 3 warm-up steps), one UNet2D forward
+at batch 50 (median ms per CUDA-event pair of 20, also under
+``--ddpm-only``), K6 at the Burgers
 bottleneck (50, 2, 16, 512) (median ms per CUDA-event pair of 50 calls, and
 the device time alone: 20 calls in a CUDA graph), and K4 per solve at batch
 8 on the 127x127 smoke domain (median per event pair of 10 solves of seeded
@@ -308,6 +310,10 @@ def main() -> int:
         del trainer
     net.eval()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    xf = torch.randn(50, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
+    tf = torch.linspace(0, 999, 50, device="cuda")
+    with torch.no_grad():
+        out["forward_ms"] = timed(torch, lambda: net(xf, tf), 20)
     u_target = torch.randn(50, 11, 128, generator=gen, device="cuda")
     cond = {"u0": u_target[:, 0, :] / bench.RESCALER, "uT": u_target[:, 10, :] / bench.RESCALER}
     guidance = bench.build_guidance(cfg, u_target, wu=1000.0)

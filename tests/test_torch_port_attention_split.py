@@ -46,12 +46,14 @@ def _sites(batch, kind):
                    if k == kind})
 
 
-@pytest.mark.parametrize("batch", [50, 16, 1])
-def test_port_la_chunk_plan_at_main_path_shapes(batch):
+@pytest.mark.parametrize("batch,bf16", [pytest.param(b, bf, id=f"{b}-bf16" if bf else str(b))
+                                        for bf in (False, True) for b in (50, 16, 1)])
+def test_port_la_chunk_plan_at_main_path_shapes(batch, bf16):
     """Chunks of whole 64-token tiles, at most 256 tokens, that cover the
     sample with none empty; one wave of CTAs unless the smallest chunk
     cannot give one; the heads split over two CTAs while that leaves SMs
-    idle."""
+    idle, and under the bf16 variant also wherever C > 256 (its resident
+    k | v columns: at most 128 KB)."""
     for b, h, w, c in _sites(batch, "linear_attention_block"):
         n = h * w
         chunk, S = ka.la_chunk_plan(b, n)
@@ -60,14 +62,29 @@ def test_port_la_chunk_plan_at_main_path_shapes(batch):
         assert b * S >= kb.SM_COUNT or chunk == ka.LA_CHUNKS[-1], (b, n, chunk, S)
         if chunk < ka.LA_CHUNKS[0]:  # a larger chunk would not fill the wave
             assert b * math.ceil(n / (2 * chunk)) < kb.SM_COUNT
-        groups = ka.la_head_groups(b, S)
-        assert groups in (1, 2) and (groups == 2) == (2 * b * S <= kb.SM_COUNT)
+        groups = ka.la_head_groups(b, S, C=c, bf16=bf16)
+        assert groups in (1, 2)
+        assert (groups == 2) == (2 * b * S <= kb.SM_COUNT or (bf16 and c > 256))
+        assert ka._linear_shapes((b, h, w, c), bf16)[0] == (b, n, c, S, chunk, groups)
+        if bf16:  # the resident k | v stages of a CTA, 64 k x 64 columns each
+            assert -(-c // 64) * (4 // groups) * 64 * 64 * 2 <= 128 * 1024
+            # K5b over the flattened tokens: 32-token tiles where twice as many
+            # still fit one wave, else 64; one CTA an SM where the tiles
+            # outnumber them and C <= 128, else one a tile
+            tr, ctas = ka.la_output_plan(b, n, c)
+            assert tr == (32 if 2 * -(-b * n // 64) <= kb.SM_COUNT else 64)
+            tiles = -(-b * n // tr)
+            assert ctas == (kb.SM_COUNT if c <= 128 and tiles > kb.SM_COUNT else tiles)
+            if batch == 50 and n == 32:  # the 32-token sites: 50 tiles of 32
+                assert (tr, ctas) == (32, 50)
     if batch == 50:
         plans = {h * w: ka.la_chunk_plan(50, h * w)
                  for _, h, w, _ in _sites(50, "linear_attention_block")}
         assert plans == {2048: (256, 8), 512: (128, 4), 128: (64, 2), 32: (64, 1)}
-        groups = {n: ka.la_head_groups(50, S) for n, (_, S) in plans.items()}
+        groups = {n: ka.la_head_groups(50, S, C=256, bf16=bf16) for n, (_, S) in plans.items()}
         assert groups == {2048: 1, 512: 1, 128: 1, 32: 2}  # 50 CTAs doubled
+        if bf16:  # wider than 256 channels: two heads a CTA whatever the wave
+            assert ka.la_head_groups(50, 8, C=512, bf16=True) == 2
 
 
 @pytest.mark.parametrize("batch", [50, 16, 1])

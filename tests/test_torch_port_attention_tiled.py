@@ -98,3 +98,13 @@ def test_port_attention_tile_rows():
         rows = ka.attn_tile_rows(B, n)
         assert rows in (32, 64)
         assert (rows == 64) == (3 * -(-B * n // 64) >= kb.SM_COUNT)
+
+
+@pytest.mark.parametrize("B,n", [(1, 1), (3, 28), (50, 32), (4, 128), (50, 2048)])
+def test_port_attention_tile_rows_bf16(B, n):
+    """The bf16 variant's K6a and K6c take 64 tokens of the flattened (B n)
+    tokens everywhere: its wgmma products are 64 rows; the shapes' checks
+    hand the kernel that tile."""
+    assert ka.attn_tile_rows(B, n, bf16=True) == 64
+    assert ka._full_shapes((B, 1, n, 64), True)[0] == (B, n, 64, 64)
+    assert ka._full_shapes((B, 1, n, 64), False)[0][3] == ka.attn_tile_rows(B, n)

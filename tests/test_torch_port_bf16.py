@@ -212,6 +212,30 @@ def test_bf16_emulations_follow_the_rule():
         assert_close(out, ref, BLOCK_RTOL)
 
 
+@pytest.mark.parametrize("linear", [True, False])
+@pytest.mark.parametrize("shape", [(2, 4, 16, 32), (3, 1, 21, 16)])
+def test_bf16_emulations_match_pallas_bf16(linear, shape):
+    """K5's and K6's arithmetic under bf16 weights in plain PyTorch (K5's
+    chunked context merged in chunk order; K6's online softmax and its
+    out-projection as one product over all 128 channels, as the bf16 K6c
+    sums it) against the plain version and the Pallas kernel run with bf16
+    weights, on 64 tokens a sample and on 21 (the bf16 kernels' 64-token
+    tiles of the flattened tokens then hold three samples)."""
+    x = 2 * rand(*shape, seed=13) + 0.3
+    p = _attn_case(shape[-1], linear, seed=31)
+    tp = _port_pack(p)
+    if linear:
+        out = ka.linear_attention_chunked_emulated(_t(x), tp, chunk=64)
+        ref = ka.linear_attention_block_plain(_t(x), tp)
+        pallas = pu.linear_attention_block(jnp.asarray(x), _pallas_pack(p))
+    else:
+        out = ka.attention_tiled_emulated(_t(x), tp, key_tile=16)
+        ref = ka.attention_block_plain(_t(x), tp)
+        pallas = pu.attention_block(jnp.asarray(x), _pallas_pack(p))
+    assert_close(out, ref, BLOCK_RTOL)
+    assert_close(out, pallas, BLOCK_RTOL)
+
+
 @pytest.fixture(scope="module")
 def small_net():
     """A dim-8, mults (1, 2) JAX UNet2D tree, the port net carrying it in

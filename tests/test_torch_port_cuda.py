@@ -657,10 +657,14 @@ def test_port_bf16_core_one_tile_reads_the_weight_mn_major(cuda_device, monkeypa
 @pytest.mark.cuda
 @pytest.mark.parametrize("linear", [True, False])
 def test_port_bf16_attention_kernels_match_plain(cuda_device, linear):
-    """K5's and K6's bf16 variants (bf16 projections, 3xTF32 context and
-    core) at every main-path site at batch 50 and on ragged shapes, two
+    """K5's and K6's bf16 variants (bf16 wgmma projections, 3xTF32 context
+    and core) at every main-path site at batch 50 and on ragged shapes, two
     calls bit-equal; the plain VJP reaches the fp32 weight through
-    .to(bfloat16)."""
+    .to(bfloat16). The 64-token tiles of K5b, K6a and K6c run over the
+    flattened tokens: 32-token samples two to a tile (3 x 2 x 16 at 512
+    channels), 24 and 21 tokens whose tiles start inside a sample and hold
+    up to four (the third and fourth contexts read from L2), and C = 8 (one
+    16-deep product of a 64-deep block of zeros past C)."""
     from diffphycon_tpu_torch.kernels import attention as ka
 
     g = torch.Generator(device=cuda_device).manual_seed(19)
@@ -668,7 +672,8 @@ def test_port_bf16_attention_kernels_match_plain(cuda_device, linear):
     plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
     sites = _main_path_sites("linear_attention_block" if linear else "attention_block")
     kb.reset_launch_counts()
-    for b, h, w, c in sites + [(3, 5, 27, 64), (2, 9, 40, 96), (2, 1, 3, 512)]:
+    for b, h, w, c in sites + [(3, 5, 27, 64), (2, 9, 40, 96), (2, 1, 3, 512), (3, 2, 16, 512),
+                               (5, 1, 24, 256), (2, 3, 7, 96), (3, 4, 7, 8), (4, 2, 16, 8)]:
         x = 2 * torch.randn(b, h, w, c, generator=g, device=cuda_device) + 0.3
         p = _bf16_attn(c, g, cuda_device, linear)
         out = kern(x, p)
@@ -782,3 +787,78 @@ def test_port_unet2d_mega_bf16_kernel_matches_plain_on_gpu(cuda_device, dim, mul
         assert counts["unet2d_mega"] == counts["unet2d_mega.bf16"] == 1, counts
         assert_close(out, km.unet2d_mega_plain(x0, film, packs, plan), 1e-2)
         assert torch.equal(out, km.unet2d_mega(x0, film, packs, plan))
+
+
+def _untouched_digests(device):
+    """SHA-256 (first 16 hex digits) of the outputs of the kernels whose
+    bodies the bf16 attention redesign leaves as they were: fp32 K5 and K6
+    (3xTF32 bodies of linear_attention_tc.cuh and attention.cuh), and K7 and
+    K8 in both weight dtypes (the persistent kernel, which runs those bodies
+    and igemm_tc.cuh's). Inputs from numpy generators, nets from seeded_init_
+    on the CPU, so the digests depend on the kernels alone."""
+    import hashlib
+
+    import numpy as np
+
+    from diffphycon_tpu_torch.kernels import attention as ka
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D
+
+    rng = np.random.default_rng(23)
+
+    def r(*s, scale=1.0, shift=0.0):
+        return torch.as_tensor(rng.normal(size=s).astype(np.float32) * scale + shift,
+                               device=device)
+
+    def attn(c, linear):
+        p = {"norm_g": r(c, scale=0.1, shift=1.0), "wqkv": r(c, 384, scale=c ** -0.5),
+             "wo": r(128, c, scale=128 ** -0.5), "bo": r(c, scale=0.1)}
+        if linear:
+            p["out_g"] = r(c, scale=0.1, shift=1.0)
+        return p
+
+    def digest(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    with torch.no_grad():
+        for shape in ((3, 16, 128, 64), (2, 2, 16, 512), (5, 1, 24, 256)):
+            out[f"k5_f32{list(shape)}"] = digest(
+                ka.linear_attention_block(r(*shape), attn(shape[-1], True)))
+        for shape in ((50, 2, 16, 512), (3, 4, 7, 64)):
+            out[f"k6_f32{list(shape)}"] = digest(
+                ka.attention_block(r(*shape), attn(shape[-1], False)))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            c = 256
+            pack = {"w1": r(9 * c, c, scale=(9 * c) ** -0.5), "b1": r(c, scale=0.1),
+                    "gs1": r(c, scale=0.1, shift=1.0), "gb1": r(c, scale=0.1),
+                    "w2": r(9 * c, c, scale=(9 * c) ** -0.5), "b2": r(c, scale=0.1),
+                    "gs2": r(c, scale=0.1, shift=1.0), "gb2": r(c, scale=0.1)}
+            if dtype == torch.bfloat16:
+                pack["w1"], pack["w2"] = pack["w1"].to(dtype), pack["w2"].to(dtype)
+            x, ss = r(2, 4, 32, 256), r(2, 512, scale=0.5)
+            out[f"k7_{name}"] = digest(kb.resblock_pair(x, ss, ss, pack, pack, groups=2))
+            net = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2, 4, 8), weight_dtype=dtype),
+                               torch.Generator().manual_seed(0)).to(device)
+            out[f"k8_{name}"] = digest(net.forward_mega(r(3, 16, 128, 2),
+                                                        torch.linspace(0, 999, 3, device=device)))
+    return out
+
+
+# recorded on NVIDIA H100 80GB HBM3 from the kernels as they were before
+# K5's and K6's bf16 variants moved to csrc/attention_bf16.cuh
+UNTOUCHED_DIGESTS = {
+    "k5_f32[3, 16, 128, 64]": "bbeddfc90955d650", "k5_f32[2, 2, 16, 512]": "5a8074b50d321977",
+    "k5_f32[5, 1, 24, 256]": "3fa15c66f5d7855b", "k6_f32[50, 2, 16, 512]": "e8b5c7f4d5c1d999",
+    "k6_f32[3, 4, 7, 64]": "a25c9b6edcff0e8e", "k7_f32": "6fe6e64efa1397a2",
+    "k8_f32": "764fedba11a8ccbd", "k7_bf16": "83e71d8e298961f5", "k8_bf16": "3aefbf312560ec8b"}
+
+
+@pytest.mark.cuda
+def test_port_untouched_kernels_bit_equal_to_recorded_digests(cuda_device):
+    """fp32 K5 and K6, and K7 and K8 in both weight dtypes, give outputs
+    bit-equal to digests recorded before the bf16 attention bodies moved to
+    their own header: the bodies they run stayed as they were."""
+    assert _untouched_digests(cuda_device) == UNTOUCHED_DIGESTS
