@@ -303,6 +303,7 @@ SOURCES = {
 }
 SMOKE_SOURCES = {"cg_pressure": ("cuda", "diffphycon_tpu_torch/csrc/cg_pressure.cu")}
 PERSISTENT_SRC = ("cuda", "diffphycon_tpu_torch/csrc/unet2d_persistent.cu")
+PERSISTENT_BF16_SRC = "diffphycon_tpu_torch/csrc/unet2d_persistent_bf16.cu"  # its bf16 instance
 REPLACES.update({
     "resblock_pair": "diffphycon_tpu/research/pallas_unet2d.py:170 (_resblock_pair_kernel; "
                      "wrapper resblock_pair :414, pallas_call through _run :360)",
@@ -334,8 +335,8 @@ BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
 BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
 BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
 BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
-MPC_FRAMES = 6       # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
-MPC_LBFGS_FRAMES = 4  # the MPC_LBFGS app run's frames (default 20)
+MPC_FRAMES = 2       # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
+MPC_LBFGS_FRAMES = 2  # the MPC_LBFGS app run's frames (default 20)
 MPC_LBFGS_ITERS = 1   # timed L-BFGS iterations of the replan at t = 0
 MPC_TIMED_ITERS = 2   # timed Adam replanning iterations at t = 0 (their larger is kept)
 RL_SAC_B = 64         # train_baselines_smoke's default batch (the conv SAC)
@@ -1473,6 +1474,43 @@ def unet2d_mega_phase(torch, smi_line, bench, cfg):
             "unet2d_mega_bf16": _mega_bf16(torch, smi_line, bench)}
 
 
+def _maps_cost(torch, kb, kmega, launch, n=20):
+    """What the tensor maps cost a bf16 K7/K8 launch (each launch encodes
+    them on the host and writes them on the device, ``unet2d_mega._maps``):
+    over n launches enqueued back to back, the median host time of the
+    launch and of its ``_maps`` call (encoding, allocation and the writing
+    kernels' enqueue), in us; the writing kernels' device time alone
+    (``timed_graph``), in us; the maps a launch writes."""
+    from unittest import mock
+
+    encode, maps_s, launch_s, last = kmega._maps, [], [], []
+
+    def timed_maps(*args):
+        tic = time.perf_counter()
+        out = encode(*args)
+        maps_s.append(time.perf_counter() - tic)
+        last[:] = args
+        return out
+
+    with mock.patch.object(kmega, "_maps", timed_maps):
+        launch()
+        torch.cuda.synchronize()
+        maps_s.clear()
+        for _ in range(n):
+            tic = time.perf_counter()
+            launch()
+            launch_s.append(time.perf_counter() - tic)
+        torch.cuda.synchronize()
+    plan, bases, _, device, lib = last
+    dev_ms, dev_err = timed_graph(
+        torch, lambda: encode(plan, bases, kb._stream(torch.empty(0, device=device)), device,
+                              lib), n=10)
+    return {"maps": len(plan.map_specs), "maps_host_us": 1e6 * sorted(maps_s)[n // 2],
+            "launch_host_us": 1e6 * sorted(launch_s)[n // 2],
+            "maps_device_us": None if dev_ms is None else 1e3 * dev_ms,
+            **({"maps_device_error": dev_err} if dev_err else {})}
+
+
 def _mega_bf16(torch, smi_line, bench):
     """Phase 10, bf16: ``BurgersConfig(bf16=True)`` nets (bf16 packs, the
     JAX mega kernel's default) through ``forward_mega`` at batch 50: exactly
@@ -1534,6 +1572,7 @@ def _mega_bf16(torch, smi_line, bench):
         k_plain_ms = timed(torch, lambda: kmega.unet2d_mega_plain(x0, film, packs, plan), n=3)
         k_device_ms, k_device_err = timed_graph(
             torch, lambda: kmega.unet2d_mega(x0, film, packs, plan), n=10)
+        maps = _maps_cost(torch, kb, kmega, lambda: kmega.unet2d_mega(x0, film, packs, plan))
         fwd_ms = {"forward_mega": [], "forward_k1_k6": []}
         for name in ("forward_mega", "forward_k1_k6", "forward_k1_k6", "forward_mega"):
             fn = net.forward_mega if name == "forward_mega" else net
@@ -1546,7 +1585,7 @@ def _mega_bf16(torch, smi_line, bench):
           "bit_equal_repeat": bit_equal, "finite": finite, "kernel_max_abs_err": k_err,
           "kernel_rel_err": k_err / k_scale, "kernel_ms": k_ms, "kernel_device_ms": k_device_ms,
           **({"kernel_device_ms_error": k_device_err} if k_device_err else {}),
-          "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "kernel_plain_ms": k_plain_ms, "bound_ms": b_ms, "bound_by": b_by, **maps,
           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, "forward_ms_in_turns": fwd_ms,
           "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
     if not (err_plain <= BF16_UNET_RTOL * scale and err_k <= BF16_UNET_RTOL * scale and finite):
@@ -3966,7 +4005,8 @@ def main() -> int:
     for k, row in persistent.items():
         base = k.removesuffix("_bf16")
         replaces = REPLACES[base] + BF16_PACKS.get(k, "")
-        kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": PERSISTENT_SRC[1],
+        src = PERSISTENT_BF16_SRC if k.endswith("_bf16") else PERSISTENT_SRC[1]
+        kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": src,
                         "replaces": replaces, **row})
     kernels += bf16_records
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),

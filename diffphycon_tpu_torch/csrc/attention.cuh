@@ -44,10 +44,10 @@ __host__ __device__ constexpr int out_smem_floats(int TR) { return TR * kOS + kW
 
 // K6a: tokens tile * TR .. of the flattened (T, C) input, projected onto
 // pass `pass` of wqkv (0 q, 1 k, 2 v); smem: qkv_smem_floats(TR, C) floats.
-template <int TR, class TW = float>
+template <int TR>
 __device__ __forceinline__ void attn_qkv_body(const float* __restrict__ x,
                                               const float* __restrict__ g,
-                                              const TW* __restrict__ wqkv,
+                                              const float* __restrict__ wqkv,
                                               float* __restrict__ qkv, int T, int C, int tile,
                                               int pass, float* smem) {
   const int ldx = C + 4;
@@ -57,7 +57,7 @@ __device__ __forceinline__ void attn_qkv_body(const float* __restrict__ x,
   float* rstd = mean + kRows;
   const int tile0 = tile * TR;
   const int rows = min(TR, T - tile0);
-  const WeightPassT<TW> wp{wqkv, kQKV, pass * kCols, kCols, C, pass * kCols + kCols / 2};
+  const WeightPass wp{wqkv, kQKV, pass * kCols, kCols, C, pass * kCols + kCols / 2};
   int slot = 0;
   load_w_slice(wp, 0, wbuf, slot);
   load_rows(X, ldx, x + static_cast<size_t>(tile0) * C, C, rows, TR, C, threadIdx.x, kThreads);
@@ -191,9 +191,9 @@ __device__ __forceinline__ void attn_core_body(const float* __restrict__ qkv,
 
 // K6c: tokens tile * TR .., output channels ct * 128 ..: out = x + (O wo +
 // bo); smem: out_smem_floats(TR) floats.
-template <int TR, class TW = float>
+template <int TR>
 __device__ __forceinline__ void attn_out_body(const float* __restrict__ o,
-                                              const TW* __restrict__ wo,
+                                              const float* __restrict__ wo,
                                               const float* __restrict__ bo,
                                               const float* __restrict__ x,
                                               float* __restrict__ out, int T, int C, int tile,
@@ -202,7 +202,7 @@ __device__ __forceinline__ void attn_out_body(const float* __restrict__ o,
   float* wbuf = Os + TR * kOS;   // two weight slices
   const int tile0 = tile * TR, n0 = ct * kCols;
   const int rows = min(TR, T - tile0), nvalid = min(kCols, C - n0);
-  const WeightPassT<TW> wp{wo, C, n0, nvalid, kHidden, n0 + kCols / 2};
+  const WeightPass wp{wo, C, n0, nvalid, kHidden, n0 + kCols / 2};
   int slot = 0;
   load_w_slice(wp, 0, wbuf, slot);
   load_rows(Os, kOS, o + static_cast<size_t>(tile0) * kHidden, kHidden, rows, TR, kHidden,

@@ -68,6 +68,17 @@
 // K5's merge and K6b are linear_attention_tc.cuh's la_merge_body and
 // attention.cuh's attn_core_body, unchanged. No atomics: two calls on the
 // same inputs are bit-equal.
+//
+// The persistent kernel (unet2d_persistent.cuh) runs the same bodies for the
+// attention stages of its bf16 instance. So the activations (x, the
+// attention output, the context) are read through L2 only (__ldcg), since
+// in that kernel other CTAs wrote them earlier in the same launch and the
+// read-only path or L1 may hold stale lines of a reused buffer, and each
+// body ends by invalidating its mbarriers, whose shared memory the next
+// stage takes for other data. The per-block kernels run the same code: K5
+// took as long as with the read-only path and cp.async, K6 0.4 us (1.5%)
+// longer a forward (tools/step_times.py --attention --bf16, PERF.md
+// section 6, PR 17).
 #pragma once
 
 #include <cuda.h>
@@ -117,6 +128,20 @@ __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A load of an activation: through L2 only.
+template <class T>
+__device__ __forceinline__ T ld_act(const T* p) {
+  return __ldcg(p);
+}
+
+// The end of a body: its n mbarriers at `bars` are invalidated once every
+// thread is past its waits (a barrier first).
+__device__ __forceinline__ void release_bars(uint32_t bars, int n) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < n; ++i) hopper_tma::mbar_inval(bars + 8 * i);
 }
 
 template <int N>
@@ -216,25 +241,27 @@ struct MmaTf32RS32 {
 // (c ~ hi + lo, each rounded to tf32 by cvt.rna), [32 e][128 B] K-major in
 // the 128-byte swizzle, the 8 d of k step kk in the order 8kk, 8kk + 2, ..,
 // 8kk + 6, 8kk + 1, 8kk + 3, .., 8kk + 7 (the A fragments' k slots, see
-// output_body). ctx_copy issues 4-byte cp.async copies of c into a staging
-// copy at the end of T ([4 * 32 (h, d)][33]), ctx_tiles waits for them and
-// transposes: the copies, the loads of a tile row's 32 d and the tile
-// stores, a row's 128 bytes a warp, are all free of bank conflicts. All
+// output_body). ctx_copy loads c through L2 and stores it into a staging
+// copy at the end of T ([4 * 32 (h, d)][33]), ctx_tiles transposes: the
+// stores, the loads of a tile row's 32 d and the tile stores, a row's 128
+// bytes a warp, are all free of bank conflicts. All
 // threads call both; ctx_tiles syncs twice (the staging copy overlaps the
 // tiles of heads 2 and 3), and the caller fences and syncs before wgmma
-// reads the tiles, and syncs before ctx_copy overwrites tiles in use.
+// reads the tiles, and syncs before ctx_copy overwrites tiles in use;
+// ctx_tiles's first barrier orders ctx_copy's stores before its reads.
 constexpr int kCtxStg = kHidden * (kDimHead + 1) * 4;  // the staging copy's bytes
 __device__ __forceinline__ void ctx_copy(const float* __restrict__ c, unsigned char* T, int tid) {
-  const uint32_t stg = smem_u32(T + kCtxBytes - kCtxStg);
+  constexpr int kPer = kHidden * kDimHead / kThreads;
+  // L2 only (cp.async's 4-byte copies go through L1): loads, then stores
+  float* stg = reinterpret_cast<float*>(T + kCtxBytes - kCtxStg);
+  float v[kPer];
 #pragma unroll
-  for (int it = 0; it < kHidden * kDimHead / kThreads; ++it) {
-    const int i = tid + it * kThreads;  // (h, d) = i / 32, e = i % 32
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     stg + 4 * ((i >> 5) * (kDimHead + 1) + (i & 31))),
-                 "l"(c + i)
-                 : "memory");
+  for (int it = 0; it < kPer; ++it) v[it] = __ldcg(c + tid + it * kThreads);
+#pragma unroll
+  for (int it = 0; it < kPer; ++it) {
+    const int i = tid + it * kThreads;
+    stg[(i >> 5) * (kDimHead + 1) + (i & 31)] = v[it];
   }
-  la_tc::cp_async_commit();
 }
 
 __device__ __forceinline__ void ctx_tiles(unsigned char* T, int tid) {
@@ -291,7 +318,7 @@ __device__ __forceinline__ void ln_load(const float* __restrict__ xt, int rows, 
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int f = q + 8 * j;
-      const float4 t = __ldg(src + (f < nf4 ? f : 0));
+      const float4 t = ld_act(src + (f < nf4 ? f : 0));
       xr.v[pp][j] = r < rows && f < nf4 ? t : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -590,6 +617,7 @@ __device__ __forceinline__ void context_body(const float* __restrict__ x,
   if (tid < kJ)
     *reinterpret_cast<float2*>(o + tid * kPartStride + kDimHead) =
         make_float2(mrow[tid], lrow[tid]);
+  release_bars(bars, KB);
 }
 
 // ---------------------------------------------------------------------------
@@ -619,6 +647,14 @@ __host__ __device__ constexpr int output_smem_bytes(int C, bool staged) {
 struct OutMaps {
   CUtensorMap wqkv, wo;
 };
+
+// A pair of x for K5b's residual: from the staged tile in shared memory, or
+// from device memory through L2 only.
+template <bool kStaged>
+__device__ __forceinline__ float2 x_pair(const float* p) {
+  if constexpr (!kStaged) return __ldcg(reinterpret_cast<const float2*>(p));
+  return *reinterpret_cast<const float2*>(p);
+}
 
 // K5b: tiles [tile_begin, tile_end) of tr tokens (64, or 32 where 64-token
 // tiles would leave most SMs idle: the rows past tr are zero) of the
@@ -930,8 +966,8 @@ __device__ __forceinline__ void output_body(const float* __restrict__ x,
         const int j = 4 * (jb & 1) + jj;
         const int c = 128 * cb + 64 * wg + 8 * j + 2 * tq, cc = c < C ? c : 0;
         gv[jj] = __ldg(reinterpret_cast<const float2*>(og + cc));
-        xv0[jj] = *reinterpret_cast<const float2*>(x0 + cc);
-        xv1[jj] = *reinterpret_cast<const float2*>(x1 + cc);
+        xv0[jj] = x_pair<kStaged>(x0 + cc);
+        xv1[jj] = x_pair<kStaged>(x1 + cc);
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -953,6 +989,7 @@ __device__ __forceinline__ void output_body(const float* __restrict__ x,
     LA_STAMP(stamp + 7);
     __syncthreads();  // the next tile rewrites A, and perhaps the context tiles
   }
+  release_bars(bars, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -1030,6 +1067,7 @@ __device__ __forceinline__ void qkv_body(const float* __restrict__ x, const floa
       *reinterpret_cast<float2*>(dst + 8 * j + 2 * tq) =
           make_float2(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
   }
+  release_bars(bars, D);
 }
 
 // K6c: tokens tile * 64 .., output channels ct * 128 .. (64 per
@@ -1065,7 +1103,7 @@ __device__ __forceinline__ void attn_out_body(const float* __restrict__ o,
         o + static_cast<size_t>(tile0 + (r < rows ? r : 0)) * kHidden + c0);
     float4 ov[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) ov[i] = __ldg(src + i);
+    for (int i = 0; i < 8; ++i) ov[i] = ld_act(src + i);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float4 v = r < rows ? ov[i] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -1100,7 +1138,7 @@ __device__ __forceinline__ void attn_out_body(const float* __restrict__ o,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
-      xv[h][j] = __ldg(reinterpret_cast<const float2*>(
+      xv[h][j] = ld_act(reinterpret_cast<const float2*>(
           x + static_cast<size_t>(tile0 + (r < rows ? r : 0)) * C + cc));
     }
   }
@@ -1118,6 +1156,7 @@ __device__ __forceinline__ void attn_out_body(const float* __restrict__ o,
                       xv[h][j].y + (acc[4 * j + 2 * h + 1] + bv[j].y));
     }
   }
+  release_bars(bars, 2);
 }
 
 }  // namespace attn_bf16

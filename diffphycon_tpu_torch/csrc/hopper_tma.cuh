@@ -28,6 +28,11 @@ constexpr int kAtomK = 64;
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
 }
+// before the mbarrier's shared memory is put to another use (every wait on
+// it done)
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
@@ -59,6 +64,17 @@ __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uin
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y), "r"(b)
       : "memory");
+}
+
+// A tensor map in global memory (not a __grid_constant__ parameter) that
+// generic stores wrote, made visible to this thread's TMA copies through it
+// (the tensormap proxy); the writer released it (tensormap_release) before
+// its kernel ended.
+__device__ __forceinline__ void tensormap_acquire(const void* map) {
+  asm volatile("fence.proxy.tensormap::generic.acquire.gpu [%0], 128;\n" ::"l"(map) : "memory");
+}
+__device__ __forceinline__ void tensormap_release() {
+  asm volatile("fence.proxy.tensormap::generic.release.gpu;\n" ::: "memory");
 }
 
 // Descriptor of a (16 k, N) bf16 slice of a weight tile, MN-major in the

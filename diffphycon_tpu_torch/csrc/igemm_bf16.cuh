@@ -29,9 +29,9 @@
 // copies go to the tensor memory accelerator (TMA) wherever a tile of the
 // activation is a box of it.
 //
-// Design (the five points of the redesign; igemm_tc.cuh's 3xTF32 body,
-// whose bf16 instantiation the persistent kernel still runs, is the
-// earlier one):
+// Design (the five points of the redesign; the persistent kernel's bf16
+// instance, unet2d_persistent.cuh, runs the same tile for its conv and
+// downsample stages):
 // 1. Deep stages. BK = 64 k per ring stage: four m64nBNk16 products per
 //    warpgroup, against one barrier and one fragment conversion. The A
 //    tile is fp32, two [BM][128 B] halves (k 0..31, 32..63) in the
@@ -150,7 +150,9 @@ struct Tile {
 };
 
 // The tensor maps of one launch (kernel parameter space: TMA reads them
-// there): the (K, N) weight, and with TMA_A the two sources.
+// there): the (K, N) weight, and with TMA_A the two sources. The tile takes
+// pointers to them, so that the persistent kernel can pass maps from a
+// table in device memory.
 struct Maps {
   CUtensorMap w, xa, xb;
 };
@@ -277,22 +279,28 @@ struct Mma<256> {
 // One BM x BN output tile (bx, by) over the BK-stages [z * per, (z + 1) *
 // per) of split z. Writes dst[z][m][n] (+ bias[n] when bias is not null:
 // the unsplit case). Called by all 2 * BM threads of a block with
-// Tile<BM, BN>::SMEM_BYTES of shared memory. TMA_A: the A tile by TMA
-// boxes (maps.xa / maps.xb, geo); else by the gather g. w: the weight, a
-// valid address for the gather's zero-filling copies.
+// Tile<BM, BN>::SMEM_BYTES of shared memory. mw: the weight's map; TMA_A:
+// the A tile by TMA boxes (mxa / mxb, geo); else by the gather g. w: the
+// weight, a valid address for the gather's zero-filling copies. bars: the
+// shared-memory address of STAGES mbarriers (one arrival each) that the
+// caller initialised; bit s of `phase` is the parity of ring slot s's next
+// completion (0 after the init), and the tile advances it past the
+// completions it consumes, so a persistent caller runs tile after tile on
+// the same mbarriers. The tile starts with a barrier: the caller's earlier
+// reads of the ring's shared memory, and the mbarriers' init, are done.
 template <class G, int BM, int BN, bool TMA_A>
-__device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& geo,
+__device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CUtensorMap* mxa,
+                                     const CUtensorMap* mxb, const Geom& geo,
                                      const __nv_bfloat16* __restrict__ w,
                                      const float* __restrict__ bias, float* __restrict__ dst,
                                      int M, int N, int K, int per, int bx, int by, int z,
-                                     unsigned char* smem_raw) {
+                                     unsigned char* smem_raw, uint32_t bars, uint32_t& phase) {
   using T = Tile<BM, BN>;
   constexpr int S = T::STAGES;
   // the swizzle, TMA's and the descriptors' alike, assumes 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const unsigned char* sbase = smem_raw + (base - raw);
-  const uint32_t bars = base + S * T::STAGE_BYTES;  // one 8-byte mbarrier per stage
 
   const int tid = threadIdx.x;
   const int m0 = bx * BM;
@@ -352,7 +360,7 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
       const int kw = live ? k0 : K;  // rows past K: a box of zeros
 #pragma unroll
       for (int a = 0; a < BN / 64; ++a)
-        tma_2d(st + T::A_BYTES + a * T::W_ATOM, &maps.w, bar, n0 + 64 * a, kw);
+        tma_2d(st + T::A_BYTES + a * T::W_ATOM, mw, bar, n0 + 64 * a, kw);
       if constexpr (TMA_A) {
         const int t = k0 / geo.ci, cc = k0 - t * geo.ci;
         const bool from_a = cc < geo.ca;
@@ -363,7 +371,7 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
         const int b = live ? b0 : geo.batch;  // past the batch: zeros
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          tma_4d(st + h * T::A_HALF, from_a ? &maps.xa : &maps.xb, bar,
+          tma_4d(st + h * T::A_HALF, from_a ? mxa : mxb, bar,
                  (from_a ? cc : cc - geo.ca) + 32 * h, x, y, b);
       }
     }
@@ -398,11 +406,6 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   uint32_t frag[2][BK / 16][4];  // two stages' A fragments
 
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < S; ++i) mbar_init(bars + 8 * i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
   __syncthreads();
   // gather: groups committed before stage i + 1's wait: S - 1 + i (one per
   // stage, empty ones past the end keep the count)
@@ -415,7 +418,7 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
     cp_async_wait<S - 2>();  // stage 0's A
     __syncthreads();
   }
-  mbar_wait(bars, 0);
+  mbar_wait(bars, phase & 1u);
   load_frags(frag[0], 0);
 
   // stage i (its fragments in frag[CUR]): issue its products, wait for
@@ -444,8 +447,9 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
       if (next < s_run) load_stage(next % S, next);
       if constexpr (!TMA_A) cp_async_commit();
       IGEMM_BF16_CLK(i, 5)
-      mbar_wait(bars + 8 * ((i + 1) % S), ((i + 1) / S) & 1);
-      load_frags(frag[CUR ^ 1], (i + 1) % S);
+      const int slot = (i + 1) % S;
+      mbar_wait(bars + 8 * slot, ((phase >> slot) ^ ((i + 1) / S)) & 1u);
+      load_frags(frag[CUR ^ 1], slot);
       IGEMM_BF16_CLK(i, 6)
     }
   };
@@ -458,6 +462,9 @@ __device__ __forceinline__ void tile(const G& g, const Maps& maps, const Geom& g
   igemm_tc::fence_frags(frag[0]);
   igemm_tc::fence_frags(frag[1]);
   if constexpr (!TMA_A) cp_async_wait<0>();  // only empty groups can remain
+  // slot j completed once for each of stages j, j + S, .. below s_run
+#pragma unroll
+  for (int j = 0; j < S; ++j) phase ^= ((s_run > j ? (s_run - 1 - j) / S + 1 : 0) & 1u) << j;
 
   // lanes t and t ^ 1 swap halves: even t stores row g, columns 8j + 2t ..
   // + 3; odd t stores row g + 8, columns 8j + 2t - 2 .. + 1. The row's
@@ -498,8 +505,17 @@ kernel(const G g, const __grid_constant__ Maps maps, const Geom geo,
        const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
        float* __restrict__ dst, int M, int N, int K, int per) {
   extern __shared__ unsigned char smem_raw[];
-  tile<G, BM, BN, TMA_A>(g, maps, geo, w, bias, dst, M, N, K, per, blockIdx.x, blockIdx.y,
-                         blockIdx.z, smem_raw);
+  using T = Tile<BM, BN>;
+  // one 8-byte mbarrier per ring stage, past the ring
+  const uint32_t bars = ((smem_u32(smem_raw) + 1023u) & ~1023u) + T::STAGES * T::STAGE_BYTES;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < T::STAGES; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  uint32_t phase = 0;
+  tile<G, BM, BN, TMA_A>(g, &maps.w, &maps.xa, &maps.xb, geo, w, bias, dst, M, N, K, per,
+                         blockIdx.x, blockIdx.y, blockIdx.z, smem_raw, bars, phase);
 }
 
 // ---------------------------------------------------------------------------

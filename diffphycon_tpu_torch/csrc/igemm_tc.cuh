@@ -56,31 +56,14 @@
 // - Epilogue: bias and 16-byte NHWC stores; one lane-pair shuffle turns the
 //   accumulator's 2-column pieces into 4-column vectors.
 //
-// The bf16 variant (TW = __nv_bfloat16: the persistent kernel's bf16
-// instantiation, unet2d_persistent.cu; K1's and K2's bf16 entries,
-// conv2d_nhwc_bf16 and downsample_nhwc_bf16, run igemm_bf16.cuh, a body
-// designed for bf16) computes what the Pallas kernels compute under
-// weight_dtype=bfloat16: the weight is bf16 and the fp32 activation is
-// rounded to bf16 (cvt.rn, to nearest even) at the matmul, fp32 sums. Bound:
-// the larger of flops / 989 TFLOP/s and bytes / 3.35 TB/s; at the bf16 rate
-// the fp32 activations make the 64-channel levels bytes-bound. It keeps the
-// ring, the gathers and split-K, and changes three things:
-// - wgmma m64nBNk16 .f32.bf16.bf16, A from registers: each thread's four
-//   bf16x2 registers per k16 step are converted from the fp32 A tile in
-//   shared memory (no hi/lo split), so a 32-deep slice is 2 products, not
-//   12;
-// - the weight slice arrives as stored, (32, BN) bf16 at half the bytes,
-//   and is transposed (not split) into one K-major bf16 B tile: the TF32
-//   tile's 128-byte swizzled rows, of which k 0..31 fill the first 64
-//   bytes, so the same descriptor steps 32 bytes (16 bf16) per product;
-// - a 16-byte copy holds 8 weights, so N is a multiple of 8.
-// The slices' fresh accumulators and the fp32 sum over them stay.
+// The bf16 variants (K1's and K2's bf16 entries and the persistent
+// kernel's bf16 instance) run igemm_bf16.cuh, a core designed for bf16; it
+// takes the helpers below (swz, cp.async, bf16x2_rn, the wgmma fences).
 //
-// Contract (the wrapper checks): N and K multiples of 4 (N of 8 for bf16),
-// every channel count a multiple of 4, every pointer 16-byte aligned.
+// Contract (the wrapper checks): N and K multiples of 4, every channel
+// count a multiple of 4, every pointer 16-byte aligned.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,25 +72,19 @@ namespace igemm_tc {
 constexpr int BK = 32;     // K per ring stage: one 128-byte row of fp32
 constexpr int STAGES = 4;  // ring depth
 
-// TW: the weight's type, float (3xTF32) or __nv_bfloat16 (the bf16 variant)
-template <int BM, int BN, class TW = float>
+template <int BM, int BN>
 struct Tile {
-  static constexpr bool BF16 = sizeof(TW) == 2;
   static constexpr int THREADS = 2 * BM;  // one warpgroup (128 threads) per 64 rows
   static constexpr int A_BYTES = BM * BK * 4;  // gathered A, [BM][BK], 128-byte swizzle
-  static constexpr int W_BYTES = BK * BN * sizeof(TW);  // weight slice as stored, [BK][BN]
+  static constexpr int W_BYTES = BK * BN * 4;  // weight slice as stored, [BK][BN]
   static constexpr int RING_BYTES = A_BYTES + W_BYTES;  // one ring stage
-  // one B tile, [BN][128 bytes], K-major: BK TF32 values, or BK bf16 values
-  // in the first half of each row
-  static constexpr int B_BYTES = BN * 128;
-  static constexpr int B_TILES = BF16 ? 1 : 2;  // per buffer: (B hi, B lo), or the bf16 tile
-  // the ring, then two buffers of B tiles, then room to align to 1024
+  static constexpr int B_BYTES = BN * 128;  // one B tile, [BN][128 bytes], K-major: BK TF32 values
+  // the ring, then two buffers of (B hi, B lo), then room to align to 1024
   static constexpr int B_OFFSET = STAGES * RING_BYTES;
-  static constexpr int SMEM_BYTES = B_OFFSET + 2 * B_TILES * B_BYTES + 1024;
+  static constexpr int SMEM_BYTES = B_OFFSET + 2 * 2 * B_BYTES + 1024;
   static constexpr int ROW_STEP = THREADS / 8;  // 8 threads cover one 128-byte A row
   static constexpr int A_COPIES = BM / ROW_STEP;
-  static constexpr int W_VEC = 16 / sizeof(TW);  // weights per 16-byte copy
-  static constexpr int W_COPIES = BK * BN / W_VEC / THREADS;
+  static constexpr int W_COPIES = BK * BN / 4 / THREADS;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -245,60 +222,6 @@ struct Mma<128> {
   }
 };
 
-// The bf16 products: d (64 x BN per warpgroup) = A (64 x 16, registers:
-// a0 (g, 2t .. 2t+1), a1 (g + 8, 2t ..), a2 (g, 2t + 8 ..), a3 (g + 8,
-// 2t + 8 ..), each a bf16x2) * B (16 x BN, shared memory, K-major) + (scale_d
-// ? d : 0); the accumulator layout is the TF32 products'.
-template <int BN>
-struct MmaBf16;
-
-template <>
-struct MmaBf16<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct MmaBf16<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
 // One BM x BN output tile (bx, by) over the K slices [z * per, (z + 1) *
 // per) of split z. w: the (K, N) weight as stored. Writes dst[z][m][n]
 // (+ bias[n] when bias is not null: the unsplit case). Called by all
@@ -306,15 +229,14 @@ struct MmaBf16<128> {
 // at smem_raw; K1/K2's kernel calls it once for its block index, the
 // persistent kernel (unet2d_persistent.cu) for each tile of a grid-stride
 // loop. It ends with every thread past its last shared-memory read, so the
-// caller may start the next tile without a barrier. TW: float (3xTF32) or
-// __nv_bfloat16 (the bf16 variant, Tile<BM, BN, TW>::SMEM_BYTES).
-template <class G, int BM, int BN, class TW = float>
-__device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__ w,
+// caller may start the next tile without a barrier.
+template <class G, int BM, int BN>
+__device__ __forceinline__ void igemm_tc_tile(const G& g, const float* __restrict__ w,
                                               const float* __restrict__ bias,
                                               float* __restrict__ dst, int M, int N, int K,
                                               int per, int bx, int by, int z,
                                               unsigned char* smem_raw) {
-  using T = Tile<BM, BN, TW>;
+  using T = Tile<BM, BN>;
   // the swizzle and the descriptors assume 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -338,9 +260,8 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
   }
 
   // one ring stage: the A tile, and rows k0 .. k0 + 31 of w's columns
-  // n0 .. n0 + BN - 1 as stored; TF32: chunk q of row kr at chunk q ^ (kr /
-  // 4 % 8) (the swizzle that makes split_w's column reads conflict-free);
-  // bf16: unswizzled (tr_w reads along rows)
+  // n0 .. n0 + BN - 1 as stored, chunk q of row kr at chunk q ^ (kr / 4 % 8)
+  // (the swizzle that makes split_w's column reads conflict-free)
   auto load_slice = [&](int slot, int s) {
     const uint32_t st = base + slot * T::RING_BYTES;
     const int k = s * BK + 4 * c;
@@ -355,11 +276,10 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
 #pragma unroll
     for (int j = 0; j < T::W_COPIES; ++j) {
       const int idx = tid + j * T::THREADS;
-      const int q = idx % (BN / T::W_VEC), kr = idx / (BN / T::W_VEC);
-      const int kk = s * BK + kr, n = n0 + T::W_VEC * q;
-      const bool ok = kk < K && n < N;  // N % W_VEC == 0
-      const uint32_t at_q = T::BF16 ? (q << 4) : ((q ^ ((kr >> 2) & 7)) << 4);
-      cp_async16(st + T::A_BYTES + kr * BN * static_cast<int>(sizeof(TW)) + at_q,
+      const int q = idx % (BN / 4), kr = idx / (BN / 4);
+      const int kk = s * BK + kr, n = n0 + 4 * q;
+      const bool ok = kk < K && n < N;  // N % 4 == 0
+      cp_async16(st + T::A_BYTES + kr * BN * 4 + ((q ^ ((kr >> 2) & 7)) << 4),
                  ok ? w + static_cast<size_t>(kk) * N + n : w, ok);
     }
   };
@@ -392,26 +312,6 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
     }
   };
 
-  // bf16: the weight slice in `slot`, transposed into the K-major bf16 B
-  // tile of buffer `buf`. Thread block (n, kc) packs rows 8kc .. 8kc + 7 of
-  // column n into one 16-byte chunk of row n (k 8kc .. 8kc + 7, chunk kc of
-  // the 128-byte swizzle); a warp reads 32 adjacent columns of one row and
-  // writes 8 distinct bank groups.
-  auto tr_w = [&](int slot, int buf) {
-    const uint16_t* wr =
-        reinterpret_cast<const uint16_t*>(sbase + slot * T::RING_BYTES + T::A_BYTES);
-    unsigned char* bt = sbase + T::B_OFFSET + buf * T::B_BYTES;
-    for (int blk = tid; blk < BN * (BK / 8); blk += T::THREADS) {
-      const int n = blk % BN, kc = blk / BN;
-      uint32_t v[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        v[r] = static_cast<uint32_t>(wr[(8 * kc + 2 * r) * BN + n]) |
-               (static_cast<uint32_t>(wr[(8 * kc + 2 * r + 1) * BN + n]) << 16);
-      *reinterpret_cast<uint4*>(bt + swz(n, kc)) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  };
-
   // fragment rows ar and ar + 8 of this thread's warpgroup, column offset at
   const int lane = tid & 31;
   const int ar = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
@@ -424,39 +324,21 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
-  uint32_t ahi[BK / 8][4], alo[BK / 8][4];  // TF32
-  uint32_t abf[BK / 16][4];                 // bf16
-  // the A fragments of the slice in `slot`: TF32, split into hi and lo; bf16,
-  // each k16 step's (k, k + 1) pairs rounded into bf16x2 (float2 reads: k
-  // 16ks + 2at is chunk 4ks + at / 2, byte 8 (at % 2) of it)
+  uint32_t ahi[BK / 8][4], alo[BK / 8][4];
+  // the A fragments of the slice in `slot`, split into hi and lo
   auto load_frags = [&](int slot) {
     const unsigned char* As = sbase + slot * T::RING_BYTES;
-    if constexpr (T::BF16) {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        const int c0 = 4 * ks + (at >> 1), off = 8 * (at & 1);
-        const float2 v0 = *reinterpret_cast<const float2*>(As + swz(ar, c0) + off);
-        const float2 v1 = *reinterpret_cast<const float2*>(As + swz(ar + 8, c0) + off);
-        const float2 v2 = *reinterpret_cast<const float2*>(As + swz(ar, c0 + 2) + off);
-        const float2 v3 = *reinterpret_cast<const float2*>(As + swz(ar + 8, c0 + 2) + off);
-        abf[ks][0] = bf16x2_rn(v0.x, v0.y);
-        abf[ks][1] = bf16x2_rn(v1.x, v1.y);
-        abf[ks][2] = bf16x2_rn(v2.x, v2.y);
-        abf[ks][3] = bf16x2_rn(v3.x, v3.y);
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < BK / 8; ++ks) {
-        const int c0 = 2 * ks;  // columns 8ks + at (chunk c0) and 8ks + at + 4 (chunk c0 + 1)
-        tf32_split(*reinterpret_cast<const float*>(As + swz(ar, c0) + 4 * at), ahi[ks][0],
-                   alo[ks][0]);
-        tf32_split(*reinterpret_cast<const float*>(As + swz(ar + 8, c0) + 4 * at), ahi[ks][1],
-                   alo[ks][1]);
-        tf32_split(*reinterpret_cast<const float*>(As + swz(ar, c0 + 1) + 4 * at), ahi[ks][2],
-                   alo[ks][2]);
-        tf32_split(*reinterpret_cast<const float*>(As + swz(ar + 8, c0 + 1) + 4 * at),
-                   ahi[ks][3], alo[ks][3]);
-      }
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const int c0 = 2 * ks;  // columns 8ks + at (chunk c0) and 8ks + at + 4 (chunk c0 + 1)
+      tf32_split(*reinterpret_cast<const float*>(As + swz(ar, c0) + 4 * at), ahi[ks][0],
+                 alo[ks][0]);
+      tf32_split(*reinterpret_cast<const float*>(As + swz(ar + 8, c0) + 4 * at), ahi[ks][1],
+                 alo[ks][1]);
+      tf32_split(*reinterpret_cast<const float*>(As + swz(ar, c0 + 1) + 4 * at), ahi[ks][2],
+                 alo[ks][2]);
+      tf32_split(*reinterpret_cast<const float*>(As + swz(ar + 8, c0 + 1) + 4 * at),
+                 ahi[ks][3], alo[ks][3]);
     }
   };
   // the B tiles are written through the generic proxy and read by wgmma
@@ -473,35 +355,21 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
     if (i < s_count) load_slice(i, s_begin + i);
     cp_async_commit();
   }
-  // the weight slice in `slot` into the B tiles of buffer `buf`
-  auto prep_w = [&](int slot, int buf) {
-    if constexpr (T::BF16)
-      tr_w(slot, buf);
-    else
-      split_w(slot, buf);
-  };
-
   cp_async_wait<STAGES - 2>();  // slice 0
   __syncthreads();
-  prep_w(0, 0);
+  split_w(0, 0);
   load_frags(0);
   b_visible();
   for (int i = 0; i < s_count; ++i) {
-    const uint32_t b_hi = base + T::B_OFFSET + (i & 1) * T::B_TILES * T::B_BYTES;
+    const uint32_t b_hi = base + T::B_OFFSET + (i & 1) * 2 * T::B_BYTES;
     const uint32_t b_lo = b_hi + T::B_BYTES;
     fence_acc(part);
     wgmma_fence();
-    if constexpr (T::BF16) {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
-        MmaBf16<BN>::run(part, abf[ks], desc_sw128(b_hi + 32 * ks), ks > 0);
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < BK / 8; ++ks) {  // small terms first
-        Mma<BN>::run(part, alo[ks], desc_sw128(b_hi + 32 * ks), ks > 0);
-        Mma<BN>::run(part, ahi[ks], desc_sw128(b_lo + 32 * ks), 1);
-        Mma<BN>::run(part, ahi[ks], desc_sw128(b_hi + 32 * ks), 1);
-      }
+    for (int ks = 0; ks < BK / 8; ++ks) {  // small terms first
+      Mma<BN>::run(part, alo[ks], desc_sw128(b_hi + 32 * ks), ks > 0);
+      Mma<BN>::run(part, ahi[ks], desc_sw128(b_lo + 32 * ks), 1);
+      Mma<BN>::run(part, ahi[ks], desc_sw128(b_hi + 32 * ks), 1);
     }
     wgmma_commit();
     // while the products run: wait for slice i + 1, refill the ring slot of
@@ -513,16 +381,12 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
       const int next = i + STAGES - 1;
       if (next < s_count) load_slice(next % STAGES, s_begin + next);
       cp_async_commit();
-      prep_w((i + 1) % STAGES, (i + 1) & 1);
+      split_w((i + 1) % STAGES, (i + 1) & 1);
     }
     wgmma_wait_all();
     fence_acc(part);
-    if constexpr (T::BF16) {  // the products read the fragments until here
-      fence_frags(abf);
-    } else {
-      fence_frags(ahi);
-      fence_frags(alo);
-    }
+    fence_frags(ahi);  // the products read the fragments until here
+    fence_frags(alo);
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
     if (i + 1 < s_count) {
@@ -557,13 +421,13 @@ __device__ __forceinline__ void igemm_tc_tile(const G& g, const TW* __restrict__
   }
 }
 
-template <class G, int BM, int BN, class TW>
+template <class G, int BM, int BN>
 __global__ void __launch_bounds__(2 * BM, 1)
-igemm_tc_kernel(const G g, const TW* __restrict__ w, const float* __restrict__ bias,
+igemm_tc_kernel(const G g, const float* __restrict__ w, const float* __restrict__ bias,
                 float* __restrict__ dst, int M, int N, int K, int per) {
   extern __shared__ unsigned char smem_raw[];
-  igemm_tc_tile<G, BM, BN, TW>(g, w, bias, dst, M, N, K, per, blockIdx.x, blockIdx.y,
-                               blockIdx.z, smem_raw);
+  igemm_tc_tile<G, BM, BN>(g, w, bias, dst, M, N, K, per, blockIdx.x, blockIdx.y, blockIdx.z,
+                           smem_raw);
 }
 
 // out = bias + the split partials ws[0] + ws[1] + ..., added in split order.
@@ -587,22 +451,22 @@ splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ bia
   }
 }
 
-template <class G, int BM, int BN, class TW>
-inline cudaError_t launch_tile(const G& g, const TW* w, const float* bias, float* out,
+template <class G, int BM, int BN>
+inline cudaError_t launch_tile(const G& g, const float* w, const float* bias, float* out,
                                float* ws, int M, int N, int K, int splits, int per,
                                cudaStream_t stream) {
-  using T = Tile<BM, BN, TW>;
+  using T = Tile<BM, BN>;
   static bool smem_set = false;  // > 48 KB of dynamic shared memory: once per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        cudaFuncSetAttribute(igemm_tc_kernel<G, BM, BN, TW>,
+        cudaFuncSetAttribute(igemm_tc_kernel<G, BM, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
   const bool split = splits > 1;
-  igemm_tc_kernel<G, BM, BN, TW><<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(
+  igemm_tc_kernel<G, BM, BN><<<grid, T::THREADS, T::SMEM_BYTES, stream>>>(
       g, w, split ? nullptr : bias, split ? ws : out, M, N, K, per);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !split) return e;
@@ -612,17 +476,16 @@ inline cudaError_t launch_tile(const G& g, const TW* w, const float* bias, float
   return cudaGetLastError();
 }
 
-// M, N, K: GEMM sizes (N and K multiples of 4; N of 8 for a bf16 weight).
-// w: the (K, N) weight, float or __nv_bfloat16. Tile plan: (bm, bn) (128,
-// 128), (128, 64) or (64, 64); `splits` splits of `per` BK-slices each,
-// every split non-empty; ws holds splits * M * N floats when splits > 1.
-template <class G, class TW>
-inline cudaError_t launch(const G& g, const TW* w, const float* bias, float* out, float* ws,
+// M, N, K: GEMM sizes (N and K multiples of 4). w: the (K, N) weight. Tile
+// plan: (bm, bn) (128, 128), (128, 64) or (64, 64); `splits` splits of
+// `per` BK-slices each, every split non-empty; ws holds splits * M * N
+// floats when splits > 1.
+template <class G>
+inline cudaError_t launch(const G& g, const float* w, const float* bias, float* out, float* ws,
                           int M, int N, int K, int bm, int bn, int splits, int per,
                           cudaStream_t stream) {
   const long slices = (K + BK - 1) / BK;
-  if (M <= 0 || N <= 0 || K <= 0 || N % Tile<64, 64, TW>::W_VEC || K % 4 || splits < 1 ||
-      per < 1 ||
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4 || splits < 1 || per < 1 ||
       static_cast<long>(splits - 1) * per >= slices || static_cast<long>(splits) * per < slices ||
       (splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;

@@ -1,9 +1,10 @@
 // The block-level pieces of K5 (linear_attention_tc.cu), shared with K6
 // (attention.cu) and the persistent kernel (unet2d_persistent.cu): a
-// 64 x 128 tile GEMM on the tensor cores in 3xTF32 (float weights) or bf16
-// (__nv_bfloat16 weights: the bf16 variants), the x-tile copy and its
+// 64 x 128 tile GEMM on the tensor cores in 3xTF32, the x-tile copy and its
 // ChanLayerNorm, and K5's three bodies (K5a, the merge, K5b) as device
 // functions of a block index. See linear_attention_tc.cu for the design.
+// The bf16 variants run attention_bf16.cuh, which takes la_tc's geometry,
+// its TF32 helpers and la_merge_body from here.
 //
 // Layouts: x is NHWC fp32 viewed as (B, n, C) tokens; wqkv is (C, 384) with
 // columns [q | k | v], each (head, d); wo is (128, C).
@@ -14,7 +15,6 @@
 // the non-coherent read-only path; only weights are read with __ldg.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,9 +43,6 @@ constexpr int kRows = 64;             // tokens per tile, in both stages
 constexpr int kCols = 128;            // output columns per GEMM pass
 constexpr int kSlice = 32;            // K per weight slice in shared memory
 constexpr int kWStride = kCols + 8;   // weight slice rows: B fragments conflict-free
-// bf16 weight slice rows, in halfwords; a bf16 slice takes the first half of
-// an fp32 slice's room
-constexpr int kWStrideBf16 = kCols + 8;
 constexpr int kKStride = kCols + 8;   // [token][column] tiles of k and v (conflict-free fragments)
 constexpr int kTStride = kRows + 8;   // [column][token] tiles of q and the attention output
 constexpr int kWFloats = 2 * kSlice * kWStride;  // two weight slices
@@ -79,26 +76,6 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);  // exact in fp32
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// (lo, hi) rounded to bf16, nearest even, as one bf16x2 with lo in the low
-// half (the element of the lower k index).
-__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-// d (16 x 8) += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 sums.
-// Fragments (g = lane / 4, t = lane % 4), each a bf16x2 of k and k + 1: a0
-// (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 8), a3 (g + 8, 2t + 8); b0 (k 2t, n
-// g), b1 (k 2t + 8, n g); d as mma_tf32's.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d (16 x 8) += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 sums.
@@ -187,43 +164,28 @@ __device__ __forceinline__ void mma_smem(const float* A, int ars, int aks, const
 }
 
 // One GEMM pass's weight: 128 columns of W (K x ldw, row-major, device
-// memory; TW float or __nv_bfloat16), the pass's columns 0..63 from n0 ..
-// n0 + 63 and 64..127 from n1 .. n1 + 63 (n1 = n0 + 64 for 128 adjacent
-// columns); pass columns at or past nvalid (a multiple of 4, of 8 for bf16)
-// read as 0, and so do rows k >= K.
-template <class TW>
-struct WeightPassT {
-  const TW* W;
+// memory), the pass's columns 0..63 from n0 .. n0 + 63 and 64..127 from n1
+// .. n1 + 63 (n1 = n0 + 64 for 128 adjacent columns); pass columns at or
+// past nvalid (a multiple of 4) read as 0, and so do rows k >= K.
+struct WeightPass {
+  const float* W;
   int ldw, n0, nvalid, K, n1;
 };
 
-template <class T>
-struct NoDeduce {
-  using type = T;
-};
-
 // Issue (and commit as one cp.async group) slice s of pass p, rows 32 s ..
-// 32 s + 31, into weight buffer `slot` & 1: 16-byte copies (4 fp32 or 8
-// bf16 weights), zero-filled past the pass's rows and columns. A bf16 slice
-// takes rows of kWStrideBf16 halfwords at the start of its fp32 room.
-template <class TW>
-__device__ __forceinline__ void load_w_slice(const WeightPassT<TW>& p, int s, float* wbuf,
-                                             int slot) {
-  constexpr int kVec = 16 / sizeof(TW);       // weights per copy
-  constexpr int kChunks = kCols / kVec;       // copies per slice row
+// 32 s + 31, into weight buffer `slot` & 1: 16-byte copies, zero-filled past
+// the pass's rows and columns.
+__device__ __forceinline__ void load_w_slice(const WeightPass& p, int s, float* wbuf, int slot) {
   float* room = wbuf + (slot & 1) * kSlice * kWStride;
 #pragma unroll
-  for (int i = 0; i < kSlice * kChunks / kThreads; ++i) {
+  for (int i = 0; i < kSlice * kCols / 4 / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, ch = idx % kChunks;
+    const int r = idx / (kCols / 4), ch = idx % (kCols / 4);
     const int k = s * kSlice + r;
-    const bool ok = k < p.K && kVec * ch < p.nvalid;
-    const int col = kVec * ch < kCols / 2 ? p.n0 + kVec * ch : p.n1 + kVec * ch - kCols / 2;
-    void* dst = sizeof(TW) == 2
-                    ? static_cast<void*>(reinterpret_cast<uint16_t*>(room) + r * kWStrideBf16 +
-                                         kVec * ch)
-                    : static_cast<void*>(room + r * kWStride + kVec * ch);
-    cp_async16(dst, ok ? p.W + static_cast<size_t>(k) * p.ldw + col : p.W, ok);
+    const bool ok = k < p.K && 4 * ch < p.nvalid;
+    const int col = 4 * ch < kCols / 2 ? p.n0 + 4 * ch : p.n1 + 4 * ch - kCols / 2;
+    cp_async16(room + r * kWStride + 4 * ch, ok ? p.W + static_cast<size_t>(k) * p.ldw + col : p.W,
+               ok);
   }
   cp_async_commit();
 }
@@ -231,9 +193,7 @@ __device__ __forceinline__ void load_w_slice(const WeightPassT<TW>& p, int s, fl
 // acc = A (64 x p.K, shared memory; element (r, k) at A[r * a_rs + k *
 // a_ks]; rows past `rows` count as 0) times pass p's 128 weight columns (MT = 2; MT = 1: its first 64,
 // for a pass of at most 64 valid columns, so that no warp idles), in 3xTF32: a * b ~ lo(a) hi(b)
-// + hi(a) lo(b) + hi(a) hi(b), small terms first; with bf16 weights, one
-// m16n8k16 bf16 product per 16-deep step on A rounded to bf16 (cvt.rn), as
-// the Pallas _matmul under weight_dtype=bfloat16. The weight comes through
+// + hi(a) lo(b) + hi(a) hi(b), small terms first. The weight comes through
 // shared memory in 32-deep slices (two buffers: the next slice's copies
 // overlap this slice's products), so each weight byte is read once per 64
 // tokens. Slice 0 must have been issued into buffer `slot` (the most recent
@@ -244,10 +204,9 @@ __device__ __forceinline__ void load_w_slice(const WeightPassT<TW>& p, int s, fl
 // (the tensor cores' own accumulation truncates; igemm_tc.cuh does the
 // same). All threads of the block call it; each slice sits between two
 // barriers.
-template <int MT, class TW>
+template <int MT>
 __device__ __forceinline__ void gemm_tile(const float* A, int a_rs, int a_ks, int rows,
-                                          const WeightPassT<TW>& p,
-                                          const typename NoDeduce<WeightPassT<TW>>::type* next,
+                                          const WeightPass& p, const WeightPass* next,
                                           float* wbuf, int& slot, float (&acc)[MT][4][4]) {
   const WarpTile<MT> wt;
   const int K = p.K;
@@ -282,40 +241,6 @@ __device__ __forceinline__ void gemm_tile(const float* A, int a_rs, int a_ks, in
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-      if constexpr (sizeof(TW) == 2) {
-        const uint16_t* wb = reinterpret_cast<const uint16_t*>(ws);
-#pragma unroll
-        for (int kk = 0; kk < kSlice / 16; ++kk) {
-          const int k0 = s * kSlice + 16 * kk;
-          if (k0 >= K) break;  // uniform
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {  // k even and K % 8 == 0: k + 1 < K with k
-              const int r = wt.wr + 16 * mt + wt.g + (e & 1) * 8;
-              const int k = k0 + 2 * wt.t + (e >> 1) * 8;
-              const float* ar = A + r * a_rs + k * a_ks;
-              a[mt][e] = k < K ? bf16x2_rn(ar[0], ar[a_ks]) : 0u;
-            }
-          }
-          uint32_t b[4][2];
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int nn = wt.wc + 8 * nt + wt.g;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const uint16_t* wk = wb + (16 * kk + 2 * wt.t + 8 * h) * kWStrideBf16 + nn;
-              b[nt][h] = static_cast<uint32_t>(wk[0]) |
-                         (static_cast<uint32_t>(wk[kWStrideBf16]) << 16);
-            }
-          }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], a[mt], b[nt][0], b[nt][1]);
-        }
-      } else {
 #pragma unroll
       for (int kk = 0; kk < kSlice / 8; ++kk) {
         const int k0 = s * kSlice + 8 * kk;
@@ -352,7 +277,6 @@ __device__ __forceinline__ void gemm_tile(const float* A, int a_rs, int a_ks, in
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ahi[mt], bhi[nt][0], bhi[nt][1]);
-      }
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -461,10 +385,10 @@ __host__ __device__ constexpr int output_smem_floats(int C) {
 // host's plan where B * S CTAs would leave SMs idle) one pass holds
 // both heads' k (columns 0..63) and v (64..127), and twice as many CTAs
 // share the work.
-template <int kHpc, class TW = float>
+template <int kHpc>
 __device__ __forceinline__ void la_context_body(const float* __restrict__ x,
                                                 const float* __restrict__ g,
-                                                const TW* __restrict__ wqkv,
+                                                const float* __restrict__ wqkv,
                                                 float* __restrict__ part, int n, int C, int chunk,
                                                 int s, int b, int hg, int S, float* smem) {
   static_assert(kHpc == 4 || kHpc == 2, "4 or 2 heads per CTA");
@@ -507,9 +431,9 @@ __device__ __forceinline__ void la_context_body(const float* __restrict__ x,
   float acc[2][4][4];
   // 4 heads: k (columns 128 .. 255 of wqkv), then v (256 .. 383); 2 heads:
   // their k and v columns in one pass
-  const WeightPassT<TW> kpass{wqkv, kQKV, kHidden + h0 * kDimHead, kCols, C,
-                              kHpc == 4 ? kHidden + 64 : 2 * kHidden + h0 * kDimHead};
-  const WeightPassT<TW> vpass{wqkv, kQKV, 2 * kHidden, kCols, C, 2 * kHidden + 64};
+  const WeightPass kpass{wqkv, kQKV, kHidden + h0 * kDimHead, kCols, C,
+                         kHpc == 4 ? kHidden + 64 : 2 * kHidden + h0 * kDimHead};
+  const WeightPass vpass{wqkv, kQKV, 2 * kHidden, kCols, C, 2 * kHidden + 64};
   int slot = 0;
   load_w_slice(kpass, 0, wbuf, slot);  // later tiles': issued by the tile before
 
@@ -673,12 +597,11 @@ __device__ __forceinline__ void la_merge_body(const float* __restrict__ part,
 
 // K5b: tokens tile * 64 .. + 63 of sample b; smem: output_smem_floats(C)
 // floats.
-template <class TW>
 __device__ __forceinline__ void la_output_body(const float* __restrict__ x,
                                                const float* __restrict__ g,
-                                               const TW* __restrict__ wqkv,
+                                               const float* __restrict__ wqkv,
                                                const float* __restrict__ ctx,
-                                               const TW* __restrict__ wo,
+                                               const float* __restrict__ wo,
                                                const float* __restrict__ bo,
                                                const float* __restrict__ og,
                                                float* __restrict__ out, int n, int C, int tile,
@@ -699,7 +622,7 @@ __device__ __forceinline__ void la_output_body(const float* __restrict__ x,
   // output channels. The first q slice, the x tile and the context are
   // copied together.
   LA_STAMP(0);
-  const WeightPassT<TW> qpass{wqkv, kQKV, 0, kCols, C, 64};
+  const WeightPass qpass{wqkv, kQKV, 0, kCols, C, 64};
   int slot = 0;
   load_w_slice(qpass, 0, wbuf, slot);
   const float* cb = ctx + static_cast<size_t>(b) * kCtxFloats;
@@ -715,7 +638,7 @@ __device__ __forceinline__ void la_output_body(const float* __restrict__ x,
   // q, stored transposed
   const WarpTile<2> wt;
   float acc[2][4][4];
-  const WeightPassT<TW> opass0{wo, C, 0, min(kCols, C), kHidden, 64};
+  const WeightPass opass0{wo, C, 0, min(kCols, C), kHidden, 64};
   gemm_tile(X, ldx, 1, rows, qpass, &opass0, wbuf, slot, acc);
   LA_STAMP(3);
 #pragma unroll
@@ -798,9 +721,9 @@ __device__ __forceinline__ void la_output_body(const float* __restrict__ x,
   };
   for (int n0 = 0; n0 < C; n0 += kCols) {
     const int nvalid = min(kCols, C - n0);
-    const WeightPassT<TW> opass{wo, C, n0, nvalid, kHidden, n0 + 64},
+    const WeightPass opass{wo, C, n0, nvalid, kHidden, n0 + 64},
         onext{wo, C, n0 + kCols, min(kCols, C - n0 - kCols), kHidden, n0 + kCols + 64};
-    const WeightPassT<TW>* next = n0 + kCols < C ? &onext : nullptr;
+    const WeightPass* next = n0 + kCols < C ? &onext : nullptr;
     if (nvalid > kCols / 2) {
       gemm_tile(QT, 1, kTStride, rows, opass, next, wbuf, slot, acc);
       store_y(acc, wt, n0, nvalid);

@@ -45,7 +45,8 @@ SIGNATURES = {
     "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream
     "attention_bf16": [_P] * 9,  # the same, wqkv and wo bf16
     "unet2d_persistent_f32": [_P, _I, _P, _I, _P, _P],  # ..., n_counters, grid_out, stream
-    "unet2d_persistent_bf16": [_P, _I, _P, _I, _P, _P],  # the same, matmul weights bf16
+    "unet2d_persistent_bf16": [_P, _I, _P, _I, _P, _P, _P],  # the same, bf16; ..., maps
+    "unet2d_persistent_maps": [_P, _I, _P, _P, _P],  # specs, n_maps, bases, maps, stream
     "unet2d_persistent_grid": [_P],
 }
 

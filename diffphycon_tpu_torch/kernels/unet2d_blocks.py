@@ -296,6 +296,30 @@ def tile_plan(m: int, n: int, k: int, bf16: bool = False) -> TilePlan:
     return pick_plan(m, n, k)
 
 
+def tma_boxes(bm: int, gh: int, gw: int, ca: int, cb: int, scale: int = 1):
+    """(bw, bh, bb) where the bf16 core (``csrc/igemm_bf16.cuh``) reads the A
+    tile of a bm-row tile as TMA boxes of 32 channels x bw columns x bh rows
+    x bb images of a grid of gh x gw pixels (the output's, or through the
+    upsample the source's; K2's at traversal stride ``scale`` 2), else None
+    (the cp.async gather). The rule of ``igemm_bf16::launch`` (the `boxes`
+    condition, igemm_bf16.cuh:610-623): bm grid pixels that are part of one
+    row, whole rows of one image, or whole images; every 64-channel block
+    from one source (ca and cb multiples of TC_BK_BF16); at most 256
+    pixels a box side. (Through the upsample the launch also wants the output
+    exactly twice the source, which every caller's shapes are.)"""
+    if gw % bm == 0:
+        bw, bh, bb = bm, 1, 1
+    elif bm % gw == 0 and gh % (bm // gw) == 0:
+        bw, bh, bb = gw, bm // gw, 1
+    elif bm % (gh * gw) == 0:
+        bw, bh, bb = gw, gh, bm // (gh * gw)
+    else:
+        return None
+    if ca % TC_BK_BF16 or cb % TC_BK_BF16 or bw * scale > 256 or bh * scale > 256:
+        return None
+    return bw, bh, bb
+
+
 def tf32_split(x: torch.Tensor):
     """(hi, lo) of a float32 tensor as the kernels split it: hi = x rounded
     to TF32 (10 explicit mantissa bits) to nearest with ties away from zero

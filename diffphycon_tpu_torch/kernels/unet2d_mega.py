@@ -1,4 +1,4 @@
-"""K7 and K8: the persistent UNet2D kernel (``csrc/unet2d_persistent.cu``)
+"""K7 and K8: the persistent UNet2D kernel (``csrc/unet2d_persistent.cuh``)
 behind :func:`unet2d_mega` and :func:`kernels.unet2d_blocks.resblock_pair`.
 
 The port of ``diffphycon_tpu/research/pallas_unet2d_mega.py`` (the whole
@@ -39,6 +39,26 @@ The plan holds each stage's choices: K1's, K5's and K6's host plans with
 the persistent grid (:func:`grid_blocks`: one 256-thread CTA per SM; a CPU
 plan takes ``SM_COUNT``) in place of the card's SMs.
 
+A bf16 plan runs the per-block bf16 kernels' Hopper bodies
+(``igemm_bf16.cuh``, ``attention_bf16.cuh``) with their host plans for this
+grid: the convs on :data:`MEGA_TILES_BF16` in 64-deep stages, the A tile by
+TMA boxes where ``unet2d_blocks.tma_boxes`` allows them; K5a's head groups,
+K5b's (tile rows, work items) from ``attention.la_output_plan``, K6's
+64-token tiles. Those bodies read their weights, and the boxes their
+activations, through tensor maps: the plan lists them (``Plan.map_specs``,
+each a weight's or an activation buffer's box geometry), and a launch
+needs them encoded for the addresses it runs on. The workspace and the
+inputs are allocated per call, so every launch encodes its maps on the
+host and writes them into a fresh device array on its own stream, before
+the kernel (``unet2d_persistent_maps``: a kernel that takes the encoded
+records as its parameters), as it allocates its workspace. So two streams
+never share an array, and a CUDA graph captures the writing kernels with
+their records by value, on an array of the graph's pool that each replay
+writes again before its kernel reads it. That costs the host
+``maps_host_us`` and the device ``maps_device_us`` a launch, beside the
+launch's ``kernel_ms`` (``chip_smoke.py`` phase 10's ``unet2d_mega_bf16``
+record).
+
 The kernel takes float32 or bfloat16 matmul weights, one type per plan
 (``Plan.weight_dtype``: the launch picks the kernel's float or bf16
 instantiation, ``unet2d_persistent_f32`` / ``_bf16``), channel counts (and
@@ -57,7 +77,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -75,6 +95,13 @@ PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
 # the persistent kernel's conv tiles: igemm_tc's 128-row tiles (two
 # warpgroups fill its 256 threads), one CTA per SM, K1's measured costs
 MEGA_TILES = {tile: cost for tile, cost in kb.TC_TILES.items() if tile[0] == 128}
+# the bf16 instance's: igemm_bf16's 128-row tiles (its 64 x 64 tile takes
+# 128-thread CTAs), the bf16 core's measured costs. 128 x 256 only for conv
+# stages whose A tile comes by TMA boxes (the instance compiles it for no
+# other: the downsamples and the gathers of every plan here take 64-column
+# tiles)
+MEGA_TILES_BF16 = {tile: cost for tile, cost in kb.TC_TILES_BF16.items() if tile[0] == 128}
+_NARROW_BF16 = {tile: cost for tile, cost in MEGA_TILES_BF16.items() if tile[1] <= 128}
 
 
 def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int):
@@ -128,7 +155,7 @@ def chunking(rows: int, L: int):
 
 
 # ---------------------------------------------------------------------------
-# the stage table (layout: csrc/unet2d_persistent.cu, struct Stage)
+# the stage table (layout: csrc/unet2d_persistent.cuh, structs Stage and StageBf16)
 # ---------------------------------------------------------------------------
 
 CONV, DOWN, GN_STATS, GN_APPLY, LA_CONTEXT, LA_OUTPUT, ATT_QKV, ATT_CORE, ATT_OUT = range(9)
@@ -142,9 +169,21 @@ INTS = ("op", "sync", "B", "H", "W", "ca", "cb", "co", "ks", "up", "groups", "ch
         "ss_stride", "bm", "bn", "splits", "per", "hg", "tr")
 SLOTS = {"x": 0, "x2": 1, "w": 2, "bias": 3, "out": 4, "scr": 5, "aux": 6, "res": 7, "cnt": 8}
 OFF, BASE = len(INTS), len(INTS) + len(SLOTS)  # columns of the slots' offsets and bases
-_ROW = BASE + len(SLOTS)  # int64 per stage: 20 ints, 9 offsets, 9 base ids
+# the bf16 instance's ints, after the slots: the A tile by TMA boxes, K5b's
+# work items, and the stage's tensor maps (indices into Plan.map_specs; -1
+# none): map_w the weight's (K5b: wqkv, wo's at map_a = map_w + 1), map_a /
+# map_b the boxes of x / x2. The float instance's records end before them.
+EXTRA = ("boxes", "ctas", "map_w", "map_a", "map_b")
+EXT = BASE + len(SLOTS)
+_ROW = EXT + len(EXTRA)  # int64 per stage: 20 ints, 9 offsets, 9 base ids, 5 more
 _N_BASES = 8      # 0: null (absolute addresses), 1: workspace, 2..: inputs, then the output
 _ALIGN = 256
+# a tensor map record: CUtensorMap, 128 bytes, 64-byte aligned in the array
+MAP_BYTES = 128
+# columns of Plan.map_specs (csrc/unet2d_persistent_bf16.cu: unet2d_persistent_maps):
+# element type (0 bf16, 1 fp32), rank, base id, byte offset, dims[4],
+# strides[3] (bytes), box[4], element strides[4]
+MAP_COLS = 19
 
 
 class _Val:
@@ -167,6 +206,29 @@ class _Counters:
     counter region."""
     first: int
     n: int
+
+
+@dataclass
+class _Map:
+    """A tensor map of the bf16 instance: a bf16 weight's (2-D, 64 x 64
+    boxes) or a box geometry of an fp32 NHWC activation (4-D)."""
+    target: object  # torch.Tensor (a weight) or _Val
+    spec: tuple     # element type, rank, dims[4], strides[3], box[4], element strides[4]
+
+
+def _weight_map(w: torch.Tensor) -> _Map:
+    """hopper_tma::weight_map of a (K, N) row-major bf16 weight."""
+    k, n = w.shape
+    return _Map(w, (0, 2, n, k, 0, 0, 2 * n, 0, 0, 64, 64, 0, 0, 1, 1, 0, 0))
+
+
+def _source_map(x: "_Val", box, scale: int) -> _Map:
+    """igemm_bf16::source_map of an NHWC source (B, Hs, Ws, C): boxes of 32
+    channels x bw x bh pixels (at traversal stride `scale`) x bb images."""
+    b, hs, ws, c = x.shape
+    bw, bh, bb = box
+    return _Map(x, (1, 4, c, ws, hs, b, 4 * c, 4 * c * ws, 4 * c * ws * hs, 32, bw * scale,
+                    bh * scale, bb, 1, scale, scale, 1))
 
 
 @dataclass
@@ -211,6 +273,7 @@ class Plan:
     heads: int = ka.KERNEL_HEADS
     dim_head: int = ka.KERNEL_DIM_HEAD
     device_table: Optional[torch.Tensor] = None
+    map_specs: np.ndarray = field(default_factory=lambda: np.zeros((0, MAP_COLS), np.int64))
 
     @property
     def weight_dtype(self) -> torch.dtype:
@@ -246,6 +309,8 @@ class _Recorder:
         self.stages = []
         self.inputs = []
         self.n_counters = 0
+        self.maps = []      # _Map records, in index order
+        self._map_ids = {}  # (id of the target, spec) -> index
 
     def input(self, shape) -> _Val:
         self.inputs.append(_Val(shape, base=2 + len(self.inputs)))
@@ -262,22 +327,64 @@ class _Recorder:
     def _stage(self, op, ptrs, writes, **ints):
         self.stages.append(_Stage(op, ints, ptrs, tuple(writes)))
 
+    def _map(self, m: _Map) -> int:
+        """The index of tensor map `m`, one record per (target, spec)."""
+        key = (id(m.target), m.spec)
+        if key not in self._map_ids:
+            self._map_ids[key] = len(self.maps)
+            self.maps.append(m)
+        return self._map_ids[key]
+
+    def _map_pair(self, a: _Map, b: _Map) -> int:
+        """Two new adjacent records (K5b's wqkv and wo); the first's index."""
+        self.maps += [a, b]
+        return len(self.maps) - 2
+
     # -- the ops of unet2d_sequence / unet2d_blocks._resblock ---------------
 
-    def _gemm(self, op, ptrs, out, m, k, **ints):
-        """A conv or down stage on the tile plan for this grid
-        (``unet2d_blocks.pick_plan`` over MEGA_TILES, one CTA per SM); with a
-        split, its partials (splits, m, co) and one arrival counter per
-        tile."""
+    def _gemm(self, op, ptrs, out, m, k, grid_hw, scale, **ints):
+        """A conv or down stage on the tile plan for this grid, one CTA per
+        SM (``unet2d_blocks.pick_plan`` over MEGA_TILES, or for a bf16
+        weight over MEGA_TILES_BF16 in the bf16 core's 64-deep stages); with
+        a split, its partials (splits, m, co) and one arrival counter per
+        tile. bf16: the weight's tensor map, and where
+        ``unet2d_blocks.tma_boxes`` allows them for the tiles' grid
+        ``grid_hw`` (traversal stride ``scale``), the A tile by TMA boxes
+        and the sources' maps; through the upsample the tiles walk the
+        source grid once per output parity class (4 ceil(B gh gw / 128)
+        tile rows, as igemm_bf16::launch_mode)."""
         co = out.shape[-1]
-        plan = kb.pick_plan(m, co, k, tiles=MEGA_TILES, sms=self.grid)
+        bf16 = ptrs["w"].dtype == torch.bfloat16
+        x_a, x_b = ptrs["x"], ptrs.get("x2")
+        box = kb.tma_boxes(128, *grid_hw, x_a.shape[3], 0 if x_b is None else x_b.shape[3],
+                           scale) if bf16 else None
+        if bf16:
+            tiles = MEGA_TILES_BF16 if box is not None and op == CONV else _NARROW_BF16
+            # by the modelled time alone, as K1 bf16's tile_plan: K8 bf16 at
+            # batch 50 took 6.410 ms a launch so against 6.751 with plans that
+            # fill one wave of the grid first (PERF.md section 6, PR 17)
+            plan = kb.pick_plan(m, co, k, tiles, kb.SPLIT_US_PER_MFLOAT_BF16, sms=self.grid,
+                                bk=kb.TC_BK_BF16, fill_first=False)
+        else:
+            plan = kb.pick_plan(m, co, k, tiles=MEGA_TILES, sms=self.grid)
+        tiles_m = math.ceil(m / plan.bm)
+        extra = {}
+        if bf16:
+            extra["map_w"] = self._map(_weight_map(ptrs["w"]))
+            if box is not None:
+                extra["boxes"] = 1
+                extra["map_a"] = self._map(_source_map(x_a, box, scale))
+                if x_b is not None:
+                    extra["map_b"] = self._map(_source_map(x_b, box, scale))
+                if ints.get("up"):
+                    tiles_m = 4 * math.ceil(ints["B"] * grid_hw[0] * grid_hw[1] / plan.bm)
         writes = [out]
         if plan.splits > 1:
             ptrs["scr"] = self._new((plan.splits, m, co))
-            ptrs["cnt"] = self._counters(plan.ctas(m, co) // plan.splits)
+            ptrs["cnt"] = self._counters(tiles_m * math.ceil(co / plan.bn))
             writes.append(ptrs["scr"])
         self._stage(op, ptrs, writes, bm=plan.bm, bn=plan.bn, splits=plan.splits, per=plan.per,
-                    **ints)
+                    **extra, **ints)
 
     def conv(self, x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
         B, hs, ws, ca = x_a.shape
@@ -286,7 +393,7 @@ class _Recorder:
         H, W = (2 * hs, 2 * ws) if upsample else (hs, ws)
         out = self._new((B, H, W, co))
         self._gemm(CONV, {"x": x_a, "x2": x_b, "w": w, "bias": b, "out": out}, out, B * H * W,
-                   k * k * (ca + cb), B=B, H=H, W=W, ca=ca, cb=cb, co=co, ks=k,
+                   k * k * (ca + cb), (hs, ws), 1, B=B, H=H, W=W, ca=ca, cb=cb, co=co, ks=k,
                    up=int(upsample))
         return out
 
@@ -295,7 +402,7 @@ class _Recorder:
         co = w.shape[-1]
         out = self._new((B, H // 2, W // 2, co))
         self._gemm(DOWN, {"x": x, "w": w, "bias": b, "out": out}, out, B * (H // 2) * (W // 2),
-                   4 * C, B=B, H=H, W=W, ca=C, co=co)
+                   4 * C, (H // 2, W // 2), 2, B=B, H=H, W=W, ca=C, co=co)
         return out
 
     def group_norm_act(self, x, gamma, beta, groups: int = 1, ss=None, res=None):
@@ -317,20 +424,28 @@ class _Recorder:
 
     def linear_attn(self, x, p, heads, dim_head):
         """K5a per (chunk, sample, head group), the merge by the last chunk
-        of a sample to arrive, then K5b."""
+        of a sample to arrive, then K5b (bf16: over la_output_plan's tiles
+        of the flattened tokens, in `ctas` work items)."""
         geo = _geometry(x)
-        B, n = x.shape[0], x.shape[1] * x.shape[2]
+        B, n, C = x.shape[0], x.shape[1] * x.shape[2], x.shape[3]
+        bf16 = p["wqkv"].dtype == torch.bfloat16
         chunk, S = ka.la_chunk_plan(B, n, self.grid)
-        hg = ka.la_head_groups(B, S, self.grid)
+        hg = ka.la_head_groups(B, S, self.grid, C=C, bf16=bf16)
         hidden = ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
         part = self._new((B, S, hidden, ka.LA_PART))
         ctx = self._new((B, ka.KERNEL_HEADS, ka.KERNEL_DIM_HEAD, ka.KERNEL_DIM_HEAD))
         common = {"x": x, "w": p["norm_g"], "aux": p["wqkv"]}
+        maps_a, maps_b = {}, {}
+        if bf16:
+            maps_a = {"map_w": self._map(_weight_map(p["wqkv"]))}
+            first = self._map_pair(_weight_map(p["wqkv"]), _weight_map(p["wo"]))
+            tr, ctas = ka.la_output_plan(B, n, C, self.grid)
+            maps_b = {"map_w": first, "map_a": first + 1, "tr": tr, "ctas": ctas}
         self._stage(LA_CONTEXT, {**common, "scr": part, "out": ctx, "cnt": self._counters(B)},
-                    [part, ctx], chunk=chunk, S=S, hg=hg, **geo)
+                    [part, ctx], chunk=chunk, S=S, hg=hg, **maps_a, **geo)
         out = self._new(x.shape)
         self._stage(LA_OUTPUT, {**common, "scr": ctx, "x2": p["wo"], "bias": p["bo"],
-                                "res": p["out_g"], "out": out}, [out], **geo)
+                                "res": p["out_g"], "out": out}, [out], **maps_b, **geo)
         return out
 
     def attn(self, x, p, heads, dim_head):
@@ -338,16 +453,19 @@ class _Recorder:
         K6c (out-projection, bias, residual): any token count."""
         geo = _geometry(x)
         B, n = x.shape[0], x.shape[1] * x.shape[2]
-        tr = ka.attn_tile_rows(B, n, self.grid)
+        bf16 = p["wqkv"].dtype == torch.bfloat16
+        tr = ka.attn_tile_rows(B, n, self.grid, bf16=bf16)
         hidden = ka.KERNEL_HEADS * ka.KERNEL_DIM_HEAD
         qkv = self._new((B * n, 3 * hidden))
+        map_q = {"map_w": self._map(_weight_map(p["wqkv"]))} if bf16 else {}
         self._stage(ATT_QKV, {"x": x, "w": p["norm_g"], "aux": p["wqkv"], "out": qkv}, [qkv],
-                    tr=tr, **geo)
+                    tr=tr, **map_q, **geo)
         o = self._new((B * n, hidden))
         self._stage(ATT_CORE, {"x": qkv, "out": o}, [o], **geo)
         out = self._new(x.shape)
+        map_o = {"map_w": self._map(_weight_map(p["wo"]))} if bf16 else {}
         self._stage(ATT_OUT, {"x": x, "scr": o, "x2": p["wo"], "bias": p["bo"], "out": out},
-                    [out], tr=tr, **geo)
+                    [out], tr=tr, **map_o, **geo)
         return out
 
     @property
@@ -408,8 +526,16 @@ class _Recorder:
                 base, off = _resolve(p)
                 table[i, OFF + SLOTS[name]] = off
                 table[i, BASE + SLOTS[name]] = base
+            for k, name in enumerate(EXTRA):
+                table[i, EXT + k] = ints.get(name, -1 if name.startswith("map_") else 0)
+        specs = np.zeros((len(self.maps), MAP_COLS), np.int64)
+        for j, m in enumerate(self.maps):
+            specs[j, :2] = m.spec[:2]
+            specs[j, 2:4] = _resolve(m.target)
+            specs[j, 4:] = m.spec[2:]
         plan = Plan(table, stages, max(top, _ALIGN), self.n_counters, self.grid,
-                    tuple(v.shape for v in self.inputs), out.shape, self.device, **meta)
+                    tuple(v.shape for v in self.inputs), out.shape, self.device, **meta,
+                    map_specs=specs)
         if self.device.type == "cuda":
             check_kernel_plan(plan)
         return plan
@@ -428,8 +554,9 @@ def check_kernel_plan(plan: Plan) -> None:
     or 1x1 convs and downsamples of even sizes whose weights fit their
     channels; channel counts, and channels per GroupNorm group, multiples
     of 4; 4 heads of 32 and 4 to 512 channels in the attention stages; no
-    buffer of more than 2^31-1 elements. A plan for CUDA is checked when it
-    is recorded."""
+    buffer of more than 2^31-1 elements; 128 x 256 tiles for conv stages by
+    TMA boxes alone; tensor maps on 16-byte aligned addresses and strides.
+    A plan for CUDA is checked when it is recorded."""
     wdt = plan.weight_dtype
     if wdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"unet2d_mega: matmul weights of dtype {wdt}; the kernel takes float32 "
@@ -452,10 +579,16 @@ def check_kernel_plan(plan: Plan) -> None:
             if slot in matmul and wdt == torch.bfloat16 and t.shape[-1] % 8:
                 raise ValueError(f"{name}: bfloat16 weights need rows of a multiple of 8, "
                                  f"got {tuple(t.shape)}")
+            if slot in matmul and wdt == torch.bfloat16 and t.data_ptr() % 16:
+                raise ValueError(f"{name}: {slot} must start 16-byte aligned (a TMA map's "
+                                 "global address)")
         kb._check_vec4(name, (), weights)
         for v in st.writes:
             if int(np.prod(v.shape)) > kb._INT32_MAX:
                 raise ValueError(f"{name}: intermediate {v.shape} exceeds 2^31-1 elements")
+        if i.get("bn") == 256 and (st.op != CONV or not i.get("boxes")):
+            raise ValueError(f"{name}: 128 x 256 tiles only for conv stages by TMA boxes "
+                             "(the bf16 instance compiles them for no other)")
         if st.op == CONV:
             w, k = st.ptrs["w"], i["ks"]
             if k not in (1, 3) or w.shape != (k * k * (i["ca"] + i["cb"]), i["co"]):
@@ -476,6 +609,10 @@ def check_kernel_plan(plan: Plan) -> None:
             if not 4 <= i["co"] <= ka.MAX_CHANNELS or i["co"] % 4:
                 raise ValueError(f"{name}: C={i['co']}; the kernel takes 4 to "
                                  f"{ka.MAX_CHANNELS} channels, a multiple of 4")
+    for j, row in enumerate(plan.map_specs):  # TMA: 16-byte aligned addresses and strides
+        if row[3] % 16 or any(row[8:11] % 16):
+            raise ValueError(f"unet2d_mega: tensor map {j} has address offset {row[3]} or "
+                             f"strides {row[8:11].tolist()} not 16-byte aligned")
 
 
 def _resolve(p):
@@ -515,23 +652,40 @@ def _cuda_grid(index: int) -> int:
     return blocks.value
 
 
-def _launch(plan: Plan, inputs, out) -> int:
+def _maps(plan: Plan, bases, stream: int, device, lib) -> torch.Tensor:
+    """The plan's tensor maps encoded for `bases`, in a new device array
+    written on `stream` (see the module docstring)."""
+    maps = torch.empty(len(plan.map_specs) * MAP_BYTES, device=device, dtype=torch.uint8)
+    err = lib.unet2d_persistent_maps(plan.map_specs.ctypes.data, len(plan.map_specs),
+                                     (ctypes.c_int64 * _N_BASES)(*bases), maps.data_ptr(), stream)
+    _build.check(err, "unet2d_persistent_maps")
+    return maps
+
+
+def _launch(plan: Plan, inputs, out, lib=None) -> int:
     """One cooperative launch of the plan on CUDA tensors; returns the grid
-    size. The caller has checked ``inputs`` and ``out``."""
+    size. The caller has checked ``inputs`` and ``out``. lib: the kernel
+    library (a diagnostic build; the plain one by default)."""
     if plan.grid != grid_blocks(out.device):
         raise RuntimeError(f"unet2d_persistent: the card runs {grid_blocks(out.device)} CTAs, "
                            f"the plan was made for {plan.grid}")
-    if plan.device_table is None:
-        plan.device_table = torch.from_numpy(plan.table).to(out.device)
+    bf16 = plan.weight_dtype == torch.bfloat16
+    if plan.device_table is None:  # the float instance's records end before EXTRA
+        table = plan.table if bf16 else np.ascontiguousarray(plan.table[:, :EXT])
+        plan.device_table = torch.from_numpy(table).to(out.device)
     ws = torch.empty(plan.workspace_bytes // 4, device=out.device, dtype=torch.float32)
     bases = [0, ws.data_ptr(), *(t.data_ptr() for t in inputs), out.data_ptr()]
     bases += [0] * (_N_BASES - len(bases))
     grid = ctypes.c_int(0)
-    lib = _build.load_library()
-    fn = (lib.unet2d_persistent_bf16 if plan.weight_dtype == torch.bfloat16
-          else lib.unet2d_persistent_f32)
-    err = fn(plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
-             plan.n_counters, ctypes.byref(grid), kb._stream(out))
+    lib = _build.load_library() if lib is None else lib
+    stream = kb._stream(out)
+    args = (plan.device_table.data_ptr(), len(plan.stages), (ctypes.c_int64 * _N_BASES)(*bases),
+            plan.n_counters, ctypes.byref(grid), stream)
+    if bf16:
+        maps = _maps(plan, bases, stream, out.device, lib)
+        err = lib.unet2d_persistent_bf16(*args, maps.data_ptr())
+    else:
+        err = lib.unet2d_persistent_f32(*args)
     _build.check(err, "unet2d_persistent")
     return grid.value
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Where K8's time goes, on one NVIDIA GPU: SM clocks per stage of the
-persistent kernel (``csrc/unet2d_persistent.cu``), summed by op class over
+persistent kernel (``csrc/unet2d_persistent.cuh``), summed by op class over
 one forward.
 
 ``nsys`` and ``ncu`` do not run on the machines the port is measured on, so
@@ -41,7 +41,7 @@ import torch
 from diffphycon_tpu_torch.kernels import _build
 from diffphycon_tpu_torch.kernels import unet2d_mega as km
 
-STAMP_GRID = 256  # CTAs per stage in the stamp array (unet2d_persistent.cu: kStampGrid)
+STAMP_GRID = 256  # CTAs per stage in the stamp array (unet2d_persistent.cuh: kStampGrid)
 STAMP_STAGES = 1024
 CLASSES = ("conv", "conv_split_k", "down", "gn_stats", "gn_apply", "la_context", "la_output",
            "attention", "barrier_wait")
@@ -58,10 +58,11 @@ def op_class(stage) -> str:
 
 def build() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(_build.build(("MEGA_PHASE_CLOCKS",))))
-    for name in ("unet2d_persistent_f32", "unet2d_persistent_bf16"):
-        getattr(dll, name).argtypes = _build.SIGNATURES[name]
-    dll.unet2d_persistent_grid.argtypes = _build.SIGNATURES["unet2d_persistent_grid"]
-    dll.mega_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for name, argtypes in _build.SIGNATURES.items():
+        getattr(dll, name).argtypes = argtypes
+        getattr(dll, name).restype = ctypes.c_int
+    for name in ("mega_stamps_read", "mega_stamps_read_bf16"):  # per instance
+        getattr(dll, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
     return dll
 
 
@@ -73,20 +74,10 @@ def stage_clocks(torch, cs, dll, grid, plan, inputs, kernel_call, label):
     n = len(plan.stages)
     if n > STAMP_STAGES or grid > STAMP_GRID:
         raise SystemExit("mega_stage_clocks: the stamp array is too small")
-    table = torch.from_numpy(plan.table).cuda()
-    ws = torch.empty(plan.workspace_bytes // 4, device="cuda")
     out = torch.empty(plan.out_shape, device="cuda")
-    bases = [0, ws.data_ptr(), *(t.data_ptr() for t in inputs), out.data_ptr()]
-    bases += [0] * (8 - len(bases))
-
-    fn = (dll.unet2d_persistent_bf16 if plan.weight_dtype == torch.bfloat16
-          else dll.unet2d_persistent_f32)
 
     def launch():
-        err = fn(
-            table.data_ptr(), n, (ctypes.c_int64 * 8)(*bases), plan.n_counters, None,
-            torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "unet2d_persistent (clocks build)")
+        km._launch(plan, inputs, out, lib=dll)
 
     ms = cs.timed(torch, launch, n=5)
     plain_ms = cs.timed(torch, kernel_call, n=5)
@@ -94,7 +85,9 @@ def stage_clocks(torch, cs, dll, grid, plan, inputs, kernel_call, label):
     torch.cuda.synchronize()
     bit_equal = torch.equal(out, kernel_call())
     raw = np.zeros(STAMP_STAGES * STAMP_GRID * 3, np.int64)
-    _build.check(dll.mega_stamps_read(raw.ctypes.data, raw.size), "mega_stamps_read")
+    read = (dll.mega_stamps_read_bf16 if plan.weight_dtype == torch.bfloat16
+            else dll.mega_stamps_read)
+    _build.check(read(raw.ctypes.data, raw.size), "mega_stamps_read")
     st = raw.reshape(STAMP_STAGES, STAMP_GRID, 3)[:n, :grid].astype(np.float64)
     work = (st[:, :, 1] - st[:, :, 0]).mean(axis=1)  # per stage, mean over CTAs
     wait = (st[:, :, 2] - st[:, :, 1]).mean(axis=1)
@@ -102,7 +95,8 @@ def stage_clocks(torch, cs, dll, grid, plan, inputs, kernel_call, label):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"tool": "mega_stage_clocks", **label,
-                      "weight_dtype": str(plan.weight_dtype), "grid": grid, "stages": n,
+                      "weight_dtype": str(plan.weight_dtype),
+                      "grid": grid, "stages": n,
                       "barriers": plan.barriers(), "launch_ms_clocks_build": ms,
                       "launch_ms_plain_build": plain_ms, "bit_equal_to_plain_build": bit_equal,
                       "launch_clocks": total, "nvidia_smi": smi}), flush=True)

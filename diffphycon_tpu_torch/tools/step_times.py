@@ -30,7 +30,12 @@ two UNet3Ds at the app's widths) and a guided DDPM step at batch 8
 updater and the force surrogate), all with seeded random weights; per run
 steps/s, the peak memory allocated and reserved, and the output's
 largest difference from the first in-turn run's (0: bit-equal).
-``--bf16`` builds every net of the run with bf16 (``BurgersConfig``,
+``--attention`` times nothing else: K5 and K6 alone at each of their
+signatures of one Burgers UNet2D forward at batch 50 (``chip_smoke.py``
+phase 3's shapes and inputs, a CUDA generator seeded per signature), the
+device time of one call (``chip_smoke.timed_graph``) and the first 16 hex
+digits of the SHA-256 of its output, and the device ms per forward of each
+(under ``--bf16`` the bf16 variants). ``--bf16`` builds every net of the run with bf16 (``BurgersConfig``,
 ``SmokeConfig`` and ``JellyfishConfig(bf16=True)``: bf16 weights in the
 UNet2D's kernel packs, the UNet3Ds computing in bf16 as flax ``dtype=bf16``;
 the jellyfish surrogates stay float32), so the bf16 samplers and training
@@ -48,6 +53,7 @@ import argparse
 import hashlib
 import json
 import os
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -111,6 +117,34 @@ def conv_digests(torch) -> dict:
             digests[f"{kind}{list(sig)}"] = [
                 list(plan), hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]]
     return {"signatures": len(sigs), "digests": digests}
+
+
+def attention_times(torch, bf16: bool) -> dict:
+    """K5's and K6's device ms and output digests at every signature of one
+    forward, and their device ms per forward (see the module docstring)."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+
+    kinds = ("linear_attention_block", "attention_block")
+    calls = [(k, a) for k, a, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B) if k in kinds]
+    rows, per_forward = {}, dict.fromkeys(kinds, 0.0)
+    with torch.no_grad():
+        for i, (kind, sig) in enumerate(sorted(set(calls))):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            fn = cs.kernel_case(torch, F, kb, gen, kind, sig, bf16=bf16)[0]
+            out = fn()
+            torch.cuda.synchronize()
+            ms, err = cs.timed_graph(torch, fn, n=20)
+            if ms is None:
+                raise SystemExit(f"{kind}{list(sig)}: {err}")
+            n = calls.count((kind, sig))
+            per_forward[kind] += n * ms
+            rows[f"{kind}{list(sig)}"] = {
+                "calls": n, "device_ms": ms,
+                "digest": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}
+    return {"attention": rows, "device_ms_per_forward": per_forward}
 
 
 def solver_times(torch, bench) -> dict:
@@ -254,6 +288,8 @@ def main() -> int:
                     help="time the two-model samplers with concurrent and in-turn forwards")
     ap.add_argument("--solver", action="store_true",
                     help="time the no-grad Burgers solve and evaluate_samples instead")
+    ap.add_argument("--attention", action="store_true",
+                    help="time K5 and K6 alone at the forward's signatures instead")
     ap.add_argument("--bf16", action="store_true",
                     help="every net in bf16 (bf16 UNet2D packs, bf16 UNet3Ds)")
     args = ap.parse_args()
@@ -283,6 +319,12 @@ def main() -> int:
         return 0
     if args.two_model:
         print(json.dumps({**out, "two_model": two_model_times(torch, args.bf16)}), flush=True)
+        return 0
+    if args.attention:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+        print(json.dumps({**out, "nvidia_smi": smi.stdout.strip(),
+                          **attention_times(torch, args.bf16)}), flush=True)
         return 0
     if args.solver:
         print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)

@@ -733,12 +733,15 @@ def test_port_unet2d_bf16_forward_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,groups", [((3, 16, 128, 64), 1), ((2, 4, 32, 256), 2)])
+@pytest.mark.parametrize("shape,groups", [((3, 16, 128, 64), 1), ((2, 4, 32, 256), 2)]
+                         + [((chip_smoke.B, h, w, c), 1) for h, w, c in chip_smoke.PAIR_SHAPES])
 def test_port_resblock_pair_bf16_kernel_matches_plain_on_gpu(cuda_device, shape, groups):
     """K7's bf16 instantiation (bf16 conv weights) against the bf16 plain
     pair (1e-2: a rounding flip of one activation moves a term by 2^-8, and
     GroupNorm carries it on), bit-equal repeats, counted as a bf16 launch;
-    a pair of mixed weight dtypes raises."""
+    a pair of mixed weight dtypes raises. Also at phase 9's five pair shapes
+    (batch 50), whose convs take the A tile by TMA boxes, split-K among
+    them."""
     g = torch.Generator(device=cuda_device).manual_seed(21)
     b, c = shape[0], shape[-1]
     x = torch.randn(*shape, generator=g, device=cuda_device)
@@ -760,12 +763,22 @@ def test_port_resblock_pair_bf16_kernel_matches_plain_on_gpu(cuda_device, shape,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,mults,shape", [(8, (1, 2, 4, 8), (3, 16, 128, 2)),
-                                             (16, (1, 2), (2, 16, 128, 2))])
+                                             (16, (1, 2), (2, 16, 128, 2)),
+                                             (16, (1, 2, 4), (2, 16, 128, 2)),
+                                             (64, (1, 2), (8, 16, 128, 2))])
 def test_port_unet2d_mega_bf16_kernel_matches_plain_on_gpu(cuda_device, dim, mults, shape):
     """K8's bf16 instantiation: the kernel against its plain version (the
     bf16 plain replay) on the inputs forward_mega gives it (1e-2), one
-    launch counted as bf16, bit-equal repeats; the 32- and 512-token
-    bottlenecks."""
+    launch counted as bf16, and 20 launches back to back all bit-equal (a
+    missing proxy fence between a stage's stores and the next stage's TMA
+    reads shows as a rare wrong tile), and a CUDA graph of one launch
+    replayed to the same bits, also the second of two graphs captured on
+    one pool, replayed alone; the 32- and 512-token bottlenecks.
+    The conv stages gather their A tiles where a source has channels off
+    64 (every stage of the 2-level dim-16 net, most of the dim-8 and the
+    3-level dim-16 nets) and take TMA boxes elsewhere (their 64-channel
+    levels, through the upsample too, and every stage of the dim-64 net);
+    at batch 8 the dim-64 net's K5b work items take several tiles each."""
     from diffphycon_tpu_torch.kernels import unet2d_mega as km
     from diffphycon_tpu_torch.nets.init import seeded_init_
     from diffphycon_tpu_torch.nets.unet2d import UNet2D, _conv_nchw
@@ -781,28 +794,59 @@ def test_port_unet2d_mega_bf16_kernel_matches_plain_on_gpu(cuda_device, dim, mul
         x0 = _conv_nchw(x, net.init_conv, torch.bfloat16)
         plan = km.mega_plan(packs, x0.shape, net.groups, 4, 32, x0.device)
         assert plan.weight_dtype == torch.bfloat16
+        boxes = [row[km.EXT] for st, row in zip(plan.stages, plan.table)
+                 if st.op in (km.CONV, km.DOWN)]
+        want = "all" if dim == 64 else "none" if mults == (1, 2) else "some"
+        assert {"none": sum(boxes) == 0, "all": all(boxes),
+                "some": 0 < sum(boxes) < len(boxes)}[want], boxes
         kb.reset_launch_counts()
         out = km.unet2d_mega(x0, film, packs, plan)
         counts = kb.launch_counts()
         assert counts["unet2d_mega"] == counts["unet2d_mega.bf16"] == 1, counts
         assert_close(out, km.unet2d_mega_plain(x0, film, packs, plan), 1e-2)
-        assert torch.equal(out, km.unet2d_mega(x0, film, packs, plan))
+        repeats = [km.unet2d_mega(x0, film, packs, plan) for _ in range(20)]
+        assert all(torch.equal(out, r) for r in repeats)
+        # in a CUDA graph: the capture writes the tensor maps for its own
+        # workspace on its own stream, and the replay gives the same bits
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = km.unet2d_mega(x0, film, packs, plan)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, captured)
+        # two captures sharing one pool (the same stream, and perhaps the
+        # same workspace address), only the second replayed: its own
+        # captured writes must give its maps
+        first, second = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(first):
+            km.unet2d_mega(x0, film, packs, plan)
+        with torch.cuda.graph(second, pool=first.pool()):
+            captured = km.unet2d_mega(x0, film, packs, plan)
+        second.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, captured)
 
 
 def _untouched_digests(device):
     """SHA-256 (first 16 hex digits) of the outputs of the kernels whose
-    bodies the bf16 attention redesign leaves as they were: fp32 K5 and K6
-    (3xTF32 bodies of linear_attention_tc.cuh and attention.cuh), and K7 and
-    K8 in both weight dtypes (the persistent kernel, which runs those bodies
-    and igemm_tc.cuh's). Inputs from numpy generators, nets from seeded_init_
-    on the CPU, so the digests depend on the kernels alone."""
+    bodies the bf16 persistent-kernel redesign must leave as they are: fp32
+    K1-K8 (the 3xTF32 bodies of igemm_tc.cuh, linear_attention_tc.cuh and
+    attention.cuh, K3, K4, and the persistent kernel's float instance), and
+    the per-block bf16 K1 (3x3 by TMA boxes, through the nearest-2x
+    upsample, from two sources, and a shape the gather takes), K2, K5 and K6
+    (igemm_bf16.cuh and attention_bf16.cuh, whose bodies the persistent
+    kernel's bf16 instance now shares). Inputs from numpy generators, nets
+    from seeded_init_ on the CPU, so the digests depend on the kernels
+    alone."""
     import hashlib
 
     import numpy as np
 
     from diffphycon_tpu_torch.kernels import attention as ka
+    from diffphycon_tpu_torch.kernels import cg_pressure as kcg
     from diffphycon_tpu_torch.nets.init import seeded_init_
     from diffphycon_tpu_torch.nets.unet2d import UNet2D
+    from diffphycon_tpu_torch.physics.fluids import smoke_env
 
     rng = np.random.default_rng(23)
 
@@ -817,6 +861,9 @@ def _untouched_digests(device):
             p["out_g"] = r(c, scale=0.1, shift=1.0)
         return p
 
+    def bf16(p):
+        return {k: v.to(torch.bfloat16) if k in ("wqkv", "wo") else v for k, v in p.items()}
+
     def digest(t):
         torch.cuda.synchronize()
         return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -829,36 +876,73 @@ def _untouched_digests(device):
         for shape in ((50, 2, 16, 512), (3, 4, 7, 64)):
             out[f"k6_f32{list(shape)}"] = digest(
                 ka.attention_block(r(*shape), attn(shape[-1], False)))
-        for dtype in (torch.float32, torch.bfloat16):
-            name = "f32" if dtype == torch.float32 else "bf16"
-            c = 256
-            pack = {"w1": r(9 * c, c, scale=(9 * c) ** -0.5), "b1": r(c, scale=0.1),
-                    "gs1": r(c, scale=0.1, shift=1.0), "gb1": r(c, scale=0.1),
-                    "w2": r(9 * c, c, scale=(9 * c) ** -0.5), "b2": r(c, scale=0.1),
-                    "gs2": r(c, scale=0.1, shift=1.0), "gb2": r(c, scale=0.1)}
-            if dtype == torch.bfloat16:
-                pack["w1"], pack["w2"] = pack["w1"].to(dtype), pack["w2"].to(dtype)
-            x, ss = r(2, 4, 32, 256), r(2, 512, scale=0.5)
-            out[f"k7_{name}"] = digest(kb.resblock_pair(x, ss, ss, pack, pack, groups=2))
-            net = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2, 4, 8), weight_dtype=dtype),
-                               torch.Generator().manual_seed(0)).to(device)
-            out[f"k8_{name}"] = digest(net.forward_mega(r(3, 16, 128, 2),
-                                                        torch.linspace(0, 999, 3, device=device)))
+        c = 256
+        pack = {"w1": r(9 * c, c, scale=(9 * c) ** -0.5), "b1": r(c, scale=0.1),
+                "gs1": r(c, scale=0.1, shift=1.0), "gb1": r(c, scale=0.1),
+                "w2": r(9 * c, c, scale=(9 * c) ** -0.5), "b2": r(c, scale=0.1),
+                "gs2": r(c, scale=0.1, shift=1.0), "gb2": r(c, scale=0.1)}
+        x, ss = r(2, 4, 32, 256), r(2, 512, scale=0.5)
+        out["k7_f32"] = digest(kb.resblock_pair(x, ss, ss, pack, pack, groups=2))
+        net = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2, 4, 8)),
+                           torch.Generator().manual_seed(0)).to(device)
+        out["k8_f32"] = digest(net.forward_mega(r(3, 16, 128, 2),
+                                                torch.linspace(0, 999, 3, device=device)))
+        # K1 / K2 in both weight dtypes: (name, xa, xb, co, k, upsample)
+        convs = (("3x3", (3, 16, 128, 64), None, 64, 3, False),
+                 ("up", (2, 8, 64, 128), None, 64, 3, True),
+                 ("cat", (2, 8, 64, 128), 64, 128, 3, False),
+                 ("cat_1x1", (2, 8, 64, 128), 64, 64, 1, False),
+                 ("gather", (2, 4, 20, 48), 24, 40, 3, False))
+        for name, xs, cb, co, k, up in convs:
+            xa, xb = r(*xs), (r(*xs[:3], cb) if cb else None)
+            ci = xs[3] + (cb or 0)
+            w, b = r(k * k * ci, co, scale=(k * k * ci) ** -0.5), r(co, scale=0.1)
+            for dt in ("f32", "bf16"):
+                wd = w if dt == "f32" else w.to(torch.bfloat16)
+                out[f"k1_{dt}_{name}"] = digest(kb.conv2d_nhwc(xa, wd, b, x_b=xb, k=k,
+                                                               upsample=up))
+        x = r(3, 16, 128, 64)
+        w, b = r(256, 96, scale=256 ** -0.5), r(96, scale=0.1)
+        out["k2_f32"] = digest(kb.downsample_nhwc(x, w, b))
+        out["k2_bf16"] = digest(kb.downsample_nhwc(x, w.to(torch.bfloat16), b))
+        out["k3_f32"] = digest(kb.group_norm_act(x, r(64, scale=0.1, shift=1.0), r(64), 2,
+                                                 ss=r(3, 128, scale=0.5), res=x))
+        coeffs = smoke_env.smoke_domain_128().laplacian_coeffs(device)
+        p, iters = kcg.cg_pressure(r(8, 127, 127), coeffs, 1e-6, 500)
+        out["k4_f32"] = digest(p) + "/" + digest(iters)
+        for shape in ((3, 16, 128, 64), (2, 2, 16, 512), (5, 1, 24, 256)):
+            out[f"k5_bf16{list(shape)}"] = digest(
+                ka.linear_attention_block(r(*shape), bf16(attn(shape[-1], True))))
+        for shape in ((50, 2, 16, 512), (3, 4, 7, 64)):
+            out[f"k6_bf16{list(shape)}"] = digest(
+                ka.attention_block(r(*shape), bf16(attn(shape[-1], False))))
     return out
 
 
-# recorded on NVIDIA H100 80GB HBM3 from the kernels as they were before
-# K5's and K6's bf16 variants moved to csrc/attention_bf16.cuh
+# recorded on NVIDIA H100 80GB HBM3: the fp32 K5-K8 entries before K5's and
+# K6's bf16 variants moved to csrc/attention_bf16.cuh, the others from the
+# kernels as they were before the persistent kernel's bf16 instance moved
+# to igemm_bf16.cuh and attention_bf16.cuh
 UNTOUCHED_DIGESTS = {
     "k5_f32[3, 16, 128, 64]": "bbeddfc90955d650", "k5_f32[2, 2, 16, 512]": "5a8074b50d321977",
     "k5_f32[5, 1, 24, 256]": "3fa15c66f5d7855b", "k6_f32[50, 2, 16, 512]": "e8b5c7f4d5c1d999",
     "k6_f32[3, 4, 7, 64]": "a25c9b6edcff0e8e", "k7_f32": "6fe6e64efa1397a2",
-    "k8_f32": "764fedba11a8ccbd", "k7_bf16": "83e71d8e298961f5", "k8_bf16": "3aefbf312560ec8b"}
+    "k8_f32": "764fedba11a8ccbd", "k1_f32_3x3": "f83adeaf9db92631",
+    "k1_bf16_3x3": "c7785adfa212cabc", "k1_f32_up": "67adf97ed9860365",
+    "k1_bf16_up": "e9cce75a2cdbae1f", "k1_f32_cat": "f4a0fced413941a6",
+    "k1_bf16_cat": "81f81380d890e6af", "k1_f32_cat_1x1": "4508950b8e69911a",
+    "k1_bf16_cat_1x1": "5c02bf56daa56661", "k1_f32_gather": "5139485dfcc202bb",
+    "k1_bf16_gather": "c670f6ef49f57c2e", "k2_f32": "a5c7dbe1dd1382e2",
+    "k2_bf16": "56069682d7a22bc0", "k3_f32": "c0f27a0ad0842015",
+    "k4_f32": "e9056aff984e6d09/ffc9d9983e3c4e00", "k5_bf16[3, 16, 128, 64]": "2726d63b27c5c3bb",
+    "k5_bf16[2, 2, 16, 512]": "4ced4eee0a522900", "k5_bf16[5, 1, 24, 256]": "3153e4274788254f",
+    "k6_bf16[50, 2, 16, 512]": "d2e9a93c577ab818", "k6_bf16[3, 4, 7, 64]": "ef20c83e845a86b0"}
 
 
 @pytest.mark.cuda
 def test_port_untouched_kernels_bit_equal_to_recorded_digests(cuda_device):
-    """fp32 K5 and K6, and K7 and K8 in both weight dtypes, give outputs
-    bit-equal to digests recorded before the bf16 attention bodies moved to
-    their own header: the bodies they run stayed as they were."""
+    """fp32 K1-K8 and the per-block bf16 K1, K2, K5 and K6 give outputs
+    bit-equal to digests recorded before the persistent kernel's bf16
+    instance moved onto the per-block bf16 bodies: the bodies they run
+    stayed as they were."""
     assert _untouched_digests(cuda_device) == UNTOUCHED_DIGESTS

@@ -172,9 +172,10 @@ def _im2col(x_a, x_b, k, up):
 
 def _gemm_stage(a, w, b, i, tc3):
     """The GEMM of a conv or down stage on its split-K plan: bias + the
-    splits' partials over K slices [z*per*32, (z+1)*per*32), added in split
-    order."""
-    step = i["per"] * kb.TC_BK
+    splits' partials over K slices [z*per*BK, (z+1)*per*BK), added in split
+    order (BK: the core's stage depth, 32 for float32 weights, 64 for the
+    bf16 core)."""
+    step = i["per"] * (kb.TC_BK_BF16 if w.dtype == torch.bfloat16 else kb.TC_BK)
     acc = None
     for z in range(i["splits"]):
         term = _mm(a[:, z * step:(z + 1) * step], w[z * step:(z + 1) * step], tc3)

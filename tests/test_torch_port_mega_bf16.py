@@ -30,9 +30,19 @@ Tolerances, max |port - ref| <= rtol * max(1, max |ref|):
   a barrier missing or a live buffer reused gives NaN or O(1) errors, the
   workspace starting as NaN).
 
+The bf16 plan's integers are held exactly: the conv and down stages on the
+bf16 core's tiles (MEGA_TILES_BF16) and 64-deep stages, TMA boxes exactly
+where ``unet2d_blocks.tma_boxes`` (igemm_bf16::launch's rule) allows them,
+the tensor maps' geometry and alignment, K5's and K6's plans for the
+plan's grid; and the float32 plan's table as it was recorded before the
+bf16 instance changed (digests of its integers, weight addresses zeroed).
+
 The kernels themselves run only on the card: the bf16 K7/K8 tests of
 ``test_torch_port_cuda.py`` and ``chip_smoke.py`` phases 9 and 10.
 """
+
+import hashlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +52,7 @@ import torch
 
 import test_torch_port_mega as tm
 from diffphycon_tpu.research import pallas_unet2d_mega as mega
+from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 from diffphycon_tpu_torch.kernels import unet2d_mega as km
 from diffphycon_tpu_torch.nets.init import seeded_init_
@@ -147,12 +158,13 @@ def test_bf16_resblock_pair_plain_takes_bf16_packs():
     km.check_kernel_plan(plan)
 
 
-@pytest.mark.parametrize("case", ["mixed_matmul", "bf16_bias", "rows_of_12"])
+@pytest.mark.parametrize("case", ["mixed_matmul", "bf16_bias", "rows_of_12", "map_offset_8"])
 def test_bf16_mega_kernel_plan_check_refuses(case):
     """check_kernel_plan refuses a plan the bf16 instantiation cannot take:
     one float32 matmul weight in a bf16 plan (no mixed plans: one launch runs
-    one instantiation), a bf16 bias, and bf16 weight rows of 12 (the bf16
-    tiles move 8 weights per 16-byte copy)."""
+    one instantiation), a bf16 bias, bf16 weight rows of 12 (the bf16
+    tiles move 8 weights per 16-byte copy), and a tensor map whose global
+    address is not 16-byte aligned (TMA's rule)."""
     dim = 12 if case == "rows_of_12" else 8
     net = _bf16_net(dim, (1, 2))
     with torch.no_grad():
@@ -163,6 +175,128 @@ def test_bf16_mega_kernel_plan_check_refuses(case):
     elif case == "bf16_bias":
         res["b1"] = res["b1"].to(BF16)
     plan = km.mega_plan(packs, (1, 16, 128, dim), net.groups, 4, 32, "cpu")
-    err = ValueError if case == "rows_of_12" else TypeError
-    with pytest.raises(err, match="multiple of 8" if case == "rows_of_12" else "mixed"):
+    if case == "map_offset_8":
+        plan.map_specs[1, 3] += 8
+    err = TypeError if case in ("mixed_matmul", "bf16_bias") else ValueError
+    match = {"rows_of_12": "multiple of 8", "map_offset_8": "16-byte"}.get(case, "mixed")
+    with pytest.raises(err, match=match):
         km.check_kernel_plan(plan)
+
+
+def _conv_grid(st):
+    """(gh, gw, scale, ca, cb, Hs, Ws) of a conv or down stage: the grid its
+    tiles walk (the output's, through the upsample the source's), the
+    traversal stride, the sources' channels and size."""
+    i = st.ints
+    if st.op == km.DOWN:
+        return i["H"] // 2, i["W"] // 2, 2, i["ca"], 0, i["H"], i["W"]
+    hs, ws = (i["H"] // 2, i["W"] // 2) if i["up"] else (i["H"], i["W"])
+    return hs, ws, 1, i["ca"], i["cb"], hs, ws
+
+
+@pytest.mark.parametrize("dim,mults,batch,grid", [(64, (1, 2, 4, 8), 50, 132),
+                                                  (64, (1, 2, 4, 8), 16, 132),
+                                                  (64, (1, 2, 4, 8), 1, 132),
+                                                  (64, (1, 2, 4, 8), 50, 114),
+                                                  (16, (1, 2, 4), 3, 132)])
+def test_bf16_mega_plan_takes_the_bf16_core_plans(dim, mults, batch, grid):
+    """K8's bf16 plan at the Burgers width (batch 50, 16, 1; the grid of an
+    H100 and a smaller one) and a dim-16 net: every conv and down stage on a
+    tile of MEGA_TILES_BF16 (128 x 256 for conv stages by boxes alone) whose
+    splits cover K in 64-deep stages, none empty; the A tile by TMA boxes
+    exactly where tma_boxes allows it, the
+    boxes' maps on the stage's own sources with the rule's box (and K2's
+    stride 2), the arrival counters for the tiles it walks (through the
+    upsample 4 ceil(B gh gw / 128) tile rows); every map record 64-byte
+    aligned in the array and every mapped address and stride 16-byte
+    aligned; K5's chunks, head groups and K5b's (tile rows, work items),
+    and K6's 64-token tiles, the attention plans for the plan's grid."""
+    net = _bf16_net(dim, mults)
+    with torch.no_grad():
+        packs = net.pack()
+    plan = km.mega_plan(packs, (batch, 16, 128, dim), net.groups, 4, 32, "cpu", grid=grid)
+    km.check_kernel_plan(plan)
+    assert plan.grid == grid and km.MAP_BYTES % 64 == 0
+    specs = plan.map_specs
+    assert len(specs) and (specs[:, 3] % 16 == 0).all() and (specs[:, 8:11] % 16 == 0).all()
+    assert set(specs[:, 2].tolist()) <= {0, 1, 2}  # weights, the workspace, x0
+    counters, boxed = 0, 0
+    for st, row in zip(plan.stages, plan.table):
+        i = st.ints
+        ext = dict(zip(km.EXTRA, row[km.EXT:].tolist()))
+        if st.op in (km.CONV, km.DOWN):
+            assert (i["bm"], i["bn"]) in km.MEGA_TILES_BF16
+            assert i["bn"] < 256 or (st.op == km.CONV and ext["boxes"])  # compiled for no other
+            k = (i["ks"] ** 2 * (i["ca"] + i["cb"])) if st.op == km.CONV else 4 * i["ca"]
+            stages = math.ceil(k / kb.TC_BK_BF16)
+            assert (i["splits"] - 1) * i["per"] < stages <= i["splits"] * i["per"]
+            gh, gw, scale, ca, cb, hs, ws = _conv_grid(st)
+            box = kb.tma_boxes(128, gh, gw, ca, cb, scale)
+            assert ext["boxes"] == (box is not None)
+            w = specs[ext["map_w"]]
+            assert w[0] == 0 and w[1] == 2 and w[2] == 0 and w[3] == st.ptrs["w"].data_ptr()
+            assert list(w[4:6]) == [i["co"], k] and list(w[11:13]) == [64, 64]
+            for name, c in (("map_a", ca), ("map_b", cb)):
+                if box is None or c == 0:
+                    assert ext[name] == -1
+                    continue
+                m = specs[ext[name]]
+                src = st.ptrs["x" if name == "map_a" else "x2"]
+                assert (m[2], m[3]) == (src.base, src.off) and src.shape == (batch, hs, ws, c)
+                assert list(m[4:8]) == [c, ws, hs, batch]
+                assert list(m[11:19]) == [32, box[0] * scale, box[1] * scale, box[2], 1, scale,
+                                          scale, 1]
+            boxed += box is not None
+            m = batch * gh * gw if st.op == km.DOWN or not i["up"] else batch * gh * gw * 4
+            tiles_m = (4 * math.ceil(batch * gh * gw / 128) if box is not None and i.get("up")
+                       else math.ceil(m / 128))
+            if i["splits"] > 1:
+                assert st.ptrs["cnt"].first == counters
+                counters += tiles_m * math.ceil(i["co"] / i["bn"])
+        elif st.op == km.LA_CONTEXT:
+            n = i["H"] * i["W"]
+            assert (i["chunk"], i["S"]) == ka.la_chunk_plan(batch, n, grid)
+            assert i["hg"] == ka.la_head_groups(batch, i["S"], grid, C=i["co"], bf16=True)
+            assert st.ptrs["cnt"].first == counters
+            counters += batch
+            assert specs[ext["map_w"]][3] == st.ptrs["aux"].data_ptr()
+        elif st.op == km.LA_OUTPUT:
+            assert (i["tr"], ext["ctas"]) == ka.la_output_plan(batch, i["H"] * i["W"], i["co"],
+                                                               grid)
+            assert ext["map_a"] == ext["map_w"] + 1  # OutMaps: wqkv, then wo
+            assert specs[ext["map_w"]][3] == st.ptrs["aux"].data_ptr()
+            assert specs[ext["map_a"]][3] == st.ptrs["x2"].data_ptr()
+        elif st.op in (km.ATT_QKV, km.ATT_OUT):
+            assert i["tr"] == 64
+            wt = st.ptrs["aux" if st.op == km.ATT_QKV else "x2"]
+            assert specs[ext["map_w"]][3] == wt.data_ptr()
+    assert counters == plan.n_counters
+    assert boxed > 0 if dim == 64 else boxed < len([s for s in plan.stages
+                                                   if s.op in (km.CONV, km.DOWN)])
+
+
+# the float32 plans' tables (their first 38 columns, weight addresses
+# zeroed) as the parent of the bf16 redesign recorded them: (dim, mults,
+# batch) -> (digest, workspace bytes, counters, barriers)
+FP32_TABLES = {(8, (1, 2, 4, 8), 2): ("e0ed350522f4d8e0", 2963968, 47, 141),
+               (64, (1, 2, 4, 8), 50): ("878439705c49e58e", 409569280, 3128, 141),
+               (16, (1, 2), 2): ("a8068058915efac2", 6211328, 200, 81)}
+
+
+@pytest.mark.parametrize("dim,mults,batch", list(FP32_TABLES))
+def test_fp32_mega_plan_table_is_the_recorded_one(dim, mults, batch):
+    """The float32 instance's plan is unchanged integer for integer: the
+    table's first 38 columns (weight addresses zeroed) hash to the digest
+    recorded before the bf16 instance moved to the bf16 bodies, with the
+    same workspace, counters and barriers; its bf16-only columns are 0
+    (boxes, work items) and -1 (no tensor maps), and it lists no map."""
+    net = seeded_init_(UNet2D(dim=dim, dim_mults=mults), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        plan = km.mega_plan(net.pack(), (batch, 16, 128, dim), net.groups, 4, 32, "cpu")
+    t = plan.table[:, :km.EXT].copy()
+    off, base = t[:, km.OFF:km.OFF + len(km.SLOTS)], t[:, km.BASE:km.BASE + len(km.SLOTS)]
+    off[base == 0] = 0
+    got = (hashlib.sha256(t.tobytes()).hexdigest()[:16], plan.workspace_bytes,
+           plan.n_counters, plan.barriers())
+    assert km.EXT == 38 and got == FP32_TABLES[dim, mults, batch]
+    assert (plan.table[:, km.EXT:] == [0, 0, -1, -1, -1]).all() and len(plan.map_specs) == 0
