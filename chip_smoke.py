@@ -96,7 +96,7 @@ The persistent kernel (``csrc/unet2d_persistent.cu``):
    and the host time of its parts; 20 guided DDPM steps at batch 50 with
    both models through ``forward_mega`` (exactly 40 K8 launches) in turns
    with 20 through K1-K6, and a profile of 3 of its steps; then the same
-   net with bf16 weights (``BurgersConfig(bf16=True)``, the JAX mega
+   net with bf16 weights (``BurgersConfig(bf16=True, impl="pallas")``, the JAX mega
    kernel's default packs): K8's bf16 instantiation, 1 launch per forward
    (a bf16 one), against the bf16 plain and K1-K6 forwards and the kernel
    against its plain version (BF16_UNET_RTOL), bit-equal repeats, timed per
@@ -130,7 +130,7 @@ The baselines (no kernel of their own: elementwise solver steps, MLPs and
 1D convs in plain PyTorch, the surrogates on cuDNN, TF32 off):
 13. at the apps' default widths, step, episode and iteration counts cut:
    the Burgers solver at batch 32 (Nx 128, 10 frames), forward without grad
-   at dt 1e-3 and 1e-4, the SL objective's value and gradient with and
+   at dt 1e-3 (BASE_SOLVER_DTS), the SL objective's value and gradient with and
    without per-frame checkpoint (peak memory; a profile of 100 steps),
    and that objective and its gradient on CUDA against the CPU (dt 1e-3;
    BASE_CPU_RTOL, BASE_CPU_GRAD_RTOL); ``apps/train_burgers_operator.py``
@@ -205,7 +205,9 @@ bf16 weights (the Pallas kernels' ``weight_dtype=bfloat16``; every
    and bf16 in turns (steps/s, busy share); one training step's loss and
    gradients at batch 16 on CUDA against the CPU, ``train_burgers.main()``
    with ``--bf16 True`` for BF16_TRAIN_STEPS steps (float32 checkpoints and
-   EMA), and ms per training step, bf16 and fp32 in turns. Run alone:
+   EMA; the app trains the flax ``dtype=bf16`` net, as JAX's, whose
+   train app has no ``--impl``: every launch a bf16-activation one), and ms
+   per training step, bf16 and fp32 in turns. Run alone:
    ``chip_smoke.bf16_phase(torch, F, smi, chip_smoke.main_path_calls(64,
    (1, 2, 4, 8), 50))`` after ``_build.load_library()``, with
    ``torch.backends.cudnn.allow_tf32 = False``.
@@ -220,6 +222,18 @@ smoke rollout):
    each bf16 and fp32 in turns; a bf16 smoke step and EBM step on CUDA
    against the CPU (BF16_3D_LOSS_RTOL, BF16_3D_GRAD_RTOL); ``infer_smoke``
    and ``infer_jellyfish`` ``main()`` with ``--bf16 True``.
+
+The flax ``dtype=bf16`` UNet2D (bf16 activations: ``BurgersConfig(bf16=
+True)``, ``infer_burgers --bf16 True``, JAX's default bf16 for Burgers):
+18. ``bf16act_phase`` (its docstring): the bf16-activation variants of K1,
+   K2, K3, K5 and K6 at every signature of one forward at batch 50 against
+   their plain versions (BF16ACT_KERNEL_RTOL), bit-equal repeats, timed per
+   event pair and on the device beside the plain version, the library call
+   and the bound at 2-byte activations; the net's kernel forward against its
+   plain forward with its launches (52 / 3 / 38 / 8 / 1, all
+   bf16-activation ones); ``infer_burgers.main()`` with ``--bf16 True`` in
+   turns with ``--impl pallas --bf16 True``; guided DDPM in both bf16 modes
+   in turns (steps/s, busy share, peak memory).
 
 Then it prints the ``kernels`` JSON line (K1-K3: per-forward sums of the
 phase-3 times; K4: per solve at batch 8, with its phase-14 launches beside
@@ -335,6 +349,9 @@ BASE_OP_STEPS = 50   # train_burgers_operator steps at its batch 256
 BASE_OPT_STEPS = 10  # PID / SL / SL-surrogate Adam steps
 BASE_RL_STEPS = {"bc_steps": 50, "critic_steps": 50, "bppo_steps": 20, "sac_steps": 50}
 BASE_MPC_ITERS = 1   # replanning iterations per real step (default 30)
+# the solver's timed step sizes: dt 1e-3 only (dt 1e-4, ten times the
+# steps at the same us per step, gave way to phase 18's time)
+BASE_SOLVER_DTS = (1e-3,)
 MPC_FRAMES = 2       # the MPC app run's frames (default 20; the timed iteration plans 19 steps)
 MPC_LBFGS_FRAMES = 2  # the MPC_LBFGS app run's frames (default 20)
 MPC_LBFGS_ITERS = 1   # timed L-BFGS iterations of the replan at t = 0
@@ -426,9 +443,11 @@ def main_path_calls(dim, mults, batch, H=16, W=128):
     return calls
 
 
-def expected_counts(calls, bf16=False):
+def expected_counts(calls, bf16=False, bf16act=False):
     """The launch counters of one forward of ``calls``; ``bf16``: with
-    bfloat16 weights, every K1, K2, K5 and K6 launch is a bf16 variant's."""
+    bfloat16 weights, every K1, K2, K5 and K6 launch is a bf16 variant's;
+    ``bf16act``: with bfloat16 activations (flax ``dtype=bfloat16``), every
+    K1, K2, K3, K5 and K6 launch is a bf16-activation variant's."""
     conv = [a for k, a, _ in calls if k == "conv2d_nhwc"]
     counts = {
         "conv2d_nhwc": len(conv),
@@ -445,6 +464,8 @@ def expected_counts(calls, bf16=False):
     }
     for k in BF16_KERNELS:
         counts[f"{k}.bf16"] = counts[k] if bf16 else 0
+    for k in BF16ACT_KERNELS:
+        counts[f"{k}.bf16act"] = counts[k] if bf16act else 0
     return counts
 
 
@@ -1512,7 +1533,7 @@ def _maps_cost(torch, kb, kmega, launch, n=20):
 
 
 def _mega_bf16(torch, smi_line, bench):
-    """Phase 10, bf16: ``BurgersConfig(bf16=True)`` nets (bf16 packs, the
+    """Phase 10, bf16: ``BurgersConfig(bf16=True, impl="pallas")`` nets (bf16 packs, the
     JAX mega kernel's default) through ``forward_mega`` at batch 50: exactly
     1 K8 launch per forward, a bf16 one, and nothing else; within
     BF16_UNET_RTOL of the bf16 plain forward and of the bf16 K1-K6 forward;
@@ -1529,7 +1550,8 @@ def _mega_bf16(torch, smi_line, bench):
     from diffphycon_tpu_torch.nets import unet2d as tunet
 
     t0 = time.time()
-    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True)
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True,
+                              impl="pallas")
     net = bench.init_params(cfg, seed=0, device="cuda")
     net_w = bench.init_params(cfg, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(101)
@@ -1968,7 +1990,7 @@ def _solver_records(torch, smi_line):
     for ckpt in (True, False):
         _sl_value_and_grad(u0, f, u_tgt, 1e-3, ckpt)
     rec = {}
-    for dt in (1e-3, 1e-4):
+    for dt in BASE_SOLVER_DTS:
         steps = round(1.0 / dt)
         with torch.no_grad():
             _, fwd_s, fwd_gb = sync_time(lambda: burgers_solve(u0, f, dt=dt))
@@ -2963,6 +2985,8 @@ def jellyfish_phase(torch, smi_line):
 # phase 16 (bf16 weights on the Burgers path, the Pallas kernels'
 # weight_dtype=bfloat16): the kernels with a bf16 variant
 BF16_KERNELS = ("conv2d_nhwc", "downsample_nhwc", "linear_attention_block", "attention_block")
+BF16ACT_KERNELS = ("conv2d_nhwc", "downsample_nhwc", "group_norm_act",
+                   "linear_attention_block", "attention_block")
 BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 # a bf16 variant against its bf16 plain version on the same inputs: both
 # round the same operands to bf16 and sum exact products in fp32, so they
@@ -3010,7 +3034,8 @@ def attention_plan_bf16(ka, kname, args):
 
 
 def bf16_phase(torch, F, smi_line, calls):
-    """Phase 16: bf16 weights on the Burgers path (``BurgersConfig(bf16=True)``):
+    """Phase 16: bf16 weights on the Burgers path (``BurgersConfig(bf16=True,
+    impl="pallas")``, ``infer_burgers --impl pallas --bf16 True``):
     each bf16 variant (K1, K2, K5, K6) at every signature of one forward at
     batch 50 against its bf16 plain version, bit-equal repeats, timed (event
     pairs, device time from a CUDA graph, the plain version, cuDNN's bf16
@@ -3104,7 +3129,8 @@ def bf16_phase(torch, F, smi_line, calls):
     # 16b. the bf16 UNet2D: kernel forward against the plain forward, its
     # launches, and beside the fp32 forward
     t0 = time.time()
-    cfg16 = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True)
+    cfg16 = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=True,
+                                impl="pallas")
     cfg32 = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True)
     nets = {"bf16": bench.init_params(cfg16, seed=0, device="cuda"),
             "fp32": bench.init_params(cfg32, seed=0, device="cuda")}
@@ -3144,6 +3170,7 @@ def bf16_phase(torch, F, smi_line, calls):
         "--init_seed", "0", "--synthetic_data", str(B), "--n_test_samples", str(B),
         "--batch_size", str(B), "--eval_two_models", "True", "--wus", "1000",
         "--is_condition_u0", "True", "--is_condition_uT", "True", "--bf16", "True",
+        "--impl", "pallas",
         "--using_ddim", "True", "--ddim_sampling_steps", "50", "--ddim_eta", "0",
         "--data_root", data_root, "--save_file", os.path.join(work, "result_bf16.json")])
     kb.reset_launch_counts()
@@ -3258,7 +3285,9 @@ def bf16_phase(torch, F, smi_line, calls):
     trainer = train_burgers.main(args)
     torch.cuda.synchronize()
     counts = kb.launch_counts()
-    want = {k: BF16_TRAIN_STEPS * v for k, v in expected_counts(calls, bf16=True).items()}
+    # train_burgers --bf16 True trains the flax dtype=bfloat16 net (JAX's
+    # train_burgers has no --impl): every launch a bf16-activation one
+    want = {k: BF16_TRAIN_STEPS * v for k, v in expected_counts(calls, bf16act=True).items()}
     log = [json.loads(line) for line in open(os.path.join(folder, "train_log.jsonl"))]
     saved = {use_ema: Trainer.load_params(folder, BF16_TRAIN_STEPS, use_ema=use_ema)
              for use_ema in (False, True)}
@@ -3664,6 +3693,360 @@ def bf16_unet3d_phase(torch, smi_line):
     emit({"phase": "bf16_unet3d_done", "seconds": round(time.time() - t_phase, 3)})
 
 
+# phase 18 (the flax dtype=bfloat16 UNet2D: bf16 activations, the JAX
+# Burgers bench's and apps' default bf16; the bf16-activation variants of
+# K1/K2, K3, K5 and K6)
+# a bf16-activation kernel against its plain version on the same bf16
+# inputs: both round the same values at the same points and differ only in
+# fp32 summation order, so where a sum lands near a rounding tie one output
+# value moves by one bf16 step (2^-8 to 2^-7 of it), and K3's and K5's
+# later roundings may carry that by a step more: two steps of the largest
+# value, 2^-6
+BF16ACT_KERNEL_RTOL = 2 ** -6
+# the whole forward, kernels against plain versions: the flips cascade
+# through 17 ResBlocks with one GroupNorm group (the CPU tests' dim-8 net
+# against flax: 7.9e-3; tests/test_torch_port_bf16_flax_unet2d.py), and
+# the UNet3D's NET_RTOL for the same cascade is 5e-2
+BF16ACT_UNET_RTOL = 5e-2
+BF16ACT_APP_DDIM = 20  # infer_burgers steps per run, flax and weight-only bf16 in turns
+BF16ACT_DDPM_STEPS = 20
+
+
+def kernel_case_bf16act(torch, F, kb, gen, kind, args):
+    """(kernel fn, plain fn, library fn or None, flops, bytes, extra
+    timings) of one bf16-activation signature: bf16 activations (and FiLM,
+    residual), bf16 matmul weights, fp32 biases, norms and gains. Bytes: each
+    input read once and the output written once, activations and weights at
+    2 bytes. The library call: cuDNN's bf16 conv on bf16 NCHW tensors (K1,
+    K2), ``F.group_norm`` plus the FiLM, SiLU and residual ops in bf16 (K3);
+    none for K5 and K6 (SDPA on K6's q, k, v is an extra yardstick)."""
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    if kind in ("linear_attention_block", "attention_block"):
+        from diffphycon_tpu_torch.kernels import attention as ka
+
+        b_, h, w, c = args
+        hidden = HEADS * DIM_HEAD
+        x = rnd(b_, h, w, c, scale=2.0, shift=0.3)
+        f32 = torch.float32
+        p = {"norm_g": rnd(c, scale=0.1, shift=1.0, dtype=f32),
+             "wqkv": rnd(c, 3 * hidden, scale=c ** -0.5),
+             "wo": rnd(hidden, c, scale=hidden ** -0.5),
+             "bo": rnd(c, scale=0.1, dtype=f32)}
+        linear = kind == "linear_attention_block"
+        if linear:
+            p["out_g"] = rnd(c, scale=0.1, shift=1.0, dtype=f32)
+        kern = ka.linear_attention_block if linear else ka.attention_block
+        plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
+        nbytes = 2 * 2 * x.numel() + 4 * (3 if linear else 2) * c + 2 * 4 * c * hidden
+        extra = {}
+        if not linear:
+            q, k, v = (t.permute(0, 2, 1, 3).contiguous() for t in
+                       ka._qkv_bf16(x, p["norm_g"], p["wqkv"], HEADS, DIM_HEAD))
+            extra["sdpa_core"] = lambda: F.scaled_dot_product_attention(q, k, v)
+        return (lambda: kern(x, p), lambda: plain(x, p), None,
+                attention_flops(kind, b_, h * w, c), nbytes, extra)
+    if kind == "conv2d_nhwc":
+        b_, h, w, ca, cb, co, k, up = args
+        ci = ca + cb
+        xa = rnd(b_, h, w, ca)
+        xb = rnd(b_, h, w, cb) if cb else None
+        wt = rnd(k * k * ci, co, scale=1.0 / math.sqrt(k * k * ci))
+        bias = rnd(co, scale=0.1, dtype=torch.float32)
+        w_lib = wt.reshape(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
+        xa_l = xa.permute(0, 3, 1, 2).contiguous()
+        xb_l = xb.permute(0, 3, 1, 2).contiguous() if cb else None
+        b_lib = bias.to(bf)
+
+        def library():
+            x = xa_l if xb_l is None else torch.cat([xa_l, xb_l], dim=1)
+            if up:
+                x = F.interpolate(x, scale_factor=2, mode="nearest")
+            return F.conv2d(x, w_lib, b_lib, padding=k // 2)
+
+        ho, wo = (2 * h, 2 * w) if up else (h, w)
+        flops = 2 * b_ * ho * wo * co * k * k * ci
+        nbytes = 2 * (xa.numel() + (xb.numel() if cb else 0) + b_ * ho * wo * co + wt.numel()) \
+            + 4 * co
+        return (lambda: kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
+                lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up),
+                library, flops, nbytes, {})
+    if kind == "downsample_nhwc":
+        b_, h, w, c, co = args
+        x = rnd(b_, h, w, c)
+        wt = rnd(4 * c, co, scale=1.0 / math.sqrt(4 * c))
+        bias = rnd(co, scale=0.1, dtype=torch.float32)
+        w_lib = wt.reshape(2, 2, c, co).permute(3, 2, 0, 1).contiguous()
+        x_l = x.permute(0, 3, 1, 2).contiguous()
+        b_lib = bias.to(bf)
+        flops = 2 * b_ * (h // 2) * (w // 2) * co * 4 * c
+        nbytes = 2 * (x.numel() + b_ * (h // 2) * (w // 2) * co + wt.numel()) + 4 * co
+        return (lambda: kb.downsample_nhwc(x, wt, bias),
+                lambda: kb.downsample_nhwc_plain(x, wt, bias),
+                lambda: F.conv2d(x_l, w_lib, b_lib, stride=2), flops, nbytes, {})
+    b_, h, w, c, film = args
+    x = rnd(b_, h, w, c, scale=2.0, shift=0.5)
+    gamma = rnd(c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = rnd(c, scale=0.1, dtype=torch.float32)
+    ss = rnd(b_, 2 * c, scale=0.5) if film else None
+    res = None if film else rnd(b_, h, w, c)
+    x_l = x.permute(0, 3, 1, 2).contiguous()
+    res_l = None if film else res.permute(0, 3, 1, 2).contiguous()
+    g_l, b_l = gamma.to(bf), beta.to(bf)
+
+    def library():
+        y = F.group_norm(x_l, 1, g_l, b_l, eps=kb.GN_EPS)
+        if film:
+            y = y * (ss[:, :c, None, None] + 1.0) + ss[:, c:, None, None]
+        y = F.silu(y)
+        return y if film else y + res_l
+
+    flops = x.numel() * (13 + (3 if film else 1))
+    nbytes = 2 * (2 * x.numel() + (ss.numel() if film else res.numel())) + 4 * 2 * c
+    return (lambda: kb.group_norm_act(x, gamma, beta, 1, ss=ss, res=res),
+            lambda: kb.group_norm_act_plain(x, gamma, beta, 1, ss=ss, res=res),
+            library, flops, nbytes, {})
+
+
+def bf16act_phase(torch, F, smi_line, calls):
+    """Phase 18: the flax ``dtype=bfloat16`` UNet2D (``BurgersConfig(bf16=
+    True)``, ``infer_burgers --bf16 True``): each bf16-activation variant (K1,
+    K2, K3, K5, K6) at every signature of one forward at batch 50 against its
+    plain version on the same bf16 inputs (BF16ACT_KERNEL_RTOL), two calls
+    bit-equal, timed per event pair and on the device (CUDA graph) beside the
+    plain version, the library call and the bound at 2-byte activations; the
+    net's kernel forward against its plain forward (BF16ACT_UNET_RTOL) with
+    the launch counts of one forward (52 / 3 / 38 / 8 / 1, every one a
+    bf16-activation launch) and its distance from the weight-only bf16 and
+    fp32 forwards; ``apps/infer_burgers.py`` ``main()`` with ``--bf16 True``
+    and with ``--impl pallas --bf16 True`` in turns (two seeded models, DDIM
+    BF16ACT_APP_DDIM steps, batch 50: seconds, peak memory, launches); and
+    BF16ACT_DDPM_STEPS guided DDPM steps at batch 50, the two bf16 modes in
+    turns (steps/s, busy share of 3 profiled steps, peak memory). Run alone:
+    ``chip_smoke.bf16act_phase(torch, F, smi, chip_smoke.main_path_calls(64,
+    (1, 2, 4, 8), 50))`` after ``_build.load_library()``, with
+    ``torch.backends.cudnn.allow_tf32 = False``. Returns the kernels line's
+    bf16act records."""
+    from diffphycon_tpu_torch.apps import infer_burgers
+    from diffphycon_tpu_torch.benchmarks import burgers as bench
+    from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+
+    t_phase = time.time()
+    work = os.path.join("build", "chip_smoke")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    # 18a. every bf16-activation signature of one forward
+    t0 = time.time()
+    per_fwd = {}
+    for k, a, _ in calls:
+        per_fwd[(k, a)] = per_fwd.get((k, a), 0) + 1
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms",
+            "max_abs_err")
+    agg = {k: dict.fromkeys(keys, 0.0) for k in BF16ACT_KERNELS}
+    bad = []
+    with torch.no_grad():
+        for (kname, args), count in per_fwd.items():
+            kern, plain, library, flops, nbytes, extra = kernel_case_bf16act(
+                torch, F, kb, gen, kname, args)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            tol = BF16ACT_KERNEL_RTOL * scale
+            ok_dtype = out.dtype == torch.bfloat16 and out.shape == ref.shape
+            repeat_equal = torch.equal(out, kern())
+            ms, plain_ms = timed(torch, kern), timed(torch, plain)
+            lib_ms = None if library is None else timed(torch, library)
+            dev_ms, why = timed_graph(torch, kern)
+            extra_ms = {f"{key}_ms": timed(torch, fn) for key, fn in extra.items()}
+            peak = FP32_PEAK if kname == "group_norm_act" else BF16_PEAK
+            b_ms, b_by = bound(flops, nbytes, peak)
+            tc = {}
+            if kname in TC_KERNELS:
+                plan = kb.tile_plan(*gemm_dims(kname, args), True)
+                tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,
+                                    "per": plan.per},
+                      "tflop_per_s": flops / ms / 1e9}
+            if kname == "group_norm_act":
+                b_, h, w, c, _ = args
+                tc = {"cluster": kb.gn_cluster_plan(b_, h * w * c, True)}
+            emit({"phase": "kernel_bf16act", "kernel": kname, "args": list(args),
+                  "per_forward": count, "max_abs_err": err, "tol": tol, "rel_err": err / scale,
+                  "repeat_bit_equal": repeat_equal, "ms": ms, "device_ms": dev_ms,
+                  **({"device_ms_error": why} if why else {}), "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **extra_ms, **tc})
+            if not err <= tol or not ok_dtype:
+                bad.append((kname, args, err, tol, str(out.dtype)))
+            if not repeat_equal:
+                bad.append((kname, args, "two calls are not bit-equal"))
+            a = agg[kname]
+            for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bound_ms", b_ms),
+                           ("ops_ms", 1e3 * flops / peak), ("bytes_ms", 1e3 * nbytes / HBM_RATE)):
+                a[key] = None if v is None or a[key] is None else a[key] + count * v
+            a["max_abs_err"] = max(a["max_abs_err"], err)
+            del out, ref
+    emit({"phase": "kernels_bf16act_checked", "signatures": len(per_fwd),
+          "tol_rel": BF16ACT_KERNEL_RTOL, "seconds": round(time.time() - t0, 3)})
+    if bad:
+        fail(f"bf16-activation kernel mismatches: {bad}")
+    torch.cuda.empty_cache()
+
+    # 18b. the net: kernel forward against plain forward, launches, beside
+    # the weight-only bf16 and the fp32 forwards
+    t0 = time.time()
+    kw = dict(is_condition_u0=True, is_condition_uT=True)
+    cfgs = {"flax_bf16": bench.BurgersConfig(**kw, bf16=True),
+            "pallas_bf16": bench.BurgersConfig(**kw, bf16=True, impl="pallas"),
+            "fp32": bench.BurgersConfig(**kw)}
+    nets = {name: bench.init_params(cfg, seed=0, device="cuda") for name, cfg in cfgs.items()}
+    x = torch.randn(B, cfgs["fp32"].pad_t, cfgs["fp32"].nx, 2, generator=gen, device="cuda")
+    t = torch.linspace(0, 999, B, device="cuda")
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = nets["flax_bf16"](x, t)
+        torch.cuda.synchronize()
+        counts = kb.launch_counts()
+        ref = nets["flax_bf16"].forward_plain(x, t)
+        others = {name: nets[name](x, t) for name in ("pallas_bf16", "fp32")}
+        scale = max(1.0, ref.float().abs().max().item())
+        err = (out.float() - ref.float()).abs().max().item()
+        gaps = {name: (out.float() - o).abs().max().item() / max(1.0, o.abs().max().item())
+                for name, o in others.items()}
+        fwd_ms = {name: [] for name in nets}
+        for order in (tuple(nets), tuple(reversed(nets))):
+            for name in order:
+                fwd_ms[name].append(timed(torch, lambda: nets[name](x, t), n=10))
+    want = expected_counts(calls, bf16act=True)
+    emit({"phase": "unet2d_bf16act", "out_dtype": str(out.dtype), "max_abs_err": err,
+          "tol": BF16ACT_UNET_RTOL * scale, "rel_err": err / scale,
+          "rel_gap_to": gaps, "launches_per_forward": counts, "expected": want,
+          "forward_ms_in_turns": fwd_ms, "finite": bool(torch.isfinite(out).all()),
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if out.dtype != torch.bfloat16 or not torch.isfinite(out).all():
+        fail(f"flax bf16 UNet2D output {out.dtype}, finite {bool(torch.isfinite(out).all())}")
+    if not err <= BF16ACT_UNET_RTOL * scale:
+        fail(f"flax bf16 UNet2D kernel forward differs from its plain forward: {err / scale}")
+    if counts != want:
+        fail(f"flax bf16 launch counts per forward {counts} != expected {want}")
+    if not min(gaps.values()) > BF16_GUARD:
+        fail(f"the flax bf16 forward is within {gaps} of another mode's forward")
+    del out, ref, others
+
+    # 18c. the app, flax bf16 (--bf16 True) and weight-only bf16 (--impl
+    # pallas --bf16 True) in turns
+    t0 = time.time()
+    app = {"flax_bf16": [], "pallas_bf16": []}
+    app_counts = {}
+    for order in (("flax_bf16", "pallas_bf16"), ("pallas_bf16", "flax_bf16")):
+        for name in order:
+            args = infer_burgers.build_parser().parse_args([
+                "--init_seed", "0", "--synthetic_data", str(B), "--n_test_samples", str(B),
+                "--batch_size", str(B), "--eval_two_models", "True", "--wus", "1000",
+                "--is_condition_u0", "True", "--is_condition_uT", "True", "--bf16", "True",
+                *(["--impl", "pallas"] if name == "pallas_bf16" else []),
+                "--using_ddim", "True", "--ddim_sampling_steps", str(BF16ACT_APP_DDIM),
+                "--ddim_eta", "0", "--data_root", os.path.join(work, "data"),
+                "--save_file", os.path.join(work, f"result_{name}.json")])
+            torch.cuda.reset_peak_memory_stats()
+            kb.reset_launch_counts()
+            tic = time.perf_counter()
+            entry = infer_burgers.main(args)["wu=1000.0,wf=0.0"]
+            torch.cuda.synchronize()
+            app[name].append({"seconds": time.perf_counter() - tic,
+                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "result": entry})
+            app_counts.setdefault(name, kb.launch_counts())
+            if not all(math.isfinite(v) for v in entry.values()):
+                fail(f"non-finite {name} main-path metrics: {entry}")
+    emit({"phase": "main_path_bf16act", "app": "diffphycon_tpu_torch/apps/infer_burgers.py",
+          "sampler": f"ddim {BF16ACT_APP_DDIM} steps, eta 0, two models, wu=1000, batch 50",
+          "runs_in_turns": app, "launches": app_counts, "seconds": round(time.time() - t0, 3)})
+    launches = app_counts["flax_bf16"]
+    for k in BF16ACT_KERNELS:
+        if not launches[f"{k}.bf16act"] > 0 or launches[k] != launches[f"{k}.bf16act"]:
+            fail(f"flax bf16 main path: {k} launched {launches[k]} times, "
+                 f"{launches[f'{k}.bf16act']} of them bf16-activation ones")
+    if any(launches[f"{k}.bf16"] for k in BF16_KERNELS):
+        fail(f"flax bf16 main path launched weight-only bf16 variants: {launches}")
+
+    # 18d. guided DDPM at batch 50, the two bf16 modes in turns
+    t0 = time.time()
+    modes = ("flax_bf16", "pallas_bf16")
+    nets_w = {name: bench.init_params(cfgs[name], seed=1, device="cuda") for name in modes}
+    u_target = torch.randn(B, 11, 128, generator=gen, device="cuda")
+    cond_vals = {"u0": u_target[:, 0, :] / bench.RESCALER,
+                 "uT": u_target[:, 10, :] / bench.RESCALER}
+    guidance = bench.build_guidance(cfgs["fp32"], u_target, wu=1000.0)
+    gds = {name: bench.build_diffusion(cfgs[name], nets[name], model_w=nets_w[name],
+                                       device="cuda") for name in modes}
+    rates, peaks, ddpm_counts = {m: [] for m in modes}, {m: [] for m in modes}, None
+    for order in (modes, tuple(reversed(modes)), modes):
+        for name in order:
+            gd = gds[name]
+            ts = gd.sample_ts()
+            xg = torch.Generator(device="cuda").manual_seed(1)
+            xt = gd.sample_chunk(gd.sample_init(B, xg), ts[:2], cond_vals, guidance, xg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "flax_bf16" and ddpm_counts is None:
+                kb.reset_launch_counts()
+            tic = time.perf_counter()
+            xt = gd.sample_chunk(xt, ts[2:2 + BF16ACT_DDPM_STEPS], cond_vals, guidance, xg)
+            torch.cuda.synchronize()
+            rates[name].append(BF16ACT_DDPM_STEPS / (time.perf_counter() - tic))
+            peaks[name].append(torch.cuda.max_memory_allocated() / 1e9)
+            if name == "flax_bf16" and ddpm_counts is None:
+                ddpm_counts = kb.launch_counts()
+            if not torch.isfinite(xt).all():
+                fail(f"non-finite samples in the {name} guided DDPM loop")
+    busy = {}
+    for name, gd in gds.items():
+        xg = torch.Generator(device="cuda").manual_seed(2)
+        ts = gd.sample_ts()
+        xt = gd.sample_init(B, xg)
+        wall_ms, dev_ms, rows = profile_window(
+            torch, lambda: gd.sample_chunk(xt, ts[:3], cond_vals, guidance, xg))
+        busy[name] = {"steps": 3, "wall_ms": wall_ms, "device_ms": dev_ms,
+                      "busy_share": dev_ms / wall_ms, "top": [[k[:60], v] for k, v in rows[:6]]}
+    want_steps = {k: 2 * BF16ACT_DDPM_STEPS * v for k, v in want.items()}
+    emit({"phase": "guided_ddpm_bf16act", "batch": B, "steps_timed": BF16ACT_DDPM_STEPS,
+          "guided_denoise_steps_per_sec_in_turns": rates, "peak_gb_in_turns": peaks,
+          "profile": busy, "launches_flax_run": ddpm_counts, "expected": want_steps,
+          "nvidia_smi": smi_line, "seconds": round(time.time() - t0, 3)})
+    if ddpm_counts != want_steps:
+        fail(f"flax bf16 guided DDPM launches {ddpm_counts} != {want_steps}")
+    del gds, nets_w, nets
+    torch.cuda.empty_cache()
+
+    emit({"phase": "bf16act_done", "seconds": round(time.time() - t_phase, 3)})
+    records = []
+    for k in BF16ACT_KERNELS:
+        a = agg[k]
+        src = BF16ACT_SOURCES.get(k, SOURCES[k][1])
+        records.append({
+            "name": f"{k}_bf16act", "route": "cuda", "source": src,
+            "replaces": REPLACES[k] + " as the flax UNet2D computes it under dtype=bfloat16 "
+                        "(diffphycon_tpu/nets/blocks.py; bench.py:46)",
+            "launches": launches[f"{k}.bf16act"], "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": "operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
+            "library_ms": a["library_ms"], "device_ms": a["device_ms"]})
+    return records
+
+
+BF16ACT_SOURCES = {
+    "conv2d_nhwc": "diffphycon_tpu_torch/csrc/igemm_bf16act.cu",
+    "downsample_nhwc": "diffphycon_tpu_torch/csrc/igemm_bf16act.cu",
+    "linear_attention_block": "diffphycon_tpu_torch/csrc/attention_bf16act.cu",
+    "attention_block": "diffphycon_tpu_torch/csrc/attention_bf16act.cu",
+}
+
+
 def main() -> int:
     import torch
 
@@ -3986,6 +4369,9 @@ def main() -> int:
     # -- 17. the smoke and jellyfish UNet3Ds in bf16 ------------------------------
     bf16_unet3d_phase(torch, smi_line)
 
+    # -- 18. the flax dtype=bfloat16 UNet2D on the bf16-activation kernels --------
+    bf16act_records = bf16act_phase(torch, F, smi_line, calls)
+
     # -- kernels line ---------------------------------------------------------
     kernels = []
     for k, (route, src) in SOURCES.items():
@@ -4008,7 +4394,7 @@ def main() -> int:
         src = PERSISTENT_BF16_SRC if k.endswith("_bf16") else PERSISTENT_SRC[1]
         kernels.append({"name": k, "route": PERSISTENT_SRC[0], "source": src,
                         "replaces": replaces, **row})
-    kernels += bf16_records
+    kernels += bf16_records + bf16act_records
     emit({"phase": "done", "seconds": round(time.time() - t_all, 3),
           "note": "K1-K3, K5 (linear_attention_block: K5a, the merge and K5b per "
                   "call) and K6 (attention_block: K6a, K6b and K6c per call): "
@@ -4044,7 +4430,13 @@ def main() -> int:
                   "at batch 50, launches those of the --bf16 True main path, bound_ms at "
                   "989 TFLOP/s (bf16) with the weights at 2 bytes, library_ms cuDNN's bf16 "
                   "conv (K1, K2; null for K5, K6: SDPA on K6's q, k, v is in its phase-16 "
-                  "record), device_ms from CUDA graphs of 20 calls"})
+                  "record), device_ms from CUDA graphs of 20 calls; "
+                  "*_bf16act (phase 18, the bf16-activation variants, flax dtype=bfloat16): "
+                  "sums over one flax bf16 UNet2D forward at batch 50, launches those of the "
+                  "--bf16 True main path (DDIM 20), bound_ms with 2-byte activations and "
+                  "weights (K1, K2, K5, K6 at 989 TFLOP/s, K3 at the fp32 rate), library_ms "
+                  "cuDNN's bf16 conv on bf16 tensors (K1, K2), F.group_norm plus the ops in "
+                  "bf16 (K3), null for K5, K6"})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

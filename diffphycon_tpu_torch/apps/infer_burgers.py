@@ -100,6 +100,12 @@ def build_parser():
     p.add_argument("--prior_beta", default=1, type=float)
     p.add_argument("--normalize_beta", default=False, type=eval)
     p.add_argument("--bf16", default=False, type=eval)
+    p.add_argument("--impl", default="xla", choices=["xla", "pallas"],
+                   help="with --bf16 True: xla (JAX's default) runs the flax UNet2D under "
+                        "dtype=bfloat16, bf16 activations, here on the port's "
+                        "bf16-activation kernels (not on XLA); pallas runs the Pallas "
+                        "forward's bf16 weight packs on float32 activations. float32 "
+                        "runs one path whatever the choice")
     return p
 
 
@@ -162,6 +168,7 @@ def main(args):
         recurrence=args.recurrence,
         recurrence_k=args.recurrence_k,
         bf16=args.bf16,
+        impl=args.impl,
     )
     folder = os.path.join(args.model_root, "burgers", args.exp_id)
     folder_w = os.path.join(args.model_root, "burgers_w", args.exp_id__model_w or args.exp_id)

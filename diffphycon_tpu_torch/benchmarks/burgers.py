@@ -63,8 +63,11 @@ class BurgersConfig:
     # sampling extras
     recurrence: bool = False
     recurrence_k: int = 1
-    # compute
+    # compute: ``bf16`` with ``impl`` "xla" (JAX's build_unet: the flax
+    # UNet2D under dtype=bfloat16) or "pallas" (JAX's infer_burgers --impl
+    # pallas: bf16 weight packs, float32 activations); float32 whatever impl
     bf16: bool = False
+    impl: str = "xla"
 
     nt_total: int = 11
     nx: int = 128
@@ -77,12 +80,26 @@ class BurgersConfig:
         self.dim_muls = None
 
 
+IMPLS = ("xla", "pallas")
+
+
 def _new_unet(cfg: BurgersConfig) -> UNet2D:
-    """``bf16``: bfloat16 matmul weights in the kernel packs (the Pallas
-    forward's ``weight_dtype=bfloat16``), float32 parameters."""
+    """float32 parameters always. ``bf16`` with ``impl`` "xla": the JAX
+    ``build_unet``'s ``UNet2D(dtype=jnp.bfloat16)``, flax's compute dtype
+    (``UNet2D(dtype=torch.bfloat16)``: bf16 activations on the
+    bf16-activation kernels); with ``impl`` "pallas": the Pallas forward's
+    bf16 weight packs (``UNet2D(weight_dtype=torch.bfloat16)``, float32
+    activations), as JAX's ``infer_burgers --impl pallas``."""
+    if cfg.impl not in IMPLS:
+        raise ValueError(f"BurgersConfig.impl {cfg.impl!r}; one of {IMPLS}")
+    if not cfg.bf16:
+        dtypes = {}
+    elif cfg.impl == "pallas":
+        dtypes = {"weight_dtype": torch.bfloat16}
+    else:
+        dtypes = {"dtype": torch.bfloat16}
     return UNet2D(dim=cfg.dim, out_dim=2, dim_mults=tuple(cfg.dim_mults), channels=2,
-                  resnet_block_groups=cfg.resnet_block_groups,
-                  weight_dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
+                  resnet_block_groups=cfg.resnet_block_groups, **dtypes)
 
 
 def build_unet(cfg: BurgersConfig, device=None) -> UNet2D:

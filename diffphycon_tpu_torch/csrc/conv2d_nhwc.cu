@@ -18,7 +18,9 @@
 // igemm_tc.cuh. The bf16 variant (conv2d_nhwc_bf16, the Pallas kernels under
 // weight_dtype=bfloat16) runs the bf16 core, igemm_bf16.cuh, on the same
 // gathers; at the bf16 rate the ridge is 989 / 3.35 = 295 flops per byte, so
-// the 64-channel levels are bound by their fp32 activations' bytes.
+// the 64-channel levels are bound by their fp32 activations' bytes. The
+// bf16-activation variant (conv2d_nhwc_bf16act, flax dtype=bfloat16) runs
+// the same core from its own translation unit, igemm_bf16act.cu.
 //
 // Weight layout (chosen once when weights are packed): w[k, co] with
 // k = (dy*K + dx) * (Ca + Cb) + c, i.e. the flax kernel (kh, kw, Ci, Co)

@@ -9,19 +9,24 @@
 // address, so im2col, the skip concat and the nearest-2x upsample all
 // happen at load time.
 //
-// Gather contract (k4 is a multiple of 4; the 4 values k4..k4+3 share a tap
-// and a source tensor):
+// Gather contract (one 16-byte chunk: k4 is a multiple of its values, 4
+// fp32 or 8 bf16, and they share a tap and a source tensor):
+//   using Elem;                         the activation's type, float or bf16
 //   struct Row;                         per-output-pixel context
 //   struct Tap;                         per-k4 context
 //   Row row(int m) const;               m < 0 marks a row past the end
 //   Tap tap(int k4) const;
-//   const float* ptr4(const Row&, const Tap&) const;  the 4 values' address,
+//   const Elem* ptr4(const Row&, const Tap&) const;  the chunk's address,
 //                                       nullptr outside the image
+// Each gather is a template on Elem: float (K1, K2, the persistent kernel)
+// or __nv_bfloat16 (the bf16-activation K1 and K2, whose channel counts are
+// multiples of 8).
 // The tile copies the addresses with cp.async.cg, which reads through L2
 // only: in the persistent kernel other blocks wrote the activations earlier
 // in the same launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace igemm {
@@ -29,9 +34,11 @@ namespace igemm {
 // Same-padded ks x ks conv (ks in {1, 3}) of xa [| xb] (the skip concat:
 // channel c < Ca from xa, the rest from xb), optionally of the nearest-2x
 // upsampled input (`up`: the source pixel at half index).
-struct ConvGather {
-  const float* xa;
-  const float* xb;
+template <class E>
+struct ConvGatherE {
+  using Elem = E;
+  const E* xa;
+  const E* xb;
   int Ca, Cb, Ci;
   int H, W;    // output (= conv input, in upsampled coordinates) size
   int Hs, Ws;  // source tensor size: (H/2, W/2) when upsampling, else (H, W)
@@ -55,9 +62,9 @@ struct ConvGather {
     const int t = k / Ci;
     return {t / ks - pad, t % ks - pad, k - t * Ci};
   }
-  // channels c .. c+3 (c % 4 == 0, Ca % 4 == 0: never split across sources);
-  // nullptr outside the image
-  __device__ const float* ptr4(const Row& r, const Tap& tp) const {
+  // the chunk at channel c (a chunk never straddles the two sources: Ca is
+  // a multiple of its values); nullptr outside the image
+  __device__ const E* ptr4(const Row& r, const Tap& tp) const {
     int ih = r.oh + tp.dy;
     int iw = r.ow + tp.dx;
     if (ih < 0 || ih >= H || iw < 0 || iw >= W) return nullptr;
@@ -70,12 +77,15 @@ struct ConvGather {
   }
 };
 
+using ConvGather = ConvGatherE<float>;
+
 // B: batch; H, W: output size; Ca, Cb: channels of xa and xb (Cb = 0 and xb
 // = nullptr for one source); upsample: xa / xb are (B, H/2, W/2, C).
-__device__ __host__ inline ConvGather make_conv_gather(const float* xa, const float* xb, int H,
-                                                      int W, int Ca, int Cb, int ks,
-                                                      int upsample) {
-  ConvGather g;
+template <class E>
+__device__ __host__ inline ConvGatherE<E> make_conv_gather(const E* xa, const E* xb, int H,
+                                                          int W, int Ca, int Cb, int ks,
+                                                          int upsample) {
+  ConvGatherE<E> g;
   g.xa = xa;
   g.xb = xb;
   g.Ca = Ca;
@@ -92,8 +102,10 @@ __device__ __host__ inline ConvGather make_conv_gather(const float* xa, const fl
 }
 
 // 2x2 stride-2 conv (space-to-depth + 1x1) with rows k = (p1*2 + p2)*C + c.
-struct DownGather {
-  const float* x;
+template <class E>
+struct DownGatherE {
+  using Elem = E;
+  const E* x;
   int C, H, W;  // input size
   int Ho, Wo;   // output size (H/2, W/2)
 
@@ -115,15 +127,18 @@ struct DownGather {
     const int p = k / C;
     return {(p >> 1) * W + (p & 1), k - p * C};
   }
-  // channels c .. c+3 of one window pixel (C % 4 == 0); nullptr past the end
-  __device__ const float* ptr4(const Row& r, const Tap& tp) const {
+  // the chunk at channel c of one window pixel; nullptr past the end
+  __device__ const E* ptr4(const Row& r, const Tap& tp) const {
     return r.base < 0 ? nullptr : x + (r.base + tp.off) * C + tp.c;
   }
 };
 
+using DownGather = DownGatherE<float>;
+
 // x: (B, H, W, C) with even H, W.
-__device__ __host__ inline DownGather make_down_gather(const float* x, int H, int W, int C) {
-  DownGather g;
+template <class E>
+__device__ __host__ inline DownGatherE<E> make_down_gather(const E* x, int H, int W, int C) {
+  DownGatherE<E> g;
   g.x = x;
   g.C = C;
   g.H = H;

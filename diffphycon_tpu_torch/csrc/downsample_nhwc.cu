@@ -9,7 +9,9 @@
 // first level: 32768) against 4*C*4 + Co*4 bytes of activations, far above
 // the tensor cores' ridge (~49 flops/byte at the 3xTF32 rate). The same
 // 3xTF32 tensor-core core as the convs (igemm_tc.cuh); the bf16 variant
-// (downsample_nhwc_bf16) runs the bf16 core (igemm_bf16.cuh).
+// (downsample_nhwc_bf16) runs the bf16 core (igemm_bf16.cuh), and so does
+// the bf16-activation variant (downsample_nhwc_bf16act, flax dtype=bf16;
+// in igemm_bf16act.cu).
 //
 // Weight layout: w[k, co] with k = (p1*2 + p2) * C + c, the (p1 p2 c) row
 // order of the packed Pallas weight (_down_p); the reference checkpoint's

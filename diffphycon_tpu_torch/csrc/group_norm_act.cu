@@ -37,7 +37,20 @@
 // Contract (the wrapper checks): C / groups a multiple of 4, x, res and out
 // 16-byte aligned, ss rows (B, 2C) with any row stride and unit column
 // stride.
+//
+// The bf16-activation variant (group_norm_act_bf16act; flax GroupNorm,
+// FiLM, SiLU and residual under dtype=bfloat16, the plain version
+// kernels/unet2d_blocks.py: group_norm_act_bf16_plain): x, res, ss and out
+// bf16, gamma and beta fp32. The same cluster, slice and Chan merge, on
+// 16-byte vectors of 8 bf16 values (a row is half the bytes, so the host's
+// gn_cluster_plan holds twice the values a CTA: kernels/unet2d_blocks.py);
+// statistics in fp32. Each value: (x - mean) * (rstd * gamma) + beta in
+// fp32 (flax _normalize's order, no fused multiply-add), rounded to bf16;
+// then y * bf16(scale + 1), + shift, the SiLU as XLA expands it (exp(-y),
+// 1 + e, 1 / d, y * r) and + res, each rounded to bf16 (round to nearest
+// even). Bound: bytes, 2-byte values: x (and res) read once, y written once.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -250,11 +263,166 @@ __global__ void __launch_bounds__(kThreads) group_norm_act_kernel(const GnArgs a
   cluster.sync();  // no CTA leaves while another may still read its partial
 }
 
-cudaError_t launch(const GnArgs& a, int rows, int cs, int smem, cudaStream_t stream) {
-  static bool smem_set = false;  // > 48 KB of dynamic shared memory: once
+
+// bf16 helpers of the bf16-activation variant: the value as fp32, and fp32
+// rounded to bf16 (to nearest even) and back
+__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+constexpr int kCoefStride = 9;  // float4s a vector's coefficients take (8 and a pad)
+
+struct GnArgsBf16 {
+  const __nv_bfloat16* x;
+  const float* gamma;
+  const float* beta;
+  const __nv_bfloat16* ss;  // (B, 2C) FiLM scale | shift, row stride ss_stride; or null
+  const __nv_bfloat16* res;  // like x, or null
+  __nv_bfloat16* out;
+  int hw, C, groups, ss_stride;
+  float eps;
+};
+
+// The bf16-activation K3: the fp32 kernel's slice, statistics and merge on
+// vectors of 8 bf16 values (cg8 a row's vectors per pixel), and flax's
+// per-op rounding in the update.
+__global__ void __launch_bounds__(kThreads) group_norm_act_bf16_kernel(const GnArgsBf16 a) {
+  // dynamic shared memory: the held part of the slice, then per channel of
+  // the group (rstd * gamma, beta, bf16(scale + 1), shift), a float4 each,
+  // each vector's 8 channels kCoefStride float4 apart: the lanes of a warp
+  // read 8 vectors' coefficients at once, and an unpadded 128-byte stride
+  // put them all on the same banks
+  extern __shared__ __align__(16) uint4 held8[];
+  __shared__ float red[kThreads / 32];
+  __shared__ float part[3];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int row = blockIdx.y;
+  const int b = row / a.groups, g = row - b * a.groups;
+  const int cg_ = a.C / a.groups, cg8 = cg_ / 8, c8 = a.C / 8;
+  const int nvec = a.hw * cg8;
+  const size_t base8 = static_cast<size_t>(b) * a.hw * c8;
+  const int v0 = static_cast<int>(static_cast<long long>(nvec) * rank / cs);
+  const int v1 = static_cast<int>(static_cast<long long>(nvec) * (rank + 1) / cs);
+  const int nv = v1 - v0;
+  const int held_max = min((nvec + cs - 1) / cs, kHeldFloats / 4);  // 16-byte vectors
+  const int nheld = min(nv, held_max);
+  float* coef = reinterpret_cast<float*>(held8 + held_max);
+  const uint4* x8 = reinterpret_cast<const uint4*>(a.x);
+
+  auto load = [&](int i) -> uint4 {
+    return i < nheld ? held8[i] : __ldg(x8 + vec_index(v0 + i, cg8, c8, g, base8));
+  };
+  {
+    RowCursor cur(v0 + threadIdx.x, cg8);
+    for (int i = threadIdx.x; i < nheld; i += kThreads, cur.step())
+      cp_async16(held8 + i, x8 + base8 + static_cast<size_t>(cur.pix) * c8 + g * cg8 + cur.cv);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  float f[8];
+  float s = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    unpack8(load(i), f);
+    s += ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
+  }
+  const float n_r = 8.f * nv;
+  const float mean_r = nv > 0 ? block_sum(s, red) / n_r : 0.f;
+  float q = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    unpack8(load(i), f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d = f[j] - mean_r;
+      q += d * d;
+    }
+  }
+  const float m2_r = block_sum(q, red);
+  if (threadIdx.x == 0) {
+    part[0] = n_r;
+    part[1] = mean_r;
+    part[2] = m2_r;
+  }
+  cluster.sync();
+
+  float n = 0.f, mean = 0.f, m2 = 0.f;
+  for (int r = 0; r < cs; ++r) {
+    const float* p = cluster.map_shared_rank(part, r);
+    const float nb = p[0];
+    if (nb == 0.f) continue;
+    const float nab = n + nb;
+    const float delta = p[1] - mean;
+    mean += delta * (nb / nab);
+    m2 += p[2] + delta * delta * (n * nb / nab);
+    n = nab;
+  }
+  const float rstd = rsqrtf(m2 / n + a.eps);
+
+  const bool film = a.ss != nullptr;
+  for (int c = threadIdx.x; c < cg_; c += kThreads) {
+    const int ch = g * cg_ + c;
+    float4 k = make_float4(__fmul_rn(rstd, a.gamma[ch]), a.beta[ch], 1.f, 0.f);
+    if (film) {
+      const __nv_bfloat16* ssb = a.ss + static_cast<size_t>(b) * a.ss_stride;
+      k.z = rb(__bfloat162float(ssb[ch]) + 1.f);
+      k.w = __bfloat162float(ssb[a.C + ch]);
+    }
+    reinterpret_cast<float4*>(coef)[(c / 8) * kCoefStride + c % 8] = k;
+  }
+  __syncthreads();
+
+  const uint4* res8 = reinterpret_cast<const uint4*>(a.res);
+  uint4* out8 = reinterpret_cast<uint4*>(a.out);
+  RowCursor cur(v0 + threadIdx.x, cg8);
+#pragma unroll 2
+  for (int i = threadIdx.x; i < nv; i += kThreads, cur.step()) {
+    const size_t idx = base8 + static_cast<size_t>(cur.pix) * c8 + g * cg8 + cur.cv;
+    unpack8(load(i), f);
+    float r[8];
+    if (res8 != nullptr) unpack8(__ldg(res8 + idx), r);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 k = reinterpret_cast<const float4*>(coef)[kCoefStride * cur.cv + j];
+      float y = rb(__fadd_rn(__fmul_rn(f[j] - mean, k.x), k.y));
+      if (film) y = rb(rb(y * k.z) + k.w);
+      // SiLU as XLA expands the logistic: y * (1 / (1 + exp(-y))), each op rounded
+      y = rb(y * rb(__frcp_rn(rb(1.f + rb(expf(-y))))));
+      if (res8 != nullptr) y = rb(y + r[j]);
+      f[j] = y;
+    }
+    out8[idx] = pack8(f);
+  }
+  cluster.sync();
+}
+
+template <class Args>
+cudaError_t launch(void (*kernel)(const Args), const Args& a, int rows, int cs, int smem,
+                   cudaStream_t stream) {
+  static bool smem_set = false;  // > 48 KB of dynamic shared memory: once per kernel
   if (!smem_set) {
     const cudaError_t e =
-        cudaFuncSetAttribute(group_norm_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kHeldFloats * 4 + kMaxGroupChannels * 24);
     if (e != cudaSuccess) return e;
     smem_set = true;
@@ -271,7 +439,7 @@ cudaError_t launch(const GnArgs& a, int rows, int cs, int smem, cudaStream_t str
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, group_norm_act_kernel, a);
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 }  // namespace
@@ -294,5 +462,28 @@ extern "C" int group_norm_act_f32(const float* x, const float* gamma, const floa
   const long long held = (nvec + cs - 1) / cs < kHeldFloats / 4 ? (nvec + cs - 1) / cs
                                                                  : kHeldFloats / 4;
   const int smem = static_cast<int>(held * 16) + 24 * (C / groups);
-  return static_cast<int>(launch(a, B * groups, cs, smem, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch(group_norm_act_kernel, a, B * groups, cs, smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16-activation variant: x, res, out (B, H, W, C) bf16 NHWC; ss (B,
+// 2C) bf16 rows ss_stride values apart, or null; gamma, beta fp32; dims as
+// group_norm_act_f32's. C / groups a multiple of 8.
+extern "C" int group_norm_act_bf16act(const __nv_bfloat16* x, const float* gamma,
+                                      const float* beta, const __nv_bfloat16* ss,
+                                      const __nv_bfloat16* res, __nv_bfloat16* out,
+                                      const int* dims, float eps, void* stream) {
+  const int B = dims[0], hw = dims[1], C = dims[2], groups = dims[3], ss_stride = dims[4],
+            cs = dims[5];
+  if (B <= 0 || hw <= 0 || C <= 0 || groups <= 0 || C % groups || (C / groups) % 8 ||
+      C / groups > kMaxGroupChannels || cs < 1 || cs > kMaxCluster || B * groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GnArgsBf16 a{x, gamma, beta, ss, res, out, hw, C, groups, ss_stride, eps};
+  const long long nvec = static_cast<long long>(hw) * (C / groups) / 8;
+  if (nvec > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long held = (nvec + cs - 1) / cs < kHeldFloats / 4 ? (nvec + cs - 1) / cs
+                                                                 : kHeldFloats / 4;
+  const int smem = static_cast<int>(held * 16) + 16 * kCoefStride * (C / groups / 8);
+  return static_cast<int>(launch(group_norm_act_bf16_kernel, a, B * groups, cs, smem,
+                                 static_cast<cudaStream_t>(stream)));
 }

@@ -89,8 +89,29 @@
 //    moves 0.7x the shared-memory bytes of a 128 x 128 one.
 // Epilogue: bias and 16-byte NHWC stores, as igemm_tc.cuh's.
 //
+// bf16 activations (the gather's Elem __nv_bfloat16: conv2d_nhwc_bf16act,
+// downsample_nhwc_bf16act; flax nn.Conv under dtype=bfloat16, the plain
+// versions kernels/unet2d_blocks.py: conv2d_nhwc_plain, downsample_nhwc_plain
+// on bf16 input). The same tile, ring, TMA weight slices, products in flight
+// and tile plans, with the A operand read as stored:
+// - a stage's A tile is one [BM][128 B] block, 64 bf16 channels a row in the
+//   128-byte swizzle: by TMA one 4-D box of 64 channels (a bf16 source map;
+//   the same box rule, unet2d_blocks.py: tma_boxes), else by the gather's
+//   16-byte cp.async chunks of 8 channels;
+// - the fragments are the stored bf16 pairs (one 32-bit shared load each),
+//   no conversion: the fp32-pair rounding of the weight-only variant goes;
+// - epilogue: the fp32 sum rounded to bf16, plus the bias rounded to bf16,
+//   rounded again, stored bf16 (8-byte stores of 4 channels); split-K
+//   partials stay fp32 and splitk_reduce_bf16act adds them in split order
+//   before the same rounding.
+// Bound: max(flops / 989 TFLOP/s, bytes / 3.35 TB/s) with 2-byte
+// activations: the 64-channel 3x3 convs' 1152 flops per 2-byte input value
+// (576 per byte) are above the ridge of 295, so every main-path conv of this
+// variant is bound by its operations.
+//
 // Contract (the wrapper checks): N a multiple of 8, K and every channel
-// count multiples of 4, every pointer 16-byte aligned.
+// count multiples of 4 (of 8 with bf16 activations), every pointer 16-byte
+// aligned.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
@@ -134,11 +155,16 @@ __device__ long long clk[2][256][8];
 #define IGEMM_BF16_CLK(i, p)
 #endif
 
-template <int BM, int BN>
+// BA: bf16 activations, one [BM][128 B] A block a stage (k 0..63), where
+// fp32 activations take two halves
+template <int BM, int BN, bool BA = false>
 struct Tile {
   static constexpr int THREADS = 2 * BM;       // one warpgroup per 64 rows
-  static constexpr int A_HALF = BM * 128;      // k 0..31 or 32..63: [BM][128 B]
-  static constexpr int A_BYTES = 2 * A_HALF;
+  static constexpr int A_HALF = BM * 128;      // fp32: k 0..31 or 32..63; bf16: k 0..63
+  static constexpr int HALVES = BA ? 1 : 2;
+  static constexpr int HALF_K = BK / HALVES;   // k per 128-byte row
+  static constexpr int CHUNK_K = HALF_K / 8;   // k per 16-byte chunk
+  static constexpr int A_BYTES = HALVES * A_HALF;
   static constexpr int W_ATOM = BK * 128;      // one 64-column atom: [BK][128 B]
   static constexpr int W_BYTES = BN / 64 * W_ATOM;
   static constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
@@ -146,8 +172,17 @@ struct Tile {
   // the ring, one mbarrier per stage, room to align to 1024
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 64 + 1024;
   static constexpr int ROW_STEP = THREADS / 8;  // gather: 8 threads cover a row's chunk column
-  static constexpr int A_ROWS = BM / ROW_STEP;  // gather: rows per thread, two chunks each
+  static constexpr int A_ROWS = BM / ROW_STEP;  // gather: rows per thread, a chunk a half each
 };
+
+// whether gather G reads bf16 activations
+template <class G>
+constexpr bool kBf16Act =
+    std::is_same<typename std::remove_cv<G>::type::Elem, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // The tensor maps of one launch (kernel parameter space: TMA reads them
 // there): the (K, N) weight, and with TMA_A the two sources. The tile takes
@@ -278,8 +313,10 @@ struct Mma<256> {
 
 // One BM x BN output tile (bx, by) over the BK-stages [z * per, (z + 1) *
 // per) of split z. Writes dst[z][m][n] (+ bias[n] when bias is not null:
-// the unsplit case). Called by all 2 * BM threads of a block with
-// Tile<BM, BN>::SMEM_BYTES of shared memory. mw: the weight's map; TMA_A:
+// the unsplit case; with bf16 activations that case stores bf16, dst read
+// as __nv_bfloat16*, and a split's partials stay fp32). Called by all 2 *
+// BM threads of a block with Tile<BM, BN, bf16 activations>::SMEM_BYTES of
+// shared memory. mw: the weight's map; TMA_A:
 // the A tile by TMA boxes (mxa / mxb, geo); else by the gather g. w: the
 // weight, a valid address for the gather's zero-filling copies. bars: the
 // shared-memory address of STAGES mbarriers (one arrival each) that the
@@ -295,7 +332,9 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
                                      const float* __restrict__ bias, float* __restrict__ dst,
                                      int M, int N, int K, int per, int bx, int by, int z,
                                      unsigned char* smem_raw, uint32_t bars, uint32_t& phase) {
-  using T = Tile<BM, BN>;
+  constexpr bool BA = kBf16Act<G>;
+  using T = Tile<BM, BN, BA>;
+  using E = typename G::Elem;
   constexpr int S = T::STAGES;
   // the swizzle, TMA's and the descriptors' alike, assumes 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
@@ -310,8 +349,9 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
   // an even number of stages: the last, if padded, is all zeros
   const int s_run = s_count + (s_count & 1);
 
-  // gather roles: 16-byte chunk c of both halves (k 4c .. 4c + 3 and 32 +
-  // 4c .. 32 + 4c + 3 of a stage) of tile rows r0 + ROW_STEP * j
+  // gather roles: 16-byte chunk c of each half (fp32: k 4c .. 4c + 3 and 32
+  // + 4c .. 32 + 4c + 3 of a stage; bf16: k 8c .. 8c + 7) of tile rows r0 +
+  // ROW_STEP * j
   const int c = tid & 7;
   const int r0 = tid >> 3;
   typename G::Row rows[TMA_A ? 1 : T::A_ROWS];
@@ -338,13 +378,13 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
     const int k0 = (s_begin + s) * BK;
     if constexpr (!TMA_A) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + 32 * h + 4 * c;
-        const bool k_in = live && k < K;  // K % 4 == 0: a chunk is wholly in or out
+      for (int h = 0; h < T::HALVES; ++h) {
+        const int k = k0 + T::HALF_K * h + T::CHUNK_K * c;
+        const bool k_in = live && k < K;  // K a multiple of CHUNK_K: a chunk is wholly in or out
         const typename G::Tap tp = g.tap(k_in ? k : 0);
 #pragma unroll
         for (int j = 0; j < T::A_ROWS; ++j) {
-          const float* p = k_in ? g.ptr4(rows[j], tp) : nullptr;
+          const E* p = k_in ? g.ptr4(rows[j], tp) : nullptr;
           cp_async16(st + h * T::A_HALF + swz(r0 + T::ROW_STEP * j, c),
                      p ? static_cast<const void*>(p) : static_cast<const void*>(w),
                      p != nullptr);
@@ -370,9 +410,9 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
         const int y = geo.up ? y0 + ((cls >> 1) + ty + 2) / 2 - 1 : geo.scale * y0 + ty;
         const int b = live ? b0 : geo.batch;  // past the batch: zeros
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < T::HALVES; ++h)
           tma_4d(st + h * T::A_HALF, from_a ? mxa : mxb, bar,
-                 (from_a ? cc : cc - geo.ca) + 32 * h, x, y, b);
+                 (from_a ? cc : cc - geo.ca) + T::HALF_K * h, x, y, b);
       }
     }
   };
@@ -384,8 +424,20 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
 
   // slot `slot`'s A fragments, each k16 step's (k, k + 1) pairs rounded
   // into bf16x2 (float2 reads: k 16ks + 2at of a half is chunk 4ks + at / 2,
-  // byte 8 (at % 2) of it)
+  // byte 8 (at % 2) of it); bf16 activations: the stored pairs (k 16ks + 2at
+  // is chunk 2ks, byte 4at; k + 8 the next chunk)
   auto load_frags = [&](uint32_t (&a)[BK / 16][4], int slot) {
+    if constexpr (BA) {
+      const unsigned char* As = sbase + slot * T::STAGE_BYTES + 4 * at;
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        a[ks][0] = *reinterpret_cast<const uint32_t*>(As + swz(ar, 2 * ks));
+        a[ks][1] = *reinterpret_cast<const uint32_t*>(As + swz(ar + 8, 2 * ks));
+        a[ks][2] = *reinterpret_cast<const uint32_t*>(As + swz(ar, 2 * ks + 1));
+        a[ks][3] = *reinterpret_cast<const uint32_t*>(As + swz(ar + 8, 2 * ks + 1));
+      }
+      return;
+    }
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
       const unsigned char* As = sbase + slot * T::STAGE_BYTES + (ks >> 1) * T::A_HALF;
@@ -486,6 +538,17 @@ __device__ __forceinline__ void tile(const G& g, const CUtensorMap* mw, const CU
     float4 v = odd ? make_float4(q0, q1, acc[4 * j + 2], acc[4 * j + 3])
                    : make_float4(acc[4 * j], acc[4 * j + 1], q0, q1);
     const int n = n0 + 8 * j + 2 * at - (odd ? 2 : 0);
+    if (BA && bias != nullptr) {  // bf16(bf16(sum) + bf16(bias)), stored bf16
+      if (m >= 0 && n < N) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n));
+        const uint2 o = make_uint2(
+            bf16x2_rn(round_bf16(v.x) + round_bf16(b.x), round_bf16(v.y) + round_bf16(b.y)),
+            bf16x2_rn(round_bf16(v.z) + round_bf16(b.z), round_bf16(v.w) + round_bf16(b.w)));
+        *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(dst) +
+                                  static_cast<size_t>(m) * N + n) = o;
+      }
+      continue;
+    }
     if (m >= 0 && n < N) {  // N % 4 == 0: the vector is wholly in or out
       if (bias != nullptr) {
         const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n));
@@ -505,7 +568,7 @@ kernel(const G g, const __grid_constant__ Maps maps, const Geom geo,
        const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
        float* __restrict__ dst, int M, int N, int K, int per) {
   extern __shared__ unsigned char smem_raw[];
-  using T = Tile<BM, BN>;
+  using T = Tile<BM, BN, kBf16Act<G>>;
   // one 8-byte mbarrier per ring stage, past the ring
   const uint32_t bars = ((smem_u32(smem_raw) + 1023u) & ~1023u) + T::STAGES * T::STAGE_BYTES;
   if (threadIdx.x == 0) {
@@ -518,35 +581,65 @@ kernel(const G g, const __grid_constant__ Maps maps, const Geom geo,
                          blockIdx.x, blockIdx.y, blockIdx.z, smem_raw, bars, phase);
 }
 
+// Split-K with bf16 activations: out[m][n] = bf16(bf16(sum_z ws[z][m][n], in
+// split order) + bf16(bias[n])), the unsplit epilogue's rounding.
+static __global__ void __launch_bounds__(256)
+splitk_reduce_bf16act(const float* __restrict__ ws, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int M, int N, int splits) {
+  const size_t mn4 = static_cast<size_t>(M) * N / 4;
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < mn4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float4 v = __ldg(w4 + i);
+    for (int z = 1; z < splits; ++z) {
+      const float4 p = __ldg(w4 + z * mn4 + i);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + (4 * i) % N));
+    reinterpret_cast<uint2*>(out)[i] = make_uint2(
+        bf16x2_rn(round_bf16(v.x) + round_bf16(b.x), round_bf16(v.y) + round_bf16(b.y)),
+        bf16x2_rn(round_bf16(v.z) + round_bf16(b.z), round_bf16(v.w) + round_bf16(b.w)));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side: tensor maps and the launch
 // ---------------------------------------------------------------------------
 
 // The activation as TMA boxes would read it (Source), for a launch whose
-// tiles may take it (upsample: never).
-struct Source {
-  const float* xa;
-  const float* xb;
+// tiles may take it (upsample: never). E: float, or bf16 activations.
+template <class E>
+struct SourceE {
+  const E* xa;
+  const E* xb;
   int batch, Hs, Ws;  // source size
   int ca, cb;         // channels of xa and xb (cb 0: one source)
   int H, W;           // output size
   int ks, pad, scale;  // taps per side, padding, source pixels per output pixel (K2: 2)
   bool up;             // the conv reads the nearest-2x upsampled source
 };
+using Source = SourceE<float>;
 
 // The 4-D map (channels, columns, rows, images) of one NHWC source whose
-// boxes are 32 channels x bw x bh x bb pixels, at traversal stride `scale`
-// in the columns and rows.
-static inline cudaError_t source_map(CUtensorMap* out, const float* x, const Source& a, int c,
+// boxes are 128 bytes of channels (32 fp32 or 64 bf16) x bw x bh x bb
+// pixels, at traversal stride `scale` in the columns and rows.
+template <class E>
+static inline cudaError_t source_map(CUtensorMap* out, const E* x, const SourceE<E>& a, int c,
                                      int bw, int bh, int bb) {
+  constexpr bool bf = std::is_same<E, __nv_bfloat16>::value;
+  const cuuint64_t es = sizeof(E);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(a.Ws),
                               static_cast<cuuint64_t>(a.Hs), static_cast<cuuint64_t>(a.batch)};
-  const cuuint64_t strides[3] = {4ull * c, 4ull * c * a.Ws, 4ull * c * a.Ws * a.Hs};
-  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(bw * a.scale),
+  const cuuint64_t strides[3] = {es * c, es * c * a.Ws, es * c * a.Ws * a.Hs};
+  const cuuint32_t box[4] = {128 / sizeof(E), static_cast<cuuint32_t>(bw * a.scale),
                              static_cast<cuuint32_t>(bh * a.scale), static_cast<cuuint32_t>(bb)};
   const cuuint32_t estr[4] = {1, static_cast<cuuint32_t>(a.scale),
                               static_cast<cuuint32_t>(a.scale), 1};
-  return tensor_map(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, dims, strides, box, estr);
+  return tensor_map(out, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                    4, x, dims, strides, box, estr);
 }
 
 // static: each library built from this header (the diagnostic builds too)
@@ -556,7 +649,7 @@ static inline cudaError_t launch_tile(const G& g, const Maps& maps, const Geom& 
                                       const __nv_bfloat16* w, const float* bias, float* out,
                                       float* ws, int M, int N, int K, int tiles_m, int splits,
                                       int per, cudaStream_t stream) {
-  using T = Tile<BM, BN>;
+  using T = Tile<BM, BN, kBf16Act<G>>;
   static bool smem_set = false;  // > 48 KB of dynamic shared memory: once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -572,7 +665,11 @@ static inline cudaError_t launch_tile(const G& g, const Maps& maps, const Geom& 
   if (e != cudaSuccess || !split) return e;
   const size_t mn4 = static_cast<size_t>(M) * N / 4;
   const int blocks = static_cast<int>(mn4 < 256 * 1056 ? (mn4 + 255) / 256 : 1056);
-  igemm_tc::splitk_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, bias, out, M, N, splits);
+  if constexpr (kBf16Act<G>)
+    splitk_reduce_bf16act<<<blocks, 256, 0, stream>>>(
+        ws, bias, reinterpret_cast<__nv_bfloat16*>(out), M, N, splits);
+  else
+    igemm_tc::splitk_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, bias, out, M, N, splits);
   return cudaGetLastError();
 }
 
@@ -591,11 +688,14 @@ static inline cudaError_t launch_mode(bool boxes, const G& g, const Maps& maps, 
 
 // M, N, K: GEMM sizes (N a multiple of 8, K of 4); w: the (K, N) bf16
 // weight; a: the activation's boxes (a.boxes false: the gather g alone).
+// With bf16 activations (G::Elem, a's E) `out` is the bf16 output, passed
+// as float* (the tile stores through it as bf16).
 // Tile plan: (bm, bn) (128, 256), (128, 128), (128, 64) or (64, 64);
 // `splits` splits of `per` BK-stages each, every split non-empty; ws holds
 // splits * M * N floats when splits > 1.
 template <class G>
-inline cudaError_t launch(const G& g, const Source& a, const __nv_bfloat16* w, const float* bias,
+inline cudaError_t launch(const G& g, const SourceE<typename G::Elem>& a, const __nv_bfloat16* w,
+                          const float* bias,
                           float* out, float* ws, int M, int N, int K, int bm, int bn, int splits,
                           int per, cudaStream_t stream) {
   const long stages = (K + BK - 1) / BK;

@@ -34,16 +34,22 @@ _F = ctypes.c_float
 SIGNATURES = {
     "conv2d_nhwc_f32": [_P] * 8,  # ..., const int dims[12], stream
     "conv2d_nhwc_bf16": [_P] * 8,  # the same, w bf16
+    "conv2d_nhwc_bf16act": [_P] * 8,  # the same, xa, xb, w and out bf16
     "downsample_nhwc_f32": [_P] * 7,  # ..., const int dims[9], stream
     "downsample_nhwc_bf16": [_P] * 7,  # the same, w bf16
+    "downsample_nhwc_bf16act": [_P] * 7,  # the same, x, w and out bf16
     "cg_pressure_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "cg_cluster_occupancy": [_I, _I, _I, _P],
     "cg_barrier_probe": [_I, _I, _P, _P],
     "group_norm_act_f32": [_P] * 7 + [_F, _P],  # ..., const int dims[6], eps, stream
+    "group_norm_act_bf16act": [_P] * 7 + [_F, _P],  # the same, x, ss, res and out bf16
     "linear_attention_tc_f32": [_P] * 10,  # ..., const int dims[7], stream
     "linear_attention_tc_bf16": [_P] * 10,  # the same, wqkv and wo bf16
     "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream
     "attention_bf16": [_P] * 9,  # the same, wqkv and wo bf16
+    # x, norm_g, wqkv, wo, bo, out_g, scratch, out, const int dims[3], stream; bf16 x, out
+    "linear_attention_bf16act": [_P] * 10,
+    "attention_bf16act": [_P] * 9,  # x, norm_g, wqkv, wo, bo, out, scratch, dims[3], stream
     "unet2d_persistent_f32": [_P, _I, _P, _I, _P, _P],  # ..., n_counters, grid_out, stream
     "unet2d_persistent_bf16": [_P, _I, _P, _I, _P, _P, _P],  # the same, bf16; ..., maps
     "unet2d_persistent_maps": [_P, _I, _P, _P, _P],  # specs, n_maps, bases, maps, stream

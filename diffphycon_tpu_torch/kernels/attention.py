@@ -54,6 +54,21 @@ time (:func:`attn_tile_rows` with ``bf16``; K5b's tiles and CTAs
 round the same operands (``unet2d_blocks.matmul_w``); ``bf16_launches``
 counts the bf16 calls.
 
+bf16 activations (flax ``dtype=bfloat16``): a bfloat16 x (with bfloat16
+weights) selects K5's and K6's bf16-activation variants
+(``linear_attention_bf16act``, ``attention_bf16act``; ``csrc/
+attention_bf16act.cu``) and the plain versions of flax's blocks
+(:func:`chan_ln_bf16`, :func:`softmax_bf16`; ``tests/
+test_torch_port_bf16_flax_unet2d.py`` holds them against flax): ChanLN
+with eps 1e-3, its mean and variance float32 reductions rounded to
+bfloat16 and each later op rounded, the float32 gain making it float32;
+q, k and v, the softmaxes' outputs, the context, the attention product and
+the out-projection rounded to bfloat16; the full block's softmax in float32
+then rounded. Both blocks return bf16(x + h): the linear block's h is
+float32 (its out-ChanLN's gain), and flax's float32 sum feeds only convs
+that round it to bfloat16, so storing it rounded is exact.
+``bf16act_launches`` counts these calls.
+
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
 wrapper raises; the backward is the VJP of the plain version (no backward
@@ -115,15 +130,90 @@ def _full_plain(x, norm_g, wqkv, wo, bo, heads=KERNEL_HEADS, dim_head=KERNEL_DIM
     return x + (kb.matmul_w(out, wo) + bo).reshape(b, hs, ws, c)
 
 
+LN_EPS_BF16 = 1e-3  # flax ChanLayerNorm's eps on a non-float32 input (nets/blocks.py:60)
+BF16 = torch.bfloat16
+
+
+def chan_ln_bf16(x, g):
+    """flax ``ChanLayerNorm`` of a bfloat16 x (diffphycon_tpu/nets/blocks.py:
+    56-64): eps 1e-3 (rounded to bfloat16, as a weak-typed constant); the
+    mean and the variance are float32 reductions (the variance around the
+    float32 mean, ``jnp.var``) rounded to bfloat16; ``x - mean``,
+    ``var + eps``, the rsqrt and their product each rounded to bfloat16;
+    the float32 gain makes the result float32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var.to(BF16) + kb.bf16_const(LN_EPS_BF16, x))
+    return ((x - mean.to(BF16)) * r) * g
+
+
+def softmax_bf16(t, dim: int):
+    """``jax.nn.softmax`` of a bfloat16 t as XLA computes it inside flax's
+    bf16 linear attention on the CPU: the difference to the max, its exp,
+    each rounded to bfloat16; their sum a float32 reduction rounded to
+    bfloat16; the quotient rounded. (A softmax jitted alone can keep the
+    exps float32 for the sum: held against the block, not assumed.)"""
+    e = torch.exp(t - t.amax(dim=dim, keepdim=True))
+    return e / e.float().sum(dim=dim, keepdim=True).to(BF16)
+
+
+def _bmm_bf16(eq, a, b):
+    """A bfloat16 einsum as XLA computes it: float32 sums, rounded once."""
+    return torch.einsum(eq, a.float(), b.float()).to(BF16)
+
+
+def _qkv_bf16(x, norm_g, wqkv, heads, dim_head):
+    """q, k, v (b, n, heads, dim_head) bfloat16 of the flax bf16 block:
+    ChanLN (float32), rounded to bfloat16 by the bias-free 1x1 conv."""
+    b, hs, ws, c = x.shape
+    h = chan_ln_bf16(x, norm_g).reshape(b * hs * ws, c).to(BF16)
+    qkv = _bmm_bf16("nc,cj->nj", h, wqkv).reshape(b, hs * ws, 3, heads, dim_head)
+    return qkv.unbind(2)
+
+
+def _out_proj_bf16(out, wo, bo, shape):
+    """The bfloat16 1x1 out-conv: float32 sum, rounded, plus the bias
+    rounded to bfloat16, rounded again."""
+    return kb.conv_bias_bf16(out.reshape(-1, out.shape[-2] * out.shape[-1]).float()
+                             @ wo.float(), bo).reshape(shape)
+
+
+def _linear_bf16_plain(x, norm_g, wqkv, wo, bo, out_g, heads=KERNEL_HEADS,
+                       dim_head=KERNEL_DIM_HEAD):
+    q, k, v = _qkv_bf16(x, norm_g, wqkv, heads, dim_head)  # (b, n, h, d)
+    q = softmax_bf16(q, -1) * kb.bf16_const(dim_head ** -0.5, x)
+    k = softmax_bf16(k.permute(0, 2, 3, 1), -1)  # (b, h, d, n): over the tokens
+    context = _bmm_bf16("bhdn,bnhe->bhde", k, v)
+    out = _bmm_bf16("bhde,bnhd->bnhe", context, q)
+    o = _out_proj_bf16(out, wo, bo, x.shape)
+    return (x + chan_ln_bf16(o, out_g)).to(BF16)
+
+
+def _full_bf16_plain(x, norm_g, wqkv, wo, bo, heads=KERNEL_HEADS, dim_head=KERNEL_DIM_HEAD):
+    q, k, v = _qkv_bf16(x, norm_g, wqkv, heads, dim_head)
+    sim = _bmm_bf16("bihd,bjhd->bhij", q * kb.bf16_const(dim_head ** -0.5, x), k)
+    attn = torch.softmax(sim.float(), dim=-1).to(BF16)
+    out = _bmm_bf16("bhij,bjhd->bihd", attn, v)
+    return x + _out_proj_bf16(out, wo, bo, x.shape)
+
+
 def linear_attention_block_plain(x, p, heads: int = KERNEL_HEADS,
                                  dim_head: int = KERNEL_DIM_HEAD):
-    """x + ChanLN(out-proj(linear attention(ChanLN(x)))), plain torch."""
+    """x + ChanLN(out-proj(linear attention(ChanLN(x)))), plain torch (a
+    bfloat16 x: flax's bf16 block, stored as bfloat16)."""
+    if kb.act_is_bf16("linear_attention_block", x, p["wqkv"], p["wo"]):
+        return _linear_bf16_plain(x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"],
+                                  heads, dim_head)
     return _linear_plain(x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"],
                          heads, dim_head)
 
 
 def attention_block_plain(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_HEAD):
-    """x + out-proj(softmax(q k^T / sqrt(d)) v) over all tokens, plain torch."""
+    """x + out-proj(softmax(q k^T / sqrt(d)) v) over all tokens, plain torch
+    (a bfloat16 x: flax's bf16 block)."""
+    if kb.act_is_bf16("attention_block", x, p["wqkv"], p["wo"]):
+        return _full_bf16_plain(x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], heads, dim_head)
     return _full_plain(x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], heads, dim_head)
 
 
@@ -356,25 +446,98 @@ def _full_launch(x, norm_g, wqkv, wo, bo):
     return out
 
 
+HIDDEN = KERNEL_HEADS * KERNEL_DIM_HEAD
+BF16ACT_CHUNK = 256  # tokens per K5b CTA of the bf16-activation K5 (attention_bf16act.cu: kChunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16act_shapes(name, x_shape, linear):
+    """The checks of one bf16-activation K5 or K6 call that depend on x's
+    shape alone, once per shape: (the kernel's ints (B, n, C), the weights'
+    shapes, bf16 values of its scratch: q | k | v rows, then K5's contexts
+    and its context stages' float32 partials per (sample, head, chunk of
+    BF16ACT_CHUNK tokens): a max and a sum per k column and a 32 x 32
+    context; or K6's attention output)."""
+    if len(x_shape) != 4:
+        raise ValueError(f"{name}: x must be NHWC, got {tuple(x_shape)}")
+    B, H, W, C = x_shape
+    n = H * W
+    if not 8 <= C <= MAX_CHANNELS or C % 8:
+        raise ValueError(f"{name}: C={C}; the bf16-activation kernel takes 8 to "
+                         f"{MAX_CHANNELS} channels, a multiple of 8")
+    if not 1 <= B <= 65535 or n < 1 or B * n * 3 * HIDDEN > kb._INT32_MAX:
+        raise ValueError(f"{name}: x {tuple(x_shape)} is too large")
+    weights = ((C,), (C, 3 * HIDDEN), (HIDDEN, C), (C,)) + (((C,),) if linear else ())
+    if linear:
+        chunks = B * KERNEL_HEADS * -(-n // BF16ACT_CHUNK)
+        parts = chunks * (2 * KERNEL_DIM_HEAD + KERNEL_DIM_HEAD ** 2)
+        extra = B * KERNEL_HEADS * KERNEL_DIM_HEAD ** 2 + 2 * parts  # float32: 2 bf16 each
+    else:
+        extra = B * n * HIDDEN
+    return (B, n, C), weights, B * n * 3 * HIDDEN + extra
+
+
+def _linear_bf16act_launch(x, norm_g, wqkv, wo, bo, out_g):
+    name = "linear_attention_block"
+    kb._check_cuda(name, bf16=("x", "wqkv", "wo"), x=x, norm_g=norm_g, wqkv=wqkv, wo=wo,
+                   bo=bo, out_g=out_g)
+    ints, weights, scratch = _bf16act_shapes(name, x.shape, True)
+    _check_weights(name, (norm_g, wqkv, wo, bo, out_g), weights)
+    kb._check_vec4(name, (), (x, norm_g, wqkv, wo, bo, out_g))
+    out = torch.empty_like(x)
+    part = x.new_empty(scratch)
+    err = _build.load_library().linear_attention_bf16act(
+        x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints), kb._stream(x))
+    _build.check(err, name)
+    linear_attention_block.launches += 1
+    linear_attention_block.bf16act_launches += 1
+    return out
+
+
+def _full_bf16act_launch(x, norm_g, wqkv, wo, bo):
+    name = "attention_block"
+    kb._check_cuda(name, bf16=("x", "wqkv", "wo"), x=x, norm_g=norm_g, wqkv=wqkv, wo=wo, bo=bo)
+    ints, weights, scratch = _bf16act_shapes(name, x.shape, False)
+    _check_weights(name, (norm_g, wqkv, wo, bo), weights)
+    kb._check_vec4(name, (), (x, norm_g, wqkv, wo, bo))
+    out = torch.empty_like(x)
+    part = x.new_empty(scratch)
+    err = _build.load_library().attention_bf16act(
+        x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        out.data_ptr(), part.data_ptr(), kb.int_array(ints), kb._stream(x))
+    _build.check(err, name)
+    attention_block.launches += 1
+    attention_block.bf16act_launches += 1
+    return out
+
+
 def linear_attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_HEAD):
     """K5. x: (B, H, W, C); on CUDA 4 heads of 32 and C a multiple of 4 up
-    to 512."""
+    to 512. A bfloat16 x (with bfloat16 wqkv and wo) selects the
+    bf16-activation variant (C a multiple of 8) and gives bfloat16."""
     if not kb._dispatch("linear_attention_block", x):
         return linear_attention_block_plain(x, p, heads, dim_head)
     _check_heads("linear_attention_block", heads, dim_head)
-    return kb.with_plain_vjp(_linear_block_launch, _linear_plain, x, p["norm_g"], p["wqkv"],
-                             p["wo"], p["bo"], p["out_g"])
+    args = (x, p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"])
+    if kb.act_is_bf16("linear_attention_block", x, p["wqkv"], p["wo"]):
+        return kb.with_plain_vjp(_linear_bf16act_launch, _linear_bf16_plain, *args)
+    return kb.with_plain_vjp(_linear_block_launch, _linear_plain, *args)
 
 
 def attention_block(x, p, heads: int = KERNEL_HEADS, dim_head: int = KERNEL_DIM_HEAD):
     """K6. x: (B, H, W, C), any H*W; on CUDA 4 heads of 32 and C a multiple
-    of 4 up to 512."""
+    of 4 up to 512. A bfloat16 x (with bfloat16 wqkv and wo) selects the
+    bf16-activation variant (C a multiple of 8) and gives bfloat16."""
     if not kb._dispatch("attention_block", x):
         return attention_block_plain(x, p, heads, dim_head)
     _check_heads("attention_block", heads, dim_head)
-    return kb.with_plain_vjp(_full_launch, _full_plain, x, p["norm_g"], p["wqkv"], p["wo"],
-                             p["bo"])
+    args = (x, p["norm_g"], p["wqkv"], p["wo"], p["bo"])
+    if kb.act_is_bf16("attention_block", x, p["wqkv"], p["wo"]):
+        return kb.with_plain_vjp(_full_bf16act_launch, _full_bf16_plain, *args)
+    return kb.with_plain_vjp(_full_launch, _full_plain, *args)
 
 
-register_launch_counters(linear_attention_block, "launches", "bf16_launches")
-register_launch_counters(attention_block, "launches", "bf16_launches")
+register_launch_counters(linear_attention_block, "launches", "bf16_launches",
+                         "bf16act_launches")
+register_launch_counters(attention_block, "launches", "bf16_launches", "bf16act_launches")

@@ -44,15 +44,29 @@ is differentiable through the Functions of the K1 and K3 launches it makes.
 On a CPU tensor the plain version runs under ordinary autograd.
 
 bf16 weights (the Pallas kernels under ``weight_dtype=bfloat16``): a
-bfloat16 weight selects K1's and K2's bf16 variants (``conv2d_nhwc_bf16``,
-``downsample_nhwc_bf16``: bf16 ``wgmma`` with the float32 activation rounded
-to bfloat16 at the matmul and float32 sums, on their own tile plan,
-``tile_plan(..., bf16=True)``), and their plain versions round
-the same operands (:func:`bf16_operands`). Activations, biases and norms stay
-float32, so K3 has no variant. ``bf16_launches`` counts the bf16 launches
-among ``launches``.
+bfloat16 weight on a float32 activation selects K1's and K2's bf16 variants
+(``conv2d_nhwc_bf16``, ``downsample_nhwc_bf16``: bf16 ``wgmma`` with the
+float32 activation rounded to bfloat16 at the matmul and float32 sums, on
+their own tile plan, ``tile_plan(..., bf16=True)``), and their plain
+versions round the same operands (:func:`bf16_operands`). Activations,
+biases and norms stay float32, so K3 has no variant of this mode.
+``bf16_launches`` counts these launches among ``launches``.
 
-Layouts: activations NHWC fp32, contiguous. Conv weights are packed once
+bf16 activations (flax ``dtype=bfloat16``, the JAX ``UNet2D(dtype=
+jnp.bfloat16)``): a bfloat16 activation (with bfloat16 weights,
+:func:`act_is_bf16`) selects the bf16-activation variants of K1, K2 and K3
+(``conv2d_nhwc_bf16act``, ``downsample_nhwc_bf16act``,
+``group_norm_act_bf16act``), and the plain versions follow flax's rules,
+each rounding where XLA rounds on the CPU (``tests/
+test_torch_port_bf16_flax_unet2d.py`` holds them against flax): a conv sums
+bf16 x bf16 products in float32, rounds once to bfloat16, adds the bias
+rounded to bfloat16 and rounds again; GroupNorm takes float32 statistics
+and a float32 affine and rounds once; FiLM ``x * (scale + 1) + shift``,
+SiLU (``x * (1 / (1 + exp(-x)))``, the logistic as XLA expands it) and the
+residual add round to bfloat16 after every op. Everything stored between
+kernels is bfloat16. ``bf16act_launches`` counts these launches.
+
+Layouts: activations NHWC fp32 (or bf16, above), contiguous. Conv weights are packed once
 (see ``nets/unet2d.py``): a KxK conv as ``(K*K*Ci, Co)`` with row index
 ``(dy*K + dx)*Ci + c``; the downsample as ``(4*C, Co)`` with row index
 ``(p1*2 + p2)*C + c``.
@@ -108,6 +122,13 @@ def _check_cuda(name: str, bf16=(), **tensors) -> None:
             raise ValueError(f"{name}: {key} has more than 2^31-1 elements")
 
 
+def _check_bf16_channels(name: str, channels) -> None:
+    """The bf16-activation kernels move 8 channels per 16-byte load."""
+    if any(c % 8 for c in channels):
+        raise ValueError(f"{name}: channel counts {list(channels)} must be multiples of 8 "
+                         "for the bf16-activation kernel")
+
+
 def _check_vec4(name: str, channels, tensors) -> None:
     """The CUDA convs move 4 channels per 16-byte load."""
     if any(c % 4 for c in channels):
@@ -142,6 +163,38 @@ def bf16_operands(x, w):
     if w.dtype == torch.bfloat16:
         return x.to(torch.bfloat16).float(), w.float()
     return x, w
+
+
+def act_is_bf16(name: str, x, *ws) -> bool:
+    """Whether activation ``x`` selects the bf16-activation variant of a
+    kernel (flax ``dtype=bfloat16``): a bfloat16 activation, which takes
+    bfloat16 weights only (:func:`weight_is_bf16`)."""
+    if x.dtype != torch.bfloat16:
+        return False
+    if not weight_is_bf16(name, *ws):
+        raise TypeError(f"{name}: bfloat16 activations take bfloat16 weights, got "
+                        f"{[str(w.dtype) for w in ws]}")
+    return True
+
+
+def bf16_const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as JAX's weak type gives it to a bfloat16 op: the
+    constant rounded to bfloat16 (torch would keep a Python scalar in
+    float32 inside the op)."""
+    return torch.tensor(value, dtype=torch.bfloat16, device=like.device)
+
+
+def silu_bf16(x):
+    """flax ``nn.silu`` on bfloat16 as XLA computes it on the CPU:
+    ``x * logistic(x)`` with the logistic expanded to ``1 / (1 + exp(-x))``,
+    every op rounded to bfloat16."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def conv_bias_bf16(acc, b):
+    """The end of a flax bf16 conv or Dense: the float32 sum rounded to
+    bfloat16, plus the bias rounded to bfloat16, rounded again."""
+    return acc.to(torch.bfloat16) + b.to(torch.bfloat16)
 
 
 def matmul_w(x, w):
@@ -352,11 +405,11 @@ def int_array(ints: tuple) -> int:
 def _plan_args(x, gemm, shape_ints, bf16):
     """(split-K workspace or None, address of the kernel's int arguments:
     its shape ints, then the plan) of one K1 or K2 launch of GEMM (m, n, k)
-    on float32 input x (``bf16``: the bf16 variant's plan)."""
+    on input x (``bf16``: the bf16 variants' plan)."""
     plan = tile_plan(*gemm, bf16)
     ws = None
-    if plan.splits > 1:
-        ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]))
+    if plan.splits > 1:  # float32 partials, whatever the activation's dtype
+        ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]), dtype=torch.float32)
     return ws, int_array(shape_ints + plan)
 
 
@@ -375,8 +428,17 @@ def _conv_input(x_a, x_b, upsample):
 def conv2d_nhwc_plain(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     """Same-padded k x k conv as k*k shifted matmuls, the arithmetic of the
     Pallas ``_conv2d`` (pallas_unet2d.py:61-95); a bfloat16 weight takes
-    the input rounded to bfloat16 (:func:`bf16_operands`)."""
+    the input rounded to bfloat16 (:func:`bf16_operands`). A bfloat16 input
+    (bf16 activations) gives flax's bf16 conv (:func:`conv_bias_bf16`)."""
+    if act_is_bf16("conv2d_nhwc", x_a, w):
+        x = _conv_input(x_a, x_b, upsample).float()
+        return conv_bias_bf16(_conv_sum(x, w.float(), k), b)
     x, w = bf16_operands(_conv_input(x_a, x_b, upsample), w)
+    return _conv_sum(x, w, k) + b
+
+
+def _conv_sum(x, w, k):
+    """The bias-free sum of the same-padded k x k conv of x (B, H, W, Ci)."""
     B, H, W, ci = x.shape
     p = (k - 1) // 2
     xp = F.pad(x, (0, 0, p, k - 1 - p, p, k - 1 - p))
@@ -387,13 +449,14 @@ def conv2d_nhwc_plain(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
         xs = xp[:, dy:dy + H, dx:dx + W, :].reshape(B * H * W, ci)
         term = xs @ w3[tap]
         acc = term if acc is None else acc + term
-    return (acc + b).reshape(B, H, W, -1)
+    return acc.reshape(B, H, W, -1)
 
 
 def conv2d_nhwc(x_a, w, b, x_b=None, k: int = 3, upsample: bool = False):
     """K1. x_a: (B, H, W, Ca) [, x_b: (B, H, W, Cb)]; w: (k*k*(Ca+Cb), Co),
     float32 (3xTF32) or bfloat16 (the bf16 variant); b: (Co,). With
-    ``upsample`` the output is (B, 2H, 2W, Co)."""
+    ``upsample`` the output is (B, 2H, 2W, Co). bfloat16 x_a and x_b (with a
+    bfloat16 w) select the bf16-activation variant and give bfloat16."""
     if not _dispatch("conv2d_nhwc", x_a):
         return conv2d_nhwc_plain(x_a, w, b, x_b=x_b, k=k, upsample=upsample)
     return with_plain_vjp(_conv2d_launch, conv2d_nhwc_plain, x_a, w, b, x_b, k=k,
@@ -428,15 +491,22 @@ def _conv2d_shapes(xa_shape, xb_shape, w_shape, b_shape, k, upsample):
 
 
 def _conv2d_launch(x_a, w, b, x_b, k, upsample):
-    _check_cuda("conv2d_nhwc", bf16=("w",), x_a=x_a, x_b=x_b, w=w, b=b)
+    act = act_is_bf16("conv2d_nhwc", x_a, w)
+    _check_cuda("conv2d_nhwc", bf16=("w", "x_a", "x_b") if act else ("w",), x_a=x_a, x_b=x_b,
+                w=w, b=b)
+    if act and x_b is not None and x_b.dtype != torch.bfloat16:
+        raise TypeError("conv2d_nhwc: x_a is bfloat16, x_b is not")
     out_shape, gemm, ints = _conv2d_shapes(x_a.shape, None if x_b is None else x_b.shape,
                                            w.shape, b.shape, k, bool(upsample))
     _check_vec4("conv2d_nhwc", (), (x_a, x_b, w, b))
+    if act:
+        _check_bf16_channels("conv2d_nhwc", ints[3:5])
     bf16 = weight_is_bf16("conv2d_nhwc", w)
     out = x_a.new_empty(out_shape)
     ws, args = _plan_args(x_a, gemm, ints, bf16)
     lib = _build.load_library()
-    err = (lib.conv2d_nhwc_bf16 if bf16 else lib.conv2d_nhwc_f32)(
+    fn = lib.conv2d_nhwc_bf16act if act else lib.conv2d_nhwc_bf16 if bf16 else lib.conv2d_nhwc_f32
+    err = fn(
         x_a.data_ptr(), x_b.data_ptr() if x_b is not None else None,
         w.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
         args, _stream(x_a))
@@ -444,12 +514,13 @@ def _conv2d_launch(x_a, w, b, x_b, k, upsample):
     conv2d_nhwc.launches += 1
     conv2d_nhwc.dual_launches += int(x_b is not None)
     conv2d_nhwc.upsample_launches += int(bool(upsample))
-    conv2d_nhwc.bf16_launches += int(bf16)
+    conv2d_nhwc.bf16_launches += int(bf16 and not act)
+    conv2d_nhwc.bf16act_launches += int(act)
     return out
 
 
 register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_launches",
-                         "bf16_launches")
+                         "bf16_launches", "bf16act_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -459,17 +530,20 @@ register_launch_counters(conv2d_nhwc, "launches", "dual_launches", "upsample_lau
 
 def downsample_nhwc_plain(x, w, b):
     """Space-to-depth in (p1 p2 c) order + one matmul
-    (``_downsample_kernel``, pallas_unet2d.py:259-276)."""
-    x, w = bf16_operands(x, w)
+    (``_downsample_kernel``, pallas_unet2d.py:259-276); a bfloat16 input
+    (bf16 activations) gives flax's bf16 conv (:func:`conv_bias_bf16`)."""
+    act = act_is_bf16("downsample_nhwc", x, w)
+    x, w = (x.float(), w.float()) if act else bf16_operands(x, w)
     B, H, W, C = x.shape
     x6 = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
-    out = x6.reshape(B * (H // 2) * (W // 2), 4 * C) @ w + b
-    return out.reshape(B, H // 2, W // 2, -1)
+    acc = (x6.reshape(B * (H // 2) * (W // 2), 4 * C) @ w).reshape(B, H // 2, W // 2, -1)
+    return conv_bias_bf16(acc, b) if act else acc + b
 
 
 def downsample_nhwc(x, w, b):
     """K2. x: (B, H, W, C) with even H, W; w: (4*C, Co), float32 or
-    bfloat16 (the bf16 variant); b: (Co,)."""
+    bfloat16 (the bf16 variant); b: (Co,). A bfloat16 x (with a bfloat16
+    w) selects the bf16-activation variant and gives bfloat16."""
     if not _dispatch("downsample_nhwc", x):
         return downsample_nhwc_plain(x, w, b)
     return with_plain_vjp(_downsample_launch, downsample_nhwc_plain, x, w, b)
@@ -493,23 +567,29 @@ def _downsample_shapes(x_shape, w_shape, b_shape):
 
 
 def _downsample_launch(x, w, b):
-    _check_cuda("downsample_nhwc", bf16=("w",), x=x, w=w, b=b)
+    act = act_is_bf16("downsample_nhwc", x, w)
+    _check_cuda("downsample_nhwc", bf16=("w", "x") if act else ("w",), x=x, w=w, b=b)
     out_shape, gemm, ints = _downsample_shapes(x.shape, w.shape, b.shape)
     _check_vec4("downsample_nhwc", (), (x, w, b))
+    if act:
+        _check_bf16_channels("downsample_nhwc", ints[3:4])
     bf16 = weight_is_bf16("downsample_nhwc", w)
     out = x.new_empty(out_shape)
     ws, args = _plan_args(x, gemm, ints, bf16)
     lib = _build.load_library()
-    err = (lib.downsample_nhwc_bf16 if bf16 else lib.downsample_nhwc_f32)(
+    fn = (lib.downsample_nhwc_bf16act if act else lib.downsample_nhwc_bf16 if bf16
+          else lib.downsample_nhwc_f32)
+    err = fn(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, args, _stream(x))
     _build.check(err, "downsample_nhwc")
     downsample_nhwc.launches += 1
-    downsample_nhwc.bf16_launches += int(bf16)
+    downsample_nhwc.bf16_launches += int(bf16 and not act)
+    downsample_nhwc.bf16act_launches += int(act)
     return out
 
 
-register_launch_counters(downsample_nhwc, "launches", "bf16_launches")
+register_launch_counters(downsample_nhwc, "launches", "bf16_launches", "bf16act_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +601,10 @@ def group_norm_act_plain(x, gamma, beta, groups: int = 1, ss=None, res=None,
                          eps: float = GN_EPS):
     """SiLU(GN(x) [* (scale+1) + shift]) [+ res]; GN per (sample, group) over
     (H, W, C/groups) with biased variance (flax GroupNorm). ss: (B, 2C) FiLM
-    scale | shift."""
+    scale | shift. A bfloat16 x (bf16 activations; ss and res bfloat16
+    too) takes :func:`group_norm_act_bf16_plain`."""
+    if x.dtype == torch.bfloat16:
+        return group_norm_act_bf16_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
     B, H, W, C = x.shape
     g = x.reshape(B, H * W, groups, C // groups)
     mean = g.mean(dim=(1, 3), keepdim=True)
@@ -535,10 +618,34 @@ def group_norm_act_plain(x, gamma, beta, groups: int = 1, ss=None, res=None,
     return y
 
 
+def group_norm_act_bf16_plain(x, gamma, beta, groups: int = 1, ss=None, res=None,
+                              eps: float = GN_EPS):
+    """The bf16-activation K3 as flax computes it: GroupNorm of bfloat16 x
+    with float32 statistics and the float32 affine ``(x - mean) * (rstd *
+    gamma) + beta`` (flax ``_normalize``), rounded once to bfloat16; then
+    FiLM ``y * (scale + 1) + shift`` on the bfloat16 ss, :func:`silu_bf16`
+    and ``+ res`` (bfloat16), each op rounded to bfloat16."""
+    B, H, W, C = x.shape
+    g = x.float().reshape(B, H * W, groups, C // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = ((g - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    mul = (torch.rsqrt(var + eps) * gamma.reshape(groups, C // groups)).reshape(B, 1, C)
+    y = (((g - mean).reshape(B, H * W, C) * mul).reshape(B, H, W, C) + beta)
+    y = y.to(torch.bfloat16)
+    if ss is not None:
+        y = y * (ss[:, None, None, :C] + 1.0) + ss[:, None, None, C:]
+    y = silu_bf16(y)
+    if res is not None:
+        y = y + res
+    return y
+
+
 def group_norm_act(x, gamma, beta, groups: int = 1, ss=None, res=None,
                    eps: float = GN_EPS):
     """K3. x, res: (B, H, W, C); gamma, beta: (C,); ss: (B, 2C), rows may be
-    strided (a column slice of the batched FiLM projection)."""
+    strided (a column slice of the batched FiLM projection). A bfloat16 x
+    (with bfloat16 ss and res) selects the bf16-activation variant and
+    gives bfloat16."""
     if not _dispatch("group_norm_act", x):
         return group_norm_act_plain(x, gamma, beta, groups, ss=ss, res=res, eps=eps)
     return with_plain_vjp(_group_norm_launch, _group_norm_plain, x, gamma, beta, ss, res,
@@ -558,14 +665,16 @@ GN_MIN_CTAS = SM_COUNT
 
 
 @functools.lru_cache(maxsize=None)
-def gn_cluster_plan(rows: int, length: int) -> int:
-    """CTAs per cluster of K3 for `rows` GroupNorm rows of `length` floats:
+def gn_cluster_plan(rows: int, length: int, bf16: bool = False) -> int:
+    """CTAs per cluster of K3 for `rows` GroupNorm rows of `length` values:
     the fewest of 1, 2, 4, 8 that give GN_MIN_CTAS CTAs (one per SM) with
-    each CTA's slice (at most ceil(length / cluster) floats) held in shared
-    memory; else 8 (a CTA then holds GN_HELD_FLOATS of its slice and reads
-    the rest from device memory in each pass)."""
+    each CTA's slice (at most ceil(length / cluster) values) held in shared
+    memory; else 8 (a CTA then holds what fits of its slice and reads the
+    rest from device memory in each pass). ``bf16`` (the bf16-activation
+    variant): a CTA holds twice the values, 2-byte ones, in the same bytes."""
+    held = GN_HELD_FLOATS * (2 if bf16 else 1)
     for cs in (1, 2, 4, GN_MAX_CLUSTER):
-        if rows * cs >= GN_MIN_CTAS and math.ceil(length / cs) <= GN_HELD_FLOATS:
+        if rows * cs >= GN_MIN_CTAS and math.ceil(length / cs) <= held:
             return cs
     return GN_MAX_CLUSTER
 
@@ -598,9 +707,10 @@ def group_norm_cluster_emulated(x, groups: int, cluster: int, eps: float = GN_EP
 
 
 @functools.lru_cache(maxsize=None)
-def _gn_plan(x_shape, groups):
-    """The checks of one K3 call that depend on x's shape and the groups
-    alone, once per shape: (B, H*W, C, cluster size)."""
+def _gn_plan(x_shape, groups, bf16=False):
+    """The checks of one K3 call that depend on x's shape, the groups and
+    the activation's dtype alone, once per shape: (B, H*W, C, cluster
+    size)."""
     if len(x_shape) != 4:
         raise ValueError(f"group_norm_act: x must be NHWC, got {tuple(x_shape)}")
     B, H, W, C = x_shape
@@ -609,12 +719,16 @@ def _gn_plan(x_shape, groups):
                          f"groups of a multiple of 4 channels, at most {GN_MAX_GROUP_CHANNELS}")
     if B * groups > 65535:
         raise ValueError(f"group_norm_act: {B * groups} rows; the kernel takes at most 65535")
-    return B, H * W, C, gn_cluster_plan(B * groups, H * W * (C // groups))
+    return B, H * W, C, gn_cluster_plan(B * groups, H * W * (C // groups), bf16)
 
 
 def _group_norm_launch(x, gamma, beta, ss, res, groups, eps):
-    _check_cuda("group_norm_act", x=x, gamma=gamma, beta=beta, res=res)
-    B, hw, C, cs = _gn_plan(x.shape, groups)
+    act = x.dtype == torch.bfloat16
+    _check_cuda("group_norm_act", bf16=("x", "res") if act else (), x=x, gamma=gamma,
+                beta=beta, res=res)
+    if act and res is not None and res.dtype != torch.bfloat16:
+        raise TypeError("group_norm_act: x is bfloat16, res is not")
+    B, hw, C, cs = _gn_plan(x.shape, groups, act)
     if gamma.shape != (C,) or beta.shape != (C,):
         raise ValueError("group_norm_act: gamma/beta must be (C,)")
     if res is not None and res.shape != x.shape:
@@ -622,23 +736,28 @@ def _group_norm_launch(x, gamma, beta, ss, res, groups, eps):
     ss_stride = 0
     if ss is not None:
         # a column slice of the batched FiLM matmul: any row stride
-        if (not ss.is_cuda or ss.get_device() != x.get_device() or ss.dtype != torch.float32
+        if (not ss.is_cuda or ss.get_device() != x.get_device() or ss.dtype != x.dtype
                 or ss.shape != (B, 2 * C) or ss.stride(1) != 1):
-            raise ValueError("group_norm_act: ss must be a float32 (B, 2C) tensor on "
+            raise ValueError(f"group_norm_act: ss must be a {x.dtype} (B, 2C) tensor on "
                              "x's device with unit column stride")
         ss_stride = ss.stride(0)
     _check_vec4("group_norm_act", (), (x, res))
+    if act and (C // groups) % 8:
+        raise ValueError(f"group_norm_act: C={C} in {groups} groups; the bf16-activation "
+                         "kernel takes groups of a multiple of 8 channels")
     out = torch.empty_like(x)
-    err = _build.load_library().group_norm_act_f32(
+    lib = _build.load_library()
+    err = (lib.group_norm_act_bf16act if act else lib.group_norm_act_f32)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         ss.data_ptr() if ss is not None else None, res.data_ptr() if res is not None else None,
         out.data_ptr(), int_array((B, hw, C, groups, ss_stride, cs)), eps, _stream(x))
     _build.check(err, "group_norm_act")
     group_norm_act.launches += 1
+    group_norm_act.bf16act_launches += int(act)
     return out
 
 
-register_launch_counters(group_norm_act, "launches")
+register_launch_counters(group_norm_act, "launches", "bf16act_launches")
 
 
 # ---------------------------------------------------------------------------
@@ -699,12 +818,15 @@ def resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups: int = 1):
 def resblock_pair(x, ss_a, ss_b, p_a, p_b, groups: int = 1):
     """K7: two ResnetBlocks of equal channels (B, H, W, C) in one launch of
     the persistent kernel (``kernels/unet2d_mega.py``); ss_a, ss_b: (B, 2C)
-    FiLM. Forward-only."""
+    FiLM. Forward-only. Refuses bfloat16 activations (no such K7 instance:
+    ``unet2d_mega.BF16_ACT_REFUSED``)."""
     _check_pair(x, p_a, p_b)
-    if not _dispatch("resblock_pair", x):
-        return resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups)
     from diffphycon_tpu_torch.kernels import unet2d_mega  # it imports this module
 
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(unet2d_mega.BF16_ACT_REFUSED.format("resblock_pair"))
+    if not _dispatch("resblock_pair", x):
+        return resblock_pair_plain(x, ss_a, ss_b, p_a, p_b, groups)
     out, wdt = unet2d_mega.resblock_pair_launch(x, ss_a, ss_b, p_a, p_b, groups)
     resblock_pair.launches += 1
     resblock_pair.bf16_launches += int(wdt == torch.bfloat16)

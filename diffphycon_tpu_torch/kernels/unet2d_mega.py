@@ -104,12 +104,23 @@ MEGA_TILES_BF16 = {tile: cost for tile, cost in kb.TC_TILES_BF16.items() if tile
 _NARROW_BF16 = {tile: cost for tile, cost in MEGA_TILES_BF16.items() if tile[1] <= 128}
 
 
+# K7 and K8 have no bf16-activation instance: they refuse the flax
+# dtype=bfloat16 mode, on the card and in their CPU replay alike
+BF16_ACT_REFUSED = ("{}: the persistent kernel (K7/K8) does not run bfloat16 activations "
+                    "(flax dtype=bfloat16); ROADMAP.md queue 2 item 10 lists that instance. "
+                    "Use forward() / resblock(), or the weight-only mode (weight_dtype=bfloat16)")
+
+
 def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int):
     """The UNet2D blocks from the init conv's output ``x`` to the input of
     the final 1x1 conv (pallas_unet2d_mega.py:340-381), through ``ops``
     (resblock, downsample, conv, linear attention, full attention). film:
     iterator of the ResBlocks' FiLM (B, 2C) slices in forward order; packs:
-    ``UNet2D.pack()``. The last level's resample is a 3x3 conv."""
+    ``UNet2D.pack()``. The last level's resample is a 3x3 conv. The
+    activation's dtype runs through: a bfloat16 ``x`` (and film) makes every
+    op take its bf16-activation version and return bfloat16, the skips
+    included (flax's float32 linear-attention outputs are stored rounded,
+    exactly, ``kernels/attention.py``)."""
     resblock, downsample, conv, linear_attn, attn = ops
     res_p = iter(packs["res"])
 
@@ -749,6 +760,8 @@ def unet2d_mega(x0, film, packs, plan: Plan):
     plan: :func:`mega_plan`. Returns the input of the final 1x1 conv. A CPU
     tensor takes :func:`unet2d_mega_plain`; a CUDA tensor one launch of the
     persistent kernel, or the wrapper raises."""
+    if x0.dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_ACT_REFUSED.format("unet2d_mega"))
     if not kb._dispatch("unet2d_mega", x0):
         return unet2d_mega_plain(x0, film, packs, plan)
     _forward_only("unet2d_mega", x0, film)

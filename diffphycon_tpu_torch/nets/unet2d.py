@@ -16,7 +16,18 @@ kernel-backed forward ``unet2d_pallas_apply``
 :meth:`UNet2D.forward` is that kernel-backed path (on a CPU tensor each
 wrapper takes its plain version). :meth:`UNet2D.forward_plain` runs the same
 sequence (``kernels.unet2d_mega.unet2d_sequence``) from the plain versions
-only; the tests and ``chip_smoke.py`` hold one against the other. Both
+only; the tests and ``chip_smoke.py`` hold one against the other.
+
+Two bf16 modes. ``UNet2D(dtype=torch.bfloat16)`` is the JAX
+``UNet2D(dtype=jnp.bfloat16)``, flax's compute dtype (what the JAX
+Burgers bench, ``infer_burgers --impl xla`` and ``train_burgers --bf16
+True`` run): every activation between blocks is bfloat16 and each block
+follows flax's rounding (the bf16-activation variants of K1/K2, K3, K5 and
+K6 on the card, their plain versions here); the time MLP, the FiLM
+projection and the init and final convs are bfloat16 torch ops with the
+same rules; the output is bfloat16. ``UNet2D(weight_dtype=torch.bfloat16)``
+is the Pallas forward under bf16 weight packs (JAX's ``infer_burgers --impl
+pallas``): float32 activations, each matmul rounding its operand. Both
 forwards are differentiable: the kernel wrappers are autograd Functions whose
 backward is the VJP of their plain versions. :meth:`UNet2D.forward_mega` runs
 everything between the init conv and the final conv as ONE launch of K8
@@ -35,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffphycon_tpu_torch.device import fp32_convs
+from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 from diffphycon_tpu_torch.kernels import unet2d_mega as kmega
 from diffphycon_tpu_torch.nets.blocks import (
     AttentionBlock,
@@ -58,6 +70,28 @@ def _conv_nchw(x, conv: nn.Conv2d, weight_dtype=torch.float32):
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def _conv_bf16(x, conv: nn.Conv2d):
+    """flax's bf16 ``nn.Conv`` on NHWC: input and weight rounded to
+    bfloat16, the products summed in float32 (an fp32 conv of the rounded
+    values, TF32 off), rounded, plus the bias rounded to bfloat16, rounded
+    again; bfloat16 out."""
+    fp32_convs()
+    acc = F.conv2d(x.to(torch.bfloat16).float().permute(0, 3, 1, 2),
+                   conv.weight.to(torch.bfloat16).float(), None, padding=conv.padding)
+    return kb.conv_bias_bf16(acc.permute(0, 2, 3, 1), conv.bias).contiguous()
+
+
+def _linear_bf16(x, lin: nn.Linear):
+    """flax's bf16 ``nn.Dense``, as :func:`_conv_bf16`."""
+    acc = x.to(torch.bfloat16).float() @ lin.weight.to(torch.bfloat16).float().t()
+    return kb.conv_bias_bf16(acc, lin.bias)
+
+
+def gelu_bf16(x):
+    """``jax.nn.gelu(approximate=False)`` on bfloat16, every op rounded:
+    ``0.5 * x * erfc(-x * sqrt(1/2))``, sqrt(1/2) rounded to bfloat16."""
+    return (x * 0.5) * torch.erfc(-x * kb.bf16_const(0.5 ** 0.5, x))
+
 class UNet2D(nn.Module):
     """``self_condition``: the input is ``x_self_cond`` (zeros when not
     given) concatenated before x on the channel axis, so the init conv takes
@@ -71,17 +105,31 @@ class UNet2D(nn.Module):
     bfloat16 (and run through the kernels' bf16 variants), the init and
     final convs take bfloat16-rounded weights on a float32 input, and
     everything else (biases, norms, FiLM, the time MLP, activations) stays
-    float32. Parameters are float32 either way."""
+    float32. Parameters are float32 either way.
+
+    ``dtype``: the compute dtype, flax's ``UNet2D(dtype=...)``: float32, or
+    bfloat16 for bfloat16 activations under flax's rules (see the module
+    docstring; its packs hold bfloat16 matmul weights, so ``weight_dtype``
+    defaults to ``dtype`` and may not be float32 under it). The output is
+    in ``dtype``."""
 
     def __init__(self, dim: int = 64, out_dim: Optional[int] = None,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 2,
                  resnet_block_groups: int = 1, attn_dim_head: int = 32,
                  attn_heads: int = 4, sinusoidal_pos_emb_theta: float = 10000.0,
-                 self_condition: bool = False, weight_dtype: torch.dtype = torch.float32):
+                 self_condition: bool = False, weight_dtype: Optional[torch.dtype] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if weight_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"UNet2D: weight_dtype {weight_dtype}; float32 or bfloat16")
+        weight_dtype = dtype if weight_dtype is None else weight_dtype
+        if weight_dtype not in (torch.float32, torch.bfloat16) or dtype not in (
+                torch.float32, torch.bfloat16):
+            raise ValueError(f"UNet2D: weight_dtype {weight_dtype}, dtype {dtype}; float32 "
+                             "or bfloat16")
+        if dtype == torch.bfloat16 and weight_dtype != torch.bfloat16:
+            raise ValueError("UNet2D: dtype bfloat16 (flax's compute dtype) rounds every "
+                             "weight to bfloat16; weight_dtype float32 does not exist in it")
         self.weight_dtype = weight_dtype
+        self.dtype = dtype
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.channels = channels
@@ -166,7 +214,8 @@ class UNet2D(nn.Module):
     # -- forwards ----------------------------------------------------------
 
     def forward(self, x, time, x_self_cond=None):
-        """Kernel-backed forward. x: (B, T, X, C) float32; time: (B,)."""
+        """Kernel-backed forward. x: (B, T, X, C) float32; time: (B,). The
+        output is in ``dtype``."""
         return self._forward(self._input(x, x_self_cond), time, self._kernel_pack(),
                              kmega.KERNEL_OPS)
 
@@ -182,7 +231,10 @@ class UNet2D(nn.Module):
         the input or a parameter. A CPU input takes the plain versions. A
         bfloat16 ``weight_dtype`` runs K8's bf16 instantiation on the bf16
         packs (and the init and final convs on bf16-rounded weights, as
-        :meth:`forward`)."""
+        :meth:`forward`). Under ``dtype`` bfloat16 it raises: K8 has no
+        bf16-activation instance (ROADMAP, queue 2 item 10)."""
+        if self.dtype == torch.bfloat16:
+            raise NotImplementedError(kmega.BF16_ACT_REFUSED.format("UNet2D.forward_mega"))
         if torch.is_grad_enabled():  # (walking the parameters costs ~1 ms of host time)
             kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
         packs = self._kernel_pack()
@@ -204,12 +256,25 @@ class UNet2D(nn.Module):
         return torch.cat([x_self_cond, x], dim=-1)
 
     def _film(self, time, packs):
-        """Every ResBlock's FiLM projection as one (B, sum of 2*Co) matmul."""
+        """Every ResBlock's FiLM projection as one (B, sum of 2*Co) matmul
+        (under ``dtype`` bfloat16 the time MLP, the SiLU and the projection
+        by flax's bf16 rules; each column is its block's own Dense)."""
+        if self.dtype == torch.bfloat16:
+            emb, fc1, _, fc2 = self.time_mlp
+            t = _linear_bf16(gelu_bf16(_linear_bf16(emb(time), fc1)), fc2)
+            acc = kb.silu_bf16(t).float() @ packs["film_w"].to(torch.bfloat16).float()
+            return kb.conv_bias_bf16(acc, packs["film_b"])
         return F.silu(self.time_mlp(time)) @ packs["film_w"] + packs["film_b"]
+
+    def _conv_io(self, x, conv):
+        """The init or final conv in this net's mode."""
+        if self.dtype == torch.bfloat16:
+            return _conv_bf16(x, conv)
+        return _conv_nchw(x, conv, self.weight_dtype)
 
     def _forward(self, x, time, packs, ops):
         film = iter(torch.split(self._film(time, packs), packs["film_widths"], dim=1))
-        x = _conv_nchw(x, self.init_conv, self.weight_dtype)
+        x = self._conv_io(x, self.init_conv)
         x = kmega.unet2d_sequence(ops, x, film, packs, self.groups, self.attn_heads,
                                   self.attn_dim_head)
-        return _conv_nchw(x, self.final_conv, self.weight_dtype)
+        return self._conv_io(x, self.final_conv)

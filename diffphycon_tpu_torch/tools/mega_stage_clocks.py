@@ -156,7 +156,8 @@ def main() -> int:
                              lambda: km.resblock_pair_launch(x, *ss, *p, 1)[0],
                              {"kernel": "resblock_pair", "shape": [B, h, w, c]})
             return 0
-        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16)
+        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16,
+                                  impl="pallas")
         net = bench.init_params(cfg, seed=0, device="cuda")
         x = torch.randn(B, cfg.pad_t, cfg.nx, 2, generator=gen, device="cuda")
         t = torch.linspace(0, 999, B, device="cuda")

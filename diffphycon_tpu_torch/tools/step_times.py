@@ -197,7 +197,8 @@ def two_model_times(torch, bf16: bool = False) -> dict:
         return torch.Generator(device="cuda").manual_seed(seed)
 
     def burgers():
-        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=bf16)
+        cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=bf16,
+                                  impl="pallas")
         gd = bench.build_diffusion(cfg, bench.init_params(cfg, seed=0, device="cuda"),
                                    model_w=bench.init_params(cfg, seed=1, device="cuda"),
                                    device="cuda")
@@ -329,7 +330,8 @@ def main() -> int:
     if args.solver:
         print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)
         return 0
-    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16)
+    cfg = bench.BurgersConfig(is_condition_u0=True, is_condition_uT=True, bf16=args.bf16,
+                                  impl="pallas")
     net = bench.init_params(cfg, seed=0, device="cuda")
     if not args.ddpm_only:
         u, f = data.synthetic_burgers(64, seed=0, cache_dir="build/step_times/data",

@@ -331,7 +331,8 @@ def test_bf16_gradients_reach_the_fp32_parameters(small_net):
 
 
 def test_bf16_ddim_steps_match_jax_on_pallas_bf16():
-    """BurgersConfig(bf16=True) builds through benchmarks/burgers.py and
+    """BurgersConfig(bf16=True, impl="pallas") (the weight-only mode, JAX's
+    ``infer_burgers --impl pallas``) builds through benchmarks/burgers.py and
     two DDIM steps at eta 0 (two models, u0/uT conditioning, wu=1000) match
     JAX's sampler driven by unet2d_pallas_apply on bf16 packs."""
     kw = dict(dim=8, dim_mults=(1, 2), is_condition_u0=True, is_condition_uT=True,
@@ -339,7 +340,7 @@ def test_bf16_ddim_steps_match_jax_on_pallas_bf16():
     jnet = JaxUNet2D(dim=8, dim_mults=(1, 2), channels=2, out_dim=2, resnet_block_groups=1)
     x0, t0 = jnp.zeros((2, 16, 128, 2)), jnp.zeros((2,))
     trees = [flax_tree(jnet, x0, t0, seed=s) for s in (0, 1)]
-    tcfg = tbench.BurgersConfig(**kw, bf16=True)
+    tcfg = tbench.BurgersConfig(**kw, bf16=True, impl="pallas")
     ports = [load_flax_unet2d(tbench.build_unet(tcfg, "cpu"), p) for p in trees]
     assert all(p.weight_dtype == BF16 for p in ports)
     packs = tuple(pu.pack_unet2d_params(p, dim=8, dim_mults=(1, 2), weight_dtype=jnp.bfloat16)
@@ -364,10 +365,12 @@ def test_bf16_ddim_steps_match_jax_on_pallas_bf16():
 
 
 def test_bf16_refused_where_not_ported():
-    """Nothing refuses bf16 any more: the smoke and jellyfish builders give a
-    UNet3D that computes in bfloat16 (flax ``dtype=bf16``) on float32
-    parameters, and ``forward_mega`` (K8's plain replay on the CPU) takes
-    bf16 packs and equals the bf16 ``forward``."""
+    """The smoke and jellyfish builders give a UNet3D that computes in
+    bfloat16 (flax ``dtype=bf16``) on float32 parameters, and
+    ``forward_mega`` (K8's plain replay on the CPU) takes bf16 packs and
+    equals the bf16 ``forward``. What is refused: K7/K8 in the flax
+    ``dtype=bf16`` mode (bf16 activations), ``forward_mega`` and
+    ``resblock_pair`` both, with a message naming ROADMAP's item."""
     nets = [tsmoke.init_params(tsmoke.SmokeConfig(bf16=True, dim=8, dim_mults=(1, 2)),
                                device="cpu"),
             tjelly.build_joint_unet(tjelly.JellyfishConfig(bf16=True, dim=8, dim_mults=(1, 2)),
@@ -382,6 +385,16 @@ def test_bf16_refused_where_not_ported():
     x, t = _t(rand(1, 8, 32, 2)), torch.tensor([5.0])
     with torch.no_grad():
         torch.testing.assert_close(net.forward_mega(x, t), net(x, t), rtol=0, atol=0)
+    flax = seeded_init_(UNet2D(dim=8, dim_mults=(1, 2), dtype=BF16),
+                        torch.Generator().manual_seed(0))
+    p = flax.pack()["res"][1]  # down_0_block2: 8 -> 8 channels
+    xb, ss = _t(rand(1, 8, 32, 8)).to(BF16), torch.zeros(1, 16, dtype=BF16)
+    with torch.no_grad():
+        assert flax(x, t).dtype == BF16
+        for call in (lambda: flax.forward_mega(x, t),
+                     lambda: kb.resblock_pair(xb, ss, ss, p, p)):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 10"):
+                call()
 
 
 def test_bf16_weight_checks():
@@ -409,7 +422,7 @@ def test_bf16_train_app_keeps_fp32_state(tmp_path):
          "--synthetic_data", "8", "--train_num_steps", "2", "--checkpoint_interval", "2",
          "--batch_size", "4", "--is_condition_u0", "True", "--is_condition_uT", "True",
          "--data_root", str(tmp_path / "data"), "--results_folder", str(folder)]))
-    assert tr.step == 2 and tr.model.weight_dtype == BF16
+    assert tr.step == 2 and tr.model.weight_dtype == BF16 and tr.model.dtype == BF16
     assert all(p.dtype == torch.float32 for p in tr.params + tr.ema)
     moments = [t for st in tr.optimizer.state.values() for k, t in st.items() if k != "step"]
     assert moments and all(t.dtype == torch.float32 for t in moments)  # Adam's m and v

@@ -1,0 +1,73 @@
+"""``infer_burgers --bf16 True`` (default ``--impl xla``: the flax
+``dtype=bfloat16`` UNet2D) in the port and in the JAX package on the same
+tiny weights (dim 8, mults (1, 2), two models, u0/uT, wu 1000), 3 DDIM
+steps at eta 0 from JAX's x_T (fed to the port's sampler).
+
+Tolerance: APP_RTOL 5e-2 on J and the control energy (measured 4.0e-3 and
+1.4e-4), the whole-net bound of ``tests/test_torch_port_bf16_flax_unet2d.py``
+(the nets' rounding flips, then three DDIM steps from x_T).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffphycon_tpu.nets.unet2d import UNet2D as JaxUNet2D
+from torch_port_helpers import flax_tree
+
+APP_RTOL = 5e-2
+SHAPE = (2, 16, 32, 2)
+
+
+def test_flax_bf16_infer_app_matches_jax(tmp_path, monkeypatch):
+    """``infer_burgers --bf16 True`` (default ``--impl xla``) in both
+    packages on the same tiny weights (two models, u0/uT, wu 1000), 3 DDIM
+    steps at eta 0 from JAX's x_T (fed to the port's sampler): J and the
+    energy within APP_RTOL. ``--impl pallas --bf16 True`` (the weight-only
+    packs) gives other rows, and in float32 the two impls are one path, bit
+    for bit."""
+    import apps.infer_burgers as japp
+    from diffphycon_tpu.training import Trainer as JaxTrainer
+    from diffphycon_tpu_torch.apps import infer_burgers
+    from diffphycon_tpu_torch.diffusion import core
+    from diffphycon_tpu_torch.utils.convert import save_flax_npz
+
+    jnet = JaxUNet2D(dim=8, dim_mults=(1, 2), channels=2, out_dim=2, resnet_block_groups=1,
+                     dtype=jnp.bfloat16)
+    trees = [flax_tree(jnet, jnp.zeros(SHAPE), jnp.zeros((2,)), seed=s) for s in (11, 12)]
+    monkeypatch.setattr(JaxTrainer, "load_params", staticmethod(
+        lambda folder, step, use_ema=True: trees["burgers_w" in str(folder)]))
+    npz = [str(tmp_path / f"m{i}.npz") for i in range(2)]
+    for path, tree in zip(npz, trees):
+        save_flax_npz(path, tree)
+    common = ["--dim", "8", "--dim_mults", "1", "2", "--synthetic_data", "2",
+              "--n_test_samples", "2", "--batch_size", "2", "--eval_two_models", "True",
+              "--wus", "1000", "--is_condition_u0", "True", "--is_condition_uT", "True",
+              "--using_ddim", "True", "--ddim_sampling_steps", "3", "--ddim_eta", "0",
+              "--exp_id__model_w", "w", "--data_root", str(tmp_path / "data")]
+    ref = japp.main(japp.build_parser().parse_args(
+        common + ["--bf16", "True", "--save_file", str(tmp_path / "jax.json")]))
+
+    def jax_x_t(self, batch_size, generator):  # JAX's draw for batch i (the seed)
+        k0 = jax.random.split(jax.random.PRNGKey(generator.initial_seed()))[1]
+        return torch.from_numpy(np.array(jax.random.normal(
+            k0, (batch_size,) + tuple(self.sample_shape), jnp.float32)))
+
+    monkeypatch.setattr(core.GaussianDiffusion, "sample_init", jax_x_t)
+
+    def port(*extra):
+        rows = infer_burgers.main(infer_burgers.build_parser().parse_args(
+            common + ["--device", "cpu", "--params_npz", npz[0], "--params_npz__model_w",
+                      npz[1], "--save_file", str(tmp_path / "port.json"), *extra]))
+        row = rows["wu=1000.0,wf=0.0"]
+        row.pop("walltime_s")
+        return row
+
+    flax_row = port("--bf16", "True")
+    want = ref["wu=1000.0,wf=0.0"]
+    for k in ("J_actual_mse", "control_energy"):
+        assert flax_row[k] == pytest.approx(want[k], rel=APP_RTOL), (k, flax_row[k], want[k])
+    assert port("--bf16", "True", "--impl", "pallas") != flax_row
+    assert port("--impl", "pallas") == port()

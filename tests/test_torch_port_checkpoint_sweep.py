@@ -57,15 +57,11 @@ def test_port_checkpoint_sweep_rows_equal_single_checkpoint_runs(models, tmp_pat
         _infer(models, save, "--checkpoint_sweep", "1", "--init_seed", "0")
 
 
-def test_port_checkpoint_sweep_bf16_repacks_each_checkpoint(models, tmp_path):
-    """With ``--bf16 True`` the sweep loads each float32 checkpoint into the
-    bf16 nets and rebuilds their bf16 packs: the ``ckpt=2`` row equals a
-    ``--checkpoint 2`` run, the rows differ, and neither is the float32
-    row."""
-    rows = _infer(models, tmp_path / "sweep16.json", "--checkpoint_sweep", "1", "2",
-                  "--bf16", "True")
+def _bf16_sweep(models, tmp_path, impl):
+    mode = ("--bf16", "True", "--impl", impl)
+    rows = _infer(models, tmp_path / "sweep16.json", "--checkpoint_sweep", "1", "2", *mode)
     single = _infer(models, tmp_path / "single16.json", "--checkpoint", "2",
-                    "--checkpoint__model_w", "2", "--bf16", "True")["wu=1000.0,wf=0.0"]
+                    "--checkpoint__model_w", "2", *mode)["wu=1000.0,wf=0.0"]
     fp32 = _infer(models, tmp_path / "single32.json", "--checkpoint", "2",
                   "--checkpoint__model_w", "2")["wu=1000.0,wf=0.0"]
     swept = dict(rows["ckpt=2,wu=1000.0,wf=0.0"])
@@ -74,3 +70,17 @@ def test_port_checkpoint_sweep_bf16_repacks_each_checkpoint(models, tmp_path):
     assert swept == single
     assert swept["J_actual_mse"] != rows["ckpt=1,wu=1000.0,wf=0.0"]["J_actual_mse"]
     assert swept != fp32
+
+
+def test_port_checkpoint_sweep_bf16_repacks_each_checkpoint(models, tmp_path):
+    """With ``--bf16 True --impl pallas`` (the weight-only bf16 packs) the
+    sweep loads each float32 checkpoint into the bf16 nets and rebuilds
+    their bf16 packs: the ``ckpt=2`` row equals a ``--checkpoint 2`` run,
+    the rows differ, and neither is the float32 row."""
+    _bf16_sweep(models, tmp_path, "pallas")
+
+
+def test_port_checkpoint_sweep_flax_bf16_repacks_each_checkpoint(models, tmp_path):
+    """The same with ``--bf16 True`` and the default ``--impl xla``: the
+    flax dtype=bfloat16 nets."""
+    _bf16_sweep(models, tmp_path, "xla")

@@ -588,7 +588,8 @@ def test_port_bf16_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, 
     K = 360 over 6 stages), k = 1, an odd upsampled source, Co = 136 over
     two N tiles. Through TMA boxes (64-channel blocks): tiles of whole
     images past the batch, with two sources, upsampled (4 parity classes)
-    and not, and K2 at stride 2. And Co = 12 (not a multiple of 8) raises."""
+    and not, and K2 at stride 2. And Co = 12 (not a multiple of 8) raises,
+    and so does a bfloat16 activation with a float32 weight."""
     monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
     g = torch.Generator(device=cuda_device).manual_seed(18)
     for args in [(3, 5, 7, 4, 8, 8, 3), (3, 5, 7, 4, 8, 16, 1), (2, 9, 15, 36, 0, 136, 3),
@@ -608,8 +609,8 @@ def test_port_bf16_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, 
     xa, _, wt, bias = _conv_case(g, cuda_device, 1, 4, 4, 8, 0, 12, 3)
     with pytest.raises(ValueError, match="multiple of 8"):
         kb.conv2d_nhwc(xa, wt.to(torch.bfloat16), bias)
-    with pytest.raises(TypeError, match="float32"):
-        kb.conv2d_nhwc(xa.to(torch.bfloat16), wt.to(torch.bfloat16), bias)
+    with pytest.raises(TypeError, match="bfloat16 activations take bfloat16 weights"):
+        kb.conv2d_nhwc(xa.to(torch.bfloat16), wt, bias)
 
 
 @pytest.mark.cuda
@@ -825,6 +826,139 @@ def test_port_unet2d_mega_bf16_kernel_matches_plain_on_gpu(cuda_device, dim, mul
         second.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, captured)
+
+
+BF16ACT_RTOL = chip_smoke.BF16ACT_KERNEL_RTOL
+
+
+def _bf16act_check(kern, plain):
+    out, ref = kern(), plain()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert_close(out.float(), ref.float(), BF16ACT_RTOL)
+    assert torch.equal(out, kern())
+
+
+@pytest.mark.cuda
+def test_port_bf16act_kernels_match_plain_at_main_path_signatures(cuda_device):
+    """The bf16-activation variants (flax dtype=bfloat16) of K1, K2, K3, K5
+    and K6 at every signature of the Burgers UNet2D forward (batch 4),
+    against their plain versions on the same bf16 inputs
+    (chip_smoke.BF16ACT_KERNEL_RTOL: two bf16 steps), bfloat16 out, two
+    calls bit-equal; every launch a bf16-activation one."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    seen = set()
+    kb.reset_launch_counts()
+    with torch.no_grad():
+        for name, args, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), 4):
+            if (name, args) in seen:
+                continue
+            seen.add((name, args))
+            kern, plain = chip_smoke.kernel_case_bf16act(torch, F, kb, g, name, args)[:2]
+            _bf16act_check(kern, plain)
+    counts = kb.launch_counts()
+    for k in chip_smoke.BF16ACT_KERNELS:
+        assert counts[f"{k}.bf16act"] == counts[k] > 0, (k, counts)
+    assert not any(counts[f"{k}.bf16"] for k in chip_smoke.BF16_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES_BF16)
+@pytest.mark.parametrize("splits", [1, 3])
+def test_port_bf16act_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, bn, splits):
+    """K1 and K2 on bf16 activations under every tile shape of the bf16
+    plan, with and without split-K (the fp32 partials reduced in split
+    order, then rounded): through the gather (8-channel chunks: Ca = 8 with
+    Cb = 16, Ca = 40 with Cb = 8, an odd upsampled source, k = 1, Co = 136)
+    and through TMA boxes of 64 bf16 channels (whole images past the batch,
+    two sources, upsampled and not, K2 at stride 2)."""
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    bf = torch.bfloat16
+    for args in [(3, 5, 7, 8, 16, 8, 3), (3, 5, 7, 8, 16, 16, 1), (2, 9, 15, 40, 8, 136, 3),
+                 (1, 3, 5, 8, 0, 24, 3, True), (2, 4, 4, 64, 64, 64, 1),
+                 (3, 2, 8, 64, 64, 136, 3), (3, 2, 4, 64, 64, 24, 3, True),
+                 (3, 4, 8, 128, 0, 64, 1, True)]:
+        k, up = args[6], bool(args[7:] and args[7])
+        xa, xb, wt, bias = _conv_case(g, cuda_device, *args[:7])
+        xa, wt = xa.to(bf), wt.to(bf)
+        xb = None if xb is None else xb.to(bf)
+        _bf16act_check(lambda: kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
+                       lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up))
+    for b, h, w, c, co in [(3, 6, 10, 8, 8), (2, 10, 18, 24, 72), (3, 4, 8, 64, 72)]:
+        x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
+        x, wt = x.to(bf), wt.to(bf)
+        _bf16act_check(lambda: kb.downsample_nhwc(x, wt, bias),
+                       lambda: kb.downsample_nhwc_plain(x, wt, bias))
+    xa, _, wt, bias = _conv_case(g, cuda_device, 1, 4, 4, 12, 0, 16, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kb.conv2d_nhwc(xa.to(bf), wt.to(bf), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,film", [((3, 5, 7, 32), 2, True), ((2, 4, 8, 64), 4, False),
+                                               ((2, 16, 128, 64), 1, True),
+                                               ((50, 2, 16, 512), 1, False)])
+def test_port_bf16act_group_norm_shapes(cuda_device, shape, groups, film):
+    """K3 on bf16 activations: groups, FiLM rows strided (a column slice of
+    a wider bf16 projection), the residual, and rows held in shared memory
+    or re-read, against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    b, c = shape[0], shape[-1]
+    bf = torch.bfloat16
+    x = (2 * torch.randn(*shape, generator=g, device=cuda_device) + 0.5).to(bf)
+    gamma = 1 + 0.5 * torch.randn(c, generator=g, device=cuda_device)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    ss = (0.5 * torch.randn(b, 4 * c, generator=g, device=cuda_device)).to(bf)[:, c:3 * c]
+    res = torch.randn(*shape, generator=g, device=cuda_device).to(bf)
+    kw = {"ss": ss} if film else {"res": res}
+    _bf16act_check(lambda: kb.group_norm_act(x, gamma, beta, groups, **kw),
+                   lambda: kb.group_norm_act_plain(x, gamma, beta, groups, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5, 27, 64), (2, 9, 40, 96), (4, 4, 32, 256),
+                                   (50, 2, 16, 512), (2, 16, 128, 64), (1, 3, 3, 8)])
+@pytest.mark.parametrize("linear", [True, False])
+def test_port_bf16act_attention_kernels_match_plain(cuda_device, shape, linear):
+    """K5 and K6 on bf16 activations at ragged token counts (tiles that
+    straddle samples), channel counts off 64 and the main path's sites."""
+    from diffphycon_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    x = (2 * torch.randn(*shape, generator=g, device=cuda_device) + 0.3).to(torch.bfloat16)
+    p = _bf16_attn(shape[-1], g, cuda_device, linear)
+    kern = ka.linear_attention_block if linear else ka.attention_block
+    plain = ka.linear_attention_block_plain if linear else ka.attention_block_plain
+    _bf16act_check(lambda: kern(x, p), lambda: plain(x, p))
+
+
+@pytest.mark.cuda
+def test_port_unet2d_flax_bf16_forward_on_gpu(cuda_device):
+    """A dim-16 flax dtype=bfloat16 UNet2D: the kernel forward against the
+    plain forward (5e-2, the CPU tests' whole-net bound: rounding flips
+    cascade), bfloat16 out, every K1, K2, K3, K5 and K6 launch a
+    bf16-activation one; forward_mega refuses the mode."""
+    from diffphycon_tpu_torch.nets.init import seeded_init_
+    from diffphycon_tpu_torch.nets.unet2d import UNet2D
+
+    net = seeded_init_(UNet2D(dim=16, dim_mults=(1, 2, 4, 8), dtype=torch.bfloat16),
+                       torch.Generator().manual_seed(0)).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    x = torch.randn(4, 16, 128, 2, generator=g, device=cuda_device)
+    t = torch.tensor([3.0, 300.0, 700.0, 999.0], device=cuda_device)
+    with torch.no_grad():
+        kb.reset_launch_counts()
+        out = net(x, t)
+        counts = kb.launch_counts()
+        assert out.dtype == torch.bfloat16
+        assert_close(out.float(), net.forward_plain(x, t).float(), 5e-2)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            net.forward_mega(x, t)
+    want = chip_smoke.expected_counts(chip_smoke.main_path_calls(16, (1, 2, 4, 8), 4),
+                                      bf16act=True)
+    assert counts == want, counts
 
 
 def _untouched_digests(device):

@@ -83,4 +83,8 @@ def test_port_burgers_config_dim_muls_alias():
     assert tbench.BurgersConfig(dim_mults=(1, 2, 4), dim_muls=(1, 4)).dim_mults == (1, 4)
     net = tbench.build_unet(tbench.BurgersConfig(dim=8, dim_mults=(1, 2), bf16=True), "cpu")
     assert net.weight_dtype == torch.bfloat16  # bf16 matmul weights in the kernel packs
+    assert net.dtype == torch.bfloat16  # impl "xla": flax's compute dtype, as JAX's build_unet
+    net = tbench.build_unet(tbench.BurgersConfig(dim=8, dim_mults=(1, 2), bf16=True,
+                                                 impl="pallas"), "cpu")
+    assert net.weight_dtype == torch.bfloat16 and net.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in net.parameters())
