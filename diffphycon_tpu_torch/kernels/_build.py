@@ -47,7 +47,7 @@ SIGNATURES = {
     "linear_attention_tc_bf16": [_P] * 10,  # the same, wqkv and wo bf16
     "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream
     "attention_bf16": [_P] * 9,  # the same, wqkv and wo bf16
-    # x, norm_g, wqkv, wo, bo, out_g, scratch, out, const int dims[3], stream; bf16 x, out
+    # x, norm_g, wqkv, wo, bo, out_g, scratch, out, const int dims[7], stream; bf16 x, out
     "linear_attention_bf16act": [_P] * 10,
     "attention_bf16act": [_P] * 9,  # x, norm_g, wqkv, wo, bo, out, scratch, dims[3], stream
     "unet2d_persistent_f32": [_P, _I, _P, _I, _P, _P],  # ..., n_counters, grid_out, stream

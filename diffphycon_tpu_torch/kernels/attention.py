@@ -66,8 +66,13 @@ q, k and v, the softmaxes' outputs, the context, the attention product and
 the out-projection rounded to bfloat16; the full block's softmax in float32
 then rounded. Both blocks return bf16(x + h): the linear block's h is
 float32 (its out-ChanLN's gain), and flax's float32 sum feeds only convs
-that round it to bfloat16, so storing it rounded is exact.
-``bf16act_launches`` counts these calls.
+that round it to bfloat16, so storing it rounded is exact. K5 runs three
+launches (the k | v projection per 64-token tile of a sample with its
+tiles' k maxima; k's token softmax and the context in one cluster per
+(sample, head) of :func:`bf16act_plan`, the ranks' sums and partials
+added in rank order; q re-projected, the context applied, the
+out-projection); :func:`linear_attention_bf16act_emulated` is that order
+in plain PyTorch. ``bf16act_launches`` counts these calls.
 
 Dispatch, launch counts and gradients as in ``kernels/unet2d_blocks.py``: a
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or the
@@ -447,17 +452,65 @@ def _full_launch(x, norm_g, wqkv, wo, bo):
 
 
 HIDDEN = KERNEL_HEADS * KERNEL_DIM_HEAD
-BF16ACT_CHUNK = 256  # tokens per K5b CTA of the bf16-activation K5 (attention_bf16act.cu: kChunk)
+BF16ACT_TILE = 64  # tokens a tile of one sample in K5a, K5c, K6a, K6c (attention_bf16act.cu: kTile)
+BF16ACT_CLUSTER_TOKENS = 256  # K5b: about this many tokens a rank, where 8 ranks allow
+BF16ACT_MAX_CLUSTER = 8  # the portable cluster size
+
+
+@functools.lru_cache(maxsize=None)
+def bf16act_plan(B: int, n: int, C: int, sms: int = kb.SM_COUNT):
+    """(head groups, cs, share) of the bf16-activation K5. K5a's CTAs take 2
+    heads (head groups 2) where C > 256 (its resident k | v columns, C x 64
+    bf16 a head, at most 128 KB) or where twice the B ceil(n / 64) tiles
+    still fit one wave, else all 4. K5b runs one cluster of cs CTAs per
+    (sample, head): about BF16ACT_CLUSTER_TOKENS tokens a rank, at most
+    BF16ACT_MAX_CLUSTER ranks; rank r takes tokens [r share, (r + 1)
+    share), share a multiple of 64 (K5a's tiles), no rank empty."""
+    tiles = B * -(-n // BF16ACT_TILE)
+    groups = 2 if C > 256 or 2 * tiles <= sms else 1
+    cs = min(BF16ACT_MAX_CLUSTER, -(-n // BF16ACT_CLUSTER_TOKENS))
+    per_rank = -(-n // cs)
+    share = -(-per_rank // BF16ACT_TILE) * BF16ACT_TILE
+    return groups, -(-n // share), share
+
+
+def linear_attention_bf16act_emulated(x, p, cs: int, share: int):
+    """The bf16-activation linear block in the order K5's kernels sum, in
+    plain PyTorch: k's max from the maxima of the 64-token tiles; the exps'
+    fp32 sums per rank (tokens [r share, (r + 1) share)) added in rank
+    order, then rounded; p = bf16(e / sum); the fp32 context partials p^T v
+    per rank added in rank order, then rounded; the rest as
+    ``_linear_bf16_plain`` (every rounding point the same; only the order of
+    the fp32 sums differs). For the tests."""
+    norm_g, wqkv, wo, bo, out_g = p["norm_g"], p["wqkv"], p["wo"], p["bo"], p["out_g"]
+    n = x.shape[1] * x.shape[2]
+    q, k, v = _qkv_bf16(x, norm_g, wqkv, KERNEL_HEADS, KERNEL_DIM_HEAD)  # (b, n, h, d)
+    q = softmax_bf16(q, -1) * kb.bf16_const(KERNEL_DIM_HEAD ** -0.5, x)
+    kt = k.permute(0, 2, 3, 1)  # (b, h, d, n)
+    tile_max = [kt[..., t0:t0 + BF16ACT_TILE].amax(dim=-1) for t0 in range(0, n, BF16ACT_TILE)]
+    e = torch.exp(kt - torch.stack(tile_max).amax(dim=0)[..., None])  # bf16 ops, each rounded
+    ranks = [(r * share, min(n, (r + 1) * share)) for r in range(cs)]
+    total = torch.zeros(kt.shape[:3], device=x.device)
+    for r0, r1 in ranks:
+        total = total + e[..., r0:r1].float().sum(dim=-1)
+    pk = e / total.to(BF16)[..., None]
+    context = torch.zeros(*kt.shape[:3], KERNEL_DIM_HEAD, device=x.device)
+    for r0, r1 in ranks:
+        context = context + torch.einsum("bhdn,bnhe->bhde", pk[..., r0:r1].float(),
+                                         v[:, r0:r1].float())
+    out = _bmm_bf16("bhde,bnhd->bnhe", context.to(BF16), q)
+    o = _out_proj_bf16(out, wo, bo, x.shape)
+    return (x + chan_ln_bf16(o, out_g)).to(BF16)
 
 
 @functools.lru_cache(maxsize=None)
 def _bf16act_shapes(name, x_shape, linear):
     """The checks of one bf16-activation K5 or K6 call that depend on x's
-    shape alone, once per shape: (the kernel's ints (B, n, C), the weights'
-    shapes, bf16 values of its scratch: q | k | v rows, then K5's contexts
-    and its context stages' float32 partials per (sample, head, chunk of
-    BF16ACT_CHUNK tokens): a max and a sum per k column and a 32 x 32
-    context; or K6's attention output)."""
+    shape alone, once per shape: (the kernel's ints (B, n, C; K5: and
+    :func:`bf16act_plan`), the weights' shapes, bf16 values of its scratch:
+    K5's k | v rows head-major (B, 4, n, 64), its contexts (B, 4, 32, 32)
+    and its float32 k maxima per 64-token tile (B, ceil(n / 64), 128); or
+    K6's q | k | v rows (B, n, 384) and attention output (B, n, 128))."""
     if len(x_shape) != 4:
         raise ValueError(f"{name}: x must be NHWC, got {tuple(x_shape)}")
     B, H, W, C = x_shape
@@ -469,12 +522,10 @@ def _bf16act_shapes(name, x_shape, linear):
         raise ValueError(f"{name}: x {tuple(x_shape)} is too large")
     weights = ((C,), (C, 3 * HIDDEN), (HIDDEN, C), (C,)) + (((C,),) if linear else ())
     if linear:
-        chunks = B * KERNEL_HEADS * -(-n // BF16ACT_CHUNK)
-        parts = chunks * (2 * KERNEL_DIM_HEAD + KERNEL_DIM_HEAD ** 2)
-        extra = B * KERNEL_HEADS * KERNEL_DIM_HEAD ** 2 + 2 * parts  # float32: 2 bf16 each
-    else:
-        extra = B * n * HIDDEN
-    return (B, n, C), weights, B * n * 3 * HIDDEN + extra
+        tiles = -(-n // BF16ACT_TILE)
+        scratch = B * n * 2 * HIDDEN + B * HIDDEN * KERNEL_DIM_HEAD + 2 * B * tiles * HIDDEN
+        return (B, n, C) + bf16act_plan(B, n, C), weights, scratch
+    return (B, n, C), weights, B * n * 4 * HIDDEN
 
 
 def _linear_bf16act_launch(x, norm_g, wqkv, wo, bo, out_g):
@@ -488,7 +539,8 @@ def _linear_bf16act_launch(x, norm_g, wqkv, wo, bo, out_g):
     part = x.new_empty(scratch)
     err = _build.load_library().linear_attention_bf16act(
         x.data_ptr(), norm_g.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints), kb._stream(x))
+        out_g.data_ptr(), part.data_ptr(), out.data_ptr(), kb.int_array(ints + (7,)),
+        kb._stream(x))
     _build.check(err, name)
     linear_attention_block.launches += 1
     linear_attention_block.bf16act_launches += 1

@@ -20,10 +20,24 @@ shared memory allows, so a phase's clocks include the other CTA's
 interleaved work.
 
 ``--bf16`` times the bf16 variant (``linear_attention_tc_bf16``, bf16
-``wqkv`` and ``wo``) with its own phase names.
+``wqkv`` and ``wo``) with its own phase names. ``--bf16act`` times the
+bf16-activation variant (``linear_attention_bf16act``, flax
+``dtype=bfloat16``; ``csrc/attention_bf16act.cu`` built alone with the
+define, its stamps in ``bfa_stamps``), each of its three launches alone
+(the stages mask of its dims) on bf16 inputs: K5a per 64-token tile (the
+wait for the x tile, ChanLN, the k | v projection, the stores and maxima),
+K5b per cluster rank (the barrier set-up and the run's TMA issue, the
+loads of the tile maxima, their reduction, the wait for the run, the exps
+and the rank's sums, the sums over distributed shared memory, the
+probabilities, the context product, the partials over distributed shared
+memory), K5c per 64-token tile (the wait for the x tile and the context
+tiles, ChanLN, the next tile's copies issued, the q projection, the head
+softmax, the context applied, the out-projection, the out-ChanLN's
+statistics, y and its stores); the tile phases averaged over each CTA's
+first five tiles.
 
 Run from the repository root:
-``python3 -m diffphycon_tpu_torch.tools.k5_phase_clocks [--bf16]``.
+``python3 -m diffphycon_tpu_torch.tools.k5_phase_clocks [--bf16 | --bf16act]``.
 """
 
 import argparse
@@ -52,6 +66,75 @@ K5B_PHASES_BF16 = ("ln_to_bf16", "q_proj", "softmax", "ctx_tiles", "ctx_apply", 
                    "out_ln")
 
 
+BFA_SLOTS = 64  # stamps per CTA (attention_bf16act.cu: kStampSlots), 10 a tile
+K5A_PHASES_BF16ACT = ("x_wait", "chan_ln", "kv_proj", "store_max")
+K5B_PHASES_BF16ACT = ("prologue", "kmax_loads", "max_reduce", "run_wait", "exps",
+                      "dsmem_sums", "probs", "context", "dsmem_partials")
+K5C_PHASES_BF16ACT = ("x_wait_ctx_tiles", "chan_ln", "prefetch", "q_proj", "softmax",
+                      "ctx_apply", "out_proj", "out_ln_stats", "y_store")
+
+
+def tile_clocks(buf: np.ndarray, width: int, tiles: int = 5) -> list:
+    """Mean clocks per phase over the tile stamps (slots 10 t .. 10 t + width
+    - 1, t < tiles) that a CTA wrote (stamps cleared before the launch)."""
+    rows = [np.diff(buf[c, 10 * t:10 * t + width]) for c in range(buf.shape[0])
+            for t in range(tiles) if buf[c, 10 * t] and buf[c, 10 * t + width - 1]]
+    return np.round(np.mean(rows, axis=0)).tolist()
+
+
+def bf16act_main() -> int:
+    """--bf16act: see the module docstring."""
+    name = "linear_attention_bf16act"
+    dll = ctypes.CDLL(str(_build.build(("LA_PHASE_CLOCKS",), only=("attention_bf16act.cu",))))
+    getattr(dll, name).argtypes = _build.SIGNATURES[name]
+    dll.bfa_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sites = sorted({args for kind, args, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B)
+                    if kind == "linear_attention_block"})
+    max_ctas = 4000000 // BFA_SLOTS
+    bf = torch.bfloat16
+    for b, h, w, c in sites:
+        n = h * w
+        x = (2 * torch.randn(b, h, w, c, generator=gen, device="cuda") + 0.3).to(bf)
+        p = [1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+             (torch.randn(c, 384, generator=gen, device="cuda") / c ** 0.5).to(bf),
+             (torch.randn(128, c, generator=gen, device="cuda") / 128 ** 0.5).to(bf),
+             0.1 * torch.randn(c, generator=gen, device="cuda"),
+             1 + 0.1 * torch.randn(c, generator=gen, device="cuda")]
+        ints, _, scratch = ka._bf16act_shapes(name, x.shape, True)
+        part, out = x.new_empty(scratch), torch.empty_like(x)
+
+        def call(stages):
+            dims = (ctypes.c_int * 7)(*ints, stages)
+            err = getattr(dll, name)(
+                x.data_ptr(), *(t.data_ptr() for t in p), part.data_ptr(), out.data_ptr(),
+                dims, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"k5_phase_clocks: cudaError {err}")
+
+        call(7)
+        for stage, label, phases in ((1, "K5a", K5A_PHASES_BF16ACT),
+                                     (2, "K5b", K5B_PHASES_BF16ACT),
+                                     (4, "K5c", K5C_PHASES_BF16ACT)):
+            ms = cs.timed_stream(torch, lambda: call(stage))
+            torch.cuda.synchronize()
+            if dll.bfa_stamps_clear():
+                raise RuntimeError("k5_phase_clocks: clearing the stamps failed")
+            call(stage)
+            torch.cuda.synchronize()
+            buf = np.zeros(max_ctas * BFA_SLOTS, np.int64)
+            dll.bfa_stamps_read(buf.ctypes.data, buf.size)
+            buf = buf.reshape(max_ctas, BFA_SLOTS)
+            ctas = int(np.count_nonzero(buf.any(axis=1)))
+            buf = buf[:ctas].astype(np.float64)
+            width = len(phases) + 1
+            clk = tile_clocks(buf, width, 1 if stage == 2 else 5)
+            print(json.dumps({"site": [b, h, w, c], "bf16act": True, "stage": label,
+                              "plan": list(ints[3:]), "ctas": ctas, "ms": ms,
+                              "clocks_per_phase": dict(zip(phases, clk))}), flush=True)
+    return 0
+
+
 def build() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(_build.build(("LA_PHASE_CLOCKS",))))
     for name in ("linear_attention_tc_f32", "linear_attention_tc_bf16"):
@@ -63,10 +146,14 @@ def build() -> ctypes.CDLL:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bf16", action="store_true", help="time the bf16 variant")
+    ap.add_argument("--bf16act", action="store_true",
+                    help="time the bf16-activation variant (flax dtype=bfloat16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.bf16act:
+        return bf16act_main()
     dll = build()
     entry = dll.linear_attention_tc_bf16 if args.bf16 else dll.linear_attention_tc_f32
     wdt = torch.bfloat16 if args.bf16 else torch.float32

@@ -35,7 +35,11 @@ signatures of one Burgers UNet2D forward at batch 50 (``chip_smoke.py``
 phase 3's shapes and inputs, a CUDA generator seeded per signature), the
 device time of one call (``chip_smoke.timed_graph``) and the first 16 hex
 digits of the SHA-256 of its output, and the device ms per forward of each
-(under ``--bf16`` the bf16 variants). ``--bf16`` builds every net of the run with bf16 (``BurgersConfig``,
+(under ``--bf16`` the bf16 variants, under ``--bf16act`` the bf16-activation
+variants at ``chip_smoke.kernel_case_bf16act``'s inputs), each also per
+CUDA-event pair (median of 50), and under ``--stages`` each launch's
+device ms by kernel name (``torch.profiler``, 10 calls). ``--bf16``
+builds every net of the run with bf16 (``BurgersConfig``,
 ``SmokeConfig`` and ``JellyfishConfig(bf16=True)``: bf16 weights in the
 UNet2D's kernel packs, the UNet3Ds computing in bf16 as flax ``dtype=bf16``;
 the jellyfish surrogates stay float32), so the bf16 samplers and training
@@ -119,9 +123,11 @@ def conv_digests(torch) -> dict:
     return {"signatures": len(sigs), "digests": digests}
 
 
-def attention_times(torch, bf16: bool) -> dict:
-    """K5's and K6's device ms and output digests at every signature of one
-    forward, and their device ms per forward (see the module docstring)."""
+def attention_times(torch, bf16: bool, bf16act: bool = False, stages: bool = False) -> dict:
+    """K5's and K6's device ms, event-pair ms and output digests at every
+    signature of one forward, and their ms per forward (see the module
+    docstring); ``stages``: also each launch's device ms by kernel name
+    (``torch.profiler`` over 10 calls)."""
     import torch.nn.functional as F
 
     import chip_smoke as cs
@@ -129,22 +135,31 @@ def attention_times(torch, bf16: bool) -> dict:
 
     kinds = ("linear_attention_block", "attention_block")
     calls = [(k, a) for k, a, _ in cs.main_path_calls(cs.DIM, cs.MULTS, cs.B) if k in kinds]
-    rows, per_forward = {}, dict.fromkeys(kinds, 0.0)
+    rows = {}
+    per_forward = {k: {"device_ms": 0.0, "ms": 0.0} for k in kinds}
     with torch.no_grad():
         for i, (kind, sig) in enumerate(sorted(set(calls))):
             gen = torch.Generator(device="cuda").manual_seed(i)
-            fn = cs.kernel_case(torch, F, kb, gen, kind, sig, bf16=bf16)[0]
+            if bf16act:
+                fn = cs.kernel_case_bf16act(torch, F, kb, gen, kind, sig)[0]
+            else:
+                fn = cs.kernel_case(torch, F, kb, gen, kind, sig, bf16=bf16)[0]
             out = fn()
             torch.cuda.synchronize()
             ms, err = cs.timed_graph(torch, fn, n=20)
             if ms is None:
                 raise SystemExit(f"{kind}{list(sig)}: {err}")
+            pair_ms = timed(torch, fn, 50)
             n = calls.count((kind, sig))
-            per_forward[kind] += n * ms
-            rows[f"{kind}{list(sig)}"] = {
-                "calls": n, "device_ms": ms,
-                "digest": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}
-    return {"attention": rows, "device_ms_per_forward": per_forward}
+            per_forward[kind]["device_ms"] += n * ms
+            per_forward[kind]["ms"] += n * pair_ms
+            row = {"calls": n, "device_ms": ms, "ms": pair_ms,
+                   "digest": hashlib.sha256(out.float().cpu().numpy().tobytes()).hexdigest()[:16]}
+            if stages:
+                _, _, prof = cs.profile_window(torch, lambda: [fn() for _ in range(10)])
+                row["device_ms_per_launch"] = {k[:80]: v / 10 for k, v in prof}
+            rows[f"{kind}{list(sig)}"] = row
+    return {"attention": rows, "per_forward": per_forward}
 
 
 def solver_times(torch, bench) -> dict:
@@ -293,6 +308,10 @@ def main() -> int:
                     help="time K5 and K6 alone at the forward's signatures instead")
     ap.add_argument("--bf16", action="store_true",
                     help="every net in bf16 (bf16 UNet2D packs, bf16 UNet3Ds)")
+    ap.add_argument("--bf16act", action="store_true",
+                    help="with --attention: the bf16-activation K5 and K6 (flax dtype=bf16)")
+    ap.add_argument("--stages", action="store_true",
+                    help="with --attention: each launch's device ms by kernel name")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -325,7 +344,8 @@ def main() -> int:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True)
         print(json.dumps({**out, "nvidia_smi": smi.stdout.strip(),
-                          **attention_times(torch, args.bf16)}), flush=True)
+                          **attention_times(torch, args.bf16, args.bf16act, args.stages)}),
+              flush=True)
         return 0
     if args.solver:
         print(json.dumps({**out, **solver_times(torch, bench)}), flush=True)

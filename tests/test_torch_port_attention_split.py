@@ -10,7 +10,11 @@ SiLU) decides, and the arithmetic of their split reductions, on the CPU:
   with token counts that are not a multiple of the chunk;
 - K3's statistics (per-CTA partials merged with Chan's formula in rank
   order, ``group_norm_cluster_emulated``) against ``group_norm_act_plain``
-  and the Pallas ``_group_norm``.
+  and the Pallas ``_group_norm``;
+- the bf16-activation K5's order (``linear_attention_bf16act_emulated``:
+  per-tile k maxima, the cluster ranks' sums and context partials added in
+  rank order) against flax's bf16 block and ``_linear_bf16_plain``, and its
+  host plan (``bf16act_plan``) at the main-path shapes.
 
 Tolerances (max |port - ref| <= rtol * max(1, max |ref|)): 1e-5 for the
 emulations against the plain versions and JAX, float32 on every side, sums
@@ -32,6 +36,7 @@ from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
 from torch_port_helpers import assert_close, rand
 
 RTOL = 1e-5
+BF16_BLOCK_RTOL = 1e-2  # one flax bf16 block (tests/test_torch_port_bf16_flax_unet2d.py)
 
 
 @pytest.fixture(autouse=True)
@@ -77,6 +82,13 @@ def test_port_la_chunk_plan_at_main_path_shapes(batch, bf16):
             assert ctas == (kb.SM_COUNT if c <= 128 and tiles > kb.SM_COUNT else tiles)
             if batch == 50 and n == 32:  # the 32-token sites: 50 tiles of 32
                 assert (tr, ctas) == (32, 50)
+            # the bf16-activation K5: K5a's head groups, K5b's clusters of
+            # shares of whole 64-token tiles, no rank empty, at most 8
+            groups, cs, share = ka.bf16act_plan(b, n, c)
+            tiles = b * -(-n // 64)
+            assert groups == (2 if c > 256 or 2 * tiles <= kb.SM_COUNT else 1)
+            assert 1 <= cs <= 8 and share % 64 == 0 and (cs - 1) * share < n <= cs * share
+            assert cs <= min(8, -(-n // 256))  # ~256 tokens a rank
     if batch == 50:
         plans = {h * w: ka.la_chunk_plan(50, h * w)
                  for _, h, w, _ in _sites(50, "linear_attention_block")}
@@ -85,6 +97,12 @@ def test_port_la_chunk_plan_at_main_path_shapes(batch, bf16):
         assert groups == {2048: 1, 512: 1, 128: 1, 32: 2}  # 50 CTAs doubled
         if bf16:  # wider than 256 channels: two heads a CTA whatever the wave
             assert ka.la_head_groups(50, 8, C=512, bf16=True) == 2
+            plans = {(h * w, c): ka.bf16act_plan(50, h * w, c)
+                     for _, h, w, c in _sites(50, "linear_attention_block")}
+            assert plans == {(2048, 64): (1, 8, 256), (512, 64): (1, 2, 256),
+                             (512, 128): (1, 2, 256), (128, 128): (1, 1, 128),
+                             (128, 256): (1, 1, 128), (32, 256): (2, 1, 64),
+                             (32, 512): (2, 1, 64)}
 
 
 @pytest.mark.parametrize("batch", [50, 16, 1])
@@ -128,6 +146,46 @@ def test_port_chunked_linear_attention_matches_plain_and_pallas(shape, chunk):
     assert_close(out, ka.linear_attention_block_plain(torch.from_numpy(x), tp), RTOL)
     ref = pu.linear_attention_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()})
     assert_close(out, ref, RTOL)
+
+
+@pytest.mark.parametrize("shape,plan", [((2, 5, 20, 8), (2, 64)), ((2, 8, 40, 16), (2, 192)),
+                                        ((1, 4, 33, 512), (3, 64)), ((3, 16, 48, 8), None)])
+def test_port_bf16act_cluster_order_matches_flax_and_plain(shape, plan):
+    """The bf16-activation K5's order (``linear_attention_bf16act_emulated``:
+    k's max from the 64-token tiles' maxima, the exps' sums and the context
+    partials per cluster rank added in rank order) on n = 100, 320, 132
+    and 768 tokens: ranks of 64 tokens (the last 36), a ragged last rank
+    (128 of 192), a 4-token last rank at C = 512, and the host's plan
+    (``bf16act_plan``: 3 ranks of 256). Against flax's bf16
+    LinearAttentionBlock (``dtype=bfloat16``, the result stored bf16) within
+    BF16_BLOCK_RTOL, the flax file's block bound, and against
+    ``_linear_bf16_plain`` within chip_smoke.BF16ACT_KERNEL_RTOL: the
+    same rounding points, the fp32 sums in another order. x's last row is
+    shifted so that k's max lies in one tile and one rank."""
+    from diffphycon_tpu.nets import blocks as JB
+
+    b, h, w, c = shape
+    x = jnp.asarray(2 * rand(*shape, seed=5) + 0.3).astype(jnp.bfloat16)
+    x = x.at[:, -1].add(3.0)
+    p = {"norm_g": 1 + 0.1 * rand(c, seed=1), "wqkv": rand(c, 384, seed=2) / np.sqrt(c),
+         "wo": rand(128, c, seed=3) / np.sqrt(128), "bo": 0.1 * rand(c, seed=4),
+         "out_g": 1 + 0.1 * rand(c, seed=6)}
+    tree = {"params": {"norm": {"g": p["norm_g"]}, "attn": {
+        "to_qkv": {"kernel": p["wqkv"][None, None]},
+        "to_out": {"kernel": p["wo"][None, None], "bias": p["bo"]},
+        "out_norm": {"g": p["out_g"]}}}}
+    ref = JB.LinearAttentionBlock(c, 4, 32, dtype=jnp.bfloat16).apply(tree, x)
+    ref = np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    tp["wqkv"], tp["wo"] = tp["wqkv"].to(torch.bfloat16), tp["wo"].to(torch.bfloat16)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    cs, share = plan or ka.bf16act_plan(b, h * w, c)[1:]
+    assert (cs - 1) * share < h * w <= cs * share
+    out = ka.linear_attention_bf16act_emulated(xt, tp, cs, share)
+    assert out.dtype == torch.bfloat16
+    assert_close(out.float(), ref, BF16_BLOCK_RTOL)
+    assert_close(out.float(), ka.linear_attention_block_plain(xt, tp).float(),
+                 chip_smoke.BF16ACT_KERNEL_RTOL)
 
 
 @pytest.mark.parametrize("shape,groups,cluster", [((2, 4, 8, 16), 1, 8), ((2, 4, 8, 16), 2, 3),

@@ -919,11 +919,15 @@ def test_port_bf16act_group_norm_shapes(cuda_device, shape, groups, film):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 5, 27, 64), (2, 9, 40, 96), (4, 4, 32, 256),
-                                   (50, 2, 16, 512), (2, 16, 128, 64), (1, 3, 3, 8)])
+                                   (50, 2, 16, 512), (2, 16, 128, 64), (1, 3, 3, 8),
+                                   (1, 64, 128, 64), (5, 1, 3, 16)])
 @pytest.mark.parametrize("linear", [True, False])
 def test_port_bf16act_attention_kernels_match_plain(cuda_device, shape, linear):
-    """K5 and K6 on bf16 activations at ragged token counts (tiles that
-    straddle samples), channel counts off 64 and the main path's sites."""
+    """K5 and K6 on bf16 activations at ragged token counts (a sample's last
+    64-token tile partly empty), channel counts off 64 and the main path's
+    sites; 8192 tokens, more than a K5b cluster holds at once (8 ranks of
+    1024 tokens, each in two runs of 512; K6b over 128 key tiles), and 3
+    tokens a sample at B = 5."""
     from diffphycon_tpu_torch.kernels import attention as ka
 
     g = torch.Generator(device=cuda_device).manual_seed(24)
@@ -969,9 +973,10 @@ def _untouched_digests(device):
     the per-block bf16 K1 (3x3 by TMA boxes, through the nearest-2x
     upsample, from two sources, and a shape the gather takes), K2, K5 and K6
     (igemm_bf16.cuh and attention_bf16.cuh, whose bodies the persistent
-    kernel's bf16 instance now shares). Inputs from numpy generators, nets
-    from seeded_init_ on the CPU, so the digests depend on the kernels
-    alone."""
+    kernel's bf16 instance now shares), and the bf16-activation K1 (the same
+    five convolutions), K2 and K3 (FiLM, and the residual). Inputs from
+    numpy generators, nets from seeded_init_ on the CPU, so the digests
+    depend on the kernels alone."""
     import hashlib
 
     import numpy as np
@@ -1050,13 +1055,31 @@ def _untouched_digests(device):
         for shape in ((50, 2, 16, 512), (3, 4, 7, 64)):
             out[f"k6_bf16{list(shape)}"] = digest(
                 ka.attention_block(r(*shape), bf16(attn(shape[-1], False))))
+        # the bf16-activation K1, K2 and K3 (flax dtype=bfloat16; drawn last,
+        # so that the inputs above stay as they were recorded)
+        bf = torch.bfloat16
+        for name, xs, cb, co, k, up in convs:
+            xa, xb = r(*xs).to(bf), (r(*xs[:3], cb).to(bf) if cb else None)
+            ci = xs[3] + (cb or 0)
+            w, b = r(k * k * ci, co, scale=(k * k * ci) ** -0.5).to(bf), r(co, scale=0.1)
+            out[f"k1_bf16act_{name}"] = digest(kb.conv2d_nhwc(xa, w, b, x_b=xb, k=k,
+                                                               upsample=up))
+        x = r(3, 16, 128, 64).to(bf)
+        w, b = r(256, 96, scale=256 ** -0.5).to(bf), r(96, scale=0.1)
+        out["k2_bf16act"] = digest(kb.downsample_nhwc(x, w, b))
+        out["k3_bf16act_film"] = digest(kb.group_norm_act(
+            x, r(64, scale=0.1, shift=1.0), r(64), 2, ss=r(3, 128, scale=0.5).to(bf)))
+        out["k3_bf16act_res"] = digest(kb.group_norm_act(
+            x, r(64, scale=0.1, shift=1.0), r(64), 1, res=r(3, 16, 128, 64).to(bf)))
     return out
 
 
 # recorded on NVIDIA H100 80GB HBM3: the fp32 K5-K8 entries before K5's and
-# K6's bf16 variants moved to csrc/attention_bf16.cuh, the others from the
-# kernels as they were before the persistent kernel's bf16 instance moved
-# to igemm_bf16.cuh and attention_bf16.cuh
+# K6's bf16 variants moved to csrc/attention_bf16.cuh, the bf16-activation
+# K1, K2 and K3 entries before the bf16-activation K5 and K6 were redesigned
+# (attention_bf16act.cu), the others from the kernels as they were before
+# the persistent kernel's bf16 instance moved to igemm_bf16.cuh and
+# attention_bf16.cuh
 UNTOUCHED_DIGESTS = {
     "k5_f32[3, 16, 128, 64]": "bbeddfc90955d650", "k5_f32[2, 2, 16, 512]": "5a8074b50d321977",
     "k5_f32[5, 1, 24, 256]": "3fa15c66f5d7855b", "k6_f32[50, 2, 16, 512]": "e8b5c7f4d5c1d999",
@@ -1070,13 +1093,18 @@ UNTOUCHED_DIGESTS = {
     "k2_bf16": "56069682d7a22bc0", "k3_f32": "c0f27a0ad0842015",
     "k4_f32": "e9056aff984e6d09/ffc9d9983e3c4e00", "k5_bf16[3, 16, 128, 64]": "2726d63b27c5c3bb",
     "k5_bf16[2, 2, 16, 512]": "4ced4eee0a522900", "k5_bf16[5, 1, 24, 256]": "3153e4274788254f",
-    "k6_bf16[50, 2, 16, 512]": "d2e9a93c577ab818", "k6_bf16[3, 4, 7, 64]": "ef20c83e845a86b0"}
+    "k6_bf16[50, 2, 16, 512]": "d2e9a93c577ab818", "k6_bf16[3, 4, 7, 64]": "ef20c83e845a86b0",
+    "k1_bf16act_3x3": "d33dba17a5ace8e9", "k1_bf16act_up": "48462140abb466cc",
+    "k1_bf16act_cat": "e4581f5725024804", "k1_bf16act_cat_1x1": "6951f11372d8e3c0",
+    "k1_bf16act_gather": "82d55f4235776b68", "k2_bf16act": "dfbe87a0110a7d0b",
+    "k3_bf16act_film": "8c877c7a24eb8002", "k3_bf16act_res": "50e6b352aeb1b640"}
 
 
 @pytest.mark.cuda
 def test_port_untouched_kernels_bit_equal_to_recorded_digests(cuda_device):
-    """fp32 K1-K8 and the per-block bf16 K1, K2, K5 and K6 give outputs
-    bit-equal to digests recorded before the persistent kernel's bf16
-    instance moved onto the per-block bf16 bodies: the bodies they run
-    stayed as they were."""
+    """fp32 K1-K8, the per-block bf16 K1, K2, K5 and K6 and the
+    bf16-activation K1, K2 and K3 give outputs bit-equal to digests recorded
+    before later redesigns of other kernels (the persistent kernel's bf16
+    instance, the bf16-activation K5 and K6): the bodies they run stayed as
+    they were."""
     assert _untouched_digests(cuda_device) == UNTOUCHED_DIGESTS
