@@ -3872,7 +3872,7 @@ def bf16act_phase(torch, F, smi_line, calls):
                       "tflop_per_s": flops / ms / 1e9}
             if kname == "group_norm_act":
                 b_, h, w, c, _ = args
-                tc = {"cluster": kb.gn_cluster_plan(b_, h * w * c, True)}
+                tc = {"cluster": kb.gn_bf16_plan(b_, h * w * c)}
             emit({"phase": "kernel_bf16act", "kernel": kname, "args": list(args),
                   "per_forward": count, "max_abs_err": err, "tol": tol, "rel_err": err / scale,
                   "repeat_bit_equal": repeat_equal, "ms": ms, "device_ms": dev_ms,

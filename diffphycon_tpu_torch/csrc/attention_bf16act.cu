@@ -125,6 +125,7 @@ extern "C" int bfa_stamps_clear() {
 #include <mutex>
 
 #include "attention_bf16.cuh"  // wgmma products, mma_block, ring helpers, the TMA pieces
+#include "bf16x2.cuh"         // flax's per-op bf16 roundings as packed arithmetic
 
 namespace cg = cooperative_groups;
 
@@ -140,11 +141,19 @@ using attn_bf16::kStage;
 using attn_bf16::mma_block;
 using attn_bf16::release_bars;
 using attn_bf16::wgmma_wait;
+using bf16x2::badd2;
+using bf16x2::bf16x2_rn;
+using bf16x2::bmul2;
+using bf16x2::bpair;
+using bf16x2::bsub2;
+using bf16x2::hi_f;
+using bf16x2::lo_f;
+using bf16x2::quot2;
+using bf16x2::rb;
 using hopper_tma::mbar_expect_tx;
 using hopper_tma::mbar_init;
 using hopper_tma::mbar_wait;
 using hopper_tma::tma_2d;
-using igemm_tc::bf16x2_rn;
 using igemm_tc::desc_sw128;
 using igemm_tc::smem_u32;
 using igemm_tc::swz;
@@ -157,46 +166,6 @@ constexpr int kMaxC = 512;
 constexpr int kRun = 512;        // K5b: tokens a CTA holds at once, 128 bytes each
 constexpr int kMaxCluster = 8;   // K5b: the portable cluster size
 constexpr int kCtxTile = kDh * 128;  // K5c: one head's context as a K-major B tile
-
-__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// bf16(a / b) for a bf16 pair a >= 0 and bf16 values b > 0 (normal
-// quotients), given r = __frcp_rn(b) per half: bf16(a r). The quotient of
-// two 8-bit significands is never within 2^-17 (relative) of a bf16
-// rounding boundary (an odd multiple of 2^-9 of a binade would need 2^8 to
-// divide the divisor's significand), and a r is within 2^-22 of the
-// quotient, so both round to the same bf16 value; one reciprocal a row (or
-// column) replaces a division a value.
-__device__ __forceinline__ uint32_t quot2(uint32_t a, float r0, float r1) {
-  return bf16x2_rn(__fmul_rn(lo_f(a), r0), __fmul_rn(hi_f(a), r1));
-}
-
-// Packed bf16 pairs (the lower index in the low half): a - b, a * b, a + b
-// rounded to bf16 once (Hopper's bf16x2 arithmetic). On bf16 operands these
-// equal the plain versions' fp32 operation rounded to bf16: a product of two
-// 8-bit significands is exact in fp32, and so is a sum or difference unless
-// one operand lies far below the other (an exponent gap of 16 or more),
-// where both round to the larger one.
-__device__ __forceinline__ uint32_t bsub2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-// the bf16 value v (exact in bf16) in both halves
-__device__ __forceinline__ uint32_t bpair(float v) { return bf16x2_rn(v, v); }
 
 __device__ __forceinline__ float bf_scale() { return rb(0.17677669529663687f); }  // 32^-0.5
 __device__ __forceinline__ float bf_eps() { return rb(1e-3f); }

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16x2.cuh"
+
 namespace igemm_tc {
 
 constexpr int BK = 32;     // K per ring stage: one 128-byte row of fp32
@@ -124,13 +126,8 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));  // x - hi is exact in fp32
 }
 
-// (lo, hi) rounded to bf16, nearest even, as one bf16x2: lo in the low half
-// (the element of the lower k index, as the fragments hold them).
-__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
+// (lo, hi) rounded to bf16, nearest even, as one bf16x2 (bf16x2.cuh)
+using bf16x2::bf16x2_rn;
 
 // Shared-memory descriptor of a K-major operand tile in the 128-byte swizzle:
 // 128-byte rows, 8-row groups 1024 bytes apart (stride byte offset); the

@@ -43,6 +43,9 @@ SIGNATURES = {
     "cg_barrier_probe": [_I, _I, _P, _P],
     "group_norm_act_f32": [_P] * 7 + [_F, _P],  # ..., const int dims[6], eps, stream
     "group_norm_act_bf16act": [_P] * 7 + [_F, _P],  # the same, x, ss, res and out bf16
+    # tests: y, scale, shift, res, flags, n, fast, exact, stream (n vectors of 8 bf16)
+    "group_norm_bf16act_update_check": [_P] * 4 + [_I, _I] + [_P] * 3,
+    "group_norm_bf16act_exp_ulps": [_P] * 3,  # out (device), guard (host), stream
     "linear_attention_tc_f32": [_P] * 10,  # ..., const int dims[7], stream
     "linear_attention_tc_bf16": [_P] * 10,  # the same, wqkv and wo bf16
     "attention_f32": [_P] * 9,  # ..., scratch, const int dims[4], stream

@@ -24,7 +24,7 @@ bf16 core csrc/igemm_bf16.cuh), K3 = csrc/group_norm_act.cu
 
 K1 and K2 take a tile plan per GEMM shape from the host (:func:`tile_plan`:
 tile size and split-K count, keyed on the weight's dtype), K3 its cluster
-size (:func:`gn_cluster_plan`).
+size (:func:`gn_cluster_plan`; the bf16-activation K3's :func:`gn_bf16_plan`).
 :func:`tf32_split` is K1/K2's TF32 rounding in plain PyTorch, and
 :func:`group_norm_cluster_emulated` K3's statistics merge, for the tests.
 
@@ -665,36 +665,50 @@ GN_MIN_CTAS = SM_COUNT
 
 
 @functools.lru_cache(maxsize=None)
-def gn_cluster_plan(rows: int, length: int, bf16: bool = False) -> int:
-    """CTAs per cluster of K3 for `rows` GroupNorm rows of `length` values:
-    the fewest of 1, 2, 4, 8 that give GN_MIN_CTAS CTAs (one per SM) with
-    each CTA's slice (at most ceil(length / cluster) values) held in shared
-    memory; else 8 (a CTA then holds what fits of its slice and reads the
-    rest from device memory in each pass). ``bf16`` (the bf16-activation
-    variant): a CTA holds twice the values, 2-byte ones, in the same bytes."""
-    held = GN_HELD_FLOATS * (2 if bf16 else 1)
+def gn_cluster_plan(rows: int, length: int) -> int:
+    """CTAs per cluster of the fp32 K3 for `rows` GroupNorm rows of `length`
+    values: the fewest of 1, 2, 4, 8 that give GN_MIN_CTAS CTAs (one per SM)
+    with each CTA's slice (at most ceil(length / cluster) values) held in
+    shared memory; else 8 (a CTA then holds what fits of its slice and reads
+    the rest from device memory in each pass)."""
     for cs in (1, 2, 4, GN_MAX_CLUSTER):
-        if rows * cs >= GN_MIN_CTAS and math.ceil(length / cs) <= held:
+        if rows * cs >= GN_MIN_CTAS and math.ceil(length / cs) <= GN_HELD_FLOATS:
             return cs
     return GN_MAX_CLUSTER
 
 
-def group_norm_cluster_emulated(x, groups: int, cluster: int, eps: float = GN_EPS):
+def gn_bf16_plan(rows: int, length: int) -> int:
+    """CTAs per cluster of the bf16-activation K3 (256 threads a CTA) for
+    `rows` GroupNorm rows of `length` values: the fewest of 1, 2, 4, 8 that
+    give GN_MIN_CTAS CTAs, else 8. A CTA holds up to 100 KB of its slice
+    (group_norm_act.cu: kHeldVecsBf16) and re-reads the rest. Fitted on
+    device times at batch 50 (tools/sweep_gn_cluster.py --bf16act on an
+    H100; PERF.md also has the sweep over 128 and 512 threads a CTA and
+    clusters of up to 16): 4-CTA clusters gave the least time summed over a
+    forward, within 2% of the best plan per signature; 8-CTA clusters at the
+    widest level take 400 CTAs where at most 264 fit at once (up to 128
+    registers a thread)."""
+    return next((c for c in (1, 2, 4) if rows * c >= GN_MIN_CTAS), GN_MAX_CLUSTER)
+
+
+def group_norm_cluster_emulated(x, groups: int, cluster: int, eps: float = GN_EPS,
+                                vec: int = 4):
     """K3's statistics in plain PyTorch: (mean, rstd) per (sample, group)
     row, (B, groups) each. Each row is cut into `cluster` slices of whole
-    float4 vectors as the CTAs cut it; each slice gives (count, mean, sum of
-    squared deviations from its own mean) and the slices merge with Chan's
-    formula in rank order. For the tests."""
+    `vec`-value vectors as the CTAs cut it (4 fp32 values; 8 bf16 values in
+    the bf16-activation K3); each slice gives (count, mean, sum of squared
+    deviations from its own mean) and the slices merge with Chan's formula
+    in rank order. For the tests."""
     B, H, W, C = x.shape
     rows = x.reshape(B, H * W, groups, C // groups).permute(0, 2, 1, 3).reshape(B, groups, -1)
-    nvec = rows.shape[-1] // 4
+    nvec = rows.shape[-1] // vec
     n = x.new_zeros(B, groups)
     mean, m2 = torch.zeros_like(n), torch.zeros_like(n)
     for r in range(cluster):
         v0, v1 = nvec * r // cluster, nvec * (r + 1) // cluster
         if v1 == v0:
             continue
-        sl = rows[..., 4 * v0:4 * v1]
+        sl = rows[..., vec * v0:vec * v1]
         nb = float(sl.shape[-1])
         mb = sl.mean(dim=-1)
         m2b = ((sl - mb[..., None]) ** 2).sum(dim=-1)
@@ -719,7 +733,8 @@ def _gn_plan(x_shape, groups, bf16=False):
                          f"groups of a multiple of 4 channels, at most {GN_MAX_GROUP_CHANNELS}")
     if B * groups > 65535:
         raise ValueError(f"group_norm_act: {B * groups} rows; the kernel takes at most 65535")
-    return B, H * W, C, gn_cluster_plan(B * groups, H * W * (C // groups), bf16)
+    plan = gn_bf16_plan if bf16 else gn_cluster_plan
+    return B, H * W, C, plan(B * groups, H * W * (C // groups))
 
 
 def _group_norm_launch(x, gamma, beta, ss, res, groups, eps):

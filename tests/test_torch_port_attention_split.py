@@ -1,16 +1,18 @@
 """What the host code of K5 (linear attention) and K3 (GroupNorm + FiLM +
 SiLU) decides, and the arithmetic of their split reductions, on the CPU:
 
-- K5's chunk plan (``attention.la_chunk_plan``) and K3's cluster plan
-  (``unet2d_blocks.gn_cluster_plan``) at every main-path shape of the
-  Burgers UNet2D at batch 50, 16 and 1;
+- K5's chunk plan (``attention.la_chunk_plan``) and K3's cluster plans
+  (``unet2d_blocks.gn_cluster_plan``; the bf16-activation K3's
+  ``gn_bf16_plan``, its cluster size) at every main-path shape of
+  the Burgers UNet2D at batch 50, 16 and 1;
 - K5's chunked context (per-chunk partials merged in chunk order with the
   online-softmax rescale, ``linear_attention_chunked_emulated``) against
   ``linear_attention_block_plain`` and the Pallas kernel in interpret mode,
   with token counts that are not a multiple of the chunk;
 - K3's statistics (per-CTA partials merged with Chan's formula in rank
   order, ``group_norm_cluster_emulated``) against ``group_norm_act_plain``
-  and the Pallas ``_group_norm``;
+  and the Pallas ``_group_norm``, and the bf16-activation K3's cut (slices
+  of 8-value vectors, up to 8 CTAs) against ``group_norm_act_bf16_plain``;
 - the bf16-activation K5's order (``linear_attention_bf16act_emulated``:
   per-tile k maxima, the cluster ranks' sums and context partials added in
   rank order) against flax's bf16 block and ``_linear_bf16_plain``, and its
@@ -124,6 +126,27 @@ def test_port_gn_cluster_plan_at_main_path_shapes(batch):
     assert kb.gn_cluster_plan(1, 10 ** 6) == 8  # mostly read from device memory
 
 
+@pytest.mark.parametrize("batch", [50, 16, 1])
+def test_port_gn_bf16_plan_at_main_path_shapes(batch):
+    """The bf16-activation K3's plan: the fewest of 1, 2, 4, 8 CTAs a
+    cluster that give one CTA per SM, else 8, whether or not a CTA then
+    holds its whole slice; one wave at two CTAs an SM. At batch 50 every
+    site takes 4-CTA clusters (200 CTAs), the widest level too (64 KB
+    slices, 52 KB held: 8-CTA clusters would take 400 CTAs). The launch's
+    plan (``_gn_plan``) carries it, the fp32 K3's its own."""
+    for b, h, w, c, _ in _sites(batch, "group_norm_act"):
+        cs = kb.gn_bf16_plan(b, h * w * c)
+        assert cs in (1, 2, 4, kb.GN_MAX_CLUSTER)
+        assert b * cs >= kb.GN_MIN_CTAS or cs == kb.GN_MAX_CLUSTER
+        assert cs == 1 or b * (cs // 2) < kb.GN_MIN_CTAS
+        assert b * cs <= 2 * kb.SM_COUNT
+        if batch == 50:
+            assert cs == 4
+    assert kb._gn_plan((50, 16, 128, 64), 1, True) == (50, 2048, 64, 4)
+    assert kb._gn_plan((3, 16, 128, 64), 2, True) == (3, 2048, 64, 8)
+    assert kb._gn_plan((50, 16, 128, 64), 1) == (50, 2048, 64, 8)
+
+
 def _la_params(c, seed=0):
     p = {"norm_g": 1 + 0.1 * rand(c, seed=seed),
          "wqkv": rand(c, 384, seed=seed + 1) / np.sqrt(c),
@@ -213,3 +236,32 @@ def test_port_cluster_group_norm_matches_plain_and_pallas(shape, groups, cluster
     plain = kb.group_norm_act_plain(xt, torch.from_numpy(gamma), torch.from_numpy(beta), groups,
                                     ss=sst)
     assert_close(y, plain, RTOL)
+
+
+@pytest.mark.parametrize("shape,groups,cluster", [((2, 4, 8, 16), 1, 8), ((2, 4, 8, 16), 2, 3),
+                                                  ((3, 2, 6, 32), 4, 6), ((1, 1, 3, 8), 1, 8),
+                                                  ((4, 2, 16, 64), 1, 4)])
+def test_port_cluster_group_norm_bf16_cut_matches_plain(shape, groups, cluster):
+    """The bf16-activation K3's cut: slices of whole 8-value vectors per
+    CTA, up to 8 CTAs (the fourth case has 3 vectors for 8 CTAs, so 5
+    slices are empty and skipped), merged with
+    Chan's formula in rank order. Its statistics against the plain
+    version's float32 ones (1e-5), and flax's bf16 affine, FiLM and SiLU on
+    them against group_norm_act_bf16_plain (BF16ACT_KERNEL_RTOL: the kernel's
+    own bound, a rounding flip or two)."""
+    b, h, w, c = shape
+    x = torch.from_numpy(2 * rand(*shape, seed=7) + 0.5).to(torch.bfloat16)
+    gamma = torch.from_numpy(1 + 0.1 * rand(c, seed=8))
+    beta = torch.from_numpy(0.1 * rand(c, seed=9))
+    ss = torch.from_numpy(0.5 * rand(b, 2 * c, seed=10)).to(torch.bfloat16)
+    mean, rstd = kb.group_norm_cluster_emulated(x.float(), groups, cluster, vec=8)
+    g = x.float().reshape(b, h * w, groups, c // groups)
+    ref_mean = g.mean(dim=(1, 3))
+    ref_var = ((g - ref_mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+    assert_close(mean, ref_mean, RTOL)
+    assert_close(rstd, torch.rsqrt(ref_var + kb.GN_EPS), RTOL)
+    mul = (rstd[:, :, None] * gamma.reshape(groups, c // groups)).reshape(b, 1, c)
+    y = ((g - mean[:, None, :, None]).reshape(b, h * w, c) * mul).reshape(shape) + beta
+    y = y.to(torch.bfloat16) * (ss[:, None, None, :c] + 1.0) + ss[:, None, None, c:]
+    plain = kb.group_norm_act_bf16_plain(x, gamma, beta, groups, ss=ss)
+    assert_close(kb.silu_bf16(y).float(), plain.float(), chip_smoke.BF16ACT_KERNEL_RTOL)

@@ -899,11 +899,25 @@ def test_port_bf16act_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, b
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups,film", [((3, 5, 7, 32), 2, True), ((2, 4, 8, 64), 4, False),
                                                ((2, 16, 128, 64), 1, True),
-                                               ((50, 2, 16, 512), 1, False)])
+                                               ((50, 2, 16, 512), 1, False),
+                                               ((50, 16, 128, 64), 1, False),
+                                               ((50, 8, 64, 128), 1, True),
+                                               ((50, 4, 32, 256), 1, False),
+                                               ((50, 2, 16, 256), 1, True),
+                                               ((50, 2, 16, 512), 1, True),
+                                               ((4, 9, 13, 48), 1, False),
+                                               ((2, 5, 6, 24), 1, True),
+                                               ((1, 64, 128, 64), 1, False),
+                                               ((3, 4, 8, 64), 2, "unaligned")])
 def test_port_bf16act_group_norm_shapes(cuda_device, shape, groups, film):
     """K3 on bf16 activations: groups, FiLM rows strided (a column slice of
     a wider bf16 projection), the residual, and rows held in shared memory
-    or re-read, against the plain version."""
+    or re-read, against the plain version; the five (H, W, C) of the
+    Burgers net at batch 50, 6 and 3 vectors of 8 channels a pixel (the
+    threads of a CTA then walk several channel vectors: coefficients per
+    vector), and a row of 64 vectors a thread, past the residual a thread
+    loads before the statistics and past what a CTA holds; and a FiLM row
+    that starts off a 16-byte boundary (copied 2 bytes at a time)."""
     g = torch.Generator(device=cuda_device).manual_seed(23)
     b, c = shape[0], shape[-1]
     bf = torch.bfloat16
@@ -911,10 +925,73 @@ def test_port_bf16act_group_norm_shapes(cuda_device, shape, groups, film):
     gamma = 1 + 0.5 * torch.randn(c, generator=g, device=cuda_device)
     beta = 0.1 * torch.randn(c, generator=g, device=cuda_device)
     ss = (0.5 * torch.randn(b, 4 * c, generator=g, device=cuda_device)).to(bf)[:, c:3 * c]
+    if film == "unaligned":
+        ss = (0.5 * torch.randn(b, 4 * c + 1, generator=g, device=cuda_device)).to(bf)
+        ss = ss[:, c + 1:3 * c + 1]
     res = torch.randn(*shape, generator=g, device=cuda_device).to(bf)
     kw = {"ss": ss} if film else {"res": res}
     _bf16act_check(lambda: kb.group_norm_act(x, gamma, beta, groups, **kw),
                    lambda: kb.group_norm_act_plain(x, gamma, beta, groups, **kw))
+
+
+def _update_check(lib, y, scale, shift, res, flags):
+    """(fast, exact) of group_norm_bf16act_update_check on int32 bf16 pairs,
+    four a vector."""
+    fast, exact = torch.empty_like(y), torch.empty_like(y)
+    err = lib.group_norm_bf16act_update_check(
+        y.data_ptr(), scale.data_ptr(), shift.data_ptr(), res.data_ptr(), flags,
+        y.numel() // 4, fast.data_ptr(), exact.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return fast, exact
+
+
+@pytest.mark.cuda
+def test_port_bf16act_group_norm_update_bit_equal_to_exact_chain(cuda_device):
+    """The bf16-activation K3's update after the fp32 affine, as the kernel
+    computes it (bf16x2 FiLM with scale + 1, the SiLU chain on the SFU, the
+    residual; group_norm_act.cu: act8, silu8, film_f1), is bit-equal to
+    the exact per-op chain (each op in fp32, rounded to bf16, expf and
+    __frcp_rn) through the kernel's own device functions: the SiLU on all
+    65,536 bf16 inputs in both halves of a pair, FiLM and the residual on
+    2^20 sampled pairs of bit patterns (every exponent, subnormals,
+    infinities, NaNs) and 2^20 of activation-like values; and ex2.approx
+    lies within the guard silu8 allows for of expf on every input whose
+    result is normal."""
+    import ctypes
+
+    from diffphycon_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    i32 = torch.int32
+    every = torch.arange(65536, dtype=torch.int64, device=cuda_device)
+    y = every | (every << 16)
+    y = torch.where(y >= 2 ** 31, y - 2 ** 32, y).to(i32)  # each pattern in both halves
+    zero = torch.zeros_like(y)
+    fast, exact = _update_check(lib, y, zero, zero, zero, 0)
+    assert torch.equal(fast, exact), int((fast != exact).sum())
+    g = torch.Generator(device=cuda_device).manual_seed(26)
+    n = 1 << 20
+
+    def bits():
+        return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g, device=cuda_device,
+                             dtype=torch.int64).to(i32)
+
+    def values(scale):
+        v = (scale * torch.randn(2 * n, generator=g, device=cuda_device)).to(torch.bfloat16)
+        return v.view(i32)
+
+    for operands in ((bits(), bits(), bits(), bits()),
+                     (values(4.0), values(0.5), values(0.5), values(2.0))):
+        for flags in (1, 2, 3):
+            fast, exact = _update_check(lib, *operands, flags)
+            assert torch.equal(fast, exact), (flags, int((fast != exact).sum()))
+    out = torch.zeros(1, dtype=i32, device=cuda_device)
+    guard = (ctypes.c_int * 1)()
+    assert lib.group_norm_bf16act_exp_ulps(out.data_ptr(), ctypes.addressof(guard),
+                                           torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert 0 < out.item() <= guard[0], (out.item(), guard[0])
 
 
 @pytest.mark.cuda
