@@ -3712,6 +3712,47 @@ BF16ACT_APP_DDIM = 20  # infer_burgers steps per run, flax and weight-only bf16 
 BF16ACT_DDPM_STEPS = 20
 
 
+# K1c and K2c at batch 50 as their parent (the old core, igemm_bf16.cuh, on
+# bf16 sources) computed them: (kernel, args) -> (digest of the output, the
+# parent's splits, stages per split), on kernel_case_bf16act's inputs drawn
+# from a CUDA generator seeded 2100 + the signature's index among the
+# forward's distinct K1 / K2 signatures (tools/sweep_igemm_tc.py --bf16act
+# --root on the parent; NVIDIA H100 80GB HBM3). Where the persistent tile
+# runs the parent's split its sums are the parent's, bit for bit.
+PARENT_BF16ACT_DIGESTS = {
+    ("conv2d_nhwc", (50, 16, 128, 64, 0, 64, 3, False)): ("8b0868439016e42e", 1, 9),
+    ("downsample_nhwc", (50, 16, 128, 64, 64)): ("9ed2b845c6798249", 1, 4),
+    ("conv2d_nhwc", (50, 8, 64, 64, 0, 64, 3, False)): ("18d0f4266e2fec5b", 1, 9),
+    ("downsample_nhwc", (50, 8, 64, 64, 128)): ("80e0011ba43df8fb", 1, 4),
+    ("conv2d_nhwc", (50, 4, 32, 128, 0, 128, 3, False)): ("6b36922bc9b284e5", 2, 9),
+    ("downsample_nhwc", (50, 4, 32, 128, 256)): ("8b2d77178b2b020f", 2, 4),
+    ("conv2d_nhwc", (50, 2, 16, 256, 0, 256, 3, False)): ("750c16da4dc50482", 5, 8),
+    ("conv2d_nhwc", (50, 2, 16, 256, 0, 512, 3, False)): ("8b87f5d1d9c594f6", 2, 18),
+    ("conv2d_nhwc", (50, 2, 16, 512, 0, 512, 3, False)): ("9e31e7e8189cfb6b", 5, 15),
+    ("conv2d_nhwc", (50, 2, 16, 512, 256, 512, 3, False)): ("4ff1154c92fad23e", 5, 22),
+    ("conv2d_nhwc", (50, 2, 16, 512, 256, 512, 1, False)): ("7ca6ab3ca76a1890", 1, 12),
+    ("conv2d_nhwc", (50, 2, 16, 512, 0, 256, 3, True)): ("c9ebc702cd687b8b", 2, 36),
+    ("conv2d_nhwc", (50, 4, 32, 256, 128, 256, 3, False)): ("10390eb4da1bb89d", 2, 27),
+    ("conv2d_nhwc", (50, 4, 32, 256, 0, 256, 3, False)): ("ea119726c0e06f89", 2, 18),
+    ("conv2d_nhwc", (50, 4, 32, 256, 128, 256, 1, False)): ("aad150d517596217", 1, 6),
+    ("conv2d_nhwc", (50, 4, 32, 256, 0, 128, 3, True)): ("d621f4f16686c1f3", 1, 36),
+    ("conv2d_nhwc", (50, 8, 64, 128, 64, 128, 3, False)): ("339e20e595af604f", 1, 27),
+    ("conv2d_nhwc", (50, 8, 64, 128, 0, 128, 3, False)): ("e21dc915122f2087", 1, 18),
+    ("conv2d_nhwc", (50, 8, 64, 128, 64, 128, 1, False)): ("ce345b777e4c757a", 1, 3),
+    ("conv2d_nhwc", (50, 8, 64, 128, 0, 64, 3, True)): ("05d8441108504f9c", 1, 18),
+    ("conv2d_nhwc", (50, 16, 128, 64, 64, 64, 3, False)): ("75614a565f2fccf8", 1, 18),
+    ("conv2d_nhwc", (50, 16, 128, 64, 64, 64, 1, False)): ("20126030b83f1397", 1, 2),
+}
+BF16ACT_TC_SEED = 2100
+
+
+def bf16_digest(torch, t) -> str:
+    """The first 16 hex digits of the SHA-256 of a bf16 tensor's bytes."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def kernel_case_bf16act(torch, F, kb, gen, kind, args):
     """(kernel fn, plain fn, library fn or None, flops, bytes, extra
     timings) of one bf16-activation signature: bf16 activations (and FiLM,
@@ -3817,7 +3858,11 @@ def bf16act_phase(torch, F, smi_line, calls):
     K2, K3, K5, K6) at every signature of one forward at batch 50 against its
     plain version on the same bf16 inputs (BF16ACT_KERNEL_RTOL), two calls
     bit-equal, timed per event pair and on the device (CUDA graph) beside the
-    plain version, the library call and the bound at 2-byte activations; the
+    plain version, the library call and the bound at 2-byte activations (K1c
+    and K2c also: their plan, grid and path, ``unet2d_blocks.bf16act_path``;
+    the output's digest beside PARENT_BF16ACT_DIGESTS, which it must equal
+    where the plan's split is the parent's; and their device ms a forward per
+    output level, the ``k1c_k2c_levels`` line); the
     net's kernel forward against its plain forward (BF16ACT_UNET_RTOL) with
     the launch counts of one forward (52 / 3 / 38 / 8 / 1, every one a
     bf16-activation launch) and its distance from the weight-only bf16 and
@@ -3846,11 +3891,17 @@ def bf16act_phase(torch, F, smi_line, calls):
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms",
             "max_abs_err")
     agg = {k: dict.fromkeys(keys, 0.0) for k in BF16ACT_KERNELS}
+    levels = {}  # K1c / K2c per (kernel, output level): launches, device ms, bound ms
     bad = []
+    tc_index = 0
     with torch.no_grad():
         for (kname, args), count in per_fwd.items():
+            case_gen = gen
+            if kname in TC_KERNELS:  # the inputs PARENT_BF16ACT_DIGESTS were taken on
+                case_gen = torch.Generator(device="cuda").manual_seed(BF16ACT_TC_SEED + tc_index)
+                tc_index += 1
             kern, plain, library, flops, nbytes, extra = kernel_case_bf16act(
-                torch, F, kb, gen, kname, args)
+                torch, F, kb, case_gen, kname, args)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -3866,10 +3917,29 @@ def bf16act_phase(torch, F, smi_line, calls):
             b_ms, b_by = bound(flops, nbytes, peak)
             tc = {}
             if kname in TC_KERNELS:
-                plan = kb.tile_plan(*gemm_dims(kname, args), True)
+                plan = kb.tile_plan(*gemm_dims(kname, args), True, True)
+                digest = bf16_digest(torch, out)
+                parent = PARENT_BF16ACT_DIGESTS.get((kname, args))
+                same_split = parent is not None and parent[1:] == (plan.splits, plan.per)
                 tc = {"tile_plan": {"bm": plan.bm, "bn": plan.bn, "splits": plan.splits,
-                                    "per": plan.per},
-                      "tflop_per_s": flops / ms / 1e9}
+                                    "per": plan.per, "ctas": kb.act_ctas(plan, *gemm_dims(
+                                        kname, args)[:2])},
+                      "path": kb.bf16act_path(kname, args, plan),
+                      "tflop_per_s": flops / ms / 1e9, "digest": digest,
+                      "parent_digest": parent and parent[0],
+                      "parent_split": parent and list(parent[1:]),
+                      "bit_equal_to_parent": parent is not None and digest == parent[0]}
+                if same_split and digest != parent[0]:
+                    bad.append((kname, args, "the parent's split, not its sums", digest))
+                h, w = args[1], args[2]
+                level = ((h // 2, w // 2) if kname == "downsample_nhwc" else
+                         (2 * h, 2 * w) if args[7] else (h, w))
+                lv = levels.setdefault(f"{kname}@{level[0]}x{level[1]}",
+                                       {"launches": 0, "device_ms": 0.0, "bound_ms": 0.0})
+                lv["launches"] += count
+                lv["device_ms"] = None if dev_ms is None or lv["device_ms"] is None else (
+                    lv["device_ms"] + count * dev_ms)
+                lv["bound_ms"] += count * bound(flops, nbytes, BF16_PEAK)[0]
             if kname == "group_norm_act":
                 b_, h, w, c, _ = args
                 tc = {"cluster": kb.gn_bf16_plan(b_, h * w * c)}
@@ -3890,6 +3960,8 @@ def bf16act_phase(torch, F, smi_line, calls):
                 a[key] = None if v is None or a[key] is None else a[key] + count * v
             a["max_abs_err"] = max(a["max_abs_err"], err)
             del out, ref
+    emit({"phase": "k1c_k2c_levels", "per_forward": levels, "timing": "device, CUDA graph",
+          "nvidia_smi": smi_line})
     emit({"phase": "kernels_bf16act_checked", "signatures": len(per_fwd),
           "tol_rel": BF16ACT_KERNEL_RTOL, "seconds": round(time.time() - t0, 3)})
     if bad:

@@ -22,8 +22,14 @@ bf16 core csrc/igemm_bf16.cuh), K3 = csrc/group_norm_act.cu
 (one thread-block cluster per GroupNorm row), K7 = csrc/unet2d_persistent.cu
 (its stage tables in ``kernels/unet2d_mega.py``).
 
+K1 and K2 on bf16 activations (K1c, K2c) run the persistent,
+warp-specialised tile of csrc/igemm_bf16act.cuh (its grid :func:`act_ctas`,
+how it moves its operands :func:`bf16act_layout`, its halo A tile
+:func:`halo_boxes`, emulated by :func:`halo_im2col`).
+
 K1 and K2 take a tile plan per GEMM shape from the host (:func:`tile_plan`:
-tile size and split-K count, keyed on the weight's dtype), K3 its cluster
+tile size and split-K count, keyed on the weight's and the activation's
+dtype), K3 its cluster
 size (:func:`gn_cluster_plan`; the bf16-activation K3's :func:`gn_bf16_plan`).
 :func:`tf32_split` is K1/K2's TF32 rounding in plain PyTorch, and
 :func:`group_norm_cluster_emulated` K3's statistics merge, for the tests.
@@ -274,6 +280,18 @@ TC_TILES_BF16 = {(128, 256): (0.75, 8.87, 1), (128, 128): (0.64, 5.18, 1),
 SPLIT_US_PER_MFLOAT_BF16 = 0.84
 
 
+# the same for K1c and K2c on bf16 activations (csrc/igemm_bf16act.cuh: the
+# persistent tile, BM = 128): (BM, BN) -> (us per stage, us per tile, 1), us
+# per million split-K floats; the `fit` line of `sweep_igemm_tc --bf16act
+# --plans` (device times; NVIDIA H100 80GB HBM3, 700 W)
+TC_TILES_BF16ACT = {(128, 256): (0.580, 4.175, 1), (128, 128): (0.380, 1.437, 1),
+                    (128, 64): (0.283, 0.612, 1)}
+SPLIT_US_PER_MFLOAT_BF16ACT = 1.501
+# a launch of the persistent tile may let a halo A tile serve its 3x3 convs
+# (the tests turn it off to compare the halo views with per-tap boxes)
+BF16ACT_HALO = True
+
+
 class TilePlan(NamedTuple):
     bm: int
     bn: int
@@ -333,8 +351,42 @@ def pick_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None,
     return best[1]
 
 
+def act_ctas(plan: TilePlan, m: int, n: int, sms: int = SM_COUNT) -> int:
+    """CTAs of one launch of the persistent tile (csrc/igemm_bf16act.cuh):
+    its column groups (N tiles x splits) times the CTAs each gets, at most
+    one CTA an SM and never more than the group's row tiles."""
+    groups = math.ceil(n / plan.bn) * plan.splits
+    return groups * max(1, min(math.ceil(m / plan.bm), sms // groups))
+
+
+def act_rounds(plan: TilePlan, m: int, n: int, sms: int = SM_COUNT) -> int:
+    """Tiles the busiest CTA of :func:`act_ctas`'s grid walks one after the
+    other, times the grid's waves of `sms` CTAs."""
+    ctas = act_ctas(plan, m, n, sms)
+    per_group = ctas // (math.ceil(n / plan.bn) * plan.splits)
+    return math.ceil(ctas / sms) * math.ceil(math.ceil(m / plan.bm) / per_group)
+
+
+def pick_act_plan(m: int, n: int, k: int, tiles=None, split_us: float | None = None,
+                  sms: int = SM_COUNT) -> TilePlan:
+    """The plan of ``tile_plan(..., act=True)`` under the costs `tiles` (as
+    TC_TILES_BF16ACT) and `split_us`: the least modelled time of the
+    persistent walk, rounds * (stages per split * us per stage + us per
+    tile) plus the split-K pass."""
+    tiles = TC_TILES_BF16ACT if tiles is None else tiles
+    split_us = SPLIT_US_PER_MFLOAT_BF16ACT if split_us is None else split_us
+    best = None
+    for plan in plan_candidates(n, k, tiles, TC_BK_BF16):
+        stage_us, tile_us, _ = tiles[plan.bm, plan.bn]
+        us = act_rounds(plan, m, n, sms) * (plan.per * stage_us + tile_us)
+        us += split_us * plan.workspace_floats(m, n) / 1e6
+        if best is None or us < best[0]:
+            best = (us, plan)
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
-def tile_plan(m: int, n: int, k: int, bf16: bool = False) -> TilePlan:
+def tile_plan(m: int, n: int, k: int, bf16: bool = False, act: bool = False) -> TilePlan:
     """Tile and split-K of one (m, n, k) GEMM of K1 or K2, among
     :func:`plan_candidates`, by the modelled time: waves * (stages per
     split * us per stage + us per CTA) plus the split-K pass. 3xTF32: the
@@ -342,7 +394,11 @@ def tile_plan(m: int, n: int, k: int, bf16: bool = False) -> TilePlan:
     bf16 variants): the bf16 core's costs and 64-deep stages, and the
     modelled time alone (over the batch-50 forward its picks took 1.983 ms
     of device time against 1.978 for the fastest plan of each GEMM, and
-    2.153 with the full wave first: ``sweep_igemm_tc --bf16``)."""
+    2.153 with the full wave first: ``sweep_igemm_tc --bf16``). ``act``
+    (with ``bf16``; K1c and K2c on bf16 activations): the persistent tile's
+    plan, :func:`pick_act_plan` over TC_TILES_BF16ACT."""
+    if act:
+        return pick_act_plan(m, n, k)
     if bf16:
         return pick_plan(m, n, k, TC_TILES_BF16, SPLIT_US_PER_MFLOAT_BF16, bk=TC_BK_BF16,
                          fill_first=False)
@@ -371,6 +427,138 @@ def tma_boxes(bm: int, gh: int, gw: int, ca: int, cb: int, scale: int = 1):
     if ca % TC_BK_BF16 or cb % TC_BK_BF16 or bw * scale > 256 or bh * scale > 256:
         return None
     return bw, bh, bb
+
+
+def halo_boxes(gh: int, gw: int, ca: int, cb: int, k: int = 3, up: bool = False):
+    """(bw, bh) of the halo A tile the persistent tile (csrc/igemm_bf16act.cuh:
+    make_layout) may take for a conv over a grid of gh x gw pixels, else
+    None: a 3x3 conv, not upsampled, whose 128-row tile is TMA boxes
+    (:func:`tma_boxes`) of whole rows or part of one (one image, bw a
+    multiple of 64, so that each warpgroup's 64 rows are one run of pixels),
+    at most 4 64-channel blocks. Whether the halos fit in shared memory
+    is :func:`bf16act_layout`'s."""
+    boxes = tma_boxes(128, gh, gw, ca, cb)
+    if k != 3 or up or boxes is None:
+        return None
+    bw, bh, bb = boxes
+    if bb != 1 or bw % 64 or bw + 2 > 256 or bh + 2 > 256 or (ca + cb) // TC_BK_BF16 > 4:
+        return None
+    return bw, bh
+
+
+# the persistent tile's shared memory (csrc/igemm_bf16act.cuh): what a layout
+# may use (less the alignment slack, the mbarriers and the bias), the A part
+# of a ring slot, and its limits
+_ACT_AVAIL = 232448 - 1024 - 8 * (2 * 8 + 2 * 8 + 32 + 2) - 256 * 2
+_ACT_A_STAGE = 128 * 128
+_ACT_RING_MAX, _ACT_HALO_MAX, _ACT_HELD_MAX = 8, 8, 32
+
+
+def bf16act_layout(kind: str, args: tuple, plan: TilePlan, halo: bool = True) -> dict:
+    """How one K1c / K2c launch (``conv2d_nhwc`` / ``downsample_nhwc``
+    arguments as ``chip_smoke.main_path_calls`` gives them) moves its
+    operands: ``make_layout`` and the ping-pong rule of ``launch`` in
+    csrc/igemm_bf16act.cuh. ``mode``: "halo" (one (bh + 2) x (bw + 2) box a
+    64-channel block a tile, the nine taps views into it; ``hsets`` tiles'
+    halos in shared memory), "boxes" (a TMA box a tap and 64 channels) or
+    "gather" (cp.async chunks); ``hold``: the split's weight slice held for
+    every tile (else streamed); ``ring``: ring slots; ``pingpong``: the two
+    consumer warpgroups take turns at whole tiles (else both work on every
+    tile)."""
+    if kind == "downsample_nhwc":
+        b_, h, w, ca, _ = args
+        cb, k, up, gh, gw, scale = 0, 2, False, h // 2, w // 2, 2
+    else:
+        b_, h, w, ca, cb, _, k, up = args
+        gh, gw, scale = h, w, 1
+    m, n, _ = _act_gemm(kind, args)
+    boxes = tma_boxes(128, gh, gw, ca, cb, scale)
+    w_stage = plan.bn * 128
+    held = plan.per * w_stage
+    can_hold = plan.per <= _ACT_HELD_MAX
+    lay = None
+    hb = halo_boxes(gh, gw, ca, cb, k, up) if halo and scale == 1 else None
+    if hb is not None:
+        bw, bh = hb
+        cblocks = (ca + cb) // TC_BK_BF16
+        box = math.ceil((bw + 2) * (bh + 2) * 128 / 1024) * 1024
+        # held with halos only at bn <= 128 (two accumulator sets), where a
+        # tile's halo (one channel block) holds its staged epilogue
+        for hsets in (3, 2):
+            if (can_hold and plan.bn <= 128 and cblocks == 1 and 128 * plan.bn * 2 <= box
+                    and hsets * cblocks <= _ACT_HALO_MAX
+                    and hsets * cblocks * box + held <= _ACT_AVAIL):
+                lay = {"mode": "halo", "hold": True, "ring": 0, "hsets": hsets, "box": [bw, bh]}
+                break
+        # where the weights cannot stay beside the halos but can beside
+        # per-tap boxes, the boxes and held weights
+        if (lay is None and not (can_hold and held + 4 * _ACT_A_STAGE <= _ACT_AVAIL)
+                and 2 * cblocks * box + 3 * w_stage <= _ACT_AVAIL):
+            ring = (_ACT_AVAIL - 2 * cblocks * box) // w_stage
+            lay = {"mode": "halo", "hold": False, "ring": min(_ACT_RING_MAX, ring), "hsets": 2,
+                   "box": [bw, bh]}
+    if lay is None:
+        mode = "gather" if boxes is None else "boxes"
+        if can_hold and held + 4 * _ACT_A_STAGE <= _ACT_AVAIL:
+            ring = (_ACT_AVAIL - held) // _ACT_A_STAGE
+            lay = {"mode": mode, "hold": True, "ring": min(_ACT_RING_MAX, ring)}
+        else:
+            ring = _ACT_AVAIL // (_ACT_A_STAGE + w_stage)
+            lay = {"mode": mode, "hold": False, "ring": min(_ACT_RING_MAX, ring)}
+    tiles_m = (4 * math.ceil(b_ * gh * gw / 128) if lay["mode"] == "boxes" and up
+               else math.ceil(m / 128))
+    step = act_ctas(plan, m, n) // (math.ceil(n / plan.bn) * plan.splits)
+    lay["pingpong"] = plan.bn <= 128 and ((lay["mode"] == "halo" and lay["hold"])
+                                          or math.ceil(tiles_m / step) >= 2)
+    return lay
+
+
+def _act_gemm(kind: str, args: tuple):
+    """(m, n, k) of one K1 / K2 signature (``chip_smoke.gemm_dims``)."""
+    if kind == "conv2d_nhwc":
+        b_, h, w, ca, cb, co, k, up = args
+        return b_ * h * w * (4 if up else 1), co, k * k * (ca + cb)
+    b_, h, w, c, co = args
+    return b_ * (h // 2) * (w // 2), co, 4 * c
+
+
+def bf16act_path(kind: str, args: tuple, plan: TilePlan) -> str:
+    """The path one K1c / K2c launch takes, as a word: "halo", "boxes" or
+    "gather", with "+held" where its weights are held per CTA and
+    "+pingpong" where the consumer warpgroups take turns at tiles."""
+    lay = bf16act_layout(kind, args, plan)
+    return lay["mode"] + ("+held" if lay["hold"] else "") + ("+pingpong" if lay["pingpong"] else "")
+
+
+def halo_view_start(wg: int, dy: int, dx: int, bw: int) -> int:
+    """The first pixel of warpgroup `wg`'s 64 A rows of tap (dy, dx) inside
+    a halo box of (bh + 2) x (bw + 2) pixels (igemm_bf16act.cuh's consumer)."""
+    return (wg * 64 // bw + dy) * (bw + 2) + wg * 64 % bw + dx
+
+
+def halo_im2col(x_a, x_b, bw: int, bh: int):
+    """The (M, 9 Ci) A matrix of a same-padded 3x3 conv of x_a [| x_b]
+    (B, H, W, C), as the persistent tile reads it through halo boxes: per
+    128-row tile (bh rows of bw pixels of one image) and 64-channel block,
+    one box of (bh + 2) x (bw + 2) pixels from (y0 - 1, x0 - 1), zeros
+    outside the image, flattened to pixels; tap t = 3 dy + dx of warpgroup
+    wg is the 64 pixels from :func:`halo_view_start`. Columns in the
+    kernels' k order, (dy * 3 + dx) * Ci + c."""
+    x = x_a if x_b is None else torch.cat([x_a, x_b], dim=-1)
+    B, H, W, ci = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    rows = []
+    for b in range(B):
+        for y0 in range(0, H, bh):
+            for x0 in range(0, W, bw):
+                box = xp[b, y0:y0 + bh + 2, x0:x0 + bw + 2, :].reshape(-1, ci)
+                taps = []
+                for t in range(9):
+                    dy, dx = divmod(t, 3)
+                    taps.append(torch.cat([box[halo_view_start(wg, dy, dx, bw):][:64]
+                                           for wg in range(2)]))
+                rows.append(torch.cat(taps, dim=1))
+    return torch.cat(rows)
 
 
 def tf32_split(x: torch.Tensor):
@@ -402,14 +590,19 @@ def int_array(ints: tuple) -> int:
     return found[0]
 
 
-def _plan_args(x, gemm, shape_ints, bf16):
+def _plan_args(x, gemm, shape_ints, bf16, act=False):
     """(split-K workspace or None, address of the kernel's int arguments:
     its shape ints, then the plan) of one K1 or K2 launch of GEMM (m, n, k)
-    on input x (``bf16``: the bf16 variants' plan)."""
-    plan = tile_plan(*gemm, bf16)
+    on input x (``bf16``: the bf16 variants' plan; ``act``: the
+    bf16-activation variants', then the persistent grid and whether a halo
+    may serve)."""
+    plan = tile_plan(*gemm, bf16, True) if act else tile_plan(*gemm, bf16)
     ws = None
     if plan.splits > 1:  # float32 partials, whatever the activation's dtype
         ws = x.new_empty(plan.workspace_floats(gemm[0], gemm[1]), dtype=torch.float32)
+    if act:
+        return ws, int_array(shape_ints + tuple(plan) + (act_ctas(plan, gemm[0], gemm[1]),
+                                                         int(BF16ACT_HALO)))
     return ws, int_array(shape_ints + plan)
 
 
@@ -503,7 +696,7 @@ def _conv2d_launch(x_a, w, b, x_b, k, upsample):
         _check_bf16_channels("conv2d_nhwc", ints[3:5])
     bf16 = weight_is_bf16("conv2d_nhwc", w)
     out = x_a.new_empty(out_shape)
-    ws, args = _plan_args(x_a, gemm, ints, bf16)
+    ws, args = _plan_args(x_a, gemm, ints, bf16, act)
     lib = _build.load_library()
     fn = lib.conv2d_nhwc_bf16act if act else lib.conv2d_nhwc_bf16 if bf16 else lib.conv2d_nhwc_f32
     err = fn(
@@ -575,7 +768,7 @@ def _downsample_launch(x, w, b):
         _check_bf16_channels("downsample_nhwc", ints[3:4])
     bf16 = weight_is_bf16("downsample_nhwc", w)
     out = x.new_empty(out_shape)
-    ws, args = _plan_args(x, gemm, ints, bf16)
+    ws, args = _plan_args(x, gemm, ints, bf16, act)
     lib = _build.load_library()
     fn = (lib.downsample_nhwc_bf16act if act else lib.downsample_nhwc_bf16 if bf16
           else lib.downsample_nhwc_f32)

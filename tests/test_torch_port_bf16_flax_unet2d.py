@@ -105,7 +105,7 @@ def _close(out, ref, rtol=BLOCK_RTOL):
 
 BLOCKS = ("resnet_film", "resnet_film_res_conv_two_sources", "resnet_res_conv",
           "resnet_plain", "linear_attention", "attention", "downsample", "upsample",
-          "conv3x3")
+          "conv3x3", "conv3x3_halo_rows", "conv3x3_halo_row_runs")
 
 
 @pytest.mark.parametrize("name", BLOCKS)
@@ -114,7 +114,8 @@ def test_flax_bf16_block_matches_flax(net, name):
     under dtype=bfloat16 with the same (converted) weights: the ResnetBlock
     with and without FiLM and res_conv (the two-source case reads the skip
     in place, as K1 does), both attention blocks, the downsample, the
-    upsample and the last level's 3x3 conv."""
+    upsample and the last level's 3x3 conv, also through the persistent
+    tile's halo A tile (emulated) on grids it takes a halo for."""
     _, tree, port, packs = net
     p = tree["params"]
     x8, x16 = _bf((2, 16, 32, 8), 1), _bf((2, 8, 16, 16), 2)
@@ -161,6 +162,18 @@ def test_flax_bf16_block_matches_flax(net, name):
             ref = JB.Upsample(8, jnp.bfloat16).apply({"params": p["up_0_upsample"]}, x16)
             u = packs["up"][0]
             out = kb.conv2d_nhwc_plain(_t(x16).to(BF16), u["w"], u["b"], k=3, upsample=True)
+        elif name.startswith("conv3x3_halo"):
+            # the persistent tile's halo A tile (kb.halo_im2col, emulated)
+            # summed as the kernel sums it, one float32 chain in its k
+            # order, then flax's epilogue: grids of whole 64-pixel rows (bw
+            # 64, bh 2) and of 128-pixel runs of one row (bw 128, bh 1)
+            rows = name.endswith("rows")
+            x = _bf((2, 2, 64, 8) if rows else (1, 1, 256, 8), 5)
+            ref = nn.Conv(16, (3, 3), padding=1, dtype=jnp.bfloat16).apply(
+                {"params": p["down_1_downsample"]}, x)
+            d = packs["down"][1]
+            a = kb.halo_im2col(_t(x).to(BF16).float(), None, *((64, 2) if rows else (128, 1)))
+            out = kb.conv_bias_bf16(a @ d["w"].float(), d["b"]).reshape(*x.shape[:3], 16)
         else:
             x = _bf((2, 8, 16, 8), 4)  # the last level: 8 -> 16 channels at 8 x 16
             ref = nn.Conv(16, (3, 3), padding=1, dtype=jnp.bfloat16).apply(

@@ -92,7 +92,7 @@ def test_port_tc_convs_match_plain_at_main_path_signatures(cuda_device):
 
 
 def _forced_plan(bm, bn, splits):
-    def plan(m, n, k, bf16=False):
+    def plan(m, n, k, bf16=False, act=False):
         slices = math.ceil(k / (kb.TC_BK_BF16 if bf16 else kb.TC_BK))
         per = math.ceil(slices / splits)
         return kb.TilePlan(bm, bn, math.ceil(slices / per), per)
@@ -508,6 +508,39 @@ def test_port_group_norm_cluster_at_main_path_signatures(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("args,bn", [((2, 16, 128, 64, 0, 64), 64), ((7, 16, 128, 64, 0, 64), 64),
+                                     ((2, 8, 64, 64, 0, 64), 64), ((2, 8, 64, 128, 0, 128), 128),
+                                     ((3, 8, 64, 64, 64, 128), 128),
+                                     ((40, 8, 64, 128, 0, 128), 128),
+                                     ((1, 16, 256, 64, 0, 64), 64)])
+def test_port_bf16act_halo_views_equal_per_tap_boxes(cuda_device, monkeypatch, args, bn):
+    """The persistent tile's halo A tiles (one (bh + 2) x (bw + 2) box a
+    64-channel block, the nine taps descriptor views into it at any pixel
+    with the base-offset field 0) give outputs bit-equal to per-tap TMA
+    boxes (``unet2d_blocks.BF16ACT_HALO`` off) under the same plan, at the 16
+    x 128 and 8 x 64 levels' shapes, with held weights (one tile a CTA and
+    several, the warpgroups in turns) and streamed ones (one tile a CTA, and
+    two in turns at batch 40), with one and two sources, and at a grid twice
+    as wide (two tiles a row)."""
+    b_, h, w, ca, cb, co = args
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(128, bn, 1))
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    xa, xb, wt, bias = _conv_case(g, cuda_device, b_, h, w, ca, cb, co, 3)
+    bf = torch.bfloat16
+    xa, wt = xa.to(bf), wt.to(bf)
+    xb = None if xb is None else xb.to(bf)
+    plan = kb.tile_plan(b_ * h * w, co, 9 * (ca + cb), True, True)
+    assert kb.bf16act_layout("conv2d_nhwc", (b_, h, w, ca, cb, co, 3, False),
+                             plan)["mode"] == "halo"
+    with torch.no_grad():
+        halo = kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=3)
+        monkeypatch.setattr(kb, "BF16ACT_HALO", False)
+        boxes = kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=3)
+    assert torch.equal(halo, boxes)
+    _bf16act_check(lambda: halo, lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=3))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups,film", [((3, 5, 7, 32), 2, True), ((2, 4, 8, 64), 4, False),
                                                ((1, 3, 3, 8), 2, True), ((2, 64, 256, 64), 1, True),
                                                ((2, 40, 256, 64), 2, False)])
@@ -864,29 +897,37 @@ def test_port_bf16act_kernels_match_plain_at_main_path_signatures(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bm,bn", kb.TC_TILES_BF16)
+@pytest.mark.parametrize("bm,bn", kb.TC_TILES_BF16ACT)
 @pytest.mark.parametrize("splits", [1, 3])
 def test_port_bf16act_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, bm, bn, splits):
-    """K1 and K2 on bf16 activations under every tile shape of the bf16
-    plan, with and without split-K (the fp32 partials reduced in split
-    order, then rounded): through the gather (8-channel chunks: Ca = 8 with
-    Cb = 16, Ca = 40 with Cb = 8, an odd upsampled source, k = 1, Co = 136)
-    and through TMA boxes of 64 bf16 channels (whole images past the batch,
-    two sources, upsampled and not, K2 at stride 2)."""
+    """K1 and K2 on bf16 activations (the persistent tile,
+    csrc/igemm_bf16act.cuh) under every tile shape of their plan, with and
+    without split-K (the fp32 partials reduced in split order, then
+    rounded): through the gather (8-channel chunks: Ca = 8 with Cb = 16, Ca =
+    40 with Cb = 8, an odd upsampled source, k = 1, Co = 136), through TMA
+    boxes of 64 bf16 channels (whole images past the batch, two sources,
+    upsampled and not, K2 at stride 2) and through halo tiles (16 x 128 and
+    8 x 64 grids, one and two sources); the persistent walk with fewer row
+    tiles than the grid (batch 1), with tiles not a multiple of it (batch 7
+    and 16) and with a weight slice too large to hold (K = 4608)."""
     monkeypatch.setattr(kb, "tile_plan", _forced_plan(bm, bn, splits))
     g = torch.Generator(device=cuda_device).manual_seed(22)
     bf = torch.bfloat16
     for args in [(3, 5, 7, 8, 16, 8, 3), (3, 5, 7, 8, 16, 16, 1), (2, 9, 15, 40, 8, 136, 3),
                  (1, 3, 5, 8, 0, 24, 3, True), (2, 4, 4, 64, 64, 64, 1),
                  (3, 2, 8, 64, 64, 136, 3), (3, 2, 4, 64, 64, 24, 3, True),
-                 (3, 4, 8, 128, 0, 64, 1, True)]:
+                 (3, 4, 8, 128, 0, 64, 1, True), (1, 16, 128, 64, 0, 64, 3),
+                 (16, 16, 128, 64, 64, 64, 3), (7, 8, 64, 64, 0, 72, 3),
+                 (16, 8, 64, 128, 0, 128, 3), (7, 4, 32, 128, 64, 64, 3),
+                 (16, 2, 16, 512, 0, 64, 3)]:
         k, up = args[6], bool(args[7:] and args[7])
         xa, xb, wt, bias = _conv_case(g, cuda_device, *args[:7])
         xa, wt = xa.to(bf), wt.to(bf)
         xb = None if xb is None else xb.to(bf)
         _bf16act_check(lambda: kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=k, upsample=up),
                        lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=k, upsample=up))
-    for b, h, w, c, co in [(3, 6, 10, 8, 8), (2, 10, 18, 24, 72), (3, 4, 8, 64, 72)]:
+    for b, h, w, c, co in [(3, 6, 10, 8, 8), (2, 10, 18, 24, 72), (3, 4, 8, 64, 72),
+                           (16, 16, 128, 64, 64), (1, 8, 64, 64, 128)]:
         x, _, wt, bias = _conv_case(g, cuda_device, b, h, w, c, 0, co, 2)
         x, wt = x.to(bf), wt.to(bf)
         _bf16act_check(lambda: kb.downsample_nhwc(x, wt, bias),
@@ -894,6 +935,39 @@ def test_port_bf16act_convs_ragged_shapes_every_tile(cuda_device, monkeypatch, b
     xa, _, wt, bias = _conv_case(g, cuda_device, 1, 4, 4, 12, 0, 16, 3)
     with pytest.raises(ValueError, match="multiples of 8"):
         kb.conv2d_nhwc(xa.to(bf), wt.to(bf), bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("args,bn", [((2, 16, 128, 64, 0, 64), 64), ((7, 16, 128, 64, 0, 64), 64),
+                                     ((2, 8, 64, 64, 0, 64), 64), ((2, 8, 64, 128, 0, 128), 128),
+                                     ((3, 8, 64, 64, 64, 128), 128),
+                                     ((40, 8, 64, 128, 0, 128), 128),
+                                     ((1, 16, 256, 64, 0, 64), 64)])
+def test_port_bf16act_halo_views_equal_per_tap_boxes(cuda_device, monkeypatch, args, bn):
+    """The persistent tile's halo A tiles (one (bh + 2) x (bw + 2) box a
+    64-channel block, the nine taps descriptor views into it at any pixel
+    with the base-offset field 0) give outputs bit-equal to per-tap TMA
+    boxes (``unet2d_blocks.BF16ACT_HALO`` off) under the same plan, at the 16
+    x 128 and 8 x 64 levels' shapes, with held weights (one tile a CTA and
+    several, the warpgroups in turns) and streamed ones (one tile a CTA, and
+    two in turns at batch 40), with one and two sources, and at a grid twice
+    as wide (two tiles a row)."""
+    b_, h, w, ca, cb, co = args
+    monkeypatch.setattr(kb, "tile_plan", _forced_plan(128, bn, 1))
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    xa, xb, wt, bias = _conv_case(g, cuda_device, b_, h, w, ca, cb, co, 3)
+    bf = torch.bfloat16
+    xa, wt = xa.to(bf), wt.to(bf)
+    xb = None if xb is None else xb.to(bf)
+    plan = kb.tile_plan(b_ * h * w, co, 9 * (ca + cb), True, True)
+    assert kb.bf16act_layout("conv2d_nhwc", (b_, h, w, ca, cb, co, 3, False),
+                             plan)["mode"] == "halo"
+    with torch.no_grad():
+        halo = kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=3)
+        monkeypatch.setattr(kb, "BF16ACT_HALO", False)
+        boxes = kb.conv2d_nhwc(xa, wt, bias, x_b=xb, k=3)
+    assert torch.equal(halo, boxes)
+    _bf16act_check(lambda: halo, lambda: kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=3))
 
 
 @pytest.mark.cuda
@@ -1177,11 +1251,30 @@ UNTOUCHED_DIGESTS = {
     "k3_bf16act_film": "8c877c7a24eb8002", "k3_bf16act_res": "50e6b352aeb1b640"}
 
 
+# the bf16-activation plans of the parent of the persistent tile at the
+# digests' K1c / K2c GEMMs: (m, n, k) -> (splits, per), all at bn 64 (bm 64
+# or 128 there: the rows of a tile do not change a sum)
+PARENT_BF16ACT_PLANS = {(6144, 64, 576): (2, 5), (4096, 64, 1152): (4, 5),
+                        (1024, 128, 1728): (6, 5), (1024, 64, 192): (1, 3),
+                        (160, 40, 648): (2, 6), (1536, 96, 256): (1, 4)}
+
+
 @pytest.mark.cuda
-def test_port_untouched_kernels_bit_equal_to_recorded_digests(cuda_device):
+def test_port_untouched_kernels_bit_equal_to_recorded_digests(cuda_device, monkeypatch):
     """fp32 K1-K8, the per-block bf16 K1, K2, K5 and K6 and the
     bf16-activation K1, K2 and K3 give outputs bit-equal to digests recorded
     before later redesigns of other kernels (the persistent kernel's bf16
-    instance, the bf16-activation K5 and K6): the bodies they run stayed as
-    they were."""
+    instance, the bf16-activation K5 and K6, the persistent tile of K1c and
+    K2c): the bodies they run stayed as they were, and K1c and K2c keep the
+    old core's sums. K1c and K2c run here under their parent's splits
+    (PARENT_BF16ACT_PLANS): a split is a different sum."""
+    planner = kb.tile_plan
+
+    def pinned(m, n, k, bf16=False, act=False):
+        if not act:
+            return planner(m, n, k, bf16)
+        splits, per = PARENT_BF16ACT_PLANS[m, n, k]
+        return kb.TilePlan(128, 64, splits, per)
+
+    monkeypatch.setattr(kb, "tile_plan", pinned)
     assert _untouched_digests(cuda_device) == UNTOUCHED_DIGESTS

@@ -18,6 +18,10 @@
   the splits added in order), emulated on bf16-rounded operands over the
   same gathers, agree with the Pallas convs under bf16 weights within 1e-5
   at K up to 6912.
+- K1c and K2c's persistent tile (``csrc/igemm_bf16act.cuh``): its plans
+  cover K, its bf16 core plans stay pinned, its halo rule holds at every
+  main-path signature, and its halo A tile, emulated (``halo_im2col``),
+  reads the per-tap gather's values in the same k order.
 
 The kernels themselves run only on an NVIDIA GPU: ``test_torch_port_cuda.py``.
 """
@@ -184,12 +188,30 @@ def _gemm_shapes(batch):
                    if name in chip_smoke.TC_KERNELS})
 
 
-@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bf16", [False, True, "act"])
 @pytest.mark.parametrize("batch", [50, 16])
 def test_port_tile_plan_covers_k_and_fills_a_wave(batch, bf16):
     """The 3xTF32 core's plans (32-deep slices, TC_TILES) and the bf16
     core's (64-deep stages, TC_TILES_BF16): the splits cover K once, and
-    the CTAs fill a wave wherever the splits allow it."""
+    the CTAs fill a wave wherever the splits allow it. "act": the persistent
+    tile's plans (K1c and K2c, ``tile_plan(..., True, True)`` over
+    TC_TILES_BF16ACT) cover K once, and their grid (``act_ctas``) is whole
+    column groups, at most one CTA an SM and no CTA without a row tile."""
+    if bf16 == "act":
+        for m, n, k in _gemm_shapes(batch):
+            plan = kb.tile_plan(m, n, k, True, True)
+            assert (plan.bm, plan.bn) in kb.TC_TILES_BF16ACT, (m, n, k, plan)
+            stages = math.ceil(k / kb.TC_BK_BF16)
+            ranges = [(z * plan.per, min((z + 1) * plan.per, stages))
+                      for z in range(plan.splits)]
+            assert all(lo < hi for lo, hi in ranges) and ranges[-1][1] == stages
+            assert plan.splits == 1 or plan.per >= kb.MIN_SLICES_PER_SPLIT
+            groups = math.ceil(n / plan.bn) * plan.splits
+            ctas = kb.act_ctas(plan, m, n)
+            assert ctas % groups == 0 and ctas // groups <= math.ceil(m / plan.bm)
+            assert ctas <= max(kb.SM_COUNT, groups), (m, n, k, plan, ctas)
+            assert kb.act_rounds(plan, m, n) * ctas // groups >= math.ceil(m / plan.bm)
+        return
     tiles, bk = (kb.TC_TILES_BF16, kb.TC_BK_BF16) if bf16 else (kb.TC_TILES, kb.TC_BK)
     shapes = _gemm_shapes(batch)
     assert len(shapes) >= 15
@@ -242,6 +264,111 @@ def test_port_fp32_plans_and_mega_tiles_unchanged_by_the_bf16_plan():
     assert all(kb.tile_plan(*s, False) == kb.tile_plan(*s) for s in FP32_PLANS_B50)
     assert km.MEGA_TILES == {(128, 128): (2.27, 1.94, 1), (128, 64): (1.57, 1.43, 1)}
     assert any(kb.tile_plan(*s, True) != kb.tile_plan(*s) for s in FP32_PLANS_B50)
+
+
+# the bf16 core's plans (K1b, K2b) at every K1/K2 GEMM of the batch-50
+# forward, as they were before K1c and K2c had a plan of their own: (m, n,
+# k) -> (bm, bn, splits, per)
+BF16_PLANS_B50 = {
+    (1600, 256, 512): (64, 64, 2, 4), (1600, 256, 2304): (128, 128, 5, 8),
+    (1600, 512, 768): (128, 64, 1, 12), (1600, 512, 2304): (128, 128, 2, 18),
+    (1600, 512, 4608): (128, 256, 5, 15), (1600, 512, 6912): (128, 256, 5, 22),
+    (6400, 128, 256): (64, 64, 1, 4), (6400, 128, 1152): (128, 128, 2, 9),
+    (6400, 256, 384): (128, 128, 1, 6), (6400, 256, 2304): (128, 256, 2, 18),
+    (6400, 256, 3456): (128, 256, 2, 27), (6400, 256, 4608): (128, 256, 2, 36),
+    (25600, 64, 256): (64, 64, 1, 4), (25600, 64, 576): (128, 64, 1, 9),
+    (25600, 128, 192): (128, 128, 1, 3), (25600, 128, 1152): (128, 128, 1, 18),
+    (25600, 128, 1728): (128, 128, 1, 27), (25600, 128, 2304): (128, 128, 1, 36),
+    (102400, 64, 128): (64, 64, 1, 2), (102400, 64, 576): (128, 64, 1, 9),
+    (102400, 64, 1152): (128, 64, 1, 18)}
+
+
+def test_port_bf16_plans_unchanged_by_the_bf16act_plan():
+    """K1c's and K2c's plan (``act``) is keyed apart: the bf16 core's K1b /
+    K2b plans and the 3xTF32 ones stay as they were, and its tiles are the
+    persistent tile's 128-row ones."""
+    assert {s: tuple(kb.tile_plan(*s, True)) for s in _gemm_shapes(50)} == BF16_PLANS_B50
+    assert {s: tuple(kb.tile_plan(*s)) for s in _gemm_shapes(50)} == FP32_PLANS_B50
+    assert all(kb.tile_plan(*s, True, False) == kb.tile_plan(*s, True) for s in BF16_PLANS_B50)
+    assert all(kb.tile_plan(*s, True, True).bm == 128 for s in BF16_PLANS_B50)
+
+
+# (args of conv2d_nhwc at batch 50) -> (halo_boxes, bf16act_layout's mode
+# under the module's plan): halo tiles at the 16 x 128 and 8 x 64 levels'
+# 3x3 convs, unless their halos and weights outgrow shared memory (where
+# the weights then fit beside per-tap boxes, those: the 16 x 128 skip concat)
+HALO_B50 = {
+    (50, 16, 128, 64, 0, 64, 3, False): ((128, 1), "halo"),
+    (50, 16, 128, 64, 64, 64, 3, False): ((128, 1), "boxes"),
+    (50, 8, 64, 64, 0, 64, 3, False): ((64, 2), "halo"),
+    (50, 8, 64, 128, 0, 128, 3, False): ((64, 2), "halo"),
+    (50, 8, 64, 128, 64, 128, 3, False): ((64, 2), "boxes"),
+    (50, 16, 128, 64, 64, 64, 1, False): (None, "boxes"),
+    (50, 8, 64, 128, 64, 128, 1, False): (None, "boxes"),
+    (50, 8, 64, 128, 0, 64, 3, True): (None, "boxes"),
+    (50, 4, 32, 256, 0, 128, 3, True): (None, "boxes"),
+    (50, 4, 32, 128, 0, 128, 3, False): (None, "boxes"),
+    (50, 2, 16, 512, 256, 512, 3, False): (None, "boxes")}
+
+
+def test_port_bf16act_halo_boxes_at_every_main_path_signature():
+    """``halo_boxes`` (the launch's halo rule) and ``bf16act_layout`` at every
+    K1c / K2c signature of the batch-50 forward: a halo exactly where the
+    grid is whole 64-pixel runs of rows (16 x 128, 8 x 64) under a 3x3 conv
+    that is not upsampled, boxes everywhere else (every channel count is a
+    multiple of 64, so no main-path launch gathers), and every layout within
+    the card's shared memory."""
+    seen = set()
+    for name, args, _ in chip_smoke.main_path_calls(64, (1, 2, 4, 8), 50):
+        if name not in chip_smoke.TC_KERNELS or (name, args) in seen:
+            continue
+        seen.add((name, args))
+        plan = kb.tile_plan(*chip_smoke.gemm_dims(name, args), True, True)
+        lay = kb.bf16act_layout(name, args, plan)
+        if name == "downsample_nhwc":
+            assert lay["mode"] == "boxes", (args, lay)
+            continue
+        b_, h, w, ca, cb, co, k, up = args
+        hb = kb.halo_boxes(h, w, ca, cb, k, up)
+        assert hb == ((128, 1) if (h, w) == (16, 128) and k == 3 and not up else
+                      (64, 2) if (h, w) == (8, 64) and k == 3 and not up else None), args
+        if args in HALO_B50:
+            assert (hb, lay["mode"]) == HALO_B50[args], (args, lay)
+        assert lay["mode"] in ("halo", "boxes"), (args, lay)
+        assert lay["ring"] >= (0 if lay["mode"] == "halo" and lay["hold"] else 3), (args, lay)
+    assert len(seen) == 22
+
+
+@pytest.mark.parametrize("args", [(2, 16, 128, 64, 0), (1, 16, 128, 64, 64),
+                                  (2, 8, 64, 64, 0), (1, 8, 64, 128, 64),
+                                  (1, 5, 256, 64, 0), (2, 6, 64, 8, 16)])
+def test_port_bf16act_halo_emulation_equals_the_per_tap_gather(args):
+    """The halo A tile as the persistent tile reads it (``halo_im2col``: one
+    (bh + 2) x (bw + 2) box a tile, zeros outside the image, the nine taps
+    views from ``halo_view_start``) equals the per-tap gather, so its
+    tap-major float32 chain (``_bf16_chains``, one split and three) is the
+    parent's bit for bit, and with flax's epilogue it agrees with
+    ``conv2d_nhwc_plain`` on bf16 input within a bf16 step
+    (chip_smoke.BF16ACT_KERNEL_RTOL): at the 16 x 128 and 8 x 64 levels'
+    shapes, two sources, two tiles a row (W = 256), rows not a multiple of
+    the tile's, and channels off the 64-channel blocks."""
+    b_, h, w, ca, cb = args
+    bw, bh = (128, 1) if w % 128 == 0 else (64, 2)
+    co = 16
+    bf = torch.bfloat16
+    xa = torch.from_numpy(rand(b_, h, w, ca, seed=5)).to(bf)
+    xb = torch.from_numpy(rand(b_, h, w, cb, seed=6)).to(bf) if cb else None
+    wt = (torch.from_numpy(rand(9 * (ca + cb), co, seed=7)) / math.sqrt(9 * (ca + cb))).to(bf)
+    bias = torch.from_numpy(0.1 * rand(co, seed=8))
+    a_halo = kb.halo_im2col(xa.float(), None if xb is None else xb.float(), bw, bh)
+    a_gather, _ = _conv_gather(xa.float(), None if xb is None else xb.float(), 3, False)
+    assert torch.equal(a_halo, a_gather)
+    for splits in (1, 3):
+        assert torch.equal(_bf16_chains(a_halo, wt, splits), _bf16_chains(a_gather, wt, splits))
+    out = kb.conv_bias_bf16(_bf16_chains(a_halo, wt, 1), bias).reshape(b_, h, w, co)
+    ref = kb.conv2d_nhwc_plain(xa, wt, bias, x_b=xb, k=3)
+    assert out.dtype == bf and ref.dtype == bf
+    assert_close(out.float(), ref.float(), chip_smoke.BF16ACT_KERNEL_RTOL)
 
 
 def test_port_tile_plan_balances_waves():
