@@ -1011,8 +1011,7 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
           "runs": app, "seconds": round(time.time() - t0, 3)})
 
     # 8c. optimizer steps/s at batch 16 over several windows (the step is
-    # host-bound, so its time varies between windows), the forward /
-    # backward / update split
+    # host-bound, so its time varies between windows)
     t0 = time.time()
     trainer = Trainer(gd_k, net, data.ArrayDataset(stacked).batches(TRAIN_B, seed=1),
                       bench.derive_cond,
@@ -1022,16 +1021,13 @@ def burgers_training_phase(torch, smi_line, per_forward, device="cuda", dim=DIM,
     tm = _step_timing(torch, trainer,
                       lambda: torch.as_tensor(next(trainer.batch_iter), device=device),
                       3, n_windows, n_steps)
-    split = tm["split_ms"]
 
     wall_ms, dev_ms, rows = profile_window(
         torch, lambda: trainer.train_step(next(trainer.batch_iter)))
-    total = sum(split.values())
     emit({"phase": "train_timing", "batch": TRAIN_B, "steps_timed": n_windows * n_steps,
           "window_ms_per_step": tm["window_ms_per_step"], "ms_per_step": tm["ms_per_step"],
           "optimizer_steps_per_sec": 1e3 / tm["ms_per_step"],
           "window_spread": tm["window_spread"],
-          "split_ms": split, "backward_share": split["backward"] / total,
           "peak_memory_gb": tm["peak_memory_gb"],
           "profile": {"steps": 1, "wall_ms": wall_ms, "device_ms": dev_ms,
                       "busy_share": dev_ms / wall_ms,
@@ -1688,10 +1684,7 @@ def _fit(torch, run, batch, accum=1):
 def _step_timing(torch, trainer, batch_fn, warm, n_windows, n_steps):
     """``warm`` untimed ``trainer.train_step``s, then ms per optimizer step
     over ``n_windows`` windows of ``n_steps`` (their median, and the peak
-    device memory of the windows), then ``n_steps`` more steps cut by
-    synchronisations at the trainer's marks: the forward / backward /
-    update split, summed over the micro-batches of its gradient
-    accumulation. batch_fn() -> a device batch."""
+    device memory of the windows). batch_fn() -> a device batch."""
     for _ in range(warm):
         trainer.train_step(batch_fn())
     torch.cuda.synchronize()
@@ -1704,31 +1697,15 @@ def _step_timing(torch, trainer, batch_fn, warm, n_windows, n_steps):
         torch.cuda.synchronize()
         window_ms.append(1e3 * (time.perf_counter() - tic) / n_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    split = {"forward": 0.0, "backward": 0.0, "update": 0.0}
-    last = [0.0]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[name] += 1e3 * (now - last[0]) / n_steps
-        last[0] = now
-
-    for _ in range(n_steps):
-        batch = batch_fn()
-        torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        losses.append(trainer.compute_grads(batch, mark))
-        trainer.apply_gradients()
-        mark("update")
     step_ms = sorted(window_ms)[n_windows // 2]
     return {"window_ms_per_step": window_ms, "ms_per_step": step_ms,
             "window_spread": (max(window_ms) - min(window_ms)) / step_ms,
-            "split_ms": split, "peak_memory_gb": peak_gb,
+            "peak_memory_gb": peak_gb,
             "losses": [float(v) for v in losses]}
 
 
 # phases 11-12: one warm-up step after each remat switch (the allocator grows
-# to the new setting's peak there), then a one-step window and one split step
+# to the new setting's peak there), then a one-step window
 REMAT_TIMING = (1, 1, 1)
 
 
@@ -1757,7 +1734,7 @@ def smoke_training_phase(torch, smi_line):
     """Phase 11: smoke training at full width (UNet3D dim 64, mults (1, 2,
     4), input (16, 32, 64, 64, C)): a generated train split, the train app
     for the joint (C=6) and the w model (C=2) at batch 16 (a few steps, a
-    save, a resume), then ms per optimizer step with its split and peak
+    save, a resume), then ms per optimizer step and its peak
     memory, remat on and off."""
     from diffphycon_tpu_torch.apps import generate_smoke, train_smoke
 

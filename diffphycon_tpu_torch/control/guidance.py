@@ -12,12 +12,14 @@ from typing import Callable, Optional
 
 import torch
 
+from diffphycon_tpu_torch.utils.profiling import span
+
 
 def make_nabla_j(loss_fn: Callable) -> Callable:
     """nabla_J(x) = d loss_fn(x).sum() / dx."""
 
     def nabla_j(x):
-        with torch.enable_grad():
+        with span("sampler.guidance"), torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(loss_fn(xx).sum(), xx)
         return g

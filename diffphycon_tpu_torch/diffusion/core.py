@@ -43,6 +43,7 @@ import torch
 
 from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.diffusion.schedules import BETA_SCHEDULES
+from diffphycon_tpu_torch.utils.profiling import span
 
 OBJECTIVES = ("pred_noise", "pred_x0", "pred_v")
 
@@ -125,19 +126,20 @@ def two_forwards(model: Callable, x, model_w: Callable, x_w, tb):
     memory to the joint forward while the side stream reads it; the side's
     output is marked as used on the current stream. On the CPU the forwards
     run one after the other."""
-    if not x.is_cuda:
-        return model(x, tb), model_w(x_w, tb)
-    main = torch.cuda.current_stream(x.device)
-    side = _SIDE_STREAMS.get(x.device)
-    if side is None:
-        side = _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        out_w = model_w(x_w, tb)
-    out = model(x, tb)
-    main.wait_stream(side)
-    out_w.record_stream(main)
-    return out, out_w
+    with span("sampler.two_forwards"):
+        if not x.is_cuda:
+            return model(x, tb), model_w(x_w, tb)
+        main = torch.cuda.current_stream(x.device)
+        side = _SIDE_STREAMS.get(x.device)
+        if side is None:
+            side = _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out_w = model_w(x_w, tb)
+        out = model(x, tb)
+        main.wait_stream(side)
+        out_w.record_stream(main)
+        return out, out_w
 
 
 def _identity(x):
@@ -424,51 +426,53 @@ class GaussianDiffusion:
         posterior, transform, recurrence). Post-hoc guidance
         (guidance_u0=False) redoes the step from the guided predicted noise
         with a second noise, ``guided_noise`` when given, else drawn."""
-        c = self.consts
-        for _ in range(self.recurrence_k if self.recurrence else 1):
-            x = self._pin_all(x, cond_vals)
-            x_new, x_start, pred_noise = self._p_sample_step(
-                x, t, cond_vals, guidance, noise=noise, generator=generator)
-            if not self.guidance_u0 and guidance.nabla_j is not None:
-                pred_noise = guidance.proj(
-                    pred_noise, guidance.nabla_j(x_new) * self._guidance_scale(guidance, t))
-                x_new, x_start, _ = self._p_sample_step(
-                    x, t, cond_vals, guidance, noise=guided_noise, generator=generator,
-                    pred_noise=pred_noise)
-            x_new = self._transform(x_new, x_start, cond_vals, t)
-            if self.recurrence:
-                # re-noise x_{t-1} -> x_t (Universal Guidance)
-                a_t, a_tm1 = c.alphas[t], c.alphas_prev[t]
-                rn = self._randn(x_new, generator) * float(t > 0)
-                x_new = torch.sqrt(a_t / a_tm1) * x_new + torch.sqrt(1.0 - a_t / a_tm1) * rn
-            x = x_new
-        return x
+        with span("sampler.ddpm_step"):
+            c = self.consts
+            for _ in range(self.recurrence_k if self.recurrence else 1):
+                x = self._pin_all(x, cond_vals)
+                x_new, x_start, pred_noise = self._p_sample_step(
+                    x, t, cond_vals, guidance, noise=noise, generator=generator)
+                if not self.guidance_u0 and guidance.nabla_j is not None:
+                    pred_noise = guidance.proj(
+                        pred_noise, guidance.nabla_j(x_new) * self._guidance_scale(guidance, t))
+                    x_new, x_start, _ = self._p_sample_step(
+                        x, t, cond_vals, guidance, noise=guided_noise, generator=generator,
+                        pred_noise=pred_noise)
+                x_new = self._transform(x_new, x_start, cond_vals, t)
+                if self.recurrence:
+                    # re-noise x_{t-1} -> x_t (Universal Guidance)
+                    a_t, a_tm1 = c.alphas[t], c.alphas_prev[t]
+                    rn = self._randn(x_new, generator) * float(t > 0)
+                    x_new = torch.sqrt(a_t / a_tm1) * x_new + torch.sqrt(1.0 - a_t / a_tm1) * rn
+                x = x_new
+            return x
 
     def ddim_step(self, x, t: int, tn: int, cond_vals: dict, guidance: GuidanceSpec,
                   generator=None, noise=None):
         """One DDIM step t -> tn (tn < 0 gives x_start), then the transform.
         With eta > 0 the noise is ``noise`` when given, else drawn from
         ``generator``."""
-        c = self.consts
-        x = self._pin_all(x, cond_vals)
-        pred_noise, x_start = self.model_predictions(
-            x, t, cond_vals, guidance, clip_x_start=self.clip_denoised,
-            rederive_pred_noise=True)
-        if tn < 0:
-            return self._transform(x_start, x_start, cond_vals, t)
-        alpha, alpha_next = c.alphas_cumprod[t], c.alphas_cumprod[tn]
-        x_new = x_start * torch.sqrt(alpha_next)
-        eta = self.ddim_sampling_eta
-        if eta == 0:
-            x_new = x_new + torch.sqrt(torch.clamp(1 - alpha_next, min=0.0)) * pred_noise
-        else:
-            sigma = eta * torch.sqrt(torch.clamp(
-                (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
-            coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
-            if noise is None:
-                noise = self._randn(x, generator)
-            x_new = x_new + coef * pred_noise + sigma * noise
-        return self._transform(x_new, x_start, cond_vals, t)
+        with span("sampler.ddim_step"):
+            c = self.consts
+            x = self._pin_all(x, cond_vals)
+            pred_noise, x_start = self.model_predictions(
+                x, t, cond_vals, guidance, clip_x_start=self.clip_denoised,
+                rederive_pred_noise=True)
+            if tn < 0:
+                return self._transform(x_start, x_start, cond_vals, t)
+            alpha, alpha_next = c.alphas_cumprod[t], c.alphas_cumprod[tn]
+            x_new = x_start * torch.sqrt(alpha_next)
+            eta = self.ddim_sampling_eta
+            if eta == 0:
+                x_new = x_new + torch.sqrt(torch.clamp(1 - alpha_next, min=0.0)) * pred_noise
+            else:
+                sigma = eta * torch.sqrt(torch.clamp(
+                    (1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha), min=0.0))
+                coef = torch.sqrt(torch.clamp(1 - alpha_next - sigma**2, min=0.0))
+                if noise is None:
+                    noise = self._randn(x, generator)
+                x_new = x_new + coef * pred_noise + sigma * noise
+            return self._transform(x_new, x_start, cond_vals, t)
 
     def sample_ts(self):
         """Step schedule: DDPM a list of t; DDIM a list of (t, t_next)."""

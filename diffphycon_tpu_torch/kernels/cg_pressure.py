@@ -19,7 +19,9 @@ instead. Both routes here return each element's iteration count.
 reads the coefficients packed one byte per cell (:func:`pack_coeffs`), so it
 takes only the integer coefficients a FluidDomain produces (centre -1..-4,
 neighbours 0 or 1). ``cg_pressure.launches`` counts kernel launches (one
-per solve).
+per solve). On both routes it adds to the work counters
+``solver.cg_iterations`` (the returned iterations) and ``solver.cg_solves``
+(the elements solved) while a profiler records (``kernels.count``).
 
 The kernel runs one thread-block cluster of S CTAs per batch element, each
 CTA on a band of rows (:func:`cg_cluster_plan` picks S and the bands);
@@ -36,7 +38,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from diffphycon_tpu_torch.kernels import _build
+from diffphycon_tpu_torch.kernels import _build, count
 
 CG_THREADS = 256  # threads per CTA (csrc/cg_pressure.cu: kThreads)
 CG_BAND_CELLS = CG_THREADS * 32  # cells a CTA's registers hold (kBandCells)
@@ -242,7 +244,16 @@ def cg_pressure(div: torch.Tensor, coeffs, accuracy: float = 1e-8,
     in (4, 8, 16): every domain of up to 16384 cells with 4 rows or more,
     and up to 131072 cells in 16 bands."""
     if div.device.type == "cpu":
-        return cg_pressure_plain(div, coeffs, accuracy, max_iterations)
+        out, iters = cg_pressure_plain(div, coeffs, accuracy, max_iterations)
+    else:
+        out, iters = _cg_cuda(div, coeffs, accuracy, max_iterations)
+    count("solver.cg_iterations", iters)
+    count("solver.cg_solves", div.shape[0])
+    return out, iters
+
+
+def _cg_cuda(div, coeffs, accuracy, max_iterations):
+    """cg_pressure's CUDA route: the checks, then one K4 launch."""
     if div.device.type != "cuda":
         raise ValueError(f"cg_pressure: no kernel or plain path for device {div.device}")
     if div.dtype != torch.float32:

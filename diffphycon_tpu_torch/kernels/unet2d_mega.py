@@ -86,11 +86,15 @@ import torch
 from diffphycon_tpu_torch.kernels import _build, register_launch_counters
 from diffphycon_tpu_torch.kernels import attention as ka
 from diffphycon_tpu_torch.kernels import unet2d_blocks as kb
+from diffphycon_tpu_torch.utils.profiling import in_span, recording
 
 KERNEL_OPS = (kb.resblock, kb.downsample_nhwc, kb.conv2d_nhwc, ka.linear_attention_block,
               ka.attention_block)
 PLAIN_OPS = (kb.resblock_plain, kb.downsample_nhwc_plain, kb.conv2d_nhwc_plain,
              ka.linear_attention_block_plain, ka.attention_block_plain)
+# the span each of the five ops runs in (unet2d_sequence)
+OP_SPANS = ("nets.block.resblock", "nets.block.downsample", "nets.block.conv",
+            "nets.block.linear_attention", "nets.block.attention")
 
 # the persistent kernel's conv tiles: igemm_tc's 128-row tiles (two
 # warpgroups fill its 256 threads), one CTA per SM, K1's measured costs
@@ -120,7 +124,11 @@ def unet2d_sequence(ops, x, film, packs, groups: int, heads: int, dim_head: int)
     activation's dtype runs through: a bfloat16 ``x`` (and film) makes every
     op take its bf16-activation version and return bfloat16, the skips
     included (flax's float32 linear-attention outputs are stored rounded,
-    exactly, ``kernels/attention.py``)."""
+    exactly, ``kernels/attention.py``). While a profiler records, each op
+    runs in its span of :data:`OP_SPANS`; otherwise the ops run bare (one
+    flag check a forward, not one a block)."""
+    if recording():
+        ops = [functools.partial(in_span, name, op) for name, op in zip(OP_SPANS, ops)]
     resblock, downsample, conv, linear_attn, attn = ops
     res_p = iter(packs["res"])
 

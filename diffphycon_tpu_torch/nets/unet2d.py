@@ -57,6 +57,7 @@ from diffphycon_tpu_torch.nets.blocks import (
     conv_pack,
     time_mlp,
 )
+from diffphycon_tpu_torch.utils.profiling import span
 
 
 def _conv_nchw(x, conv: nn.Conv2d, weight_dtype=torch.float32):
@@ -216,13 +217,15 @@ class UNet2D(nn.Module):
     def forward(self, x, time, x_self_cond=None):
         """Kernel-backed forward. x: (B, T, X, C) float32; time: (B,). The
         output is in ``dtype``."""
-        return self._forward(self._input(x, x_self_cond), time, self._kernel_pack(),
-                             kmega.KERNEL_OPS)
+        with span("nets.unet2d.forward"):
+            return self._forward(self._input(x, x_self_cond), time, self._kernel_pack(),
+                                 kmega.KERNEL_OPS)
 
     def forward_plain(self, x, time, x_self_cond=None):
         """The same block sequence from the plain versions only."""
-        return self._forward(self._input(x, x_self_cond), time, self.pack(),
-                             kmega.PLAIN_OPS)
+        with span("nets.unet2d.forward"):
+            return self._forward(self._input(x, x_self_cond), time, self.pack(),
+                                 kmega.PLAIN_OPS)
 
     def forward_mega(self, x, time, x_self_cond=None):
         """The forward with one K8 launch between the init conv and the final
@@ -237,13 +240,14 @@ class UNet2D(nn.Module):
             raise NotImplementedError(kmega.BF16_ACT_REFUSED.format("UNet2D.forward_mega"))
         if torch.is_grad_enabled():  # (walking the parameters costs ~1 ms of host time)
             kmega._forward_only("UNet2D.forward_mega", x, time, *self.parameters())
-        packs = self._kernel_pack()
-        film = self._film(time, packs)
-        x0 = _conv_nchw(self._input(x, x_self_cond), self.init_conv, self.weight_dtype)
-        plan = kmega.mega_plan(packs, x0.shape, self.groups, self.attn_heads,
-                               self.attn_dim_head, x0.device)
-        return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv,
-                          self.weight_dtype)
+        with span("nets.unet2d.forward"):
+            packs = self._kernel_pack()
+            film = self._film(time, packs)
+            x0 = _conv_nchw(self._input(x, x_self_cond), self.init_conv, self.weight_dtype)
+            plan = kmega.mega_plan(packs, x0.shape, self.groups, self.attn_heads,
+                                   self.attn_dim_head, x0.device)
+            return _conv_nchw(kmega.unet2d_mega(x0, film, packs, plan), self.final_conv,
+                              self.weight_dtype)
 
     def _input(self, x, x_self_cond):
         """x, checked, with the self-conditioning channels in front."""

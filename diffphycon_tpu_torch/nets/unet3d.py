@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diffphycon_tpu_torch.device import fp32_convs
 from diffphycon_tpu_torch.nets.blocks import SinusoidalPosEmb
+from diffphycon_tpu_torch.utils.profiling import in_span, span
 
 GN_EPS = 1e-5
 DTYPES = (torch.float32, torch.bfloat16)
@@ -225,8 +226,9 @@ class Attention(nn.Module):
         q, k, v = self.to_qkv(tok).reshape(n_seq, n, 3, h, d).permute(2, 0, 3, 1, 4)
         q = q * d ** -0.5
         if self.rotary:
-            ang = torch.as_tensor(rotary_angles(n, min(32, d)), dtype=torch.float32,
-                                  device=tok.device)
+            with span("nets.unet3d.host_tables"):
+                ang = torch.as_tensor(rotary_angles(n, min(32, d)), dtype=torch.float32,
+                                      device=tok.device)
             q, k = _rotary(q, ang), _rotary(k, ang)
         sim = q @ k.transpose(-1, -2)
         if pos_bias is not None:
@@ -332,9 +334,10 @@ class RelativePositionBias(nn.Module):
         self.relative_attention_bias = nn.Embedding(num_buckets, heads)
 
     def forward(self, n: int, device):
-        buckets = torch.as_tensor(
-            t5_relative_position_buckets(n, self.num_buckets, self.max_distance),
-            device=device)
+        with span("nets.unet3d.host_tables"):
+            buckets = torch.as_tensor(
+                t5_relative_position_buckets(n, self.num_buckets, self.max_distance),
+                device=device)
         return self.relative_attention_bias(buckets).permute(2, 0, 1)  # (heads, n, n)
 
 
@@ -416,38 +419,42 @@ class UNet3D(nn.Module):
         if x.dim() != 5:
             raise ValueError(f"UNet3D expects (B, F, H, W, C), got {tuple(x.shape)}")
         fp32_convs()
-        return self._forward(x.permute(0, 4, 1, 2, 3), time).permute(0, 2, 3, 4, 1)
+        with span("nets.unet3d.forward"):
+            return self._forward(x.permute(0, 4, 1, 2, 3), time).permute(0, 2, 3, 4, 1)
 
-    def _run(self, fn, *args, block: bool = False, **kw):
-        """fn(*args, **kw), recomputed in the backward when ``remat`` covers
-        it (attentions; ResnetBlocks with ``remat_all``) and autograd is
-        recording."""
-        on = self.remat_all or (self.remat and not block)
+    def _run(self, kind: str, fn, *args, **kw):
+        """fn(*args, **kw) in the span ``nets.block.<kind>``, recomputed (span
+        and all) in the backward when ``remat`` covers it (attentions;
+        ResnetBlocks with ``remat_all``) and autograd is recording."""
+        on = self.remat_all or (self.remat and kind != "resnet")
+        name = f"nets.block.{kind}"
         if on and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, **kw)
-        return fn(*args, **kw)
+            return checkpoint(in_span, name, fn, *args, use_reentrant=False, **kw)
+        return in_span(name, fn, *args, **kw)
 
     def _forward(self, x, time):
         run = self._run
         pos_bias = self.time_rel_pos_bias(x.shape[2], x.device)
         x = self.init_conv(x)
-        x = run(self.init_temporal_attn, x, pos_bias=pos_bias)
+        x = run("temporal_attention", self.init_temporal_attn, x, pos_bias=pos_bias)
         r = x
         t = self.time_mlp(time)
         skips = []
         for block1, block2, sattn, tattn, down in self.downs:
-            x = run(block1, x, t, block=True)
-            x = run(block2, x, t, block=True)
-            x = run(tattn, run(sattn, x), pos_bias=pos_bias)
+            x = run("resnet", block1, x, t)
+            x = run("resnet", block2, x, t)
+            x = run("temporal_attention", tattn, run("linear_attention", sattn, x),
+                    pos_bias=pos_bias)
             skips.append(x)
             x = down(x)
-        x = run(self.mid_block1, x, t, block=True)
-        x = run(self.mid_spatial_attn, x)
-        x = run(self.mid_temporal_attn, x, pos_bias=pos_bias)
-        x = run(self.mid_block2, x, t, block=True)
+        x = run("resnet", self.mid_block1, x, t)
+        x = run("attention", self.mid_spatial_attn, x)
+        x = run("temporal_attention", self.mid_temporal_attn, x, pos_bias=pos_bias)
+        x = run("resnet", self.mid_block2, x, t)
         for block1, block2, sattn, tattn, up in self.ups:
-            x = run(block1, torch.cat([x, skips.pop()], dim=1), t, block=True)
-            x = run(block2, x, t, block=True)
-            x = up(run(tattn, run(sattn, x), pos_bias=pos_bias))
-        x = run(self.final_conv[0], torch.cat([x, r], dim=1), block=True)
+            x = run("resnet", block1, torch.cat([x, skips.pop()], dim=1), t)
+            x = run("resnet", block2, x, t)
+            x = up(run("temporal_attention", tattn, run("linear_attention", sattn, x),
+                       pos_bias=pos_bias))
+        x = run("resnet", self.final_conv[0], torch.cat([x, r], dim=1))
         return self.final_conv[1](x)

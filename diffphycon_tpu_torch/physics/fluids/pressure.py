@@ -33,6 +33,7 @@ from diffphycon_tpu_torch.physics.fluids.grids import (
     staggered_divergence,
     staggered_gradient,
 )
+from diffphycon_tpu_torch.utils.profiling import span
 
 __all__ = ["FluidDomain", "LaplacianCoeffs", "divergence_free", "masked_laplacian",
            "solve_pressure_cg"]
@@ -112,7 +113,8 @@ def solve_pressure_cg(div: torch.Tensor, coeffs, accuracy: float = 1e-8,
                       max_iterations: int = 500) -> torch.Tensor:
     """Solve A p = div for pressure: (B, H, W) -> (B, H, W). Differentiable
     in div; the gradient is the CG solve of the adjoint (= the same) system."""
-    return _SolvePressure.apply(div, coeffs, accuracy, max_iterations)
+    with span("solver.pressure"):
+        return _SolvePressure.apply(div, coeffs, accuracy, max_iterations)
 
 
 def divergence_free(stag: torch.Tensor, domain: Optional[FluidDomain], coeffs=None,

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from diffphycon_tpu_torch.device import resolve_device
 from diffphycon_tpu_torch.physics.fluids.grids import advect_centered
 from diffphycon_tpu_torch.physics.fluids.pressure import FluidDomain, divergence_free
+from diffphycon_tpu_torch.utils.profiling import span
 
 
 def obstacles_128():
@@ -154,7 +155,8 @@ def _smoke_rate(smoke_outs, dz128):
 
 
 def _advect(vel, density):
-    return advect_centered(vel, density[..., None])[..., 0]
+    with span("solver.advect"):
+        return advect_centered(vel, density[..., None])[..., 0]
 
 
 def smoke_solver(sim: SmokeSim, init_velocity: torch.Tensor, init_density: torch.Tensor,
@@ -185,11 +187,12 @@ def smoke_solver(sim: SmokeSim, init_velocity: torch.Tensor, init_density: torch
 
     recs = [record(density, density_zero, vel, smoke_outs)]
     for t in range(num_t - 1):
-        vel = control_step_velocity(sim, vel, c1[:, t], c2[:, t])
-        density = _advect(vel, density)
-        density_zero, smoke_outs = _bucket_accounting(sim, _advect(vel, density_zero),
-                                                      smoke_outs)
-        recs.append(record(density, density_zero, vel, smoke_outs))
+        with span("solver.frame"):
+            vel = control_step_velocity(sim, vel, c1[:, t], c2[:, t])
+            density = _advect(vel, density)
+            density_zero, smoke_outs = _bucket_accounting(sim, _advect(vel, density_zero),
+                                                          smoke_outs)
+            recs.append(record(density, density_zero, vel, smoke_outs))
 
     def stack(i):
         return torch.stack([r[i] for r in recs], dim=1)

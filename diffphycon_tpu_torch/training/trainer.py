@@ -55,6 +55,7 @@ from diffphycon_tpu_torch.training.train_state import (
     set_lr,
     torch_cosine_annealing,
 )
+from diffphycon_tpu_torch.utils.profiling import span
 
 CKPT_FILE = "checkpoint.pt"
 MAX_TO_KEEP = 20
@@ -210,15 +211,14 @@ class Trainer:
 
     # -- one optimizer step -------------------------------------------------
 
-    def compute_grads(self, batch, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    def compute_grads(self, batch) -> torch.Tensor:
         """Set every parameter's .grad to the (micro-batch mean) gradient of
         the loss of ``batch`` (a tensor, or a tuple of tensors for a
         diffusion whose loss takes one, as the jellyfish loss does), averaged
         over the ranks under a mesh (each rank keeps its shard of the global
-        batch); returns this rank's mean loss (a device scalar). ``mark``,
-        when given, is called with "forward" after each micro-batch's loss
-        and with "backward" after its backward (a timer's hook; it changes no
-        number)."""
+        batch); returns this rank's mean loss (a device scalar). Each
+        micro-batch's loss runs in the span ``trainer.forward``, its backward
+        in ``trainer.backward``."""
         accum = self.cfg.gradient_accumulate_every
         world = 1 if self.mesh is None else self.mesh.world_size
         n = (batch[0] if isinstance(batch, tuple) else batch).shape[0]
@@ -235,23 +235,23 @@ class Trainer:
         for i, (xs, ts, ns) in enumerate(micro):
             no_sync = self.ddp is not None and i < accum - 1
             with self.ddp.no_sync() if no_sync else contextlib.nullcontext():
-                loss = (self.ddp or self.loss_fn)(xs, ts, self.derive_cond(xs), ns) / accum
-                if mark:
-                    mark("forward")
-                loss.backward()
-                if mark:
-                    mark("backward")
+                with span("trainer.forward"):
+                    loss = (self.ddp or self.loss_fn)(xs, ts, self.derive_cond(xs), ns) / accum
+                with span("trainer.backward"):
+                    loss.backward()
             total = total + loss.detach()
         return total
 
     def apply_gradients(self) -> None:
-        """Clip, Adam at the scheduled rate, then the EMA."""
-        grads = [p.grad for p in self.params]
-        clip_by_global_norm_(grads, self.cfg.max_grad_norm)
-        set_lr(self.optimizer, self.schedule(self.step))
-        self.optimizer.step()
-        self.step += 1
-        ema_update_(self.ema, self.params, self.cfg.ema, self.step)
+        """Clip, Adam at the scheduled rate, then the EMA (in the span
+        ``trainer.optimizer``)."""
+        with span("trainer.optimizer"):
+            grads = [p.grad for p in self.params]
+            clip_by_global_norm_(grads, self.cfg.max_grad_norm)
+            set_lr(self.optimizer, self.schedule(self.step))
+            self.optimizer.step()
+            self.step += 1
+            ema_update_(self.ema, self.params, self.cfg.ema, self.step)
 
     def train_step(self, batch) -> torch.Tensor:
         loss = self.compute_grads(_to_device(batch, self.device))

@@ -1,17 +1,53 @@
-"""Tracing and step timing (port of ``diffphycon_tpu/utils/profiling.py``):
-a ``torch.profiler`` context that writes a Chrome trace, a step timer that
-synchronises CUDA before it reads the clock, and named trace regions."""
+"""Tracing: named host spans over the program's layers, and a context that
+records them, with the device's kernels, into a Chrome / Perfetto trace.
+
+    with profiling.trace("runs/trace"):
+        gd.ddpm_step(...)
+
+writes ``runs/trace/trace.json``; each span of :data:`SPANS` shows over the
+kernels its host work launched. :func:`span` is a ``record_function`` range
+while a ``torch.profiler`` records, on the profiler's clock (the device
+trace's), and otherwise one flag check and a shared null context: no
+profiler op runs. Spans are host-side only; none is recorded inside a
+kernel or a captured CUDA graph.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import deque
 from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+# every span name the program emits, by layer
+SPANS = (
+    "sampler.ddpm_step", "sampler.ddim_step", "sampler.two_forwards", "sampler.guidance",
+    "nets.unet2d.forward", "nets.unet3d.forward", "nets.unet3d.host_tables",
+    "nets.block.resblock", "nets.block.downsample", "nets.block.conv",
+    "nets.block.linear_attention", "nets.block.attention",
+    "nets.block.resnet", "nets.block.temporal_attention",
+    "trainer.forward", "trainer.backward", "trainer.optimizer",
+    "solver.frame", "solver.advect", "solver.pressure",
+)
+
+_NULL = contextlib.nullcontext()
+recording = torch._C._autograd._profiler_enabled  # True while a torch.profiler records
+
+
+def span(name: str):
+    """``with span("sampler.ddpm_step"): ...``: a named range in the
+    profiler's timeline while one records, else a no-op."""
+    if not recording():
+        return _NULL
+    return record_function(name)
+
+
+def in_span(name: str, fn, *args, **kw):
+    """fn(*args, **kw) inside ``span(name)``."""
+    with span(name):
+        return fn(*args, **kw)
 
 
 @contextlib.contextmanager
@@ -26,48 +62,3 @@ def trace(logdir: str, cuda: Optional[bool] = None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class StepTimer:
-    """Rolling-average step timer:
-
-        timer = StepTimer(avg_window=20)
-        for ...:
-            out = step(...)
-            dt = timer.tick(out)   # seconds since the last tick
-
-    ``tick`` synchronises every CUDA device given among its arguments (the
-    current one when any argument is a CUDA tensor) before reading the
-    clock, so a step's queued device work is counted in it."""
-
-    def __init__(self, avg_window: int = 20):
-        self._window = deque(maxlen=avg_window)
-        self._last: Optional[float] = None
-
-    def tick(self, *sync_on) -> float:
-        for dev in {t.device for t in sync_on if isinstance(t, torch.Tensor) and t.is_cuda}:
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        if self._last is None:
-            self._last = now
-            return 0.0
-        dt = now - self._last
-        self._last = now
-        self._window.append(dt)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self._window) / len(self._window) if self._window else 0.0
-
-    @property
-    def steps_per_sec(self) -> float:
-        m = self.mean
-        return 1.0 / m if m > 0 else 0.0
-
-
-def annotate(name: str):
-    """A named region in the profiler's timeline:
-
-        with annotate("denoise_step"): ..."""
-    return record_function(name)

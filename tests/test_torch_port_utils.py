@@ -98,19 +98,18 @@ def test_port_smoke_loader_on_native_io_against_jax(tmp_path):
 
 
 def test_port_profiling_on_cpu(tmp_path):
-    timer = profiling.StepTimer(avg_window=3)
-    assert timer.tick() == 0.0
-    for _ in range(4):
-        x = torch.ones(8) * 2
-        assert timer.tick(x, "not a tensor") >= 0.0
-    assert len(timer._window) == 3 and timer.steps_per_sec > 0
+    assert not profiling.recording()
+    with profiling.span("sampler.ddpm_step") as off:
+        assert off is None
     with profiling.trace(str(tmp_path / "tr")) as prof:
-        with profiling.annotate("denoise_step"):
+        assert profiling.recording()
+        with profiling.span("sampler.ddpm_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not profiling.recording()
     names = [e.key for e in prof.key_averages()]
-    assert "denoise_step" in names
+    assert "sampler.ddpm_step" in names
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "denoise_step" for e in events)
+    assert any(e.get("name") == "sampler.ddpm_step" for e in events)
 
 
 def _is_png(path):
